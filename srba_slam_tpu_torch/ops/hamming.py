@@ -1,0 +1,19 @@
+"""Pairwise Hamming distance of packed 256-bit descriptors.
+
+Counterpart of ``srba_slam_tpu/ops/hamming.py``. The JAX package rides the
+TPU's matrix unit with a bf16 matmul of unpacked bits; here the distance is
+XOR plus popcount over the 8 words, which is exact on any device. The
+result is f32, as in the JAX package, so the matchers compare like with like.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from srba_slam_tpu_torch.ops.bits import popcount32
+
+
+def hamming_matrix(a_packed: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
+    """int32[N,8] x int32[M,8] packed descriptors -> f32[N,M] distances."""
+    x = torch.bitwise_xor(a_packed[:, None, :], b_packed[None, :, :])
+    return torch.sum(popcount32(x), dim=-1).to(torch.float32)
