@@ -7,19 +7,28 @@ explicit device; the JAX package's Pallas kernels on the ported path are
 kernels written by hand for Hopper (``csrc/``, built at first use by
 ``ops/cuda_build.py``), each beside its plain torch version.
 
-Ported so far: the stereo-VO engine that turns stereo frames into pose
-increments (``models/vo.py`` ``StereoVOEngine``), with the host layer it
-needs (``config``, ``utils/``). The estimator and the backend come later
-(ROADMAP.md, Queue 1).
+Ported so far: the SLAM estimator's per-frame path
+(``models/estimator.py`` ``SRBAStereoSLAMEstimator``): the stereo-VO engine
+(``models/vo.py`` ``StereoVOEngine``), the keyframe store, bag-of-words
+place recognition, the data-association cascade with fundamental-matrix
+RANSAC, the SRBA backend with its windowed bundle adjustment, the global
+pose graph and the output files, with the host layer they need
+(``config``, ``utils/``). What is not ported yet: ROADMAP.md, Queue 1.
 """
 
 __version__ = "0.1.0"
 
-from srba_slam_tpu_torch.config import VOOptions, load_config
+from srba_slam_tpu_torch.config import (
+    GeneralOptions, SRBAStereoSLAMOptions, VOOptions, load_config,
+)
+from srba_slam_tpu_torch.models.estimator import SRBAStereoSLAMEstimator
 from srba_slam_tpu_torch.models.vo import StereoVOEngine
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
 __all__ = [
+    "GeneralOptions",
+    "SRBAStereoSLAMEstimator",
+    "SRBAStereoSLAMOptions",
     "StereoCamera",
     "StereoVOEngine",
     "VOOptions",

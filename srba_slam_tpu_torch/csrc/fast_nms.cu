@@ -29,6 +29,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fast_circle.cuh"
+
 namespace {
 
 constexpr int TW = 32;               // output tile width
@@ -40,42 +42,6 @@ constexpr int IW = TW + 2 * HALO;    // staged image tile
 constexpr int IH = TH + 2 * HALO;
 constexpr int SW = TW + 2 * NR;      // score/key tile (output + NMS halo)
 constexpr int SH = TH + 2 * NR;
-
-// FAST-9/16 score of the pixel at (cy, cx) of the staged tile: the circle
-// taps clockwise from 12 o'clock, as ops/fast.py CIRCLE.
-__device__ __forceinline__ float fast_score(const float (*s)[IW], int cy, int cx) {
-    const float c = s[cy][cx];
-    float d[16];
-    d[0] = s[cy - 3][cx] - c;
-    d[1] = s[cy - 3][cx + 1] - c;
-    d[2] = s[cy - 2][cx + 2] - c;
-    d[3] = s[cy - 1][cx + 3] - c;
-    d[4] = s[cy][cx + 3] - c;
-    d[5] = s[cy + 1][cx + 3] - c;
-    d[6] = s[cy + 2][cx + 2] - c;
-    d[7] = s[cy + 3][cx + 1] - c;
-    d[8] = s[cy + 3][cx] - c;
-    d[9] = s[cy + 3][cx - 1] - c;
-    d[10] = s[cy + 2][cx - 2] - c;
-    d[11] = s[cy + 1][cx - 3] - c;
-    d[12] = s[cy][cx - 3] - c;
-    d[13] = s[cy - 1][cx - 3] - c;
-    d[14] = s[cy - 2][cx - 2] - c;
-    d[15] = s[cy - 3][cx - 1] - c;
-    float mn3[16], mx3[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-        mn3[i] = fminf(fminf(d[i], d[(i + 1) & 15]), d[(i + 2) & 15]);
-        mx3[i] = fmaxf(fmaxf(d[i], d[(i + 1) & 15]), d[(i + 2) & 15]);
-    }
-    float bright = -INFINITY, dark = INFINITY;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-        bright = fmaxf(bright, fminf(fminf(mn3[i], mn3[(i + 3) & 15]), mn3[(i + 6) & 15]));
-        dark = fminf(dark, fmaxf(fmaxf(mx3[i], mx3[(i + 3) & 15]), mx3[(i + 6) & 15]));
-    }
-    return fmaxf(bright, -dark);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -110,7 +76,7 @@ fast_nms_kernel(const T* __restrict__ img, float* __restrict__ out, int H, int W
         float key = -INFINITY, score = 0.f;
         if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
             if (gy >= margin && gy < H - margin && gx >= margin && gx < W - margin) {
-                score = fast_score(s_img, sy + CR, sx + CR);
+                score = srba::fast_score<IW>(s_img, sy + CR, sx + CR);
                 if (!(score > th)) score = 0.f;
             }
             key = __fsub_rn(score, __fmul_rn(eps, (float)(gy * W + gx)));

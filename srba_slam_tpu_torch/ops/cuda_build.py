@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded with ``ctypes``. The library goes
+Each ``.cu`` source compiles with its own ``nvcc`` for Hopper (``sm_90a``),
+all started together, and the objects link into one shared library with a
+plain C interface, loaded with ``ctypes``. The library goes
 to ``srba_slam_tpu_torch/_build/`` under a name keyed by a hash of the
 sources and flags, so an edited source builds anew and an unchanged one is
 built once. ``nvcc``'s report (``-Xptxas -v``: registers, shared memory and
@@ -18,12 +19,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: ctypes.CDLL | None = None
 
@@ -52,6 +54,14 @@ def _nvcc() -> str:
     return path
 
 
+def _run(cmd: list[str], what: str) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what} ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+
+
 def build() -> str:
     """Compile the kernels unless the library for these sources exists;
     returns its path. Raises with nvcc's output if the build fails."""
@@ -60,14 +70,17 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     cu = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
+    objs = [f"{tmp}.{os.path.basename(p)}.o" for p in cu]
+    with ThreadPoolExecutor(max_workers=len(cu)) as pool:
+        logs = list(pool.map(_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", o, p]
+                                    for p, o in zip(cu, objs)], cu))
+    logs.append(_run([nvcc, "-shared", "-o", tmp, *objs], "the link"))
+    for o in objs:
+        os.remove(o)
     with open(out + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        f.write("".join(logs))
     os.replace(tmp, out)
     return out
 
@@ -84,5 +97,7 @@ def load() -> ctypes.CDLL:
         lib.srba_fast_nms.restype = ci
         lib.srba_orb_describe.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.srba_orb_describe.restype = ci
+        lib.srba_fast_score.argtypes = [vp, ci, vp, ci, ci, ci, cf, ci, vp]
+        lib.srba_fast_score.restype = ci
         _lib = lib
     return _lib

@@ -1,4 +1,4 @@
-"""The frontend's two hand-written Hopper kernels and their wrappers.
+"""The frontend's hand-written Hopper kernels and their wrappers.
 
 Counterpart of ``srba_slam_tpu/ops/pallas_fast.py``:
 
@@ -6,14 +6,18 @@ Counterpart of ``srba_slam_tpu/ops/pallas_fast.py``:
   the suppressed FAST score maps of a batch of images;
 * K2 :func:`orb_descriptors` (``csrc/orb_describe.cu``) replaces
   ``orb_bitplanes_pallas`` / ``orb_descriptors_pallas``: upright ORB
-  descriptors at the keypoints of a batch of blurred images.
+  descriptors at the keypoints of a batch of blurred images;
+* K3 :func:`fast_score_map` (``csrc/fast_score.cu``) replaces
+  ``fast_score_map_pallas``: the FAST score maps without suppression. No
+  path of the estimator calls it, as none of the JAX package does.
 
 The tensors' device decides the route: a CUDA tensor launches the kernel
 (or the wrapper raises), a CPU tensor takes the kernel's plain torch version
-(:func:`fast_nms_plain`; ``ops/orb.py`` :func:`upright_descriptors`). There
-is no fallback from one to the other. Each wrapper counts its kernel
-launches in a plain integer attribute, ``fast_nms.launches`` and
-``orb_descriptors.launches``, so a run can show that it went through them.
+(:func:`fast_nms_plain`; ``ops/orb.py`` :func:`upright_descriptors`;
+``ops/fast.py`` ``fast_score_map``). There is no fallback from one to the
+other. Each wrapper counts its kernel launches in a plain integer
+attribute, ``fast_nms.launches``, ``orb_descriptors.launches`` and
+``fast_score_map.launches``, so a run can show that it went through them.
 """
 
 from __future__ import annotations
@@ -21,11 +25,12 @@ from __future__ import annotations
 import torch
 
 from srba_slam_tpu_torch.ops import cuda_build
-from srba_slam_tpu_torch.ops.fast import fast_score_map
+from srba_slam_tpu_torch.ops.fast import fast_score_map as fast_score_map_plain
 from srba_slam_tpu_torch.ops.nms import local_max_suppress, nms_eps
 from srba_slam_tpu_torch.ops.orb import PATTERN_OFFSETS, upright_descriptors
 
 _KERNEL_NMS_RADIUS = 2   # the 5x5 window csrc/fast_nms.cu is built for
+_FAST_RADIUS = 3         # the FAST circle: the halo csrc/fast_score.cu stages
 _ORB_MIN_MARGIN = 16     # keypoints >= 16 px inside: full 31x31 pattern support
 
 
@@ -49,7 +54,7 @@ def fast_nms_plain(imgs: torch.Tensor, threshold: float, margin: int = 16,
                    radius: int = 2) -> torch.Tensor:
     """Plain torch version of K1: ``local_max_suppress(fast_score_map(...))``
     per image of ``imgs`` [N, H, W]."""
-    return local_max_suppress(fast_score_map(imgs, threshold, margin=margin),
+    return local_max_suppress(fast_score_map_plain(imgs, threshold, margin=margin),
                               radius=radius)
 
 
@@ -135,3 +140,38 @@ def orb_descriptors(blurred: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
 
 
 orb_descriptors.launches = 0
+
+
+def fast_score_map(imgs: torch.Tensor, threshold: float, margin: int = 16) -> torch.Tensor:
+    """FAST-9/16 score maps f32 of ``imgs`` [H, W] or [N, H, W] (uint8 or
+    float32), the shape of ``imgs``: the score where it exceeds
+    ``threshold``, else 0, and 0 within ``margin`` of a border. Bit-exact
+    against ``ops/fast.py`` ``fast_score_map``.
+
+    Requires ``margin >= 3``, so that the circle of every pixel that keeps a
+    score lies inside the image."""
+    if margin < _FAST_RADIUS:
+        raise ValueError(f"margin {margin} must cover the FAST circle ({_FAST_RADIUS})")
+    if imgs.dim() not in (2, 3):
+        raise ValueError(f"imgs: expected [H, W] or [N, H, W], got {tuple(imgs.shape)}")
+    _check(imgs, "imgs", (torch.uint8, torch.float32), imgs.dim())
+    if imgs.device.type == "cpu":
+        return fast_score_map_plain(imgs, threshold, margin=margin)
+    if imgs.device.type != "cuda":
+        raise ValueError(f"imgs: unsupported device {imgs.device}")
+    n, h, w = imgs.shape if imgs.dim() == 3 else (1, *imgs.shape)
+    out = torch.empty(imgs.shape, dtype=torch.float32, device=imgs.device)
+    if out.numel() == 0:
+        return out
+    lib = cuda_build.load()
+    with torch.cuda.device(imgs.device):
+        stream = torch.cuda.current_stream(imgs.device).cuda_stream
+        code = lib.srba_fast_score(imgs.data_ptr(), int(imgs.dtype == torch.uint8),
+                                   out.data_ptr(), n, h, w, float(threshold), int(margin),
+                                   stream)
+    _raise_on_error(code, "fast_score_map")
+    fast_score_map.launches += 1
+    return out
+
+
+fast_score_map.launches = 0

@@ -5,18 +5,26 @@ no jax, so it runs where only torch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerance: none. Both kernels are bit-exact against their plain versions,
-and the VO engine on the card gives the CPU path's integer results.
+Tolerance: none for the kernels, which are bit-exact against their plain
+versions, nor for the VO engine's integer results and the estimator's
+keyframe decisions, which equal the CPU path's. Poses agree within 1e-4
+(the f32 solves sum in another order on the card).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from srba_slam_tpu_torch import StereoCamera, StereoVOEngine, VOOptions
+from srba_slam_tpu_torch import (
+    GeneralOptions, SRBAStereoSLAMEstimator, SRBAStereoSLAMOptions, StereoCamera,
+    StereoVOEngine, VOOptions,
+)
 from srba_slam_tpu_torch.ops import hopper_fast
+from srba_slam_tpu_torch.ops.fast import fast_score_map as fast_score_map_plain
 from srba_slam_tpu_torch.ops.nms import grid_topk
 from srba_slam_tpu_torch.ops.orb import gauss_blur7, upright_descriptors
+from srba_slam_tpu_torch.utils.bench_workload import decisions
+from srba_slam_tpu_torch.utils.framesource import SyntheticSource
 from srba_slam_tpu_torch.utils.synthworld import PlaneScene
 
 pytestmark = pytest.mark.cuda
@@ -55,10 +63,24 @@ def test_orb_kernel_matches_plain(cuda):
                        upright_descriptors(blurred, ys_edge, xs_edge, ok))
 
 
+SMALL_CAM = dict(fx_l=180.0, fy_l=180.0, cx_l=160.0, cy_l=100.0, fx_r=180.0, fy_r=180.0,
+                 cx_r=160.0, cy_r=100.0, baseline=0.54, width=320, height=200)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_fast_score_kernel_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(2)
+    for shape, th in (((200, 320), 12.0), ((123, 300), 8.0), ((2, 370, 1226), 20.0)):
+        imgs = torch.from_numpy(rng.integers(0, 8, shape) * 30).to(dtype).to(cuda)
+        before = hopper_fast.fast_score_map.launches
+        got = hopper_fast.fast_score_map(imgs, th)
+        assert hopper_fast.fast_score_map.launches == before + 1
+        assert got.shape == imgs.shape
+        assert torch.equal(got, fast_score_map_plain(imgs, th))
+
+
 def test_vo_engine_cuda_matches_cpu(cuda):
-    cam = StereoCamera(fx_l=180.0, fy_l=180.0, cx_l=160.0, cy_l=100.0, fx_r=180.0,
-                       fy_r=180.0, cx_r=160.0, cy_r=100.0, baseline=0.54, width=320,
-                       height=200)
+    cam = StereoCamera(**SMALL_CAM)
     scene = PlaneScene(np.random.default_rng(11))
     engines = [StereoVOEngine(cam, VOOptions(fast_th=12, n_feats=256), capacity=256,
                               device=d) for d in (cuda, "cpu")]
@@ -68,3 +90,27 @@ def test_vo_engine_cuda_matches_cpu(cuda):
         assert (a.valid, a.num_stereo_matches, a.tracked_from_last_frame) == \
             (b.valid, b.num_stereo_matches, b.tracked_from_last_frame)
         np.testing.assert_allclose(a.pose_increment, b.pose_increment, atol=1e-4)
+
+
+def test_estimator_cuda_matches_cpu(cuda):
+    """The small-geometry sequence of tests/test_estimator.py, 20 frames."""
+    cam = StereoCamera(**SMALL_CAM)
+    frames = list(SyntheticSource(cam, n_frames=30, seed=11, step=0.12))[:20]
+    ests = []
+    for device in (cuda, "cpu"):
+        opts = SRBAStereoSLAMOptions(
+            orb_adaptive_fast_th=True, camera=cam, n_feats=256, detect_fast_th=12,
+            adaptive_th_min_matches=40, max_translation=0.5, max_rotation=10.0,
+            updated_matches_th=40, vo_id_tracking_th=30, srba_submap_size=5,
+            srba_max_optimize_depth=3, da_filter_by_direction=False, residual_th=10.0)
+        est = SRBAStereoSLAMEstimator(GeneralOptions(), opts, VOOptions(fast_th=12, n_feats=256),
+                                      capacity=256, max_kfs=64, device=device)
+        est.initialize()
+        for left, right in frames:
+            est.step(left, right)
+        ests.append(est)
+    a, b = ests
+    assert decisions(a.step_log) == decisions(b.step_log)
+    assert a.store.n_kfs == b.store.n_kfs >= 3
+    n = a.store.n_kfs
+    np.testing.assert_allclose(a.rba.kf_global[:n], b.rba.kf_global[:n], atol=1e-4)

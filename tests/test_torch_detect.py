@@ -21,6 +21,10 @@ from srba_slam_tpu_torch.ops import hopper_fast
 from srba_slam_tpu_torch.ops.fast import fast_score_map
 from srba_slam_tpu_torch.ops.nms import grid_topk, local_max_suppress
 
+# one CPU thread per test process: the ops here are small, and the parallel
+# test workers would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("kind", ["uniform_f32", "uint8"])
 def test_fast_score_map_matches_jax(rng, kind):

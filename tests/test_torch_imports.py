@@ -1,7 +1,8 @@
 """The PyTorch port imports neither jax nor the JAX package.
 
 Run in a fresh interpreter: this test process has jax loaded already
-(tests/conftest.py). Exact checks: module names and file bytes.
+(tests/conftest.py). Every module of the port is imported. Exact checks:
+module names and file bytes.
 """
 
 import os
@@ -15,9 +16,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_imports_without_jax():
     code = (
-        "import sys\n"
-        "import srba_slam_tpu_torch, srba_slam_tpu_torch.models.vo\n"
-        "import srba_slam_tpu_torch.ops.hopper_fast, srba_slam_tpu_torch.utils.framesource\n"
+        "import importlib, pkgutil, sys\n"
+        "import srba_slam_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'srba_slam_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'srba_slam_tpu_torch.models.estimator' in names, names\n"
+        "assert 'srba_slam_tpu_torch.ops.prng' in names, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'srba_slam_tpu' or m.startswith('srba_slam_tpu.')]\n"
         "print(bad)\n"

@@ -19,6 +19,10 @@ from srba_slam_tpu_torch.ops.hamming import hamming_matrix
 from srba_slam_tpu_torch.ops.matching import (interframe_match, masked_best_match,
                                               stereo_match)
 
+# one CPU thread per test process: the ops here are small, and the parallel
+# test workers would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _words(rng, n):
     return rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)

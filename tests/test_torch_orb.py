@@ -23,6 +23,10 @@ from srba_slam_tpu_torch.ops import bits, hopper_fast
 from srba_slam_tpu_torch.ops.orb import (PATTERN_OFFSETS, describe, gauss_blur7,
                                          upright_descriptors)
 
+# one CPU thread per test process: the ops here are small, and the parallel
+# test workers would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _as_i32(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.uint32)).view(np.int32))

@@ -21,6 +21,10 @@ from srba_slam_tpu_torch.ops.robust_lm import solve_pose
 from srba_slam_tpu_torch.utils import se3, se3_np
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
+# one CPU thread per test process: the ops here are small, and the parallel
+# test workers would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def random_poses(rng, n, max_angle=2.8):
     w = rng.normal(size=(n, 3))

@@ -27,6 +27,10 @@ from srba_slam_tpu_torch.models import vo
 from srba_slam_tpu_torch.utils import se3_np
 from srba_slam_tpu_torch.utils.synthworld import PlaneScene
 
+# one CPU thread per test process: the ops here are small, and the parallel
+# test workers would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
 CAM_KW = dict(fx_l=180.0, fy_l=180.0, cx_l=160.0, cy_l=100.0, fx_r=180.0, fy_r=180.0,
               cx_r=160.0, cy_r=100.0, baseline=0.54, width=320, height=200)
 OPTS = dict(fast_th=12, n_feats=256)
