@@ -2,10 +2,11 @@
 
 A second package beside the JAX one, for one NVIDIA H100. It keeps the JAX
 package's module names, so each counterpart is easy to find, and imports
-neither jax nor ``srba_slam_tpu``. Plain tensor code is eager torch on an
-explicit device; the JAX package's Pallas kernels on the ported path are
-kernels written by hand for Hopper (``csrc/``, built at first use by
-``ops/cuda_build.py``), each beside its plain torch version.
+neither jax nor ``srba_slam_tpu``. Plain tensor code is eager torch on the
+card unless the caller asks for the CPU (every entry point's ``device``
+defaults to ``"cuda"``); the JAX package's Pallas kernels on the ported
+path are kernels written by hand for Hopper (``csrc/``, built at first use
+by ``ops/cuda_build.py``), each beside its plain torch version.
 
 Ported so far: the SLAM estimator's per-frame path
 (``models/estimator.py`` ``SRBAStereoSLAMEstimator``): the stereo-VO engine

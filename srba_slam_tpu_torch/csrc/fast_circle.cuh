@@ -6,12 +6,63 @@
 // the taps clockwise from 12 o'clock, as ops/fast.py CIRCLE. Every value is
 // the min or max of one f32 difference, so the result is bit-exact against
 // the plain torch version on any device.
+//
+// Two forms: fast_score on f32 pixels (any frame), and fast_score_u8 on
+// uint8 frames staged as packed int16 pairs, in Hopper's DPX min/max.
 
 #pragma once
 
 #include <math.h>
+#include <stdint.h>
 
 namespace srba {
+
+// A uint8 pixel v staged for fast_score_u8: the int16 pair (v, -v), low lane
+// v. v * 0xFFFF0001 = v - (v << 16) mod 2^32, one multiply.
+__device__ __forceinline__ uint32_t pack_pm(uint32_t v) { return v * 0xFFFF0001u; }
+
+// fast_score for a uint8 frame, exactly: every difference d = tap - c is an
+// integer in [-255, 255], so the f32 score is an integer too. The tile `s`
+// holds pack_pm(pixel). A DPX three-way minimum over the taps' pairs
+// (t, -t) gives each 3-tap window's (min t, -max t), another each 9-tap
+// arc's, and a DPX three-way maximum over the 16 arcs leaves
+// (max over arcs of min t, -min over arcs of max t). Subtracting c commutes
+// with every min and max, so it comes last, once per lane:
+// bright = lo - c, dark = hi + c. 40 DPX instructions (each two lanes of a
+// three-way min or max) against fast_score's ~190 f32 operations. Same
+// contract on (cy, cx) as fast_score.
+template <int IW>
+__device__ __forceinline__ float fast_score_u8(const uint32_t (*s)[IW], int cy, int cx) {
+    uint32_t t[16];
+    t[0] = s[cy - 3][cx];
+    t[1] = s[cy - 3][cx + 1];
+    t[2] = s[cy - 2][cx + 2];
+    t[3] = s[cy - 1][cx + 3];
+    t[4] = s[cy][cx + 3];
+    t[5] = s[cy + 1][cx + 3];
+    t[6] = s[cy + 2][cx + 2];
+    t[7] = s[cy + 3][cx + 1];
+    t[8] = s[cy + 3][cx];
+    t[9] = s[cy + 3][cx - 1];
+    t[10] = s[cy + 2][cx - 2];
+    t[11] = s[cy + 1][cx - 3];
+    t[12] = s[cy][cx - 3];
+    t[13] = s[cy - 1][cx - 3];
+    t[14] = s[cy - 2][cx - 2];
+    t[15] = s[cy - 3][cx - 1];
+    uint32_t w3[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) w3[i] = __vimin3_s16x2(t[i], t[(i + 1) & 15], t[(i + 2) & 15]);
+    uint32_t w9[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) w9[i] = __vimin3_s16x2(w3[i], w3[(i + 3) & 15], w3[(i + 6) & 15]);
+    uint32_t m = __vimax3_s16x2(w9[0], w9[1], w9[2]);
+#pragma unroll
+    for (int i = 3; i < 15; i += 2) m = __vimax3_s16x2(m, w9[i], w9[i + 1]);
+    m = __vimax3_s16x2(m, w9[15], w9[15]);
+    const int c = (int)(s[cy][cx] & 0xffffu);
+    return (float)max((int)(int16_t)(m & 0xffffu) - c, (int)(int16_t)(m >> 16) + c);
+}
 
 // `s` is a staged tile of IW columns; (cy, cx) must lie at least 3 pixels
 // inside it.

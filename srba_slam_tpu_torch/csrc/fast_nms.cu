@@ -12,93 +12,156 @@
 // package's reduce_window. Bit-exact against its plain torch version
 // local_max_suppress(fast_score_map(img, th, margin), 2).
 //
-// What bounds it on an H100: bytes and launch cost, not arithmetic. A
-// stereo pair at 370x1226 reads 0.9 MB of uint8 and writes 3.6 MB of f32;
-// at 3.35 TB/s that is ~1.4 us, below the cost of the launch itself.
+// What bounds it on an H100: bytes. A stereo pair at 370x1226 reads 0.9 MB
+// of uint8 and writes 3.6 MB of f32 (1.35 us at 3.35 TB/s). Scoring every
+// pixel in f32 takes ~190 operations a pixel (2.6 us at the 67 TFLOP/s f32
+// rate), but most pixels need far fewer: on street frames the score of only
+// about 15% can exceed the threshold (chip_smoke.py counts them).
 //
-// What the design does about it: one block per 32x32 output tile stages the
-// tile plus a 5-pixel halo (3 for the circle, 2 for the NMS window) into
-// shared memory once, reading the frame's uint8 bytes directly (the value
-// equals its f32 cast), computes the scores and keys of the tile plus its
-// NMS halo in shared memory, and writes each output pixel once. No
-// intermediate map touches device memory. The key is formed with
-// __fmul_rn/__fsub_rn so that nvcc cannot contract it into an FMA: plateau
-// tie-breaks depend on its exact rounding.
+// What the design does about it:
+// - uint8 frames (the VO path) score in integer DPX instructions on packed
+//   int16 pairs (fast_circle.cuh fast_score_u8): 40 three-way min/max
+//   instructions a pixel, each on two lanes, equal to the f32 score bit for
+//   bit. Every pixel is scored: skipping the warps whose pixels a cheap
+//   bound rules out cost more than it saved on an H100. f32 frames keep the
+//   f32 fast_score.
+// - One block of 128 x 4 threads per 124 x 32 output tile. Each thread owns
+//   one column of the 128-wide score tile (the output plus the 2-px NMS
+//   halo) and every 4th row of it, so all threads do the same work and no
+//   index is divided. At 2x370x1226 the grid is 10 x 12 x 2 = 240 blocks:
+//   one wave at two blocks an SM.
+// - The tile plus its 5-px halo (3 for the circle, 2 for the NMS window) is
+//   staged in shared memory once from the frame's own bytes; scores stay in
+//   registers, keys in shared memory, and the 5x5 max is separable: a
+//   5-wide row max into the staging buffer, then a 5-high column max. No
+//   intermediate map touches device memory.
+// - The key is formed with __fmul_rn/__fsub_rn so that nvcc cannot contract
+//   it into an FMA: plateau tie-breaks depend on its exact rounding.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "fast_circle.cuh"
 
 namespace {
 
-constexpr int TW = 32;               // output tile width
-constexpr int TH = 32;               // output tile height
 constexpr int NR = 2;                // NMS radius (5x5 window)
 constexpr int CR = 3;                // FAST circle radius
-constexpr int HALO = CR + NR;
-constexpr int IW = TW + 2 * HALO;    // staged image tile
-constexpr int IH = TH + 2 * HALO;
-constexpr int SW = TW + 2 * NR;      // score/key tile (output + NMS halo)
-constexpr int SH = TH + 2 * NR;
+constexpr int BX = 128;              // threads along x = score tile width
+constexpr int BY = 4;                // threads along y
+constexpr int SW = BX;               // score/key tile (output + NMS halo)
+constexpr int TW = SW - 2 * NR;      // output tile width (124)
+constexpr int TH = 32;               // output tile height
+constexpr int SH = TH + 2 * NR;      // 36 = BY * 9 score rows
+constexpr int IW = SW + 2 * CR;      // staged image tile (134 x 42)
+constexpr int IH = SH + 2 * CR;
+constexpr int ROWS = SH / BY;        // score rows per thread
+constexpr int STAGE_ROWS = (IH + BY - 1) / BY;
+static_assert(SH % BY == 0, "score rows must split evenly over the threads");
+static_assert((IW - BX) * IH <= BX * BY, "one extra staged pixel per thread at most");
+
+template <typename S>
+union Staging {
+    S img[IH][IW];                   // the frame tile, as staged for scoring
+    float rowmax[SH][TW];            // then the 5-wide row maxima of the keys
+};
 
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(BX * BY, 2)
 fast_nms_kernel(const T* __restrict__ img, float* __restrict__ out, int H, int W,
                 float th, int margin, float eps) {
-    __shared__ float s_img[IH][IW];
+    constexpr bool kU8 = std::is_same<T, uint8_t>::value;
+    using S = typename std::conditional<kU8, uint32_t, float>::type;
+    auto stage = [](T v) -> S {
+        if constexpr (kU8) return srba::pack_pm(v);
+        else return v;
+    };
+    __shared__ Staging<S> s_buf;
     __shared__ float s_key[SH][SW];
-    __shared__ float s_score[TH][TW];
 
     const int n = blockIdx.z;
     const int x0 = blockIdx.x * TW;
     const int y0 = blockIdx.y * TH;
+    const int tx = threadIdx.x, ty = threadIdx.y;
     const T* src = img + (size_t)n * H * W;
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    const int nthr = blockDim.x * blockDim.y;
 
     // 1. stage the tile plus halo; outside the image reads as 0 (only
-    //    pixels within 3 px of a border see it, and the margin zeroes them)
-    for (int i = tid; i < IH * IW; i += nthr) {
-        const int ly = i / IW, lx = i % IW;
-        const int gy = y0 - HALO + ly, gx = x0 - HALO + lx;
-        float v = 0.f;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = (float)src[(size_t)gy * W + gx];
-        s_img[ly][lx] = v;
+    //    pixels within 3 px of a border see it, and the margin zeroes them).
+    //    Thread (tx, ty) loads column tx of rows ty + BY * k; the 6 columns
+    //    beyond the 128 threads go to the first 6 * IH threads. Every load
+    //    is issued before the first store, so their latencies overlap.
+    const int tid = ty * BX + tx;
+    const int gx_main = x0 - NR - CR + tx;
+    const int ex_ly = tid / (IW - BX), ex_lx = BX + tid % (IW - BX);  // by constants
+    const int gx_ex = x0 - NR - CR + ex_lx, gy_ex = y0 - NR - CR + ex_ly;
+    T v[STAGE_ROWS];
+#pragma unroll
+    for (int k = 0; k < STAGE_ROWS; ++k) {
+        const int ly = ty + BY * k, gy = y0 - NR - CR + ly;
+        // int offsets: the wrapper keeps H * W < 2^31
+        v[k] = (ly < IH && (unsigned)gx_main < (unsigned)W && (unsigned)gy < (unsigned)H)
+                   ? src[gy * W + gx_main] : T(0);
+    }
+    const bool ex = tid < (IW - BX) * IH;
+    const T v_ex = (ex && (unsigned)gx_ex < (unsigned)W && (unsigned)gy_ex < (unsigned)H)
+                       ? src[gy_ex * W + gx_ex] : T(0);
+#pragma unroll
+    for (int k = 0; k < STAGE_ROWS; ++k) {
+        const int ly = ty + BY * k;
+        if (ly < IH) s_buf.img[ly][tx] = stage(v[k]);
+    }
+    if (ex) s_buf.img[ex_ly][ex_lx] = stage(v_ex);
+    __syncthreads();
+
+    // 2. score, threshold, margin and key of the thread's score pixels
+    //    (column tx, rows ty + BY * i); the scores stay in registers
+    const int gx = x0 - NR + tx;
+    const bool col_in = gx >= 0 && gx < W;
+    const bool col_inner = gx >= margin && gx < W - margin;
+    float score[ROWS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+        const int sy = ty + BY * i;
+        const int gy = y0 - NR + sy;
+        float s;
+        if constexpr (kU8) s = srba::fast_score_u8<IW>(s_buf.img, sy + CR, tx + CR);
+        else s = srba::fast_score<IW>(s_buf.img, sy + CR, tx + CR);
+        const bool inner = col_inner && gy >= margin && gy < H - margin;
+        score[i] = (inner && s > th) ? s : 0.f;
+        s_key[sy][tx] = (col_in && gy >= 0 && gy < H)
+                            ? __fsub_rn(score[i], __fmul_rn(eps, (float)(gy * W + gx)))
+                            : -INFINITY;
     }
     __syncthreads();
 
-    // 2. score, threshold, margin and key for the tile plus the NMS halo
-    for (int i = tid; i < SH * SW; i += nthr) {
-        const int sy = i / SW, sx = i % SW;
-        const int gy = y0 - NR + sy, gx = x0 - NR + sx;
-        float key = -INFINITY, score = 0.f;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-            if (gy >= margin && gy < H - margin && gx >= margin && gx < W - margin) {
-                score = srba::fast_score<IW>(s_img, sy + CR, sx + CR);
-                if (!(score > th)) score = 0.f;
-            }
-            key = __fsub_rn(score, __fmul_rn(eps, (float)(gy * W + gx)));
+    // 3. 5-wide row maxima of the keys, into the staging buffer (free now)
+    const bool out_col = tx >= NR && tx < SW - NR;
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+        const int sy = ty + BY * i;
+        if (out_col) {
+            const float* k = &s_key[sy][tx - NR];
+            s_buf.rowmax[sy][tx - NR] = fmaxf(fmaxf(fmaxf(k[0], k[1]), fmaxf(k[2], k[3])), k[4]);
         }
-        s_key[sy][sx] = key;
-        if (sy >= NR && sy < NR + TH && sx >= NR && sx < NR + TW) s_score[sy - NR][sx - NR] = score;
     }
     __syncthreads();
 
-    // 3. keep a pixel where its key is the maximum of its 5x5 window
-    for (int i = tid; i < TH * TW; i += nthr) {
-        const int ty = i / TW, tx = i % TW;
-        const int gy = y0 + ty, gx = x0 + tx;
-        if (gy >= H || gx >= W) continue;
-        float pooled = -INFINITY;
+    // 4. keep a pixel where its key is the maximum of its 5x5 window
+    if (!out_col || gx >= W) return;
 #pragma unroll
-        for (int dy = 0; dy <= 2 * NR; ++dy) {
-#pragma unroll
-            for (int dx = 0; dx <= 2 * NR; ++dx) pooled = fmaxf(pooled, s_key[ty + dy][tx + dx]);
-        }
-        const float sc = s_score[ty][tx];
-        out[((size_t)n * H + gy) * W + gx] = (s_key[ty + NR][tx + NR] >= pooled && sc > 0.f) ? sc : 0.f;
+    for (int i = 0; i < ROWS; ++i) {
+        const int sy = ty + BY * i;
+        const int gy = y0 - NR + sy;
+        if (sy < NR || sy >= SH - NR || gy >= H) continue;
+        const int ox = tx - NR;
+        const float pooled = fmaxf(fmaxf(fmaxf(s_buf.rowmax[sy - 2][ox], s_buf.rowmax[sy - 1][ox]),
+                                         fmaxf(s_buf.rowmax[sy][ox], s_buf.rowmax[sy + 1][ox])),
+                                   s_buf.rowmax[sy + 2][ox]);
+        out[((size_t)n * H + gy) * W + gx] =
+            (s_key[sy][tx] >= pooled && score[i] > 0.f) ? score[i] : 0.f;
     }
 }
 
@@ -109,7 +172,7 @@ fast_nms_kernel(const T* __restrict__ img, float* __restrict__ out, int H, int W
 // cudaGetLastError() of the launch.
 extern "C" int srba_fast_nms(const void* img, int img_is_u8, float* out, int n, int h, int w,
                              float th, int margin, float eps, void* stream) {
-    const dim3 block(32, 8);
+    const dim3 block(BX, BY);
     const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
     cudaStream_t s = (cudaStream_t)stream;
     if (img_is_u8) {

@@ -183,7 +183,7 @@ def rank_scores(scores: torch.Tensor, k: int):
 class BoWDatabase:
     """≙ BriefDatabase: insert/query over KF BoW vectors (entry id == KF id)."""
 
-    def __init__(self, voc: Vocabulary, max_kfs: int = 512, device="cpu"):
+    def __init__(self, voc: Vocabulary, max_kfs: int = 512, device="cuda"):
         self.voc = voc
         self.max_kfs = max_kfs
         self.device = torch.device(device)
@@ -193,7 +193,7 @@ class BoWDatabase:
         self.n_kfs = 0
 
     @staticmethod
-    def from_jax_numpy(voc, db: np.ndarray, n_kfs: int, device="cpu") -> "BoWDatabase":
+    def from_jax_numpy(voc, db: np.ndarray, n_kfs: int, device="cuda") -> "BoWDatabase":
         """A database holding the JAX package's rows: ``voc`` its
         Vocabulary, ``db`` = ``jax.device_get(bow._db)``."""
         out = BoWDatabase(Vocabulary.from_jax_numpy(voc), db.shape[0], device)

@@ -113,7 +113,7 @@ class SRBAStereoSLAMEstimator:
     def __init__(self, general: GeneralOptions | None = None,
                  options: SRBAStereoSLAMOptions | None = None,
                  vo_options: VOOptions | None = None,
-                 capacity: int = 512, max_kfs: int = 512, device="cpu"):
+                 capacity: int = 512, max_kfs: int = 512, device="cuda"):
         self.general = general or GeneralOptions()
         self.opts = options or SRBAStereoSLAMOptions()
         self.vo_opts = vo_options or VOOptions()
@@ -842,7 +842,7 @@ class SRBAStereoSLAMEstimator:
                         f"{s.number_feats_common}\n")
 
 
-def bench_estimator(device="cpu") -> SRBAStereoSLAMEstimator:
+def bench_estimator(device="cuda") -> SRBAStereoSLAMEstimator:
     """The estimator of the bench workload (``utils/bench_workload.py``),
     initialized on ``device``."""
     from srba_slam_tpu_torch.utils import bench_workload as bw

@@ -53,7 +53,7 @@ def kf_arrays_from_numpy(arrays, device) -> KFArrays:
 class KeyframeStore:
     """Host wrapper around KFArrays + per-KF match IDs and poses."""
 
-    def __init__(self, max_kfs: int = 512, capacity: int = 512, device="cpu"):
+    def __init__(self, max_kfs: int = 512, capacity: int = 512, device="cuda"):
         self.max_kfs = max_kfs
         self.capacity = capacity
         self.device = torch.device(device)
@@ -77,7 +77,7 @@ class KeyframeStore:
 
     @staticmethod
     def from_jax_numpy(arrays, n_kfs: int, match_ids: np.ndarray, poses: np.ndarray,
-                       device="cpu") -> "KeyframeStore":
+                       device="cuda") -> "KeyframeStore":
         """A store holding the JAX package's store state: ``arrays`` from
         ``jax.device_get(store.arrays)``, with its ``n_kfs``, ``match_ids``
         and ``poses``."""

@@ -124,7 +124,7 @@ class NewKFInfo:
 
 class SRBAEngine:
     def __init__(self, cam: StereoCamera, params: SRBAParams | None = None,
-                 logger=None, on_commit=None, lazy: bool = False, device="cpu"):
+                 logger=None, on_commit=None, lazy: bool = False, device="cuda"):
         self.cam = cam
         self.p = params or SRBAParams()
         self.device = torch.device(device)

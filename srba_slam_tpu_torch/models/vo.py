@@ -5,7 +5,8 @@ contract (reference src/CSRBAStereoSLAMEstimator.cpp:112, 267, 2139-2147;
 forced modes dmORB / smDescRbR / ifmDescBF at :1135-1137):
 
 * per frame: FAST detection + NMS on both rectified images (kernel K1),
-  grid top-K, Gaussian blur and upright ORB descriptors (kernel K2),
+  grid top-K, upright ORB descriptors with the Gaussian pre-blur fused in
+  (kernel K2),
   epipolar-gated stereo matching and triangulation, brute-force tracking
   against the previous frame, the robust two-stage pose solve, and the
   track-ID bookkeeping;
@@ -31,7 +32,6 @@ from srba_slam_tpu_torch.config import VOOptions
 from srba_slam_tpu_torch.ops.hopper_fast import fast_nms, orb_descriptors
 from srba_slam_tpu_torch.ops.matching import interframe_match, stereo_match
 from srba_slam_tpu_torch.ops.nms import grid_topk
-from srba_slam_tpu_torch.ops.orb import gauss_blur7
 from srba_slam_tpu_torch.ops.robust_lm import PoseSolveResult, solve_pose
 from srba_slam_tpu_torch.utils.camera import StereoCamera, project_match_to_3d
 
@@ -74,13 +74,12 @@ def frame_features_from_numpy(d, device) -> FrameFeatures:
 
 def _detect_describe_batch(imgs, fast_th, k, cell, nms_radius, margin):
     """Detect + describe for a batch of images [N, H, W] (uint8 or f32) at
-    once: K1 on the batch, grid top-K, blur, K2. Returns
+    once: K1 on the batch, grid top-K, K2 (blur and descriptors). Returns
     (ys, xs, sc, valid, desc, octv), each with leading dim N."""
     n = imgs.shape[0]
     s = fast_nms(imgs, fast_th, margin=margin, radius=nms_radius)
     ys, xs, sc, valid = grid_topk(s, cell=cell, k=k)
-    blurred = gauss_blur7(imgs)
-    desc = orb_descriptors(blurred, ys, xs, valid, margin=margin)
+    desc = orb_descriptors(imgs, ys, xs, valid, margin=margin)
     octv = torch.zeros((n, k), dtype=torch.int32, device=imgs.device)
     return ys, xs, sc, valid, desc, octv
 
@@ -124,11 +123,12 @@ def extract_and_match(
     n_levels: int = 1,
     robust_1to1: bool = False,
     rect_maps=None,
-    device=None,
+    device="cuda",
 ) -> FrameFeatures:
     """The full frontend for one stereo pair ``left``/``right`` [H, W]
-    (numpy or tensors, uint8 or float32), both images batched through the
-    detector and the descriptor kernels together."""
+    (numpy or tensors, uint8 or float32) on ``device`` (the card unless the
+    caller asks for the CPU), both images batched through the detector and
+    the descriptor kernels together."""
     if n_levels != 1:
         raise NotImplementedError("image pyramids (n_levels > 1) are not ported yet (ROADMAP M11)")
     if oriented:
@@ -216,7 +216,7 @@ class StereoVOEngine:
     cam: StereoCamera
     opts: VOOptions = field(default_factory=VOOptions)
     capacity: int = 512
-    device: str | torch.device = "cpu"
+    device: str | torch.device = "cuda"
 
     def __post_init__(self):
         self.device = torch.device(self.device)

@@ -95,7 +95,8 @@ def load() -> ctypes.CDLL:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.srba_fast_nms.argtypes = [vp, ci, vp, ci, ci, ci, cf, ci, cf, vp]
         lib.srba_fast_nms.restype = ci
-        lib.srba_orb_describe.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.srba_orb_describe.argtypes = [vp, ci, vp, vp, vp, vp, ctypes.POINTER(cf), vp,
+                                          ci, ci, ci, ci, vp]
         lib.srba_orb_describe.restype = ci
         lib.srba_fast_score.argtypes = [vp, ci, vp, ci, ci, ci, cf, ci, vp]
         lib.srba_fast_score.restype = ci

@@ -5,15 +5,16 @@ Counterpart of ``srba_slam_tpu/ops/pallas_fast.py``:
 * K1 :func:`fast_nms` (``csrc/fast_nms.cu``) replaces ``fast_nms_pallas``:
   the suppressed FAST score maps of a batch of images;
 * K2 :func:`orb_descriptors` (``csrc/orb_describe.cu``) replaces
-  ``orb_bitplanes_pallas`` / ``orb_descriptors_pallas``: upright ORB
-  descriptors at the keypoints of a batch of blurred images;
+  ``orb_bitplanes_pallas`` / ``orb_descriptors_pallas`` and the blur in
+  front of them: upright ORB descriptors at the keypoints of a batch of
+  frames, blurred inside the kernel;
 * K3 :func:`fast_score_map` (``csrc/fast_score.cu``) replaces
   ``fast_score_map_pallas``: the FAST score maps without suppression. No
   path of the estimator calls it, as none of the JAX package does.
 
 The tensors' device decides the route: a CUDA tensor launches the kernel
 (or the wrapper raises), a CPU tensor takes the kernel's plain torch version
-(:func:`fast_nms_plain`; ``ops/orb.py`` :func:`upright_descriptors`;
+(:func:`fast_nms_plain`; :func:`orb_descriptors_plain`;
 ``ops/fast.py`` ``fast_score_map``). There is no fallback from one to the
 other. Each wrapper counts its kernel launches in a plain integer
 attribute, ``fast_nms.launches``, ``orb_descriptors.launches`` and
@@ -22,12 +23,14 @@ attribute, ``fast_nms.launches``, ``orb_descriptors.launches`` and
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from srba_slam_tpu_torch.ops import cuda_build
 from srba_slam_tpu_torch.ops.fast import fast_score_map as fast_score_map_plain
 from srba_slam_tpu_torch.ops.nms import local_max_suppress, nms_eps
-from srba_slam_tpu_torch.ops.orb import PATTERN_OFFSETS, upright_descriptors
+from srba_slam_tpu_torch.ops.orb import _G7_F32, PATTERN_OFFSETS, gauss_blur7, upright_descriptors
 
 _KERNEL_NMS_RADIUS = 2   # the 5x5 window csrc/fast_nms.cu is built for
 _FAST_RADIUS = 3         # the FAST circle: the halo csrc/fast_score.cu stages
@@ -95,32 +98,40 @@ def fast_nms(imgs: torch.Tensor, threshold: float, margin: int = 16,
 fast_nms.launches = 0
 
 _pattern_on: dict[torch.device, torch.Tensor] = {}
+_G7_HOST = (ctypes.c_float * 7)(*_G7_F32)
 
 
-def orb_descriptors(blurred: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+def orb_descriptors_plain(imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                          valid: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K2: ``upright_descriptors(gauss_blur7(imgs))``."""
+    return upright_descriptors(gauss_blur7(imgs), ys, xs, valid)
+
+
+def orb_descriptors(imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                     valid: torch.Tensor, margin: int = 16) -> torch.Tensor:
     """Upright ORB descriptors int32 [N, K, 8] of keypoints ``ys``/``xs``
-    int32 [N, K] (``valid`` bool [N, K]) on ``blurred`` f32 [N, H, W]
-    (``gauss_blur7`` output); bit-exact against ``upright_descriptors``.
+    int32 [N, K] (``valid`` bool [N, K]) on the frames ``imgs`` [N, H, W]
+    (uint8 or float32), blurred by ``gauss_blur7`` inside the kernel;
+    bit-exact against :func:`orb_descriptors_plain`.
 
     ``margin`` is the detector margin the keypoints respect; it must be at
     least 16, as on the JAX package's bit-plane path (models/vo.py there)."""
     if margin < _ORB_MIN_MARGIN:
         raise ValueError(f"margin {margin} < {_ORB_MIN_MARGIN}: keypoints may lack "
                          "full pattern support")
-    _check(blurred, "blurred", (torch.float32,), 3)
-    dev = blurred.device
+    _check(imgs, "imgs", (torch.uint8, torch.float32), 3)
+    dev = imgs.device
     _check(ys, "ys", (torch.int32,), 2, dev)
     _check(xs, "xs", (torch.int32,), 2, dev)
     _check(valid, "valid", (torch.bool,), 2, dev)
-    n, h, w = blurred.shape
+    n, h, w = imgs.shape
     if ys.shape[0] != n or xs.shape != ys.shape or valid.shape != ys.shape:
         raise ValueError(f"keypoint shapes {tuple(ys.shape)}, {tuple(xs.shape)}, "
                          f"{tuple(valid.shape)} do not match images {n}")
     if dev.type == "cpu":
-        return upright_descriptors(blurred, ys, xs, valid)
+        return orb_descriptors_plain(imgs, ys, xs, valid)
     if dev.type != "cuda":
-        raise ValueError(f"blurred: unsupported device {dev}")
+        raise ValueError(f"imgs: unsupported device {dev}")
     k = ys.shape[1]
     out = torch.empty((n, k, 8), dtype=torch.int32, device=dev)
     if out.numel() == 0:
@@ -131,8 +142,9 @@ def orb_descriptors(blurred: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     lib = cuda_build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.srba_orb_describe(blurred.data_ptr(), ys.data_ptr(), xs.data_ptr(),
-                                     valid.data_ptr(), pattern.data_ptr(), out.data_ptr(),
+        code = lib.srba_orb_describe(imgs.data_ptr(), int(imgs.dtype == torch.uint8),
+                                     ys.data_ptr(), xs.data_ptr(), valid.data_ptr(),
+                                     pattern.data_ptr(), _G7_HOST, out.data_ptr(),
                                      n, k, h, w, stream)
     _raise_on_error(code, "orb_descriptors")
     orb_descriptors.launches += 1

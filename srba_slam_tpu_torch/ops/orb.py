@@ -75,8 +75,9 @@ def upright_descriptors(blurred: torch.Tensor, ys: torch.Tensor, xs: torch.Tenso
     [..., K] int32; ``valid`` [..., K] bool. Returns int32 [..., K, 8]; invalid
     keypoints get 0. Each sample coordinate is clipped into the image, as in
     the JAX package's general path, which equals its 33x33-patch fast path
-    for keypoints at least 16 px inside the borders. This is the plain
-    version of kernel K2 (``ops/hopper_fast.orb_descriptors``).
+    for keypoints at least 16 px inside the borders. Behind
+    :func:`gauss_blur7` it is the plain version of kernel K2
+    (``ops/hopper_fast.orb_descriptors``), which blurs inside.
     """
     h, w = blurred.shape[-2:]
     k = ys.shape[-1]

@@ -58,7 +58,8 @@ def test_bow_vector_and_query_match_jax():
     jdb = jbow.BoWDatabase(voc, max_kfs=js.max_kfs)
     jdb.rebuild_from_store(js.arrays, js.n_kfs)
     ts = port_store(js)
-    tdb = tbow.BoWDatabase(tbow.Vocabulary.from_jax_numpy(voc), max_kfs=ts.max_kfs)
+    tdb = tbow.BoWDatabase(tbow.Vocabulary.from_jax_numpy(voc), max_kfs=ts.max_kfs,
+                           device="cpu")
     tdb.rebuild_from_store(ts.arrays, ts.n_kfs)
     np.testing.assert_allclose(tdb._db.numpy(), np.asarray(jdb._db), atol=1e-6)
     for f in feats[6:]:

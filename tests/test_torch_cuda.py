@@ -22,7 +22,6 @@ from srba_slam_tpu_torch import (
 from srba_slam_tpu_torch.ops import hopper_fast
 from srba_slam_tpu_torch.ops.fast import fast_score_map as fast_score_map_plain
 from srba_slam_tpu_torch.ops.nms import grid_topk
-from srba_slam_tpu_torch.ops.orb import gauss_blur7, upright_descriptors
 from srba_slam_tpu_torch.utils.bench_workload import decisions
 from srba_slam_tpu_torch.utils.framesource import SyntheticSource
 from srba_slam_tpu_torch.utils.synthworld import PlaneScene
@@ -48,19 +47,94 @@ def test_fast_nms_kernel_matches_plain(cuda, dtype):
         assert torch.equal(got, hopper_fast.fast_nms_plain(imgs, th))
 
 
+def _k1_images(kind, shape, rng):
+    n, h, w = shape
+    yy, xx = np.mgrid[0:h, 0:w]
+    if kind == "checkerboard":          # 0/255 pixels and 4x3 blocks: d = +-255
+        board = np.stack([(yy + xx) % 2, (yy // 4 + xx // 3) % 2, (yy // 2 + xx) % 2][:n])
+        return torch.from_numpy((board * 255).astype(np.uint8)), 20.0
+    if kind == "binary":
+        return torch.from_numpy((rng.integers(0, 2, shape) * 255).astype(np.uint8)), 100.0
+    if kind == "plateau":               # scores are multiples of 30: score == th occurs
+        return torch.from_numpy((rng.integers(0, 8, shape) * 30).astype(np.float32)), 30.0
+    if kind == "u8":
+        return torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8)), 12.0
+    if kind == "u8_negative_th":        # negative scores are kept
+        return torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8)), -3.0
+    if kind == "f32":                   # not integers: the f32 route
+        return torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32)), 12.0
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["checkerboard", "binary", "plateau", "u8", "u8_negative_th",
+                                  "f32"])
+@pytest.mark.parametrize("margin", [5, 16, 40])
+@pytest.mark.parametrize("shape", [(1, 37, 41), (3, 123, 300), (2, 370, 1226)])
+def test_fast_nms_kernel_cases(cuda, kind, margin, shape):
+    """Shapes that are not multiples of the 124x32 tile, N = 1, 2, 3, every
+    margin the wrapper takes from its least (3 + radius) up."""
+    imgs, th = _k1_images(kind, shape, np.random.default_rng(margin))
+    imgs = imgs.to(cuda)
+    before = hopper_fast.fast_nms.launches
+    got = hopper_fast.fast_nms(imgs, th, margin=margin)
+    assert hopper_fast.fast_nms.launches == before + 1
+    assert torch.equal(got, hopper_fast.fast_nms_plain(imgs, th, margin=margin))
+
+
 def test_orb_kernel_matches_plain(cuda):
     rng = np.random.default_rng(1)
     imgs = torch.from_numpy(rng.integers(0, 256, (2, 123, 300)).astype(np.uint8)).to(cuda)
-    blurred = gauss_blur7(imgs)
     ys, xs, _, valid = grid_topk(hopper_fast.fast_nms(imgs, 12.0), cell=5, k=300)
-    got = hopper_fast.orb_descriptors(blurred, ys, xs, valid)
-    assert torch.equal(got, upright_descriptors(blurred, ys, xs, valid))
+    got = hopper_fast.orb_descriptors(imgs, ys, xs, valid)
+    assert torch.equal(got, hopper_fast.orb_descriptors_plain(imgs, ys, xs, valid))
     # keypoints near the borders: every sample is clipped the same way
     ys_edge = torch.from_numpy(rng.integers(0, 123, (2, 40)).astype(np.int32)).to(cuda)
     xs_edge = torch.from_numpy(rng.integers(0, 300, (2, 40)).astype(np.int32)).to(cuda)
     ok = torch.ones((2, 40), dtype=torch.bool, device=cuda)
-    assert torch.equal(hopper_fast.orb_descriptors(blurred, ys_edge, xs_edge, ok),
-                       upright_descriptors(blurred, ys_edge, xs_edge, ok))
+    assert torch.equal(hopper_fast.orb_descriptors(imgs, ys_edge, xs_edge, ok),
+                       hopper_fast.orb_descriptors_plain(imgs, ys_edge, xs_edge, ok))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("k", [1, 7, 512])
+def test_fused_orb_kernel_cases(cuda, dtype, k):
+    """The blur-fused K2 on uint8 and non-integer f32 frames: keypoints
+    anywhere (border ones clip and blur at the clipped point), a fifth of
+    the slots invalid."""
+    rng = np.random.default_rng(k)
+    n, h, w = 2, 150, 333
+    imgs = torch.from_numpy(rng.integers(0, 256, (n, h, w)).astype(np.uint8))
+    if dtype == torch.float32:
+        imgs = imgs.to(dtype) + torch.from_numpy(rng.random((n, h, w)).astype(np.float32))
+    imgs = imgs.to(cuda)
+    ys = torch.from_numpy(rng.integers(0, h, (n, k)).astype(np.int32)).to(cuda)
+    xs = torch.from_numpy(rng.integers(0, w, (n, k)).astype(np.int32)).to(cuda)
+    valid = torch.from_numpy(rng.random((n, k)) < 0.8).to(cuda)
+    before = hopper_fast.orb_descriptors.launches
+    got = hopper_fast.orb_descriptors(imgs, ys, xs, valid)
+    assert hopper_fast.orb_descriptors.launches == before + 1
+    assert torch.equal(got, hopper_fast.orb_descriptors_plain(imgs, ys, xs, valid))
+    assert not got[~valid].any()
+
+
+def test_fused_orb_kernel_unaligned_storage(cuda):
+    """A uint8 batch that starts 1 byte past a 4-byte boundary and does not
+    end on one: the patch words at either end of the tensor are read byte
+    by byte. Keypoints whose patches touch the first row of the first frame
+    and the last row of the last frame, and random ones."""
+    rng = np.random.default_rng(4)
+    n, h, w = 2, 61, 97
+    buf = torch.from_numpy(rng.integers(0, 256, n * h * w + 1).astype(np.uint8)).to(cuda)
+    imgs = buf[1:].view(n, h, w)
+    assert imgs.data_ptr() % 4 == 1 and (imgs.data_ptr() + imgs.numel()) % 4 != 0
+    ys = rng.integers(0, h, (n, 16)).astype(np.int32)
+    xs = rng.integers(0, w, (n, 16)).astype(np.int32)
+    ys[0, :3], xs[0, :3] = 13, (13, 14, 15)
+    ys[1, :3], xs[1, :3] = h - 14, (w - 14, w - 15, w - 16)
+    ys, xs = torch.from_numpy(ys).to(cuda), torch.from_numpy(xs).to(cuda)
+    valid = torch.ones((n, 16), dtype=torch.bool, device=cuda)
+    assert torch.equal(hopper_fast.orb_descriptors(imgs, ys, xs, valid),
+                       hopper_fast.orb_descriptors_plain(imgs, ys, xs, valid))
 
 
 SMALL_CAM = dict(fx_l=180.0, fy_l=180.0, cx_l=160.0, cy_l=100.0, fx_r=180.0, fy_r=180.0,

@@ -78,7 +78,8 @@ def test_query_and_associate_matches_jax():
     top_s, top_i, cand, rj = jda.query_and_associate(
         _jf(feats[-1]), js.arrays, jdb._db, jdb._leaf_bits, jdb._weights,
         jnp.int32(js.n_kfs), JCam(**SMALL_CAM), jax.random.PRNGKey(9), **kw)
-    tdb = BoWDatabase.from_jax_numpy(jvoc, jax.device_get(jdb._db), jdb.n_kfs)
+    tdb = BoWDatabase.from_jax_numpy(jvoc, jax.device_get(jdb._db), jdb.n_kfs,
+                                     device="cpu")
     ts, ti, tc, rt = tda.query_and_associate(
         port_features(feats[-1]), port_store(js).arrays, tdb._db, tdb._leaf_bits,
         tdb._weights, js.n_kfs, StereoCamera(**SMALL_CAM), prng.PRNGKey(9), **kw)

@@ -70,7 +70,8 @@ def _run(cfg, frames, port: bool):
         est = SRBAStereoSLAMEstimator(
             GeneralOptions(), SRBAStereoSLAMOptions(camera=StereoCamera(**cfg["cam"]),
                                                     **cfg["options"]),
-            VOOptions(**cfg["vo"]), capacity=cfg["capacity"], max_kfs=cfg["max_kfs"])
+            VOOptions(**cfg["vo"]), capacity=cfg["capacity"], max_kfs=cfg["max_kfs"],
+            device="cpu")
     else:
         est = JEstimator(
             JGeneral(), JOptions(camera=JCam(**cfg["cam"]), **cfg["options"]),
@@ -175,7 +176,8 @@ def _port_small(**general):
     est = SRBAStereoSLAMEstimator(
         GeneralOptions(**general),
         SRBAStereoSLAMOptions(camera=StereoCamera(**SMALL_CAM), **SMALL_OPTIONS),
-        VOOptions(**SMALL["vo"]), capacity=SMALL["capacity"], max_kfs=SMALL["max_kfs"])
+        VOOptions(**SMALL["vo"]), capacity=SMALL["capacity"], max_kfs=SMALL["max_kfs"],
+        device="cpu")
     est.initialize()
     return est
 
@@ -227,7 +229,7 @@ def test_from_config_reads_the_demo_file():
 
     ini = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo",
                        "config_synthetic_small.ini")
-    est = SRBAStereoSLAMEstimator.from_config(ini, capacity=128, max_kfs=8)
+    est = SRBAStereoSLAMEstimator.from_config(ini, capacity=128, max_kfs=8, device="cpu")
     general, opts, vo = load_config(ini)
     assert (est.general, est.opts, est.vo_opts) == (general, opts, vo)
     assert (est.capacity, est.max_kfs, est.device.type) == (128, 8, "cpu")

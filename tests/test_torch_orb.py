@@ -3,6 +3,9 @@
 Tolerances:
 * bit packing, popcounts and descriptors: none (integer results). The
   descriptors are compared on the SAME blurred image, JAX's, fed to both.
+  The K2 wrapper blurs inside, with the port's blur: its bits may differ
+  from JAX's only at tests that sample a pixel where the two blurs differ
+  (none do on the case here: the blurs agree on all its 73,800 pixels).
 * gauss_blur7: within 1 grey level at under 1e-4 of pixels. The 7-tap f32
   sums round at .5 differently from XLA's convolution at a few pixels in
   10^5, whatever the summation order; that is the only allowed difference.
@@ -75,23 +78,43 @@ def pallas_case():
     ref_describe = np.asarray(jax.vmap(lambda im, y, x, v: jdescribe(
         im, y, x, v, oriented=False, patch_safe=True)[0])(jimgs, *jkp))
     np.testing.assert_array_equal(ref, ref_describe)
-    return np.array(blurred), ys, xs, valid, ref
+    return imgs, np.array(blurred), ys, xs, valid, ref
+
+
+def _tests_on_pixels(pixels, ys, xs):
+    """[N, K, 256] bool: test i of keypoint (ys, xs) samples a pixel where
+    ``pixels`` [N, H, W] is True (either of its two points, clipped)."""
+    n, h, w = pixels.shape
+    off = PATTERN_OFFSETS.astype(np.int64)
+    hit = np.zeros(ys.shape + (256,), bool)
+    for dy, dx in ((off[:, 0], off[:, 1]), (off[:, 2], off[:, 3])):
+        yy = np.clip(ys[..., None] + dy, 0, h - 1)
+        xx = np.clip(xs[..., None] + dx, 0, w - 1)
+        hit |= pixels[np.arange(n)[:, None, None], yy, xx]
+    return hit
 
 
 @pytest.mark.parametrize("route", ["describe", "wrapper"])
 def test_descriptors_match_pallas_interpret(pallas_case, route):
-    """Upright descriptors bit-exact against the JAX TPU kernel on JAX's
-    blurred images, through the plain function and the K2 wrapper."""
-    blurred, ys, xs, valid, ref = pallas_case
-    tb = torch.from_numpy(blurred)
+    """Upright descriptors against the JAX TPU kernel: the plain function
+    bit-exact on JAX's blurred images; the K2 wrapper (which blurs the frames
+    itself) bit-exact except at tests that sample a pixel where the port's
+    blur differs from JAX's, of which there are under 1e-4 of the pixels."""
+    imgs, blurred, ys, xs, valid, ref = pallas_case
     args = (torch.from_numpy(ys), torch.from_numpy(xs), torch.from_numpy(valid))
     if route == "wrapper":
         before = hopper_fast.orb_descriptors.launches
-        got = hopper_fast.orb_descriptors(tb, *args, margin=16)
+        got = hopper_fast.orb_descriptors(torch.from_numpy(imgs), *args, margin=16)
         assert hopper_fast.orb_descriptors.launches == before
+        blur_differs = gauss_blur7(torch.from_numpy(imgs)).numpy() != blurred
+        assert blur_differs.mean() < 1e-4
+        free = _tests_on_pixels(blur_differs, ys, xs)
+        got_bits = bits.unpack_bits(got).numpy()
+        ref_bits = bits.unpack_bits(_as_i32(ref)).numpy()
+        np.testing.assert_array_equal(np.where(free, ref_bits, got_bits), ref_bits)
     else:
-        got = upright_descriptors(tb, *args)
-    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref)
+        got = upright_descriptors(torch.from_numpy(blurred), *args)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), ref)
     assert not got.numpy()[~valid].any()
 
 

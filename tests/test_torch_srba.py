@@ -34,7 +34,8 @@ POSE_TOL = 1e-4
 
 def _engines(**kw):
     p = dict(submap_size=2, max_optimize_depth=2, opt_iters=4, win_cams=8, **kw)
-    return JEngine(JCam.kitti(), JParams(**p)), SRBAEngine(StereoCamera.kitti(), SRBAParams(**p))
+    return JEngine(JCam.kitti(), JParams(**p)), SRBAEngine(StereoCamera.kitti(), SRBAParams(**p),
+                                                     device="cpu")
 
 
 def _corrupt_far(obs, first_seen):

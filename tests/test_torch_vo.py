@@ -121,7 +121,8 @@ def test_unported_paths_raise(frames, opt):
         kw[opt] = 2
     elif opt != "rect_maps":
         kw[opt] = True
-    eng = StereoVOEngine(StereoCamera(**CAM_KW), VOOptions(**kw), capacity=CAPACITY)
+    eng = StereoVOEngine(StereoCamera(**CAM_KW), VOOptions(**kw), capacity=CAPACITY,
+                         device="cpu")
     if opt == "rect_maps":
         eng.rect_maps = (object(), object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
