@@ -30,8 +30,11 @@ not 0 (there is no CPU fallback):
                the frontend's kernel launches and device µs per frame;
 6. K3        - ``fast_score_map`` kernel against its plain version,
                bit-exact, on the street left image (uint8), the plateau pair
-               (f32, threshold 20) and an odd-size 123x300 image. No path of
-               the estimator calls it (none of the JAX package does either);
+               (f32, threshold 20) and an odd-size 123x300 image; then timed
+               on the street left image and on the street pair, each beside
+               the launch floor (an empty kernel at K3's grid and block), and
+               on the pair beside K1's device time from phase 3. No path of
+               the estimator calls K3 (none of the JAX package does either);
 7. estimator - ``SRBAStereoSLAMEstimator`` on the card over the 81-frame
                bench workload, under ``torch.use_deterministic_algorithms``,
                then ``finalize``. K1 and K2 launch once per VO pass (the
@@ -300,7 +303,30 @@ def phase_k2(frames) -> dict:
             "replaces": f"{PALLAS}:297", "max_abs_err": err, **times}
 
 
-def phase_k3(frames) -> dict:
+def _k3_times(imgs, k1_device_ms: float | None = None) -> tuple[dict, str]:
+    """K3's times on the street image(s) ``imgs`` at threshold 20, beside
+    the device time of an empty kernel at K3's grid and block (the launch
+    floor), and K1's device time on the same frames where given."""
+    n, h, w = (1, *imgs.shape) if imgs.dim() == 2 else imgs.shape
+    px = imgs.numel()
+    n_fail, n_pass, _n_kept = _fast_work(imgs, 20.0)
+    times = _times("fast_score_kernel", lambda: fast_score_map(imgs, 20.0),
+                   lambda: fast_score_map_plain(imgs, 20.0),
+                   n_bytes=px * imgs.element_size() + px * 4,
+                   n_ops=n_fail * COMPASS_OPS_PER_PX + n_pass * FAST_SCORE_OPS_PER_PX)
+    grid, block = hopper_fast.fast_score_launch(n, h, w)
+    floor_ms = kt.launch_floor_ms(grid, block)
+    line = (f"at {'x'.join(map(str, imgs.shape))} u8: {n_pass} of {n_fail + n_pass} inner pixels "
+            f"pass the compass bound | grid {grid} of {block} | "
+            f"{_fmt(times)} | launch floor (empty kernel, same grid, CUDA graph) "
+            f"{floor_ms * 1e3:.2f} us")
+    if k1_device_ms is not None:
+        line += (f" | K1 on the same pair {k1_device_ms * 1e3:.2f} us (phase 3): K3/K1 "
+                 f"{times['device_ms'] / k1_device_ms:.3f}")
+    return times, line
+
+
+def phase_k3(frames, k1_device_ms: float) -> dict:
     rng, street, plateau = _street_and_plateau(frames)
     left = street[0].contiguous()                                         # [370,1226] u8
     odd = torch.from_numpy(rng.integers(0, 255, (123, 300)).astype(np.uint8)).to(DEV)
@@ -316,14 +342,10 @@ def phase_k3(frames) -> dict:
         check(got.shape == img.shape and torch.equal(got, ref),
               f"K3 differs from its plain version on {name}: max {err}")
         parts.append(f"{name} {tuple(img.shape)} {img.dtype} equal, {int((ref > 0).sum())} > th")
-    px = left.numel()
-    n_fail, n_pass, _n_kept = _fast_work(left, 20.0)
-    times = _times("fast_score_kernel", lambda: fast_score_map(left, 20.0),
-                   lambda: fast_score_map_plain(left, 20.0),
-                   n_bytes=px * left.element_size() + px * 4,
-                   n_ops=n_fail * COMPASS_OPS_PER_PX + n_pass * FAST_SCORE_OPS_PER_PX)
-    print(f"[K3 fast_score_map] bit-exact: {'; '.join(parts)} | at 370x1226 u8: {n_pass} of "
-          f"{n_fail + n_pass} inner pixels pass the compass bound | {_fmt(times)}")
+    times, one = _k3_times(left)
+    _pair_times, pair = _k3_times(street, k1_device_ms)
+    print(f"[K3 fast_score_map] bit-exact: {'; '.join(parts)} | {one}")
+    print(f"[K3 fast_score_map] {pair}")
     return {"name": "fast_score_map", "route": "cuda",
             "source": "srba_slam_tpu_torch/csrc/fast_score.cu",
             "replaces": f"{PALLAS}:71", "max_abs_err": worst, **times}
@@ -600,7 +622,7 @@ def main():
     k1 = timed("K1", phase_k1, frames)
     k2 = timed("K2", phase_k2, frames)
     timed("slice", phase_slice, cam, frames[:N_SLICE_FRAMES], src.gt_poses)
-    k3 = timed("K3", phase_k3, frames)
+    k3 = timed("K3", phase_k3, frames, k1["device_ms"])
     counts = timed("estimator", phase_estimator, frames, src.gt_poses, profile)
     print(f"[phases] seconds {seconds}")
     for k in (k1, k2, k3):

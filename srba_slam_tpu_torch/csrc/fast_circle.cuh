@@ -1,5 +1,6 @@
 // The FAST-9/16 corner score of one pixel of an image tile staged in shared
-// memory, shared by K1 (fast_nms.cu) and K3 (fast_score.cu).
+// memory, and the staging of that tile, shared by K1 (fast_nms.cu) and K3
+// (fast_score.cu).
 //
 // score = max over the 16 contiguous 9-tap arcs of the Bresenham circle of
 //         max(min(tap - c), -max(tap - c)),
@@ -9,6 +10,7 @@
 //
 // Two forms: fast_score on f32 pixels (any frame), and fast_score_u8 on
 // uint8 frames staged as packed int16 pairs, in Hopper's DPX min/max.
+// stage_tile fills the tile for either.
 
 #pragma once
 
@@ -99,6 +101,47 @@ __device__ __forceinline__ float fast_score(const float (*s)[IW], int cy, int cx
         dark = fminf(dark, fmaxf(fmaxf(mx3[i], mx3[(i + 3) & 15]), mx3[(i + 6) & 15]));
     }
     return fmaxf(bright, -dark);
+}
+
+// A pixel as its tile holds it: pack_pm for fast_score_u8, f32 for fast_score.
+__device__ __forceinline__ uint32_t stage_px(uint8_t v) { return pack_pm(v); }
+__device__ __forceinline__ float stage_px(float v) { return v; }
+
+// Stage the IH x IW tile of the image `src` [H, W] whose top-left pixel is
+// (y_org, x_org) into `s`, each pixel as stage_px gives it; outside the
+// image reads as 0. For a block of BX x BY threads and IW - BX extra
+// columns: thread (tx, ty) loads column tx of rows ty + BY * k, and the
+// extra columns go to the first (IW - BX) * IH threads. Every load of a
+// thread is issued before its first store, so their latencies overlap.
+// Offsets are int: the caller keeps H * W < 2^31. Call __syncthreads()
+// before reading the tile.
+template <int IH, int IW, int BX, int BY, typename T, typename S>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ src, S (*s)[IW], int H, int W,
+                                           int y_org, int x_org) {
+    constexpr int ROWS = (IH + BY - 1) / BY;
+    constexpr int EXTRA = IW - BX;
+    static_assert(EXTRA >= 0 && EXTRA * IH <= BX * BY, "one extra pixel per thread at most");
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int tid = ty * BX + tx;
+    const int gx = x_org + tx;
+    const int ex_ly = tid / EXTRA, ex_lx = BX + tid % EXTRA;   // by constants
+    const int gx_ex = x_org + ex_lx, gy_ex = y_org + ex_ly;
+    T v[ROWS];
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+        const int ly = ty + BY * k, gy = y_org + ly;
+        v[k] = (ly < IH && (unsigned)gx < (unsigned)W && (unsigned)gy < (unsigned)H)
+                   ? src[gy * W + gx] : T(0);
+    }
+    const bool ex = tid < EXTRA * IH;
+    const T v_ex = (ex && (unsigned)gx_ex < (unsigned)W && (unsigned)gy_ex < (unsigned)H)
+                       ? src[gy_ex * W + gx_ex] : T(0);
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+        const int ly = ty + BY * k;
+        if (ly < IH) s[ly][tx] = stage_px(v[k]);
+    }
+    if (ex) s[ex_ly][ex_lx] = stage_px(v_ex);
 }
 
 }  // namespace srba

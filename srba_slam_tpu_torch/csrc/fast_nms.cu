@@ -59,9 +59,7 @@ constexpr int SH = TH + 2 * NR;      // 36 = BY * 9 score rows
 constexpr int IW = SW + 2 * CR;      // staged image tile (134 x 42)
 constexpr int IH = SH + 2 * CR;
 constexpr int ROWS = SH / BY;        // score rows per thread
-constexpr int STAGE_ROWS = (IH + BY - 1) / BY;
 static_assert(SH % BY == 0, "score rows must split evenly over the threads");
-static_assert((IW - BX) * IH <= BX * BY, "one extra staged pixel per thread at most");
 
 template <typename S>
 union Staging {
@@ -74,11 +72,7 @@ __global__ void __launch_bounds__(BX * BY, 2)
 fast_nms_kernel(const T* __restrict__ img, float* __restrict__ out, int H, int W,
                 float th, int margin, float eps) {
     constexpr bool kU8 = std::is_same<T, uint8_t>::value;
-    using S = typename std::conditional<kU8, uint32_t, float>::type;
-    auto stage = [](T v) -> S {
-        if constexpr (kU8) return srba::pack_pm(v);
-        else return v;
-    };
+    using S = decltype(srba::stage_px(T()));
     __shared__ Staging<S> s_buf;
     __shared__ float s_key[SH][SW];
 
@@ -89,31 +83,8 @@ fast_nms_kernel(const T* __restrict__ img, float* __restrict__ out, int H, int W
     const T* src = img + (size_t)n * H * W;
 
     // 1. stage the tile plus halo; outside the image reads as 0 (only
-    //    pixels within 3 px of a border see it, and the margin zeroes them).
-    //    Thread (tx, ty) loads column tx of rows ty + BY * k; the 6 columns
-    //    beyond the 128 threads go to the first 6 * IH threads. Every load
-    //    is issued before the first store, so their latencies overlap.
-    const int tid = ty * BX + tx;
-    const int gx_main = x0 - NR - CR + tx;
-    const int ex_ly = tid / (IW - BX), ex_lx = BX + tid % (IW - BX);  // by constants
-    const int gx_ex = x0 - NR - CR + ex_lx, gy_ex = y0 - NR - CR + ex_ly;
-    T v[STAGE_ROWS];
-#pragma unroll
-    for (int k = 0; k < STAGE_ROWS; ++k) {
-        const int ly = ty + BY * k, gy = y0 - NR - CR + ly;
-        // int offsets: the wrapper keeps H * W < 2^31
-        v[k] = (ly < IH && (unsigned)gx_main < (unsigned)W && (unsigned)gy < (unsigned)H)
-                   ? src[gy * W + gx_main] : T(0);
-    }
-    const bool ex = tid < (IW - BX) * IH;
-    const T v_ex = (ex && (unsigned)gx_ex < (unsigned)W && (unsigned)gy_ex < (unsigned)H)
-                       ? src[gy_ex * W + gx_ex] : T(0);
-#pragma unroll
-    for (int k = 0; k < STAGE_ROWS; ++k) {
-        const int ly = ty + BY * k;
-        if (ly < IH) s_buf.img[ly][tx] = stage(v[k]);
-    }
-    if (ex) s_buf.img[ex_ly][ex_lx] = stage(v_ex);
+    //    pixels within 3 px of a border see it, and the margin zeroes them)
+    srba::stage_tile<IH, IW, BX, BY>(src, s_buf.img, H, W, y0 - NR - CR, x0 - NR - CR);
     __syncthreads();
 
     // 2. score, threshold, margin and key of the thread's score pixels

@@ -10,65 +10,93 @@
 // TPU kernel rolls its lanes at the row ends; the margin masks that wrap, as
 // it masks this kernel's zero-filled halo.
 //
-// What bounds it on an H100: bytes and launch cost. One 370x1226 image reads
-// 0.45 MB of uint8 (1.8 MB of f32) and writes 1.8 MB of f32: about 1 us at
-// 3.35 TB/s, below the cost of the launch.
+// What bounds it on an H100: by its bytes, little. One 370x1226 image reads
+// 0.45 MB of uint8 (1.8 MB of f32) and writes 1.8 MB of f32: 0.68 us at
+// 3.35 TB/s for uint8; four fifths of it is the output. The launch alone
+// takes about 1.2 us of device time, and scoring every pixel takes ~70
+// instructions a pixel even in DPX, so launch, staging latency and the
+// score's instruction issue are what bind (measured in PERF.md).
 //
-// What the design does about it: K1's tiling without the NMS pass. One block
-// per 32x32 output tile stages the tile plus the 3-pixel circle halo in
-// shared memory once, reading the frame's own dtype (a uint8 value equals its
-// f32 cast), and writes each output pixel once.
+// What the design does about it (K1's, fast_nms.cu, without the NMS):
+// - uint8 frames score in DPX instructions on packed int16 pairs
+//   (fast_circle.cuh fast_score_u8), 40 three-way min/max a pixel, bit for
+//   bit the f32 score; f32 frames keep the f32 fast_score.
+// - One block of 128 x 4 threads per 128 x 32 output tile: each thread owns
+//   one column of the tile and every 4th row of it, so all threads do the
+//   same work, no index is divided, and each warp writes one row of 32
+//   floats (128 bytes) at a time.
+// - The tile plus its 3-px circle halo (134 x 38) is staged in shared
+//   memory once (fast_circle.cuh stage_tile, as K1 stages), from the
+//   frame's own bytes, every load of a thread issued before its first store.
+// - 32-row tiles: one 370x1226 image is 10 x 12 = 120 blocks, one an SM;
+//   a stereo pair 240, two an SM. Both shapes run in one wave. On an H100
+//   16-row tiles (twice the blocks, 1.38x the staged rows against 1.19x)
+//   were slower at both shapes, as were blocks of 128 x 2 and 128 x 8
+//   threads, and persistent blocks that load the next tile while scoring
+//   the current one (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "fast_circle.cuh"
 
 namespace {
 
-constexpr int TW = 32;               // output tile width
-constexpr int TH = 32;               // output tile height
 constexpr int CR = 3;                // FAST circle radius = halo
-constexpr int IW = TW + 2 * CR;      // staged image tile
+constexpr int BX = 128;              // threads along x = output tile width
+constexpr int BY = 4;                // threads along y
+constexpr int TW = BX;
+constexpr int TH = 32;               // output tile height
+constexpr int IW = TW + 2 * CR;      // staged tile (134 x 38)
 constexpr int IH = TH + 2 * CR;
+constexpr int ROWS = TH / BY;        // output rows per thread
+static_assert(TH % BY == 0, "output rows must split evenly over the threads");
 
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(BX * BY, 2)
 fast_score_kernel(const T* __restrict__ img, float* __restrict__ out, int H, int W,
                   float th, int margin) {
-    __shared__ float s_img[IH][IW];
+    using S = decltype(srba::stage_px(T()));
+    __shared__ S s_img[IH][IW];
 
     const int n = blockIdx.z;
     const int x0 = blockIdx.x * TW;
     const int y0 = blockIdx.y * TH;
+    const int tx = threadIdx.x, ty = threadIdx.y;
     const T* src = img + (size_t)n * H * W;
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    const int nthr = blockDim.x * blockDim.y;
+    float* dst = out + (size_t)n * H * W;
 
     // 1. stage the tile plus halo; outside the image reads as 0 (only pixels
     //    within 3 px of a border see it, and the margin zeroes them)
-    for (int i = tid; i < IH * IW; i += nthr) {
-        const int ly = i / IW, lx = i % IW;
-        const int gy = y0 - CR + ly, gx = x0 - CR + lx;
-        float v = 0.f;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = (float)src[(size_t)gy * W + gx];
-        s_img[ly][lx] = v;
-    }
+    srba::stage_tile<IH, IW, BX, BY>(src, s_img, H, W, y0 - CR, x0 - CR);
     __syncthreads();
 
-    // 2. score, threshold and margin of every output pixel
-    for (int i = tid; i < TH * TW; i += nthr) {
-        const int ty = i / TW, tx = i % TW;
-        const int gy = y0 + ty, gx = x0 + tx;
-        if (gy >= H || gx >= W) continue;
-        float score = 0.f;
-        if (gy >= margin && gy < H - margin && gx >= margin && gx < W - margin) {
-            score = srba::fast_score<IW>(s_img, ty + CR, tx + CR);
-            if (!(score > th)) score = 0.f;
+    // 2. score, threshold and margin of the thread's pixels (column tx, rows
+    //    ty + BY * i), each written once; int offsets (H * W < 2^31)
+    const int gx = x0 + tx;
+    if (gx >= W) return;
+    const bool col_inner = gx >= margin && gx < W - margin;
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+        const int ly = ty + BY * i;
+        const int gy = y0 + ly;
+        if (gy >= H) break;
+        float s;
+        if constexpr (std::is_same<T, uint8_t>::value) {
+            s = srba::fast_score_u8<IW>(s_img, ly + CR, tx + CR);
+        } else {
+            s = srba::fast_score<IW>(s_img, ly + CR, tx + CR);
         }
-        out[((size_t)n * H + gy) * W + gx] = score;
+        const bool inner = col_inner && gy >= margin && gy < H - margin;
+        dst[gy * W + gx] = (inner && s > th) ? s : 0.f;
     }
 }
+
+// Does nothing: the device time of a launch alone, at any grid and block
+// (utils/kernel_timing.py launch_floor_ms).
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -77,7 +105,7 @@ fast_score_kernel(const T* __restrict__ img, float* __restrict__ out, int H, int
 // cudaGetLastError() of the launch.
 extern "C" int srba_fast_score(const void* img, int img_is_u8, float* out, int n, int h, int w,
                                float th, int margin, void* stream) {
-    const dim3 block(32, 8);
+    const dim3 block(BX, BY);
     const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
     cudaStream_t s = (cudaStream_t)stream;
     if (img_is_u8) {
@@ -85,5 +113,12 @@ extern "C" int srba_fast_score(const void* img, int img_is_u8, float* out, int n
     } else {
         fast_score_kernel<float><<<grid, block, 0, s>>>((const float*)img, out, h, w, th, margin);
     }
+    return (int)cudaGetLastError();
+}
+
+// Launches the empty kernel on a grid gx x gy x gz of bx x by x bz blocks;
+// returns cudaGetLastError() of the launch.
+extern "C" int srba_empty_launch(int gx, int gy, int gz, int bx, int by, int bz, void* stream) {
+    empty_kernel<<<dim3(gx, gy, gz), dim3(bx, by, bz), 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }

@@ -100,5 +100,7 @@ def load() -> ctypes.CDLL:
         lib.srba_orb_describe.restype = ci
         lib.srba_fast_score.argtypes = [vp, ci, vp, ci, ci, ci, cf, ci, vp]
         lib.srba_fast_score.restype = ci
+        lib.srba_empty_launch.argtypes = [ci, ci, ci, ci, ci, ci, vp]
+        lib.srba_empty_launch.restype = ci
         _lib = lib
     return _lib

@@ -154,6 +154,18 @@ def orb_descriptors(imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
 orb_descriptors.launches = 0
 
 
+_FAST_SCORE_TILE = (32, 128)       # csrc/fast_score.cu: output rows x columns a block
+_FAST_SCORE_BLOCK = (128, 4, 1)    # its threads
+
+
+def fast_score_launch(n: int, h: int, w: int):
+    """K3's (grid, block) for ``n`` images of ``h`` x ``w``: one block per
+    32 x 128 output tile (a 370x1226 image: 120 blocks, one an SM of an
+    H100; a stereo pair: 240)."""
+    th, tw = _FAST_SCORE_TILE
+    return (-(-w // tw), -(-h // th), n), _FAST_SCORE_BLOCK
+
+
 def fast_score_map(imgs: torch.Tensor, threshold: float, margin: int = 16) -> torch.Tensor:
     """FAST-9/16 score maps f32 of ``imgs`` [H, W] or [N, H, W] (uint8 or
     float32), the shape of ``imgs``: the score where it exceeds
@@ -172,6 +184,8 @@ def fast_score_map(imgs: torch.Tensor, threshold: float, margin: int = 16) -> to
     if imgs.device.type != "cuda":
         raise ValueError(f"imgs: unsupported device {imgs.device}")
     n, h, w = imgs.shape if imgs.dim() == 3 else (1, *imgs.shape)
+    if h * w >= 1 << 31:
+        raise ValueError(f"image of {h}x{w} pixels overflows the kernel's int32 index")
     out = torch.empty(imgs.shape, dtype=torch.float32, device=imgs.device)
     if out.numel() == 0:
         return out

@@ -4,9 +4,12 @@
 replays it between two CUDA events, so the time is the card's alone: the
 wrapper's host work (checks, ``torch.empty``, the ctypes call) runs once, at
 capture. ``profiler_kernel_us`` reads the same kernel's duration from
-``torch.profiler`` as a cross-check. ``bound_ms`` is the least time the card
-could take for given bytes and f32 operations, at the published peaks of an
-H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores).
+``torch.profiler`` as a cross-check. ``launch_floor_ms`` is ``graph_ms`` of
+an empty kernel (``csrc/fast_score.cu`` ``empty_kernel``) at a given grid
+and block: what the launch alone costs the card. ``bound_ms`` is the least
+time the card could take for given bytes and f32 operations, at the
+published peaks of an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the
+tensor cores).
 
 Nothing here runs at import; every function needs a CUDA card.
 """
@@ -16,6 +19,8 @@ from __future__ import annotations
 import statistics
 
 import torch
+
+from srba_slam_tpu_torch.ops import cuda_build
 
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
@@ -57,6 +62,19 @@ def graph_ms(fn, reps: int = 100, replays: int = 5) -> float:
         times.append(start.elapsed_time(end) / reps)
     del graph
     return statistics.median(times)
+
+
+def launch_floor_ms(grid: tuple[int, int, int], block: tuple[int, int, int]) -> float:
+    """Device ms of one launch of an empty kernel on ``grid`` blocks of
+    ``block`` threads, captured and replayed as ``graph_ms`` does."""
+    lib = cuda_build.load()
+
+    def launch():
+        code = lib.srba_empty_launch(*grid, *block, torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"empty kernel launch failed: cudaError {code}")
+
+    return graph_ms(launch)
 
 
 def profile_calls(fn, reps: int = 1):

@@ -22,6 +22,7 @@ from srba_slam_tpu_torch import (
 from srba_slam_tpu_torch.ops import hopper_fast
 from srba_slam_tpu_torch.ops.fast import fast_score_map as fast_score_map_plain
 from srba_slam_tpu_torch.ops.nms import grid_topk
+from srba_slam_tpu_torch.utils import bench_workload
 from srba_slam_tpu_torch.utils.bench_workload import decisions
 from srba_slam_tpu_torch.utils.framesource import SyntheticSource
 from srba_slam_tpu_torch.utils.synthworld import PlaneScene
@@ -141,16 +142,62 @@ SMALL_CAM = dict(fx_l=180.0, fy_l=180.0, cx_l=160.0, cy_l=100.0, fx_r=180.0, fy_
                  cx_r=160.0, cy_r=100.0, baseline=0.54, width=320, height=200)
 
 
+@pytest.fixture(scope="module")
+def street_pair():
+    """Frame 0 of the bench workload's street scene, [2, 370, 1226] uint8."""
+    left, right = next(iter(SyntheticSource(StereoCamera.kitti(), **bench_workload.SOURCE)))
+    return torch.from_numpy(np.stack([left, right]))
+
+
+def _k3_images(kind, shape, street, rng):
+    """(uint8 images of ``shape``, threshold)."""
+    n, h, w = (1, *shape) if len(shape) == 2 else shape
+    if kind == "street":                # textured crops of the rendered pair
+        frames = torch.cat([street, street.flip(-1)])[:n]
+        y0, x0 = (370 - h) // 2, (1226 - w) // 3
+        imgs, th = frames[:, y0:y0 + h, x0:x0 + w].numpy(), 20.0
+    elif kind == "plateau":             # scores are multiples of 30: score == th occurs
+        imgs, th = rng.integers(0, 8, (n, h, w)) * 30, 30.0
+    elif kind == "noise":
+        imgs, th = rng.integers(0, 256, (n, h, w)), 12.0
+    elif kind == "negative_th":         # negative scores are kept
+        imgs, th = rng.integers(0, 256, (n, h, w)), -3.0
+    else:
+        raise ValueError(kind)
+    return torch.from_numpy(np.asarray(imgs, np.uint8).reshape(shape)), th
+
+
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
-def test_fast_score_kernel_matches_plain(cuda, dtype):
-    rng = np.random.default_rng(2)
-    for shape, th in (((200, 320), 12.0), ((123, 300), 8.0), ((2, 370, 1226), 20.0)):
-        imgs = torch.from_numpy(rng.integers(0, 8, shape) * 30).to(dtype).to(cuda)
-        before = hopper_fast.fast_score_map.launches
-        got = hopper_fast.fast_score_map(imgs, th)
-        assert hopper_fast.fast_score_map.launches == before + 1
-        assert got.shape == imgs.shape
-        assert torch.equal(got, fast_score_map_plain(imgs, th))
+@pytest.mark.parametrize("kind", ["street", "plateau", "noise", "negative_th"])
+@pytest.mark.parametrize("margin", [3, 4, 16, "over_half"])
+@pytest.mark.parametrize("shape", [(9, 140), (123, 300), (1, 61, 257), (2, 370, 1226),
+                                   (3, 123, 300)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fast_score_kernel_matches_plain(cuda, street_pair, dtype, kind, margin, shape, offset):
+    """K3 on both routes (uint8 in DPX, f32), shapes that are no multiple of
+    the 32x128 tile and one smaller than a tile, the least margins, one past
+    half the image (an all-zero map), and with ``offset`` 1 a batch whose
+    storage starts one element past an aligned address. f32 frames of noise
+    carry a fraction."""
+    rng = np.random.default_rng(len(shape) * 100 + offset)
+    imgs, th = _k3_images(kind, shape, street_pair, rng)
+    if dtype == torch.float32:
+        imgs = imgs.float()
+        if kind in ("noise", "negative_th"):
+            imgs += torch.from_numpy(rng.random(shape).astype(np.float32))
+    if margin == "over_half":
+        margin = min(shape[-2:]) // 2 + 1
+    buf = torch.zeros(imgs.numel() + offset, dtype=dtype, device=cuda)
+    buf[offset:] = imgs.flatten().to(cuda)
+    imgs = buf[offset:].view(shape)
+    before = hopper_fast.fast_score_map.launches
+    got = hopper_fast.fast_score_map(imgs, th, margin=margin)
+    assert hopper_fast.fast_score_map.launches == before + 1
+    assert got.shape == imgs.shape and got.dtype == torch.float32
+    ref = fast_score_map_plain(imgs, th, margin=margin)
+    assert torch.equal(got, ref)
+    if 2 * margin >= min(shape[-2:]):
+        assert not ref.any()
 
 
 def test_vo_engine_cuda_matches_cpu(cuda):

@@ -9,13 +9,16 @@ against the plain version on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from srba_slam_tpu.ops.pallas_fast import fast_score_map_pallas
-from srba_slam_tpu_torch.ops import hopper_fast
+from srba_slam_tpu_torch.ops import cuda_build, hopper_fast
 from srba_slam_tpu_torch.ops.fast import fast_score_map
 
 # one CPU thread per test process: the ops here are small, and the parallel
@@ -50,6 +53,38 @@ def test_wrapper_takes_uint8_and_batches_on_the_cpu():
         ref = np.asarray(fast_score_map_pallas(jnp.asarray(imgs[i]), 8.0, margin=16,
                                                tile_h=32, interpret=True))
         np.testing.assert_array_equal(got[i].numpy(), ref)
+
+
+@pytest.mark.parametrize("margin", [3, 4])
+def test_least_margins_on_a_batch_match_pallas(margin):
+    """The margins that leave the circle of an inner pixel touching the
+    border, on a [3, H, W] uint8 batch (each image through the Pallas
+    kernel on its own)."""
+    rng = np.random.default_rng(margin)
+    imgs = rng.integers(0, 256, (3, 40, 150)).astype(np.uint8)
+    imgs[1] = imgs[1] // 30 * 30                    # a plateau: score == th occurs
+    got = hopper_fast.fast_score_map(torch.from_numpy(imgs), 30.0, margin=margin).numpy()
+    for i in range(3):
+        ref = np.asarray(fast_score_map_pallas(jnp.asarray(imgs[i]), 30.0, margin=margin,
+                                               tile_h=32, interpret=True))
+        np.testing.assert_array_equal(got[i], ref)
+        assert ref[margin].any() and not ref[margin - 1].any()
+
+
+@pytest.mark.parametrize("n,h,w,grid", [
+    (1, 370, 1226, (10, 12, 1)),          # one KITTI image: 120 blocks, one an SM
+    (2, 370, 1226, (10, 12, 2)),          # a stereo pair: 240, two an SM
+    (1, 9, 140, (2, 1, 1)),               # smaller than one tile
+])
+def test_kernel_launch_is_the_sources(n, h, w, grid):
+    """K3's grid, as chip_smoke.py times the launch floor at it, from the
+    tile and block that csrc/fast_score.cu is built for."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "fast_score.cu")) as f:
+        src = f.read()
+    const = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+             for k in ("BX", "BY", "TH")}
+    assert hopper_fast.fast_score_launch(n, h, w) == (grid, (const["BX"], const["BY"], 1))
+    assert -(-h // const["TH"]) == grid[1] and -(-w // const["BX"]) == grid[0]
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
