@@ -33,8 +33,11 @@ not 0 (there is no CPU fallback):
                (f32, threshold 20) and an odd-size 123x300 image; then timed
                on the street left image and on the street pair, each beside
                the launch floor (an empty kernel at K3's grid and block), and
-               on the pair beside K1's device time from phase 3. No path of
-               the estimator calls K3 (none of the JAX package does either);
+               on the pair beside K1's device time from phase 3. The
+               estimator's default margin of 16 never reaches K3, and no
+               config key or CLI flag sets the margin: ``margin`` is an
+               argument of the library's ``extract_and_match`` only, and
+               the margin-3 frontend of phase 8 is what launches K3;
 7. estimator - ``SRBAStereoSLAMEstimator`` on the card over the 81-frame
                bench workload, under ``torch.use_deterministic_algorithms``,
                then ``finalize``. K1 and K2 launch once per VO pass (the
@@ -46,9 +49,41 @@ not 0 (there is no CPU fallback):
                1e-4 rad / 1e-3 m; the aligned ATE of the final keyframe poses
                is under 0.5 m (the JAX package's gate,
                tests/test_kitti_geometry_ate.py); the four output files exist;
-               ``gauss_blur7`` never runs on a CUDA tensor (K2 blurs inside).
+               ``gauss_blur7`` never runs on a CUDA tensor (K2 blurs inside);
+8. options   - the frontend's options at KITTI geometry: (a) K1, K2 and K3
+               (margins 3, 2 and 0: under 3 the circle wraps at the borders)
+               ``torch.equal`` to their plain versions on the f32
+               octave-1 and octave-2 images of the street pair (in quarters
+               and sixteenths) and on a rendered 752x480 pair remapped with
+               the EuRoC demo's distortion rows, K2 at the per-octave K of
+               two and three levels and at keypoints 3-15 px from a border,
+               each timed device-only beside its bytes bound; (b)
+               ``extract_and_match`` with ``n_levels=2``, with ``rect_maps``,
+               with ``margin=3``, ``margin=2`` and with ``oriented=True``: the card's
+               FrameFeatures equal the CPU path's on every integer field,
+               ``pts3d`` within 1e-4 (oriented: keypoints equal; descriptor
+               rows that differ, from the last bit of an angle, are counted
+               and held under 2%); then the margin-3 frontend over the 30
+               slice frames, the path that launches K3; (c) the VO engine
+               over the 30 frames at ``n_octaves=2``: K1 and K2 twice a
+               frame, all frames valid, the translation error inside phase
+               5's gate, per-frame median ms beside phase 5's;
+9. cli       - ``python -m srba_slam_tpu_torch``'s ``main`` in this process on
+               the card with ``demo/config_euroc_example.ini`` (752x480,
+               unrectified: the remap in front of K1 and K2) over
+               ``--synthetic 60``: exit code 0, the seven output files, one
+               pose row per keyframe, K1 and K2 at least once per frame.
+               Then ``--synthetic 30 --checkpoint``, and the checkpoint
+               resumed into a fresh estimator on the card and one on the
+               CPU: both step frames 30-59 to equal keyframe decisions. With
+               PIL present, 10 rendered pairs go to PNG files and the CLI
+               reads them through whichever loader builds.
 
-Then one JSON line with, per kernel: its launches in the estimator run; its
+Then one JSON line with, per kernel: its launches over the driven paths
+(``launches_by_path``: the estimator run, the margin-3 frontend, the
+two-octave engine and the CLI run, each counted from 0;
+``on_main_path`` says whether one of the paths a user of the entry points
+can reach, all but the margin-3 frontend, launched it); its
 largest error against the plain version; ``ms`` and ``plain_ms``, the time
 of one call of the wrapper and of the plain version (CUDA events around the
 call, so the wrapper's host work is included; median of 20); ``device_ms``,
@@ -71,8 +106,11 @@ import os
 # cuBLAS is deterministic only with a fixed workspace; set before CUDA starts
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import contextlib  # noqa: E402
 import hashlib  # noqa: E402
+import io  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -82,18 +120,23 @@ import time  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from srba_slam_tpu_torch import StereoCamera, StereoVOEngine, VOOptions  # noqa: E402
+from srba_slam_tpu_torch import (  # noqa: E402
+    SRBAStereoSLAMEstimator, StereoCamera, StereoVOEngine, VOOptions, load_config,
+)
+from srba_slam_tpu_torch.__main__ import main as cli_main  # noqa: E402
 from srba_slam_tpu_torch.models.estimator import bench_estimator  # noqa: E402
-from srba_slam_tpu_torch.models.vo import extract_and_match  # noqa: E402
+from srba_slam_tpu_torch.models.vo import _avgpool2, _octave_budget, extract_and_match  # noqa: E402
 from srba_slam_tpu_torch.ops import cuda_build, hopper_fast, orb  # noqa: E402
 from srba_slam_tpu_torch.ops.fast import fast_score_map as fast_score_map_plain  # noqa: E402
 from srba_slam_tpu_torch.ops.hopper_fast import (  # noqa: E402
     fast_nms, fast_nms_plain, fast_score_map, orb_descriptors, orb_descriptors_plain,
 )
-from srba_slam_tpu_torch.ops.nms import grid_topk  # noqa: E402
+from srba_slam_tpu_torch.ops.nms import grid_topk, local_max_suppress  # noqa: E402
+from srba_slam_tpu_torch.ops.rectify import build_maps, remap_bilinear  # noqa: E402
 from srba_slam_tpu_torch.utils import bench_workload as bw  # noqa: E402
 from srba_slam_tpu_torch.utils import kernel_timing as kt  # noqa: E402
 from srba_slam_tpu_torch.utils import se3_np  # noqa: E402
+from srba_slam_tpu_torch.utils.checkpoint import load_state  # noqa: E402
 from srba_slam_tpu_torch.utils.evaluation import ate_rmse  # noqa: E402
 from srba_slam_tpu_torch.utils.framesource import SyntheticSource  # noqa: E402
 
@@ -105,6 +148,15 @@ POSE_TOL_M = 1e-3
 ATE_GATE_M = 0.5
 TIMING_REPS = 20
 OUTPUT_FILES = ("out_kf_poses.txt", "time_new_kf.txt", "profiler.csv", "final_graph.dot")
+CLI_FILES = (*OUTPUT_FILES, "kf_frames.txt", "final_global_path.ply", "map_viewer.html")
+EUROC_INI = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demo",
+                         "config_euroc_example.ini")
+N_CLI_FRAMES = 60
+N_RESUME_AT = 30
+# the paths a user of the entry points can reach (phase_options' margin-3
+# frontend is reached through the library's extract_and_match only)
+USER_PATHS = ("estimator", "two_octave_engine", "cli")
+ORIENTED_ROWS_TOL = 0.02
 PALLAS = "srba_slam_tpu/ops/pallas_fast.py"
 # f32 operations per pixel that the FAST score needs on given inputs (see
 # _fast_work): none within the margin, where the output is 0; 21 for an
@@ -284,7 +336,7 @@ def _orb_work(imgs, ys, xs, valid) -> tuple[int, int, int, int]:
 def phase_k2(frames) -> dict:
     street = torch.from_numpy(np.stack(frames[0])).to(DEV)
     ys, xs, _sc, valid = grid_topk(fast_nms(street, 20.0), cell=5, k=512)
-    got = orb_descriptors(street, ys, xs, valid, margin=16)
+    got = orb_descriptors(street, ys, xs, valid)
     ref = orb_descriptors_plain(street, ys, xs, valid)
     sync()
     err = float((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
@@ -293,7 +345,7 @@ def phase_k2(frames) -> dict:
     check(n_valid > 0 and bool((got[valid] != 0).any()), "K2: no valid keypoint has bits set")
     n_points, n_support, n_bytes, n_ops = _orb_work(street, ys, xs, valid)
     times = _times("orb_describe_kernel",
-                   lambda: orb_descriptors(street, ys, xs, valid, margin=16),
+                   lambda: orb_descriptors(street, ys, xs, valid),
                    lambda: orb_descriptors_plain(street, ys, xs, valid), n_bytes, n_ops)
     print(f"[K2 orb_descriptors] blur fused in; bit-exact at {tuple(got.shape)}, {n_valid} valid "
           f"keypoints | {n_points} distinct sampled points, {n_support} distinct frame pixels "
@@ -408,6 +460,7 @@ def phase_slice(cam, frames, gt_poses):
     path = float(np.sum(np.linalg.norm(np.diff(gt_poses[:len(frames), 3:], axis=0), axis=1)))
     check(t_err < 0.05 * path, f"translation error {t_err} m over a {path} m path")
     front = _frontend_profile(cam, *frames[0])
+    slice_ms = statistics.median(ms)
     print(f"[slice] {len(frames)} frames 370x1226 on CUDA: per-frame median "
           f"{statistics.median(ms):.3f} ms, p95 {p95(ms):.3f} ms, first {ms[0]:.3f} ms | "
           f"launches {counts} | first {N_CPU_FRAMES} frames match the CPU path | "
@@ -418,6 +471,7 @@ def phase_slice(cam, frames, gt_poses):
           f"torch.profiler: {front['launches']} kernel launches, device "
           f"{front['device_us']:.1f} us, of which K1 {front['fast_nms_kernel']:.1f} us and "
           f"K2 {front['orb_describe_kernel']:.1f} us (the blur inside K2)")
+    return slice_ms
 
 
 def _frontend_profile(cam, left, right) -> dict:
@@ -600,6 +654,264 @@ def _profile_estimator(frames):
                       for e in top))
 
 
+def _px_bound_us(imgs) -> float:
+    """The bytes bound, in µs, of a kernel that reads ``imgs`` once and
+    writes one f32 a pixel."""
+    return kt.bound_ms(imgs.numel() * (imgs.element_size() + 4), 0.0)[0] * 1e3
+
+
+def _options_kernels(street, euroc_pair, euroc_maps) -> list[str]:
+    """Phase 8 (a): the kernels at the shapes and types the options give
+    them, each ``torch.equal`` to its plain version and timed device-only."""
+    o1 = _avgpool2(street.to(torch.float32))
+    o2 = _avgpool2(o1)
+    remapped = torch.stack([remap_bilinear(euroc_pair[i], euroc_maps[i]) for i in range(2)])
+    check(tuple(o1.shape) == (2, 185, 613) and tuple(o2.shape) == (2, 92, 306)
+          and tuple(remapped.shape) == (2, 480, 752), f"{o1.shape} {o2.shape} {remapped.shape}")
+    check(bool((o1 * 4 == torch.round(o1 * 4)).all()) and bool((o1 != torch.round(o1)).any()),
+          "the octave-1 image is not in quarters")
+    check(bool((remapped != torch.round(remapped)).any()), "the remapped pair is integer-valued")
+    k3, k2 = _octave_budget(370, 1226, 5, 512, 3), _octave_budget(370, 1226, 5, 512, 2)
+    lines = []
+    for name, imgs, ks in (("octave 1", o1, (k2[1], k3[1])), ("octave 2", o2, (k3[2],)),
+                           ("remapped EuRoC", remapped, (500,))):
+        check(imgs.dtype == torch.float32, f"{name}: {imgs.dtype}")
+        got, ref = fast_nms(imgs, 20.0), fast_nms_plain(imgs, 20.0)
+        check(torch.equal(got, ref), f"K1 differs from its plain version on {name}")
+        for margin in (0, 2, 3):
+            got3 = fast_score_map(imgs, 20.0, margin=margin)
+            check(torch.equal(got3, fast_score_map_plain(imgs, 20.0, margin=margin)),
+                  f"K3 (margin {margin}) differs from its plain version on {name}")
+        parts = [f"K1 {kt.graph_ms(lambda: fast_nms(imgs, 20.0)) * 1e3:.2f} us, K3 at margin 3 "
+                 f"{kt.graph_ms(lambda: fast_score_map(imgs, 20.0, margin=3)) * 1e3:.2f} us, at "
+                 f"margin 2 (the halo wrapped) "
+                 f"{kt.graph_ms(lambda: fast_score_map(imgs, 20.0, margin=2)) * 1e3:.2f} us "
+                 f"(bytes bound {_px_bound_us(imgs):.2f} us, launch floor "
+                 f"{kt.launch_floor_ms(*hopper_fast.fast_score_launch(*imgs.shape)) * 1e3:.2f} us), "
+                 f"{int((ref > 0).sum())} kept"]
+        near_total = 0
+        for k, scores in [(k, got) for k in ks] + [(ks[0], local_max_suppress(got3, radius=2))]:
+            ys, xs, _sc, valid = grid_topk(scores, cell=5, k=k)
+            d = orb_descriptors(imgs, ys, xs, valid)
+            check(torch.equal(d, orb_descriptors_plain(imgs, ys, xs, valid)),
+                  f"K2 differs from its plain version on {name} at K={k}")
+            h, w = imgs.shape[-2:]
+            near = valid & ((ys < 16) | (xs < 16) | (ys >= h - 16) | (xs >= w - 16))
+            if scores is got:
+                check(not bool(near.any()), f"{name}: a margin-16 keypoint near a border")
+                _pts, _sup, n_bytes, _ops = _orb_work(imgs, ys, xs, valid)
+                parts.append(f"K2 at K={k} ({int(valid.sum())} valid) "
+                             f"{kt.graph_ms(lambda: orb_descriptors(imgs, ys, xs, valid)) * 1e3:.2f}"
+                             f" us (bytes bound {kt.bound_ms(n_bytes, 0.0)[0] * 1e3:.3f} us)")
+            else:
+                near_total = int(near.sum())
+                check(near_total > 0, f"{name}: no margin-3 keypoint within 16 px of a border")
+        lines.append(f"{name} {tuple(imgs.shape)} f32: all equal | " + ", ".join(parts)
+                     + f" | K2 equal at {near_total} keypoints 3-15 px from a border")
+    return lines
+
+
+def _assert_same_features(a, b, what: str, oriented: bool = False):
+    """The card's FrameFeatures ``a`` against the CPU path's ``b``."""
+    check(torch.equal(a.octave.cpu(), b.octave), f"{what}: octaves differ")
+    diff = _int_fields_differing(a, b)
+    if not oriented:
+        check(not diff, f"{what}: FrameFeatures fields {diff} differ between CUDA and CPU")
+        err = float((a.pts3d.cpu() - b.pts3d).abs().max())
+        check(err <= 1e-4, f"{what}: pts3d differ by {err}")
+        return 0
+    bad = [n for n in diff if n in ("ys_l", "xs_l", "valid_l", "ys_r", "xs_r", "valid_r")]
+    check(not bad, f"{what}: keypoint fields {bad} differ between CUDA and CPU")
+    rows = sum(int((getattr(a, n).cpu() != getattr(b, n)).any(1).sum())
+               for n in ("desc_l", "desc_r"))
+    total = a.desc_l.shape[0] * 2
+    check(rows <= ORIENTED_ROWS_TOL * total, f"{what}: {rows} of {total} descriptor rows differ")
+    moved = int((a.m_valid.cpu() != b.m_valid).sum())
+    check(moved <= ORIENTED_ROWS_TOL * total, f"{what}: {moved} stereo matches differ")
+    return rows
+
+
+def _euroc_rig():
+    """The EuRoC demo rig: its camera, one rendered 752x480 pair on the
+    card, and its rectification maps on the card and on the CPU."""
+    _gen, opts, _vo = load_config(EUROC_INI)
+    cam = opts.camera
+    left, right = next(iter(SyntheticSource(cam, n_frames=1, step=0.5)))
+
+    def maps(device):
+        return (build_maps(cam.width, cam.height, cam.fx_l, cam.fy_l, cam.cx_l, cam.cy_l,
+                           dist=opts.camera_dist_l, device=device),
+                build_maps(cam.width, cam.height, cam.fx_r, cam.fy_r, cam.cx_r, cam.cy_r,
+                           dist=opts.camera_dist_r, device=device))
+
+    check(any(opts.camera_dist_l) and any(opts.camera_dist_r), "the demo rig has no distortion")
+    return cam, (left, right), maps(DEV), maps("cpu")
+
+
+def phase_options(cam, frames, gt_poses, slice_ms: float) -> dict:
+    street = torch.from_numpy(np.stack(frames[0])).to(DEV)
+    ecam, epair, emaps, emaps_cpu = _euroc_rig()
+    for line in _options_kernels(street, torch.from_numpy(np.stack(epair)).to(DEV), emaps):
+        print(f"[options kernels] {line}")
+
+    def frontend(device, pair=frames[0], c=cam, **kw):
+        return extract_and_match(*pair, c, 20.0, 60, k=512, device=device, **kw)
+
+    said = []
+    for what, kw_cuda, kw_cpu in (
+            ("n_levels=2", dict(n_levels=2), None), ("n_levels=3", dict(n_levels=3), None),
+            ("margin=3", dict(margin=3), None), ("margin=2", dict(margin=2), None),
+            ("rect_maps", dict(pair=epair, c=ecam, rect_maps=emaps),
+             dict(pair=epair, c=ecam, rect_maps=emaps_cpu)),
+            ("oriented", dict(oriented=True), None)):
+        a, b = frontend(DEV, **kw_cuda), frontend("cpu", **(kw_cpu or kw_cuda))
+        rows = _assert_same_features(a, b, what, oriented=what == "oriented")
+        said.append(f"{what}: {int(a.m_valid.sum())} stereo matches"
+                    + (f", {rows} of {2 * 512} descriptor rows differ" if what == "oriented"
+                       else ", equal"))
+    print(f"[options frontend] CUDA against the CPU path, street frame 0 (rect_maps: a rendered "
+          f"752x480 pair): {'; '.join(said)}")
+
+    _reset_launches()
+    for left, right in frames:
+        frontend(DEV, pair=(left, right), margin=3)
+    sync()
+    margin3 = _launches()
+    check(margin3 == {"fast_nms": 0, "orb_descriptors": len(frames),
+                      "fast_score_map": len(frames)},
+          f"margin-3 frontend over {len(frames)} frames launched {margin3}")
+
+    eng = StereoVOEngine(cam, VOOptions(fast_th=20, n_feats=500, n_octaves=2), capacity=512,
+                         device=DEV)
+    results, ms = [], []
+    _reset_launches()
+    for left, right in frames:
+        t0 = time.perf_counter()
+        results.append(eng.process_stereo_pair(left, right))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    octaves = _launches()
+    check(octaves == {"fast_nms": 2 * len(frames), "orb_descriptors": 2 * len(frames),
+                      "fast_score_map": 0}, f"two-octave engine launched {octaves}")
+    check(all(r.valid for r in results), "invalid VO frames at two octaves: "
+          f"{[i for i, r in enumerate(results) if not r.valid]}")
+    est = np.zeros(6)
+    for r in results[1:]:
+        est = se3_np.compose(est, se3_np.inverse(r.pose_increment.astype(np.float64)))
+    t_err = float(np.linalg.norm(est[3:] - gt_poses[len(frames) - 1][3:]))
+    path = float(np.sum(np.linalg.norm(np.diff(gt_poses[:len(frames), 3:], axis=0), axis=1)))
+    check(t_err < 0.05 * path, f"two octaves: translation error {t_err} m over {path} m")
+    n_oct1 = int((eng.last_frame().m_valid & (eng.last_frame().octave == 1)).sum())
+    med = statistics.median(ms)
+    print(f"[options engine] {len(frames)} frames 370x1226 at n_octaves=2 on CUDA: per-frame "
+          f"median {med:.3f} ms, p95 {p95(ms):.3f} ms ({med / slice_ms:.3f}x phase 5's "
+          f"{slice_ms:.3f} ms) | launches {octaves} | margin-3 frontend over the same frames: "
+          f"launches {margin3} | stereo matches median "
+          f"{int(np.median([r.num_stereo_matches for r in results]))} ({n_oct1} of the last "
+          f"frame's at octave 1), tracked median "
+          f"{int(np.median([r.tracked_from_last_frame for r in results[1:]]))} | translation "
+          f"error at frame {len(frames)}: {t_err:.4f} m over {path:.2f} m")
+    return {"margin3_frontend": margin3, "two_octave_engine": octaves}
+
+
+def _cli(args: list) -> tuple[int, str]:
+    """The port's ``main`` in this process; returns (exit code, stdout)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(args)
+    return rc, buf.getvalue()
+
+
+def _ini_copy(tmp: str, name: str, **subs) -> tuple[str, str]:
+    """The EuRoC demo config with ``out_dir`` under ``tmp``, quiet, and
+    ``subs`` replacing other keys."""
+    with open(EUROC_INI) as f:
+        txt = f.read()
+    out = os.path.join(tmp, name)
+    for key, val in dict(out_dir=out, verbose_level=0, **subs).items():
+        txt, n = re.subn(rf"(?m)^{key}\s*=.*$", lambda _m, k=key, v=val: f"{k} = {v}", txt)
+        check(n == 1, f"{EUROC_INI}: {n} lines set {key}")
+    path = os.path.join(tmp, name + ".ini")
+    with open(path, "w") as f:
+        f.write(txt)
+    return path, out
+
+
+def phase_cli() -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        ini, out = _ini_copy(tmp, "full")
+        _reset_launches()
+        t0 = time.perf_counter()
+        rc, said = _cli([ini, "--synthetic", str(N_CLI_FRAMES)])
+        sync()
+        wall = time.perf_counter() - t0
+        counts = _launches()
+        check(rc == 0, f"the CLI exited with {rc}: {said}")
+        m = re.search(r"(\d+) frames, (\d+) keyframes, ([0-9.]+) fps", said)
+        check(m is not None and int(m.group(1)) == N_CLI_FRAMES, f"the CLI said: {said}")
+        n_kfs, fps = int(m.group(2)), float(m.group(3))
+        check(f"backend: cuda ({torch.cuda.get_device_name(0)})" in said, f"backend line: {said}")
+        sizes = {f: os.path.getsize(os.path.join(out, f)) for f in CLI_FILES
+                 if os.path.exists(os.path.join(out, f))}
+        check(len(sizes) == len(CLI_FILES) and all(sizes.values()),
+              f"the CLI wrote {sizes}, expected non-empty {CLI_FILES}")
+        with open(os.path.join(out, "out_kf_poses.txt")) as f:
+            rows = f.read().splitlines()
+        check(len(rows) == n_kfs >= 3, f"{len(rows)} pose rows for {n_kfs} keyframes")
+        check(np.isfinite(np.loadtxt(os.path.join(out, "out_kf_poses.txt"))).all(),
+              "out_kf_poses.txt holds a non-finite pose")
+        check(counts["fast_nms"] >= N_CLI_FRAMES and counts["orb_descriptors"] >= N_CLI_FRAMES,
+              f"the CLI run launched {counts} over {N_CLI_FRAMES} frames")
+
+        # checkpoint at frame 30, then the same continuation on the card and on the CPU
+        ckpt = os.path.join(tmp, "s.npz")
+        ini2, _ = _ini_copy(tmp, "half")
+        rc, said2 = _cli([ini2, "--synthetic", str(N_RESUME_AT), "--checkpoint", ckpt])
+        check(rc == 0 and os.path.getsize(ckpt) > 0, f"the checkpoint run exited with {rc}: {said2}")
+        cont = {}
+        for device in (DEV, "cpu"):
+            est = SRBAStereoSLAMEstimator.from_config(ini2, device=device)
+            est.initialize()
+            load_state(est, ckpt)
+            check(est.frame_idx == N_RESUME_AT - 1 and est.store.n_kfs >= 2,
+                  f"resumed at frame {est.frame_idx} with {est.store.n_kfs} keyframes")
+            tail = list(SyntheticSource(est.cam, n_frames=N_CLI_FRAMES, step=0.5))[N_RESUME_AT:]
+            for left, right in tail:
+                est.step(left, right)
+            cont[device] = (bw.decisions(est.step_log), est.store.n_kfs)
+        check(cont[DEV] == cont["cpu"], "after the resume the card's keyframe decisions differ "
+              "from the CPU path's")
+        check(any(d[2] is not None for d in cont[DEV][0]),
+              "no keyframe was inserted after the resume")
+
+        png = "image-dir run skipped: no PIL"
+        try:
+            from PIL import Image
+        except ImportError:
+            Image = None
+        if Image is not None:
+            img_dir = os.path.join(tmp, "seq")
+            os.makedirs(img_dir)
+            cam = load_config(EUROC_INI)[1].camera
+            for i, (left, right) in enumerate(SyntheticSource(cam, n_frames=10, step=0.5)):
+                Image.fromarray(left).save(os.path.join(img_dir, f"cam0_{i:06d}.png"))
+                Image.fromarray(right).save(os.path.join(img_dir, f"cam1_{i:06d}.png"))
+            ini3, _out3 = _ini_copy(tmp, "png", image_dir_url=img_dir)
+            rc, said3 = _cli([ini3])
+            loader = re.search(r"frame loader: (\w+)", said3)
+            check(rc == 0 and loader is not None and "10 frames" in said3,
+                  f"the image-directory run exited with {rc}: {said3}")
+            png = f"10 PNG pairs through {loader.group(1)}"
+    print(f"[cli] {png}")
+    print(f"[cli] main() on CUDA, {os.path.basename(EUROC_INI)} (752x480, unrectified) over "
+          f"--synthetic {N_CLI_FRAMES}: exit 0, {N_CLI_FRAMES} frames, {n_kfs} keyframes, "
+          f"{fps:.2f} fps (its own clock; {wall:.3f} s with set-up and the output files) | "
+          f"launches {counts} | files {sizes} | checkpoint at frame {N_RESUME_AT} resumed on "
+          f"CUDA and on the CPU: frames {N_RESUME_AT}-{N_CLI_FRAMES - 1} to equal decisions, "
+          f"{cont[DEV][1]} keyframes")
+    return counts
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     seconds = {}
@@ -621,17 +933,22 @@ def main():
     src, frames = timed("render", render)
     k1 = timed("K1", phase_k1, frames)
     k2 = timed("K2", phase_k2, frames)
-    timed("slice", phase_slice, cam, frames[:N_SLICE_FRAMES], src.gt_poses)
+    slice_ms = timed("slice", phase_slice, cam, frames[:N_SLICE_FRAMES], src.gt_poses)
     k3 = timed("K3", phase_k3, frames, k1["device_ms"])
-    counts = timed("estimator", phase_estimator, frames, src.gt_poses, profile)
+    paths = {"estimator": timed("estimator", phase_estimator, frames, src.gt_poses, profile)}
+    paths.update(timed("options", phase_options, cam, frames[:N_SLICE_FRAMES], src.gt_poses,
+                       slice_ms))
+    paths["cli"] = timed("cli", phase_cli)
     print(f"[phases] seconds {seconds}")
     for k in (k1, k2, k3):
-        k["launches"] = counts[k["name"]]
-    k3["on_main_path"] = False
+        k["launches_by_path"] = {path: c[k["name"]] for path, c in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+        k["on_main_path"] = any(k["launches_by_path"][path] > 0 for path in USER_PATHS)
+        check(k["launches"] > 0, f"no driven path launched {k['name']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "device_ms", "profiler_us", "bound_ms", "bound_by", "bound_share", "library_ms")
-    print(json.dumps({"kernels": [{k: d[k] for k in (*keys, "on_main_path") if k in d}
-                                  for d in (k1, k2, k3)]}))
+            "device_ms", "profiler_us", "bound_ms", "bound_by", "bound_share", "library_ms",
+            "launches_by_path", "on_main_path")
+    print(json.dumps({"kernels": [{k: d[k] for k in keys} for d in (k1, k2, k3)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -14,7 +14,10 @@ Ported so far: the SLAM estimator's per-frame path
 place recognition, the data-association cascade with fundamental-matrix
 RANSAC, the SRBA backend with its windowed bundle adjustment, the global
 pose graph and the output files, with the host layer they need
-(``config``, ``utils/``). What is not ported yet: ROADMAP.md, Queue 1.
+(``config``, ``utils/``), behind the command line of the JAX package
+(``python -m srba_slam_tpu_torch <config.ini>``, ``__main__.py``) with
+checkpoint and resume, the native frame loader, the debug dumps and the
+viewers. What is not ported yet: ROADMAP.md, Queue 1.
 """
 
 __version__ = "0.1.0"

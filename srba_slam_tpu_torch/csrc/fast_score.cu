@@ -4,11 +4,14 @@
 // fast_score_map_pallas (kernel body _make_kernel). Output, for every image
 // n of a batch [N, H, W]:
 //   score = FAST-9/16 score (fast_circle.cuh), zero unless score > threshold,
-//           zero within `margin` of a border (margin >= 3, so that the circle
-//           of every pixel that keeps a score lies inside the image).
+//           zero within `margin` of a border.
 // Bit-exact against its plain torch version ops/fast.py fast_score_map. The
-// TPU kernel rolls its lanes at the row ends; the margin masks that wrap, as
-// it masks this kernel's zero-filled halo.
+// plain version and the TPU kernel roll the image at its borders. From a
+// margin of 3 on the circle of every pixel that keeps a score lies inside the
+// image, the margin masks that wrap, and this kernel stages a zero-filled
+// halo instead. Under a margin of 3 a pixel near a border keeps the score
+// of a circle that wraps to the opposite border, so there the kernel stages
+// the halo from the wrapped coordinates (stage_tile_wrap).
 //
 // What bounds it on an H100: by its bytes, little. One 370x1226 image reads
 // 0.45 MB of uint8 (1.8 MB of f32) and writes 1.8 MB of f32: 0.68 us at
@@ -54,7 +57,23 @@ constexpr int IH = TH + 2 * CR;
 constexpr int ROWS = TH / BY;        // output rows per thread
 static_assert(TH % BY == 0, "output rows must split evenly over the threads");
 
-template <typename T>
+// The staged tile with the image wrapped at its borders, as torch.roll wraps
+// it: tile pixel (ly, lx) is src[(y_org + ly) mod H][(x_org + lx) mod W].
+// Only margins under 3 need it, which no timed path uses, so it is the plain
+// strided loop.
+template <typename T, typename S>
+__device__ __forceinline__ void stage_tile_wrap(const T* __restrict__ src, S (*s)[IW], int H, int W,
+                                                int y_org, int x_org) {
+    const int tid = threadIdx.y * BX + threadIdx.x;
+    for (int i = tid; i < IH * IW; i += BX * BY) {
+        const int ly = i / IW, lx = i % IW;
+        const int gy = ((y_org + ly) % H + H) % H;
+        const int gx = ((x_org + lx) % W + W) % W;
+        s[ly][lx] = srba::stage_px(src[gy * W + gx]);
+    }
+}
+
+template <typename T, bool WRAP>
 __global__ void __launch_bounds__(BX * BY, 2)
 fast_score_kernel(const T* __restrict__ img, float* __restrict__ out, int H, int W,
                   float th, int margin) {
@@ -69,8 +88,13 @@ fast_score_kernel(const T* __restrict__ img, float* __restrict__ out, int H, int
     float* dst = out + (size_t)n * H * W;
 
     // 1. stage the tile plus halo; outside the image reads as 0 (only pixels
-    //    within 3 px of a border see it, and the margin zeroes them)
-    srba::stage_tile<IH, IW, BX, BY>(src, s_img, H, W, y0 - CR, x0 - CR);
+    //    within 3 px of a border see it, and a margin >= 3 zeroes them), or
+    //    as the wrapped image where the margin keeps such pixels
+    if constexpr (WRAP) {
+        stage_tile_wrap(src, s_img, H, W, y0 - CR, x0 - CR);
+    } else {
+        srba::stage_tile<IH, IW, BX, BY>(src, s_img, H, W, y0 - CR, x0 - CR);
+    }
     __syncthreads();
 
     // 2. score, threshold and margin of the thread's pixels (column tx, rows
@@ -101,17 +125,22 @@ __global__ void empty_kernel() {}
 }  // namespace
 
 // img: [n, h, w] uint8 (img_is_u8 != 0) or float32, contiguous, on the
-// current device; out: [n, h, w] float32. Launches on `stream` and returns
-// cudaGetLastError() of the launch.
+// current device; out: [n, h, w] float32; margin >= 0. Launches on `stream`
+// and returns cudaGetLastError() of the launch.
 extern "C" int srba_fast_score(const void* img, int img_is_u8, float* out, int n, int h, int w,
                                float th, int margin, void* stream) {
     const dim3 block(BX, BY);
     const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
     cudaStream_t s = (cudaStream_t)stream;
-    if (img_is_u8) {
-        fast_score_kernel<uint8_t><<<grid, block, 0, s>>>((const uint8_t*)img, out, h, w, th, margin);
+    const bool wrap = margin < CR;
+    if (img_is_u8 && wrap) {
+        fast_score_kernel<uint8_t, true><<<grid, block, 0, s>>>((const uint8_t*)img, out, h, w, th, margin);
+    } else if (img_is_u8) {
+        fast_score_kernel<uint8_t, false><<<grid, block, 0, s>>>((const uint8_t*)img, out, h, w, th, margin);
+    } else if (wrap) {
+        fast_score_kernel<float, true><<<grid, block, 0, s>>>((const float*)img, out, h, w, th, margin);
     } else {
-        fast_score_kernel<float><<<grid, block, 0, s>>>((const float*)img, out, h, w, th, margin);
+        fast_score_kernel<float, false><<<grid, block, 0, s>>>((const float*)img, out, h, w, th, margin);
     }
     return (int)cudaGetLastError();
 }

@@ -14,9 +14,10 @@ the per-frame host walk (ID chain, pose accumulators, triggers). A
 keyframe check runs the BoW query and DA cascade on the estimator's device
 and copies their outputs to the host once. The JAX package's tunnel
 scheduling (the batched loop, speculative checks, the frame uploader, bulk
-pulls) is not ported. Refused with NotImplementedError (ROADMAP M11):
-``general.debug`` dumps, ``show3D`` and the live viewer, unrectified rigs
-with distortion, and the resumable checkpoint.
+pulls) is not ported. The options around the loop run as in the JAX
+package: the rectification maps of an unrectified rig, the ``general.debug``
+file family, the ``show3D`` snapshots behind the live viewer, and the
+resumable checkpoint (``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -41,7 +42,9 @@ from srba_slam_tpu_torch.models.vo import StereoVOEngine
 from srba_slam_tpu_torch.ops import prng
 from srba_slam_tpu_torch.ops.posegraph import optimize_pose_graph
 from srba_slam_tpu_torch.ops.ransac import hypotheses_for_prob
+from srba_slam_tpu_torch.ops.rectify import build_maps
 from srba_slam_tpu_torch.utils import se3_np
+from srba_slam_tpu_torch.utils.debug_dumps import DebugDumper, export_scene_ply
 from srba_slam_tpu_torch.utils.profiler import Profiler
 from srba_slam_tpu_torch.utils.stats import VerboseLogger
 from srba_slam_tpu_torch.utils.thresholds import (
@@ -132,22 +135,26 @@ class SRBAStereoSLAMEstimator:
     def initialize(self, vocabulary: Vocabulary | None = None):
         """≙ initialize() (reference .cpp:1099-1339)."""
         o = self.opts
-        if self.general.debug:
-            raise NotImplementedError("debug dumps (general.debug) are not ported yet "
-                                      "(ROADMAP M11)")
-        if self.general.show3D:
-            raise NotImplementedError("show3D and the live viewer are not ported yet "
-                                      "(ROADMAP M11)")
-        if not self.vo_opts.rectified_images and (any(o.camera_dist_l or [])
-                                                  or any(o.camera_dist_r or [])):
-            raise NotImplementedError("unrectified rigs with distortion (rect maps) are "
-                                      "not ported yet (ROADMAP M11)")
         self.cam = o.camera
         # VO engine with the n_feats / fast_th overrides (reference .cpp:1140-1142)
         self.vo_opts.n_feats = o.n_feats
         self.vo_opts.fast_th = o.detect_fast_th
         self.vo = StereoVOEngine(self.cam, self.vo_opts, capacity=self.capacity,
                                  device=self.device)
+        # RECTIFY stage (≙ stereo-vo rectification, the CAMERA_* dist rows):
+        # a rig that declares unrectified images with real distortion gets
+        # its per-eye undistortion grids once, on the device; the remap runs
+        # in front of the detector
+        dist_l = list(o.camera_dist_l or [])
+        dist_r = list(o.camera_dist_r or [])
+        if not self.vo_opts.rectified_images and (any(dist_l) or any(dist_r)):
+            c = self.cam
+            self.vo.rect_maps = (
+                build_maps(c.width, c.height, c.fx_l, c.fy_l, c.cx_l, c.cy_l,
+                           dist=dist_l, device=self.device),
+                build_maps(c.width, c.height, c.fx_r, c.fy_r, c.cx_r, c.cy_r,
+                           dist=dist_r, device=self.device),
+            )
         # vocabulary: explicit > config file > on-the-fly training later
         if vocabulary is None and o.voc_filename and os.path.exists(o.voc_filename):
             vocabulary = Vocabulary.load_dbow2(o.voc_filename)
@@ -219,6 +226,8 @@ class SRBAStereoSLAMEstimator:
         # (ops/prng.py, JAX's PRNGKey bits)
         self._da_seed = 7
         self.query_log: list = []  # (frame_idx, scores, ids) per KF check
+        self.debug = DebugDumper(os.path.join(self.general.out_dir or "out", "debug"),
+                                 enabled=self.general.debug)
         self._initialized = True
 
     def _skip_from_step(self, it):
@@ -345,10 +354,13 @@ class SRBAStereoSLAMEstimator:
         obs = self._build_obs(frame, ids)
         self.rba.define_new_keyframe(obs, run_opt=False)
         self.vo.set_frame_ids(ids, set(ids[ids >= 0]))
+        self.debug.dump_kf(kf_id, frame, ids)
         res.vo_valid = True
         res.inserted_kf = kf_id
         res.n_stereo_matches = vo.num_stereo_matches
         self.kf_stats.append(TStatsSRBA(0.0, 1, int((ids >= 0).sum()), 0))
+        if self.general.show3D:
+            self._live_viz_snapshot()  # the live view exists from KF0 on
 
     def _buffer_voc_frame(self, frame):
         """Keep a processed frame's descriptors for the fallback vocabulary
@@ -395,7 +407,8 @@ class SRBAStereoSLAMEstimator:
     def _kf_check(self, frame, res: StepResult, force_new_kf: bool):
         """BoW query -> similar KFs -> DA -> LC confirm -> possible insertion.
         Returns the inserted keyframe's match IDs, or None if no KF was
-        inserted. The check's outputs come to the host in one copy."""
+        inserted. The check's outputs come to the host in one copy (with
+        ``general.debug``, the cascade's intermediates for the dumps too)."""
         self.ensure_vocabulary(limit_fidx=self.frame_idx)
         sub = self._da_seed
         self._da_seed += 1
@@ -418,7 +431,9 @@ class SRBAStereoSLAMEstimator:
         with self.profiler.section("performDA"):
             pulled = _to_host([top_s, top_i, da.status, da.other_idx, da.tracked_count,
                                frame.m_valid, frame.xs_l, frame.ys_l, frame.xs_r,
-                               frame.m_r_idx, frame.pts3d])
+                               frame.m_r_idx, frame.pts3d]
+                              + ([da.raw_oidx, da.distance, da.residuals]
+                                 if self.debug.enabled else []))
             self._reanchor_if_dirty()
         return self._kf_check_host(pulled, frame, res, force_new_kf)
 
@@ -442,7 +457,9 @@ class SRBAStereoSLAMEstimator:
         selection + LC confirmation (≙ .cpp:483-545). Mutates only logs;
         threshold changes are returned for the caller to apply."""
         (scores, ids, da_status_all, da_oidx_all, tracked_all, f_m_valid,
-         f_xs_l, f_ys_l, f_xs_r, f_m_r, f_pts) = pulled
+         f_xs_l, f_ys_l, f_xs_r, f_m_r, f_pts) = pulled[:11]
+        extras = (dict(zip(("raw_oidx", "distance", "residuals"), pulled[11:]))
+                  if len(pulled) > 11 else None)
         self.query_log.append((res.frame_idx, np.asarray(scores).copy(),
                                np.asarray(ids).copy()))
         if len(scores) and scores[0] < self.opts.query_score_th:
@@ -463,6 +480,12 @@ class SRBAStereoSLAMEstimator:
         da_status = da_status_all[positions]
         da_oidx = da_oidx_all[positions]
         tracked = tracked_all[positions]
+        self.debug.dump_da_host(self.store.n_kfs, similar, da_status, da_oidx, tracked)
+        da_dists = None
+        if extras is not None:
+            da_dists = extras["distance"][positions]
+            self._dump_match_artifacts(similar, da_status, extras, positions,
+                                       f_m_valid, f_xs_l, f_ys_l)
         order = np.argsort(-tracked)  # ≙ DATrackedSorter ranking
         best = int(tracked[order[0]]) if len(order) else 0
         res.best_tracked = best
@@ -496,7 +519,36 @@ class SRBAStereoSLAMEstimator:
             da_status=da_status, da_oidx=da_oidx, lc_confirmed=lc_confirmed,
             f_m_valid=f_m_valid, f_xs_l=f_xs_l, f_ys_l=f_ys_l, f_xs_r=f_xs_r,
             f_m_r=f_m_r, f_pts=f_pts, new_tr_th=new_tr_th, new_rot_th=new_rot_th,
+            da_dists=da_dists,
         )
+
+    def _dump_match_artifacts(self, similar, da_status, extras, positions,
+                              m_valid, xs_l, ys_l):
+        """Write the per-candidate match files of the reference's
+        ``debug=true`` mode: ``if_raw_match*`` (pre-filter matches,
+        reference .cpp:1455-1473), ``if_match_after*`` (post-cascade status
+        per match, .cpp:1649-1721) and ``posechange_outliers*`` (filter-4
+        residual outliers, .cpp:2236-2251: one file per new KF, the last
+        cascade call's content surviving, as in the reference)."""
+        kf_id = self.store.n_kfs
+        raw_oidx = extras["raw_oidx"][positions]
+        distance = extras["distance"][positions]
+        residuals = extras["residuals"][positions]
+        # the other KFs' left keypoints: one device read, debug mode only
+        oth_x, oth_y = _to_host([self.store.arrays.xs_l[similar],
+                                 self.store.arrays.ys_l[similar]])
+        for s, other_kf in enumerate(similar):
+            self.debug.dump_if_raw_match(
+                kf_id, other_kf, xs_l, ys_l, oth_x[s], oth_y[s],
+                raw_oidx[s], distance[s], m_valid)
+            self.debug.dump_if_match_after(
+                kf_id, other_kf, da_status[s], xs_l, ys_l, oth_x[s],
+                oth_y[s], raw_oidx[s], distance[s], m_valid)
+        if len(similar):
+            s = len(similar) - 1
+            sel = np.nonzero(m_valid & (distance[s] < 1e8)
+                             & (residuals[s] > self.opts.residual_th))[0]
+            self.debug.dump_posechange_outliers(kf_id, sel, residuals[s][sel])
 
     def _apply_no_insert(self, d: dict):
         """Threshold shrink of the no-insert branch (≙ .cpp:525-541)."""
@@ -510,13 +562,16 @@ class SRBAStereoSLAMEstimator:
         (for ``use_initial_pose``). Returns the keyframe's match IDs."""
         t0 = time.perf_counter()
         ids, n_new, n_common = self._propagate_ids(
-            d["f_m_valid"], d["da_status"], d["da_oidx"], d["similar"], d["order"])
+            d["f_m_valid"], d["da_status"], d["da_oidx"], d["similar"], d["order"],
+            dists=d.get("da_dists"))
         obs = self._build_obs_host(d["f_m_valid"], d["f_xs_l"], d["f_ys_l"],
                                    d["f_xs_r"], d["f_m_r"], d["f_pts"], ids)
         if d["lc_confirmed"] is not None:
             self.rba.loop_closure_detected(True)
             self.rba.set_lc_old_id(d["lc_confirmed"])
             res.loop_closure_with = d["lc_confirmed"]
+            self.debug.dump_loop_closure(self.store.n_kfs, d["lc_confirmed"],
+                                         int(d["tracked"][d["order"][0]]))
         if self.opts.use_initial_pose:
             self.rba.set_initial_kf_pose(initial_rel)
         with self.profiler.section("define_kf"):
@@ -545,6 +600,7 @@ class SRBAStereoSLAMEstimator:
         new_global = self.rba.kf_global[kf_id].copy()
         self.store.append(frame, ids, new_global)
         self.bow.insert(frame.desc_l, frame.m_valid)
+        self.debug.dump_kf(kf_id, frame, ids)
         # restore thresholds (≙ .cpp:662-663)
         self.updated_translation_th = float(self.opts.max_translation)
         self.updated_rotation_th = float(self.opts.max_rotation)
@@ -553,7 +609,75 @@ class SRBAStereoSLAMEstimator:
         res.inserted_kf = kf_id
         res.define_kf_ms = dt
         self.kf_stats.append(TStatsSRBA(dt, self.store.n_kfs, n_new, n_common))
+        if self.general.show3D:
+            self._live_viz_snapshot()
         return ids
+
+    def _last_query_scores(self):
+        """The last keyframe check's ranked BoW scores placed at their KF
+        ids (the viewers' score bars); None before the first check."""
+        if not self.query_log:
+            return None
+        _f, sc, qids = self.query_log[-1]
+        q_scores = np.zeros(self.store.n_kfs)
+        for s_, i_ in zip(sc, qids):
+            if 0 <= int(i_) < len(q_scores):
+                q_scores[int(i_)] = s_
+        return q_scores
+
+    def _typed_edges(self) -> list:
+        kinds = {0: "submap", 1: "base", 2: "lc"}
+        return [(self.rba._edge_u[e], self.rba._edge_v[e],
+                 kinds.get(int(self.rba._edge_kind[e]), "submap"))
+                for e in range(self.rba.n_edges) if self.rba._edge_valid[e]]
+
+    def _kf_frame_indices(self) -> list:
+        return [r.frame_idx for r in self.step_log if r.inserted_kf is not None]
+
+    def _live_viz_snapshot(self):
+        """Per-keyframe map snapshot (headless stand-in for the reference's
+        live CDisplayWindow3D updates, .cpp:1262-1338): overwrite
+        ``<out_dir>/live_map.png`` with the current trajectory and the
+        latest BoW query bars after every insertion, and
+        ``live_map.json``, the payload the live browser viewer
+        (utils/live_server, ``--serve``) polls once a second. finalize()
+        still renders the final optimized map."""
+        out_dir = self.general.out_dir or "out"
+        try:
+            from srba_slam_tpu_torch.utils.viz import render_map_png
+
+            os.makedirs(out_dir, exist_ok=True)
+            q_scores = self._last_query_scores()
+            # raw camera-frame poses mid-run: plot the x-z ground plane
+            render_map_png(
+                os.path.join(out_dir, "live_map.png"),
+                self.rba.kf_global[:self.store.n_kfs], query_scores=q_scores,
+                query_score_th=self.opts.query_score_th, plane=(0, 2),
+            )
+            self._write_live_json(out_dir, q_scores)
+        except Exception as exc:  # viz must never kill the pipeline
+            self.log(1, f"live viz snapshot failed: {exc!r}")
+
+    def _write_live_json(self, out_dir: str, q_scores=None):
+        """Dump the current (mid-run, pre-epilogue) map as live_map.json for
+        the polling browser viewer. Atomic rename, so the poller never reads
+        a half-written file."""
+        import json
+
+        from srba_slam_tpu_torch.utils.html_viewer import build_map_data
+
+        data = build_map_data(
+            self.rba.kf_global[:self.store.n_kfs],
+            edges=self._typed_edges(),
+            query_scores=q_scores,
+            query_score_th=self.opts.query_score_th,
+            kf_frames=self._kf_frame_indices(),
+            title="srba_slam_tpu_torch live map (camera frame, mid-run)",
+        )
+        tmp = os.path.join(out_dir, ".live_map.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(data, f)
+        os.replace(tmp, os.path.join(out_dir, "live_map.json"))
 
     @property
     def current_world_pose(self) -> np.ndarray:
@@ -687,13 +811,17 @@ class SRBAStereoSLAMEstimator:
                         similar.append(i)
         return similar, lc_candidate
 
-    def _propagate_ids(self, m_valid, status, oidx, similar, order):
+    def _propagate_ids(self, m_valid, status, oidx, similar, order, dists=None):
         """Feature-ID propagation (≙ .cpp:571-617): per stereo match, the
         first tracked hit across the ranked similar KFs reuses that KF's
-        match ID (duplicate guard); everything else gets a fresh ID."""
+        match ID (duplicate guard); everything else gets a fresh ID. With
+        ``dists`` (debug mode: per-rank raw match distances), writes the
+        ``da_dist_kf*`` file: the winning tracked match's distance per
+        slot, 0.00 for new features (≙ reference .cpp:566-616)."""
         ids = np.full(self.capacity, -1, np.int64)
         used = np.zeros(0, np.int64)
         n_common = 0
+        win_dist = np.zeros(self.capacity, np.float32)
         for rank in order:
             if rank >= len(similar):
                 continue
@@ -709,12 +837,16 @@ class SRBAStereoSLAMEstimator:
             _uniq, first = np.unique(cand, return_index=True)
             sel, cand = sel[first], cand[first]
             ids[sel] = cand
+            if dists is not None:
+                win_dist[sel] = dists[int(rank), sel]
             used = np.concatenate([used, cand])
             n_common += len(sel)
         fresh = m_valid & (ids < 0)
         n_new = int(fresh.sum())
         ids[fresh] = np.arange(self.next_match_id, self.next_match_id + n_new)
         self.next_match_id += n_new
+        if dists is not None:
+            self.debug.dump_da_dist(self.store.n_kfs, win_dist[m_valid])
         return ids, n_new, n_common
 
     def _mint_fresh_ids(self, m_valid: np.ndarray) -> np.ndarray:
@@ -742,24 +874,31 @@ class SRBAStereoSLAMEstimator:
 
     # -------------------------------------------------------------- epilogue
     def save_checkpoint(self, path: str):
-        raise NotImplementedError("checkpoints (utils/checkpoint.py) are not ported yet "
-                                  "(ROADMAP M11)")
+        """The whole state as one resumable ``.npz`` (``utils/checkpoint.py``)."""
+        from srba_slam_tpu_torch.utils.checkpoint import save_state
+
+        save_state(self, path)
 
     def emergency_epilogue(self, exc: BaseException | None = None):
         """≙ the exception handler around define_new_keyframe (reference
-        .cpp:792-839): on a mid-run failure persist what is recoverable —
-        final_graph.dot, out_kf_poses.txt, time_new_kf.txt, profiler.csv —
-        to ``<out_dir>/crash/``. Never raises; ``error.txt`` records the
-        failure and why no checkpoint was written."""
+        .cpp:792-839): on a mid-run failure persist everything recoverable
+        (final_graph.dot, out_kf_poses.txt, time_new_kf.txt, profiler.csv
+        and a full checkpoint, emergency_state.npz) to ``<out_dir>/crash/``.
+        ``error.txt`` is written first, so that it survives a failure in
+        here. Never raises; the original exception is the caller's."""
         out_dir = os.path.join(self.general.out_dir or "out", "crash")
-        notes = [f"{type(exc).__name__ if exc else 'unknown'}: {exc}"]
+        try:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, "error.txt"), "w") as f:
+                f.write(f"{type(exc).__name__ if exc else 'unknown'}: {exc}\n")
+        except Exception:
+            return
         try:
             self.rba._queued = []  # failed solves are not committable
             self.finalize(out_dir=out_dir)
         except Exception:
             # minimal fallback: raw graph + unoptimized trajectory
             try:
-                os.makedirs(out_dir, exist_ok=True)
                 self.final_poses = self.rba.kf_global[: self.store.n_kfs].copy()
                 self.final_poses_cam = self.final_poses
                 self.save_trajectory(os.path.join(out_dir, "out_kf_poses.txt"))
@@ -770,19 +909,15 @@ class SRBAStereoSLAMEstimator:
                 pass
         try:
             self.save_checkpoint(os.path.join(out_dir, "emergency_state.npz"))
-        except NotImplementedError as e:
-            notes.append(f"no checkpoint: {e}")
-        try:
-            os.makedirs(out_dir, exist_ok=True)
-            with open(os.path.join(out_dir, "error.txt"), "w") as f:
-                f.write("\n".join(notes) + "\n")
         except Exception:
             pass
 
     def finalize(self, out_dir: str | None = None):
         """Final global pose-graph optimization + outputs (≙ the epilogue,
         reference .cpp:939-1096): out_kf_poses.txt, kf_frames.txt,
-        time_new_kf.txt, profiler.csv and final_graph.dot in ``out_dir``."""
+        time_new_kf.txt, profiler.csv, final_graph.dot, final_global_path.ply
+        and map_viewer.html in ``out_dir``, and final_global_path.png under
+        ``show3D``."""
         n = self.store.n_kfs
         self.rba.flush()
         if n >= 2 and self.rba.n_edges:
@@ -822,6 +957,40 @@ class SRBAStereoSLAMEstimator:
             self.save_kf_stats(os.path.join(out_dir, "time_new_kf.txt"))
             self.profiler.save_csv(os.path.join(out_dir, "profiler.csv"))
             self.rba.save_graph_as_dot(os.path.join(out_dir, "final_graph.dot"))
+            # map + trajectory point cloud (≙ final_global_path.3DScene):
+            # landmarks composed with the optimized base-KF poses, so that
+            # map and trajectory share the post-epilogue frame; a landmark's
+            # world position is (E ∘ T_cam_base) applied to its base-frame
+            # point
+            n_lms = self.rba.n_lms
+            bases = self.rba.lm_base[:n_lms]
+            in_range = bases < len(final_cam)
+            world_cam = se3_np.compose_batch(E, final_cam) if n else final_cam
+            lms = (np.asarray(se3_np.transform_points_by_pose(
+                world_cam[bases[in_range]], self.rba.lm_pos[:n_lms][in_range]))
+                if in_range.any() else None)
+            export_scene_ply(os.path.join(out_dir, "final_global_path.ply"),
+                             self.final_poses, lms)
+            # interactive equivalent of the reference's live 3D window
+            # (.cpp:1262-1338): one self-contained HTML file
+            from srba_slam_tpu_torch.utils.html_viewer import write_map_viewer
+
+            q_scores = self._last_query_scores()
+            write_map_viewer(
+                os.path.join(out_dir, "map_viewer.html"), self.final_poses,
+                landmarks=lms, edges=self._typed_edges(), query_scores=q_scores,
+                query_score_th=self.opts.query_score_th,
+                kf_frames=self._kf_frame_indices(),
+            )
+            if self.general.show3D:
+                # headless stand-in for the live 3D window (≙ show3D)
+                from srba_slam_tpu_torch.utils.viz import render_map_png
+
+                render_map_png(
+                    os.path.join(out_dir, "final_global_path.png"),
+                    self.final_poses, lms, query_scores=q_scores,
+                    query_score_th=self.opts.query_score_th,
+                )
         return self.final_poses
 
     def save_trajectory(self, path: str):

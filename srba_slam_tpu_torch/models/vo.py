@@ -14,10 +14,14 @@ forced modes dmORB / smDescRbR / ifmDescBF at :1135-1137):
   host attributes, and the KF hand-off (``set_frame_ids``/``reset_ids``).
 
 Eager code on an explicit device: frames go up as uint8, and per frame the
-host reads back only what the frame decision needs. Not ported yet, and
-refused with NotImplementedError: image pyramids (``n_octaves > 1``),
-oriented ORB, rectification maps and the fundamental-matrix filter
-(ROADMAP M11); the batched ``vo_scan`` (ROADMAP M12).
+host reads back only what the frame decision needs. The frontend's options
+run as in the JAX package: rectification maps (the remap in front of the
+detector), image pyramids (``n_octaves > 1``: every octave through K1 and
+K2, on float32 images from octave 1 on), oriented ORB (plain torch: the JAX
+package has no kernel for it either), detector margins below 16 (K3 and a
+separate suppression where K1's fused window does not fit) and the
+fundamental-matrix filter of the tracked matches. Not ported yet: the
+batched ``vo_scan`` (ROADMAP M12).
 """
 
 from __future__ import annotations
@@ -29,9 +33,13 @@ import numpy as np
 import torch
 
 from srba_slam_tpu_torch.config import VOOptions
-from srba_slam_tpu_torch.ops.hopper_fast import fast_nms, orb_descriptors
+from srba_slam_tpu_torch.ops import prng
+from srba_slam_tpu_torch.ops.hopper_fast import fast_nms, fast_score_map, orb_descriptors
 from srba_slam_tpu_torch.ops.matching import interframe_match, stereo_match
-from srba_slam_tpu_torch.ops.nms import grid_topk
+from srba_slam_tpu_torch.ops.nms import grid_topk, local_max_suppress
+from srba_slam_tpu_torch.ops.orb import describe
+from srba_slam_tpu_torch.ops.ransac import ransac_fundamental
+from srba_slam_tpu_torch.ops.rectify import remap_bilinear
 from srba_slam_tpu_torch.ops.robust_lm import PoseSolveResult, solve_pose
 from srba_slam_tpu_torch.utils.camera import StereoCamera, project_match_to_3d
 
@@ -72,16 +80,73 @@ def frame_features_from_numpy(d, device) -> FrameFeatures:
     return FrameFeatures(**out)
 
 
-def _detect_describe_batch(imgs, fast_th, k, cell, nms_radius, margin):
+def _avgpool2(img: torch.Tensor) -> torch.Tensor:
+    """2x decimation of ``img`` [..., H, W] f32 for the next pyramid octave
+    (an odd last row or column is dropped). Exact for uint8-valued input
+    down to three octaves: sums of integers times 0.25."""
+    h, w = img.shape[-2] // 2 * 2, img.shape[-1] // 2 * 2
+    x = img[..., :h, :w]
+    s = (x[..., 0::2, 0::2] + x[..., 0::2, 1::2]) + (x[..., 1::2, 0::2] + x[..., 1::2, 1::2])
+    return s * 0.25
+
+
+def _octave_budget(h0: int, w0: int, cell: int, k: int, n_levels: int):
+    """Feature-budget split across pyramid octaves, capped by each octave's
+    grid-cell count; any deficit from capped deep octaves flows back to
+    octave 0."""
+    cells = [((h0 >> lv) // cell) * ((w0 >> lv) // cell)
+             for lv in range(n_levels)]
+    k_levels = [min(k // n_levels, cells[lv]) for lv in range(n_levels)]
+    k_levels[0] = k - sum(k_levels[1:])
+    if k_levels[0] > cells[0]:
+        raise ValueError(
+            f"feature capacity k={k} exceeds octave-0 grid cells {cells[0]} "
+            f"(image {h0}x{w0}, cell {cell})"
+        )
+    return k_levels
+
+
+def _suppressed_scores(imgs, fast_th, margin, nms_radius):
+    """Suppressed FAST score maps of ``imgs`` [N, H, W]: K1 where its fused
+    5x5 window fits inside the margin; below that the score map (K3) and
+    the suppression as separate stages, as the JAX package leaves its fused
+    kernel there."""
+    if margin >= 3 + nms_radius:
+        return fast_nms(imgs, fast_th, margin=margin, radius=nms_radius)
+    s = fast_score_map(imgs, fast_th, margin=margin)
+    return local_max_suppress(s, radius=nms_radius)
+
+
+def _detect_describe_batch(imgs, fast_th, k, cell, nms_radius, margin,
+                           oriented=False, n_levels=1):
     """Detect + describe for a batch of images [N, H, W] (uint8 or f32) at
-    once: K1 on the batch, grid top-K, K2 (blur and descriptors). Returns
-    (ys, xs, sc, valid, desc, octv), each with leading dim N."""
-    n = imgs.shape[0]
-    s = fast_nms(imgs, fast_th, margin=margin, radius=nms_radius)
-    ys, xs, sc, valid = grid_topk(s, cell=cell, k=k)
-    desc = orb_descriptors(imgs, ys, xs, valid, margin=margin)
-    octv = torch.zeros((n, k), dtype=torch.int32, device=imgs.device)
-    return ys, xs, sc, valid, desc, octv
+    once, over ``n_levels`` octaves of a 2x pyramid: per octave the
+    suppressed score maps (:func:`_suppressed_scores`), grid top-K with the
+    octave's share of ``k``, and the descriptors (K2 with the blur inside
+    for upright ones, plain torch for oriented ones). Coordinates are
+    reported at full resolution. Returns (ys, xs, sc, valid, desc, octv),
+    each with leading dim N."""
+    n, h0, w0 = imgs.shape
+    k_levels = _octave_budget(h0, w0, cell, k, n_levels)
+    per = []
+    cur = imgs
+    for lvl in range(n_levels):
+        kl = k_levels[lvl]
+        s = _suppressed_scores(cur, fast_th, margin, nms_radius)
+        ys, xs, sc, valid = grid_topk(s, cell=cell, k=kl)
+        if oriented:
+            desc = describe(cur, ys, xs, valid, oriented=True)[0]
+        else:
+            desc = orb_descriptors(cur, ys, xs, valid)
+        octv = torch.full((n, kl), lvl, dtype=torch.int32, device=imgs.device)
+        if lvl:
+            ys, xs = ys << lvl, xs << lvl
+        per.append((ys, xs, sc, valid, desc, octv))
+        if lvl + 1 < n_levels:
+            cur = _avgpool2(cur.to(torch.float32))
+    if n_levels == 1:
+        return per[0]
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*per))
 
 
 def _build_frame(det_l, det_r, cam, orb_th, max_y_diff, min_disparity,
@@ -128,21 +193,24 @@ def extract_and_match(
     """The full frontend for one stereo pair ``left``/``right`` [H, W]
     (numpy or tensors, uint8 or float32) on ``device`` (the card unless the
     caller asks for the CPU), both images batched through the detector and
-    the descriptor kernels together."""
-    if n_levels != 1:
-        raise NotImplementedError("image pyramids (n_levels > 1) are not ported yet (ROADMAP M11)")
-    if oriented:
-        raise NotImplementedError("oriented ORB is not ported yet (ROADMAP M11)")
-    if rect_maps is not None:
-        raise NotImplementedError("rectification maps are not ported yet (ROADMAP M11)")
-    if margin < 16:
-        raise NotImplementedError(
-            "detector margins below 16 (unsafe ORB patches) are not ported yet (ROADMAP M11)")
+    the descriptor kernels together.
+
+    ``n_levels`` > 1 detects and describes on a 2x image pyramid (≙ the
+    stereo-vo nOctaves option): coordinates are reported at full resolution,
+    descriptors are sampled at the detecting octave's scale, and the feature
+    budget splits evenly across octaves (the remainder to octave 0).
+    ``rect_maps``, a (RectifyMaps_left, RectifyMaps_right) pair on
+    ``device``, runs the RECTIFY stage first (≙ stereo-vo's rectification
+    for ``rectified_images=false`` rigs)."""
     left = torch.as_tensor(left, device=device)
     right = torch.as_tensor(right, device=device)
+    if rect_maps is not None:
+        left = remap_bilinear(left, rect_maps[0])
+        right = remap_bilinear(right, rect_maps[1])
     imgs = torch.stack([left, right])
     out = _detect_describe_batch(imgs, fast_th, k=k, cell=cell,
-                                 nms_radius=nms_radius, margin=margin)
+                                 nms_radius=nms_radius, margin=margin,
+                                 oriented=oriented, n_levels=n_levels)
     det_l = tuple(a[0] for a in out)
     det_r = tuple(a[1] for a in out)
     return _build_frame(det_l, det_r, cam, orb_th, max_y_diff,
@@ -172,9 +240,6 @@ def track_and_solve(
 ) -> TrackSolveOut:
     """Track stereo-matched features into the current frame and solve the
     frame-to-frame pose increment (x_cur = T x_prev)."""
-    if filter_fund_matrix:
-        raise NotImplementedError(
-            "the fundamental-matrix RANSAC filter is not ported yet (ROADMAP M7/M11)")
     m = interframe_match(cur.desc_l, prev.desc_l, cur.m_valid, prev.m_valid,
                          orb_max_distance=orb_th,
                          oct_a=cur.octave, oct_b=prev.octave)
@@ -183,6 +248,17 @@ def track_and_solve(
     ur = cur.xs_r[cur.m_r_idx.long()].to(f32)
     obs = torch.stack([cur.xs_l.to(f32), cur.ys_l.to(f32), ur], dim=-1)
     valid = m.valid & cur.m_valid
+    if filter_fund_matrix:
+        # ≙ the stereo-vo IF-MATCH filter_fund_matrix option: gate the
+        # tracked matches by fundamental-matrix RANSAC over the left pixels
+        # before the pose solve (applied only when enough matches survive)
+        prev_idx = m.idx.long()
+        inl, _cnt, _F = ransac_fundamental(
+            cur.xs_l.to(f32), cur.ys_l.to(f32),
+            prev.xs_l[prev_idx].to(f32), prev.ys_l[prev_idx].to(f32),
+            valid, prng.PRNGKey(0, device=valid.device), threshold=2.0, n_hyp=64)
+        n_alive = torch.sum(valid.to(torch.int32))
+        valid = torch.where(n_alive >= 15, valid & inl, valid)
     res = solve_pose(
         pts_prev, obs, valid, cam,
         initial_pose=initial_pose,
@@ -232,8 +308,9 @@ class StereoVOEngine:
         self._cur_ids: np.ndarray | None = None
         self._last_pose_inc = np.zeros(6, np.float32)
         self._next_id: int = 0
-        # the estimator sets (RectifyMaps_l, RectifyMaps_r) for unrectified
-        # rigs; extract_and_match refuses them until ROADMAP M11
+        # optional (RectifyMaps_l, RectifyMaps_r) undistortion grids on the
+        # engine's device, applied in front of the detector (set by the
+        # estimator when the config declares unrectified input)
         self.rect_maps = None
         if not self.opts.vo_use_matches_ids:
             # ≙ the stereo-vo GENERAL vo_use_matches_ids option: the SLAM

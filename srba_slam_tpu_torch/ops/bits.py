@@ -32,6 +32,23 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
+def pack_bytes_to_words(desc_bytes: torch.Tensor) -> torch.Tensor:
+    """uint8[..., 32] descriptor bytes -> int32[..., 8] words (little-endian)."""
+    n_words = desc_bytes.shape[-1] // 4
+    b = desc_bytes.reshape(*desc_bytes.shape[:-1], n_words, 4).to(torch.int64)
+    shifts = torch.arange(4, dtype=torch.int64, device=desc_bytes.device) * 8
+    words = torch.sum(b << shifts, dim=-1)              # in [0, 2^32)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def words_to_bytes(packed: torch.Tensor) -> torch.Tensor:
+    """int32[..., W] -> uint8[..., W*4] (little-endian), the reference's
+    cv::Mat row layout."""
+    shifts = torch.arange(4, dtype=torch.int32, device=packed.device) * 8
+    by = (packed[..., :, None] >> shifts) & 0xFF
+    return by.reshape(*packed.shape[:-1], packed.shape[-1] * 4).to(torch.uint8)
+
+
 def popcount32(x: torch.Tensor) -> torch.Tensor:
     """Per-element popcount of int32 bit patterns -> int64 (SWAR in int64)."""
     x = x.to(torch.int64) & 0xFFFFFFFF

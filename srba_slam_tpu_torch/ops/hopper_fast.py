@@ -9,8 +9,9 @@ Counterpart of ``srba_slam_tpu/ops/pallas_fast.py``:
   front of them: upright ORB descriptors at the keypoints of a batch of
   frames, blurred inside the kernel;
 * K3 :func:`fast_score_map` (``csrc/fast_score.cu``) replaces
-  ``fast_score_map_pallas``: the FAST score maps without suppression. No
-  path of the estimator calls it, as none of the JAX package does.
+  ``fast_score_map_pallas``: the FAST score maps without suppression, for
+  detector margins under 5, where K1's fused 5x5 window does not fit
+  (``models/vo.py`` ``_suppressed_scores``).
 
 The tensors' device decides the route: a CUDA tensor launches the kernel
 (or the wrapper raises), a CPU tensor takes the kernel's plain torch version
@@ -33,8 +34,6 @@ from srba_slam_tpu_torch.ops.nms import local_max_suppress, nms_eps
 from srba_slam_tpu_torch.ops.orb import _G7_F32, PATTERN_OFFSETS, gauss_blur7, upright_descriptors
 
 _KERNEL_NMS_RADIUS = 2   # the 5x5 window csrc/fast_nms.cu is built for
-_FAST_RADIUS = 3         # the FAST circle: the halo csrc/fast_score.cu stages
-_ORB_MIN_MARGIN = 16     # keypoints >= 16 px inside: full 31x31 pattern support
 
 
 def _check(t: torch.Tensor, name: str, dtypes, ndim: int, device=None):
@@ -108,17 +107,16 @@ def orb_descriptors_plain(imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor
 
 
 def orb_descriptors(imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
-                    valid: torch.Tensor, margin: int = 16) -> torch.Tensor:
+                    valid: torch.Tensor) -> torch.Tensor:
     """Upright ORB descriptors int32 [N, K, 8] of keypoints ``ys``/``xs``
     int32 [N, K] (``valid`` bool [N, K]) on the frames ``imgs`` [N, H, W]
     (uint8 or float32), blurred by ``gauss_blur7`` inside the kernel;
     bit-exact against :func:`orb_descriptors_plain`.
 
-    ``margin`` is the detector margin the keypoints respect; it must be at
-    least 16, as on the JAX package's bit-plane path (models/vo.py there)."""
-    if margin < _ORB_MIN_MARGIN:
-        raise ValueError(f"margin {margin} < {_ORB_MIN_MARGIN}: keypoints may lack "
-                         "full pattern support")
+    The keypoints may lie anywhere in the frame: a sample that falls
+    outside is clipped to the border and blurred there, as the plain
+    version does (the JAX package leaves its bit-plane kernel for its
+    general path below a detector margin of 16; this kernel covers both)."""
     _check(imgs, "imgs", (torch.uint8, torch.float32), 3)
     dev = imgs.device
     _check(ys, "ys", (torch.int32,), 2, dev)
@@ -172,10 +170,11 @@ def fast_score_map(imgs: torch.Tensor, threshold: float, margin: int = 16) -> to
     ``threshold``, else 0, and 0 within ``margin`` of a border. Bit-exact
     against ``ops/fast.py`` ``fast_score_map``.
 
-    Requires ``margin >= 3``, so that the circle of every pixel that keeps a
-    score lies inside the image."""
-    if margin < _FAST_RADIUS:
-        raise ValueError(f"margin {margin} must cover the FAST circle ({_FAST_RADIUS})")
+    Any ``margin >= 0``: under a margin of 3 the circle of a pixel near a
+    border wraps to the opposite border, in the kernel as in the plain
+    version."""
+    if margin < 0:
+        raise ValueError(f"margin {margin} must not be negative")
     if imgs.dim() not in (2, 3):
         raise ValueError(f"imgs: expected [H, W] or [N, H, W], got {tuple(imgs.shape)}")
     _check(imgs, "imgs", (torch.uint8, torch.float32), imgs.dim())

@@ -92,6 +92,10 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     return qv * scale
 
 
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros(6, dtype=dtype, device=device)
+
+
 def exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Pose 6-vector -> (R, t). Like MRPT's CPose3DRotVec, the translation is
     stored directly (not the se(3) exponential of a twist)."""
@@ -118,3 +122,53 @@ def inverse(a: torch.Tensor) -> torch.Tensor:
     Rinv = torch.swapaxes(Ra, -1, -2)
     tinv = -torch.einsum("...ij,...j->...i", Rinv, ta)
     return log(Rinv, tinv)
+
+
+def relative(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a ⊖ b = inverse(b) ⊕ a: the pose of ``a`` as seen from frame ``b``
+    (MRPT ``inverseComposeFrom``, reference src/srba-stereo-slam.h:203)."""
+    return compose(inverse(b), a)
+
+
+def transform_points(pose: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply pose to points: R @ p + t. pts [..., N, 3], pose [..., 6]."""
+    R, t = exp(pose)
+    return torch.einsum("...ij,...nj->...ni", R, pts) + t[..., None, :]
+
+
+def inverse_transform_points(pose: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply pose^-1 to points."""
+    R, t = exp(pose)
+    return torch.einsum("...ji,...nj->...ni", R, pts - t[..., None, :])
+
+
+def ypr_from_rotmat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> [yaw, pitch, roll] (ZYX convention, MRPT order),
+    as the ``out_kf_poses.txt`` dump writes them (reference
+    src/CSRBAStereoSLAMEstimator.cpp:977-987)."""
+    pitch = torch.atan2(-R[..., 2, 0], torch.sqrt(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2))
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    return torch.stack([yaw, pitch, roll], dim=-1)
+
+
+def rotmat_from_ypr(ypr: torch.Tensor) -> torch.Tensor:
+    """[yaw, pitch, roll] -> rotation matrix (ZYX)."""
+    y, p, r = ypr[..., 0], ypr[..., 1], ypr[..., 2]
+    cy, sy = torch.cos(y), torch.sin(y)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cr, sr = torch.cos(r), torch.sin(r)
+    row0 = torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], dim=-1)
+    row1 = torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], dim=-1)
+    row2 = torch.stack([-sp, cp * sr, cp * cr], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def rotation_angle(pose_or_rotvec: torch.Tensor) -> torch.Tensor:
+    """Magnitude of the rotation (radians) of a 6-vector pose or a 3-vector
+    rotation vector."""
+    return torch.linalg.vector_norm(pose_or_rotvec[..., :3], dim=-1)
+
+
+def translation_norm(pose: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(pose[..., 3:6], dim=-1)

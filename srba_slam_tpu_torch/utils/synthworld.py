@@ -282,3 +282,78 @@ class StreetScene:
         right = render_eye(cam.cx_r, cam.cy_r, cam.fx_r, cam.fy_r,
                            right_origin)
         return left, right
+
+
+def make_ba_window_problem(cam, rng, C, L, O, n_cams, n_lms,
+                           pose_noise=0.02, lm_noise=0.05, px_noise=0.3,
+                           step=0.8):
+    """Vectorized synthetic windowed-BA problem at arbitrary scale
+    (validates the sharded window solve at the loop-closure bucket —
+    models/srba.py win_cams/win_lms/win_obs — where a python per-obs loop
+    would take minutes). Cameras advance roughly +z through a landmark
+    cloud; every in-front landmark is observed, subsampled to the O
+    capacity. Returns (BAWindow of CPU tensors, gt_cam [n_cams,6])."""
+    import torch
+
+    from srba_slam_tpu_torch.ops.window_ba import BAWindow
+
+    steps = np.zeros((n_cams, 6))
+    steps[1:, 5] = step
+    steps[1:, 3] = 0.1 * rng.normal(size=n_cams - 1)
+    steps[1:, 4] = 0.05 * rng.normal(size=n_cams - 1)
+    steps[1:, :3] = 0.002 * rng.normal(size=(n_cams - 1, 3))
+    gt_cam = np.cumsum(steps, axis=0)
+    depth = step * (n_cams - 1)
+    lms_world = np.stack([
+        rng.uniform(-10, 10, n_lms), rng.uniform(-2.5, 2.5, n_lms),
+        rng.uniform(5, 20 + depth, n_lms),
+    ], -1)
+    lm_base = rng.integers(0, n_cams, n_lms)
+    # landmarks in their base-camera frames (vectorized per camera)
+    lm_pos = np.zeros((n_lms, 3))
+    inv_cam = se3_np.inverse_batch(gt_cam)
+    for c in range(n_cams):
+        sel = lm_base == c
+        if sel.any():
+            lm_pos[sel] = se3_np.transform_points(inv_cam[c], lms_world[sel])
+    # observations: all (cam, lm) pairs with z > 1 in front of the camera
+    oc_all, ol_all, px_all = [], [], []
+    for c in range(n_cams):
+        pc = se3_np.transform_points(inv_cam[c], lms_world)  # [n_lms, 3]
+        vis = pc[:, 2] > 1.0
+        z = np.maximum(pc[:, 2], 1e-6)
+        ul = cam.cx_l + cam.fx_l * pc[:, 0] / z
+        vl = cam.cy_l + cam.fy_l * pc[:, 1] / z
+        ur = cam.cx_r + cam.fx_r * (pc[:, 0] - cam.baseline) / z
+        vis &= (ul > -200) & (ul < cam.width + 200)
+        idx = np.nonzero(vis)[0]
+        oc_all.append(np.full(len(idx), c))
+        ol_all.append(idx)
+        px_all.append(np.stack([ul[idx], vl[idx], ur[idx]], -1))
+    oc = np.concatenate(oc_all)
+    ol = np.concatenate(ol_all)
+    px = np.concatenate(px_all) + rng.normal(0, px_noise, (len(oc), 3))
+    if len(oc) > O:
+        keep = rng.choice(len(oc), O, replace=False)
+        keep.sort()
+        oc, ol, px = oc[keep], ol[keep], px[keep]
+    n_o = len(oc)
+
+    cam_pose = np.zeros((C, 6), np.float32)
+    cam_pose[:n_cams] = gt_cam
+    cam_pose[1:n_cams] += rng.normal(0, pose_noise, (n_cams - 1, 6))
+    lm_arr = np.zeros((L, 3), np.float32)
+    lm_arr[:n_lms] = lm_pos + rng.normal(0, lm_noise, (n_lms, 3))
+    lb = np.zeros(L, np.int32); lb[:n_lms] = lm_base
+    oca = np.zeros(O, np.int32); oca[:n_o] = oc
+    ola = np.zeros(O, np.int32); ola[:n_o] = ol
+    opa = np.zeros((O, 3), np.float32); opa[:n_o] = px
+    ova = np.zeros(O, bool); ova[:n_o] = True
+    win = BAWindow(
+        cam_pose=torch.from_numpy(cam_pose),
+        cam_valid=torch.from_numpy(np.arange(C) < n_cams),
+        lm_pos=torch.from_numpy(lm_arr), lm_base=torch.from_numpy(lb),
+        lm_valid=torch.from_numpy(np.arange(L) < n_lms),
+        obs_cam=torch.from_numpy(oca), obs_lm=torch.from_numpy(ola),
+        obs_px=torch.from_numpy(opa), obs_valid=torch.from_numpy(ova))
+    return win, gt_cam

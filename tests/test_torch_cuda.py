@@ -6,9 +6,13 @@ no jax, so it runs where only torch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerance: none for the kernels, which are bit-exact against their plain
-versions, nor for the VO engine's integer results and the estimator's
-keyframe decisions, which equal the CPU path's. Poses agree within 1e-4
-(the f32 solves sum in another order on the card).
+versions (on uint8 frames and on the f32, non-integer frames of pyramid
+octaves and of a rectified rig), nor for the VO engine's integer results
+and the estimator's keyframe decisions, which equal the CPU path's. Poses
+and triangulated points agree within 1e-4 (the f32 solves sum in another
+order on the card). Oriented descriptors, plain torch on both devices, may
+differ in rows where a steering angle differs in its last bit: counted,
+under 2%.
 """
 
 import numpy as np
@@ -19,9 +23,11 @@ from srba_slam_tpu_torch import (
     GeneralOptions, SRBAStereoSLAMEstimator, SRBAStereoSLAMOptions, StereoCamera,
     StereoVOEngine, VOOptions,
 )
+from srba_slam_tpu_torch.models.vo import _avgpool2, extract_and_match
 from srba_slam_tpu_torch.ops import hopper_fast
 from srba_slam_tpu_torch.ops.fast import fast_score_map as fast_score_map_plain
-from srba_slam_tpu_torch.ops.nms import grid_topk
+from srba_slam_tpu_torch.ops.nms import grid_topk, local_max_suppress
+from srba_slam_tpu_torch.ops.rectify import build_maps, remap_bilinear
 from srba_slam_tpu_torch.utils import bench_workload
 from srba_slam_tpu_torch.utils.bench_workload import decisions
 from srba_slam_tpu_torch.utils.framesource import SyntheticSource
@@ -169,14 +175,15 @@ def _k3_images(kind, shape, street, rng):
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
 @pytest.mark.parametrize("kind", ["street", "plateau", "noise", "negative_th"])
-@pytest.mark.parametrize("margin", [3, 4, 16, "over_half"])
+@pytest.mark.parametrize("margin", [0, 1, 2, 3, 4, 16, "over_half"])
 @pytest.mark.parametrize("shape", [(9, 140), (123, 300), (1, 61, 257), (2, 370, 1226),
                                    (3, 123, 300)])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_fast_score_kernel_matches_plain(cuda, street_pair, dtype, kind, margin, shape, offset):
     """K3 on both routes (uint8 in DPX, f32), shapes that are no multiple of
-    the 32x128 tile and one smaller than a tile, the least margins, one past
-    half the image (an all-zero map), and with ``offset`` 1 a batch whose
+    the 32x128 tile and one smaller than a tile, the least margins (under 3
+    the circle wraps at the borders, as the plain version rolls the image),
+    one past half the image (an all-zero map), and with ``offset`` 1 a batch whose
     storage starts one element past an aligned address. f32 frames of noise
     carry a fraction."""
     rng = np.random.default_rng(len(shape) * 100 + offset)
@@ -235,3 +242,161 @@ def test_estimator_cuda_matches_cpu(cuda):
     assert a.store.n_kfs == b.store.n_kfs >= 3
     n = a.store.n_kfs
     np.testing.assert_allclose(a.rba.kf_global[:n], b.rba.kf_global[:n], atol=1e-4)
+
+
+EUROC_DIST = [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0]
+OPTION_SHAPES = [(2, 185, 613), (2, 92, 306), (2, 480, 752)]
+
+
+def _option_frames(kind, shape, street, rng):
+    """f32 frames as the frontend's options make them: ``quarters`` and
+    ``sixteenths`` (octaves 1 and 2 of a uint8 frame), ``pooled`` (the
+    street pair really pooled, cropped or tiled to ``shape``), ``remapped``
+    (textured uint8 frames through a radial-tangential undistortion map)."""
+    n, h, w = shape
+    if kind == "quarters":
+        return torch.from_numpy(rng.integers(0, 1021, shape).astype(np.float32) / 4)
+    if kind == "sixteenths":
+        return torch.from_numpy(rng.integers(0, 4081, shape).astype(np.float32) / 16)
+    tiled = street.float().repeat(1, 3, 2)                    # [2, 1110, 2452]
+    if kind == "pooled":
+        return _avgpool2(tiled)[:, :h, :w].contiguous()
+    assert kind == "remapped"
+    maps = build_maps(w, h, 0.61 * w, 0.95 * h, 0.49 * w, 0.52 * h, dist=EUROC_DIST,
+                      device="cpu")
+    return torch.stack([remap_bilinear(tiled[i, 40:40 + h, 100:100 + w], maps)
+                        for i in range(n)])
+
+
+@pytest.mark.parametrize("kind", ["quarters", "sixteenths", "pooled", "remapped"])
+@pytest.mark.parametrize("shape", OPTION_SHAPES)
+@pytest.mark.parametrize("k", [170, 256])
+def test_kernels_on_option_frames(cuda, street_pair, kind, shape, k):
+    """K1, K2 and K3 on the f32, non-integer frames of octaves 1-2 and of a
+    rectified rig, at their shapes, with the per-octave K and with
+    mostly-false ``valid`` rows."""
+    rng = np.random.default_rng(k + shape[1])
+    imgs = _option_frames(kind, shape, street_pair, rng).to(cuda)
+    assert imgs.dtype == torch.float32 and bool((imgs != imgs.round()).any())
+    for th in (20.0, 90.0):
+        s1 = hopper_fast.fast_nms(imgs, th)
+        assert torch.equal(s1, hopper_fast.fast_nms_plain(imgs, th))
+        for margin in (0, 2, 3, 4):
+            s3 = hopper_fast.fast_score_map(imgs, th, margin=margin)
+            assert torch.equal(s3, fast_score_map_plain(imgs, th, margin=margin))
+        for scores in (s1, local_max_suppress(s3, radius=2)):
+            ys, xs, _sc, valid = grid_topk(scores, cell=5, k=k)
+            # all the selected keypoints, then a mostly-false ``valid`` (a deep octave)
+            sparse = valid & torch.from_numpy(rng.random(tuple(valid.shape)) < 0.1).to(cuda)
+            for v in (valid, sparse):
+                got = hopper_fast.orb_descriptors(imgs, ys, xs, v)
+                assert torch.equal(got, hopper_fast.orb_descriptors_plain(imgs, ys, xs, v))
+                assert not bool(got[~v].any())
+
+
+@pytest.mark.parametrize("dtype", ["u8", "quarters", "remapped"])
+@pytest.mark.parametrize("dist", list(range(3, 16)))
+def test_orb_kernel_at_keypoints_near_a_border(cuda, street_pair, dtype, dist):
+    """K2 against its plain version with every keypoint exactly ``dist`` px
+    from a border (3-15: closer than the pattern's reach of 13 plus the
+    blur's 3), along all four borders and in the corners."""
+    rng = np.random.default_rng(dist)
+    shape = (2, 185, 613)
+    n, h, w = shape
+    if dtype == "u8":
+        imgs = street_pair[:, 90:90 + h, 300:300 + w].contiguous()
+    else:
+        imgs = _option_frames(dtype, shape, street_pair, rng)
+    imgs = imgs.to(cuda)
+    k = 64
+    along_x = rng.integers(dist, w - dist, (n, k // 4))
+    along_y = rng.integers(dist, h - dist, (n, k // 4))
+    ys = np.concatenate([np.full_like(along_x, dist), np.full_like(along_x, h - 1 - dist),
+                         along_y, along_y], axis=1)
+    xs = np.concatenate([along_x, along_x, np.full_like(along_y, dist),
+                         np.full_like(along_y, w - 1 - dist)], axis=1)
+    ys[:, :2], xs[:, :2] = (dist, h - 1 - dist), (dist, w - 1 - dist)       # two corners
+    ys = torch.from_numpy(ys.astype(np.int32)).to(cuda)
+    xs = torch.from_numpy(xs.astype(np.int32)).to(cuda)
+    valid = torch.ones((n, k), dtype=torch.bool, device=cuda)
+    got = hopper_fast.orb_descriptors(imgs, ys, xs, valid)
+    assert torch.equal(got, hopper_fast.orb_descriptors_plain(imgs, ys, xs, valid))
+    assert bool(got.any())
+
+
+@pytest.mark.parametrize("option", ["levels2", "levels3", "margin0", "margin2", "margin3",
+                                    "margin4", "margin8",
+                                    "rect_maps", "robust_1to1"])
+def test_frontend_options_cuda_matches_cpu(cuda, street_pair, option):
+    """``extract_and_match`` with each option on the card against the CPU
+    path, on the street pair: every integer field equal, pts3d to 1e-4; the
+    kernels each option should reach are the ones launched."""
+    cam = StereoCamera.kitti()
+    kw = {"levels2": dict(n_levels=2), "levels3": dict(n_levels=3), "margin0": dict(margin=0),
+          "margin2": dict(margin=2), "margin3": dict(margin=3),
+          "margin4": dict(margin=4), "margin8": dict(margin=8), "rect_maps": {},
+          "robust_1to1": dict(robust_1to1=True)}[option]
+    left, right = street_pair[0].numpy(), street_pair[1].numpy()
+    outs = []
+    for device in (cuda, "cpu"):
+        if option == "rect_maps":
+            kw["rect_maps"] = tuple(build_maps(cam.width, cam.height, cam.fx_l, cam.fy_l,
+                                               cam.cx_l, cam.cy_l, dist=EUROC_DIST,
+                                               device=device) for _ in range(2))
+        before = [f.launches for f in (hopper_fast.fast_nms, hopper_fast.orb_descriptors,
+                                       hopper_fast.fast_score_map)]
+        outs.append(extract_and_match(left, right, cam, 20.0, 60, k=512, device=device, **kw))
+        after = [f.launches for f in (hopper_fast.fast_nms, hopper_fast.orb_descriptors,
+                                      hopper_fast.fast_score_map)]
+        if device == "cpu":
+            assert after == before
+        else:
+            levels = kw.get("n_levels", 1)
+            k3 = kw.get("margin", 16) < 5
+            assert [a - b for a, b in zip(after, before)] == \
+                [0 if k3 else levels, levels, 1 if k3 else 0]
+    a, b = outs
+    for name in ("ys_l", "xs_l", "valid_l", "desc_l", "ys_r", "xs_r", "valid_r", "desc_r",
+                 "m_r_idx", "m_valid", "octave"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+    assert float((a.pts3d.cpu() - b.pts3d).abs().max()) <= 1e-4
+    assert int(a.m_valid.sum()) > 100
+
+
+def test_oriented_frontend_cuda_close_to_cpu(cuda, street_pair):
+    """Oriented descriptors are plain torch on the card: keypoints equal the
+    CPU path's; a steering angle that differs in its last bit moves a sample
+    across a rounding boundary, so differing descriptor rows are counted and
+    held under 2%."""
+    cam = StereoCamera.kitti()
+    left, right = street_pair[0].numpy(), street_pair[1].numpy()
+    a, b = (extract_and_match(left, right, cam, 20.0, 60, k=512, oriented=True, device=d)
+            for d in (cuda, "cpu"))
+    for name in ("ys_l", "xs_l", "valid_l", "ys_r", "xs_r", "valid_r"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+    rows = sum(int((getattr(a, n).cpu() != getattr(b, n)).any(1).sum())
+               for n in ("desc_l", "desc_r"))
+    print(f"oriented: {rows} of 1024 descriptor rows differ between CUDA and CPU")
+    assert rows <= 20
+
+
+def test_cli_runs_on_the_card(cuda, tmp_path, capsys):
+    """``python -m srba_slam_tpu_torch``'s main with no --cpu: the card."""
+    import os
+    import re
+
+    from srba_slam_tpu_torch.__main__ import main
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    txt = open(os.path.join(repo, "demo", "config_synthetic_small.ini")).read()
+    txt = re.sub(r"(?m)^out_dir.*$", f"out_dir = {tmp_path / 'out'}", txt)
+    ini = tmp_path / "small.ini"
+    ini.write_text(txt)
+    before = hopper_fast.fast_nms.launches
+    assert main([str(ini), "--synthetic", "12", "--checkpoint", str(tmp_path / "s.npz")]) == 0
+    said = capsys.readouterr().out
+    assert f"backend: cuda ({torch.cuda.get_device_name(0)})" in said and "12 frames" in said
+    assert hopper_fast.fast_nms.launches >= before + 12
+    assert (tmp_path / "out" / "map_viewer.html").exists() and (tmp_path / "s.npz").exists()
+    assert main([str(ini), "--synthetic", "2", "--resume", str(tmp_path / "s.npz")]) == 0
+    assert "resumed from" in capsys.readouterr().out

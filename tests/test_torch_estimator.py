@@ -193,15 +193,23 @@ def test_perform_stereo_slam_honours_to_step_and_max_num_kfs(small_pair):
 
 
 @pytest.mark.parametrize("flag", ["debug", "show3D"])
-def test_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError, match="M11"):
-        _port_small(**{flag: True})
+def test_unported_options_raise(flag, tmp_path):
+    """The options that were once refused initialise and run now
+    (tests/test_torch_debug_viz.py holds their files to the JAX package's)."""
+    est = _port_small(out_dir=str(tmp_path), **{flag: True})
+    frames, _gt = small_frames()
+    for left, right in frames[:2]:
+        est.step(left, right)
+    made = "debug" if flag == "debug" else "live_map.json"
+    assert os.path.exists(tmp_path / made)
+    assert est.debug.enabled == (flag == "debug")
 
 
 def test_exception_epilogue_saves_artifacts(tmp_path):
     """A failing insertion saves the graph, the trajectory so far, the
-    timing stats and the profile to ``<out_dir>/crash/`` before the error
-    propagates; ``error.txt`` says why there is no checkpoint."""
+    timing stats, the profile and a resumable checkpoint to
+    ``<out_dir>/crash/`` before the error propagates; ``error.txt`` is
+    written first and names the failure."""
     est = _port_small(out_dir=str(tmp_path))
     define = est.rba.define_new_keyframe
     calls = []
@@ -217,11 +225,22 @@ def test_exception_epilogue_saves_artifacts(tmp_path):
     with pytest.raises(RuntimeError, match="injected"):
         est.perform_stereo_slam(frames)
     crash = tmp_path / "crash"
-    for name in ("error.txt", *OUTPUT_FILES):
+    for name in ("error.txt", "emergency_state.npz", *OUTPUT_FILES):
         assert (crash / name).exists(), name
-    err = (crash / "error.txt").read_text()
-    assert "injected SRBA failure" in err and "M11" in err
+    assert (crash / "error.txt").read_text() == "RuntimeError: injected SRBA failure\n"
     assert len((crash / "out_kf_poses.txt").read_text().splitlines()) == est.store.n_kfs == 2
+    # the checkpoint resumes: the state of the two keyframes that were in
+    from srba_slam_tpu_torch.utils.checkpoint import load_state
+    from srba_slam_tpu_torch.utils.compare import compare_estimator_state
+
+    resumed = _port_small()
+    load_state(resumed, str(crash / "emergency_state.npz"))
+    assert resumed.store.n_kfs == 2 and compare_estimator_state(est, resumed) == []
+    # a failure inside the epilogue still leaves error.txt
+    est.general.out_dir = str(tmp_path / "again")
+    est.finalize = est.save_trajectory = None
+    est.emergency_epilogue(ValueError("second"))
+    assert (tmp_path / "again" / "crash" / "error.txt").read_text() == "ValueError: second\n"
 
 
 def test_from_config_reads_the_demo_file():

@@ -71,6 +71,23 @@ def test_least_margins_on_a_batch_match_pallas(margin):
         assert ref[margin].any() and not ref[margin - 1].any()
 
 
+@pytest.mark.parametrize("margin", [0, 1, 2])
+def test_margins_under_the_circle_wrap_as_the_jax_map(margin):
+    """Under a margin of 3 a pixel near a border keeps the score of a circle
+    that wraps to the opposite border; the JAX package's score map
+    (``ops/fast.py``, the one it runs at such margins) rolls the same way."""
+    from srba_slam_tpu.ops.fast import fast_score_map as jax_fast_score_map
+
+    rng = np.random.default_rng(10 + margin)
+    imgs = rng.integers(0, 256, (2, 40, 150)).astype(np.uint8)
+    got = hopper_fast.fast_score_map(torch.from_numpy(imgs), 30.0, margin=margin).numpy()
+    for i in range(2):
+        ref = np.asarray(jax_fast_score_map(jnp.asarray(imgs[i], jnp.float32), 30.0,
+                                            margin=margin))
+        np.testing.assert_array_equal(got[i], ref)
+        assert ref[margin].any() and ref[:, margin].any()
+
+
 @pytest.mark.parametrize("n,h,w,grid", [
     (1, 370, 1226, (10, 12, 1)),          # one KITTI image: 120 blocks, one an SM
     (2, 370, 1226, (10, 12, 2)),          # a stereo pair: 240, two an SM
@@ -90,7 +107,7 @@ def test_kernel_launch_is_the_sources(n, h, w, grid):
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     img = torch.zeros((40, 50), dtype=torch.uint8)
     with pytest.raises(ValueError):
-        hopper_fast.fast_score_map(img, 8.0, margin=2)
+        hopper_fast.fast_score_map(img, 8.0, margin=-1)
     with pytest.raises(TypeError):
         hopper_fast.fast_score_map(img.to(torch.int32), 8.0)
     with pytest.raises(ValueError):

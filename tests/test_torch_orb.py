@@ -104,7 +104,7 @@ def test_descriptors_match_pallas_interpret(pallas_case, route):
     args = (torch.from_numpy(ys), torch.from_numpy(xs), torch.from_numpy(valid))
     if route == "wrapper":
         before = hopper_fast.orb_descriptors.launches
-        got = hopper_fast.orb_descriptors(torch.from_numpy(imgs), *args, margin=16)
+        got = hopper_fast.orb_descriptors(torch.from_numpy(imgs), *args)
         assert hopper_fast.orb_descriptors.launches == before
         blur_differs = gauss_blur7(torch.from_numpy(imgs)).numpy() != blurred
         assert blur_differs.mean() < 1e-4
@@ -129,16 +129,18 @@ def test_describe_on_own_blur(rng):
     np.testing.assert_array_equal(
         desc.numpy(), upright_descriptors(gauss_blur7(torch.from_numpy(img)), ys, xs, valid).numpy())
     assert not theta.any()
-    with pytest.raises(NotImplementedError):
-        describe(torch.from_numpy(img), ys, xs, valid, oriented=True)
+    # the oriented path runs (tests/test_torch_orb_options.py holds it to JAX's)
+    steered, theta = describe(torch.from_numpy(img), ys, xs, valid, oriented=True)
+    assert theta.any() and not torch.equal(steered, desc)
 
 
 def test_orb_wrapper_checks():
     blurred = torch.zeros((1, 64, 64))
     ys = torch.full((1, 4), 20, dtype=torch.int32)
     valid = torch.ones((1, 4), dtype=torch.bool)
-    with pytest.raises(ValueError):
-        hopper_fast.orb_descriptors(blurred, ys, ys, valid, margin=15)
+    # keypoints within 16 px of a border are taken: their samples clip
+    near = torch.full((1, 4), 5, dtype=torch.int32)
+    assert hopper_fast.orb_descriptors(blurred, near, near, valid).shape == (1, 4, 8)
     with pytest.raises(TypeError):
         hopper_fast.orb_descriptors(blurred, ys.long(), ys, valid)
     with pytest.raises(ValueError):

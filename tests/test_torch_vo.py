@@ -123,8 +123,17 @@ def test_unported_paths_raise(frames, opt):
         kw[opt] = True
     eng = StereoVOEngine(StereoCamera(**CAM_KW), VOOptions(**kw), capacity=CAPACITY,
                          device="cpu")
+    """The options that were once refused run now and keep tracking;
+    tests/test_torch_vo_options.py holds each to the JAX package."""
     if opt == "rect_maps":
-        eng.rect_maps = (object(), object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        for left, right in frames[:2]:
-            eng.process_stereo_pair(left, right)
+        from srba_slam_tpu_torch.ops.rectify import build_maps
+
+        c = CAM_KW
+        eng.rect_maps = tuple(build_maps(c["width"], c["height"], c["fx_l"], c["fy_l"],
+                                         c["cx_l"], c["cy_l"], dist=[0.02, -0.01, 0, 0, 0],
+                                         device="cpu") for _ in range(2))
+    for left, right in frames[:2]:
+        res = eng.process_stereo_pair(left, right)
+    assert res.valid and res.tracked_from_last_frame > 50
+    if opt == "n_octaves":
+        assert set(eng.last_frame().octave.unique().tolist()) == {0, 1}
