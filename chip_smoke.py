@@ -16,7 +16,9 @@ not 0 (there is no CPU fallback):
 3. K1        - ``fast_nms`` kernel against its plain torch version on the
                card, bit-exact (``torch.equal``), on a rendered KITTI-size
                street stereo pair (uint8), a quantized plateau image (f32,
-               threshold 20) and an unaligned 3x123x300 random batch;
+               threshold 20) and an unaligned 3x123x300 random batch; then at
+               every NMS radius it is built for (0-5, margin 3 + r) with one
+               threshold for the pair and one per image;
 4. K2        - ``orb_descriptors`` kernel (the blur fused in) against its
                plain version ``upright_descriptors(gauss_blur7(frames))``,
                bit-exact, at the K=512 keypoints K1 gives on the street pair;
@@ -25,12 +27,16 @@ not 0 (there is no CPU fallback):
                capacity 512). K1 and K2 launch exactly once per frame. The
                first 5 frames also run on the port's CPU path and must agree:
                identical validity, counts and integer features, pose
-               increments within 1e-4 rad / 1e-3 m. Then one
-               ``extract_and_match`` of the street pair under torch.profiler:
-               the frontend's kernel launches and device µs per frame;
+               increments within 1e-4 rad / 1e-3 m. Then
+               ``extract_and_match`` of the street pair, 5 calls under
+               torch.profiler: the frontend's kernel launches and device µs
+               per call (a trace that misses K1 or K2 is taken again, at
+               most 3 times, then reported as not traced; the wrappers'
+               counts must show both launched);
 6. K3        - ``fast_score_map`` kernel against its plain version,
                bit-exact, on the street left image (uint8), the plateau pair
-               (f32, threshold 20) and an odd-size 123x300 image; then timed
+               (f32, threshold 20) and an odd-size 123x300 image, and on the
+               street and plateau pairs at per-image thresholds; then timed
                on the street left image and on the street pair, each beside
                the launch floor (an empty kernel at K3's grid and block), and
                on the pair beside K1's device time from phase 3. The
@@ -71,17 +77,37 @@ not 0 (there is no CPU fallback):
 9. cli       - ``python -m srba_slam_tpu_torch``'s ``main`` in this process on
                the card with ``demo/config_euroc_example.ini`` (752x480,
                unrectified: the remap in front of K1 and K2) over
-               ``--synthetic 60``: exit code 0, the seven output files, one
-               pose row per keyframe, K1 and K2 at least once per frame.
-               Then ``--synthetic 30 --checkpoint``, and the checkpoint
-               resumed into a fresh estimator on the card and one on the
-               CPU: both step frames 30-59 to equal keyframe decisions. With
-               PIL present, 10 rendered pairs go to PNG files and the CLI
-               reads them through whichever loader builds.
+               ``--synthetic 60`` at the default ``--batch`` (8 on the card):
+               exit code 0, the seven output files, one pose row per
+               keyframe, K1 and K2 once per scan and for the bootstrap frame;
+               ``--batch 1`` writes the same ``kf_frames.txt``;
+               ``--synthetic 20 --fleet 2`` exits 0 and writes ``seq0/`` and
+               ``seq1/``. Then ``--synthetic 30 --checkpoint``, and the
+               checkpoint resumed into a fresh estimator on the card and one
+               on the CPU: both step frames 30-59 to equal keyframe
+               decisions. With PIL present, 10 rendered pairs go to PNG files
+               and the CLI reads them through whichever loader builds;
+10. batched  - the bench estimator through ``perform_stereo_slam_batched``
+               at batch 8 over the 81 frames, under
+               ``torch.use_deterministic_algorithms``: decisions equal the
+               committed JAX fingerprint (the JAX package's batch-8 run makes
+               its per-frame run's decisions), ATE under 0.5 m, K1 and K2 once
+               per scan dispatch (retry tails included) and for the bootstrap
+               frame; total s and fps beside phase 7's; K1 and K2 device-only
+               at one scan's ``[16,370,1226]`` uint8 beside the bytes bound
+               and the launch floor;
+11. fleet    - ``FleetSLAM`` over four bench-workload street sequences
+               (seeds 11, 48, 85, 122; 30 frames each; one vocabulary) on the
+               card against each sequence's solo ``step()`` run on the card:
+               decisions equal, keyframe poses within 1e-4 rad / 1e-3 m; K1
+               and K2 once per lockstep attempt (and per bootstrap frame);
+               the aggregate frames/s beside the solo runs'; K1 device-only
+               at ``[8,370,1226]`` with four thresholds, and K2 there.
 
 Then one JSON line with, per kernel: its launches over the driven paths
 (``launches_by_path``: the estimator run, the margin-3 frontend, the
-two-octave engine and the CLI run, each counted from 0;
+two-octave engine, the CLI run, the batched run and the fleet run, each
+counted from 0;
 ``on_main_path`` says whether one of the paths a user of the entry points
 can reach, all but the margin-3 frontend, launched it); its
 largest error against the plain version; ``ms`` and ``plain_ms``, the time
@@ -124,6 +150,7 @@ from srba_slam_tpu_torch import (  # noqa: E402
     SRBAStereoSLAMEstimator, StereoCamera, StereoVOEngine, VOOptions, load_config,
 )
 from srba_slam_tpu_torch.__main__ import main as cli_main  # noqa: E402
+from srba_slam_tpu_torch.models import estimator as estimator_mod  # noqa: E402
 from srba_slam_tpu_torch.models.estimator import bench_estimator  # noqa: E402
 from srba_slam_tpu_torch.models.vo import _avgpool2, _octave_budget, extract_and_match  # noqa: E402
 from srba_slam_tpu_torch.ops import cuda_build, hopper_fast, orb  # noqa: E402
@@ -133,6 +160,7 @@ from srba_slam_tpu_torch.ops.hopper_fast import (  # noqa: E402
 )
 from srba_slam_tpu_torch.ops.nms import grid_topk, local_max_suppress  # noqa: E402
 from srba_slam_tpu_torch.ops.rectify import build_maps, remap_bilinear  # noqa: E402
+from srba_slam_tpu_torch.parallel import fleet as fleet_mod  # noqa: E402
 from srba_slam_tpu_torch.utils import bench_workload as bw  # noqa: E402
 from srba_slam_tpu_torch.utils import kernel_timing as kt  # noqa: E402
 from srba_slam_tpu_torch.utils import se3_np  # noqa: E402
@@ -147,6 +175,8 @@ POSE_TOL_RAD = 1e-4
 POSE_TOL_M = 1e-3
 ATE_GATE_M = 0.5
 TIMING_REPS = 20
+FRONTEND_PROFILE_REPS = 5
+FRONTEND_KERNELS = ("fast_nms_kernel", "orb_describe_kernel")
 OUTPUT_FILES = ("out_kf_poses.txt", "time_new_kf.txt", "profiler.csv", "final_graph.dot")
 CLI_FILES = (*OUTPUT_FILES, "kf_frames.txt", "final_global_path.ply", "map_viewer.html")
 EUROC_INI = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demo",
@@ -155,7 +185,11 @@ N_CLI_FRAMES = 60
 N_RESUME_AT = 30
 # the paths a user of the entry points can reach (phase_options' margin-3
 # frontend is reached through the library's extract_and_match only)
-USER_PATHS = ("estimator", "two_octave_engine", "cli")
+USER_PATHS = ("estimator", "two_octave_engine", "cli", "batched", "fleet")
+BATCH = 8
+FLEET_SEEDS = (11, 48, 85, 122)
+N_FLEET_FRAMES = 30
+N_FLEET_CLI_FRAMES = 20
 ORIENTED_ROWS_TOL = 0.02
 PALLAS = "srba_slam_tpu/ops/pallas_fast.py"
 # f32 operations per pixel that the FAST score needs on given inputs (see
@@ -213,9 +247,13 @@ def _times(kernel: str, call, plain, n_bytes: float, n_ops: float) -> dict:
             "bytes": n_bytes, "ops": n_ops}
 
 
+def _us(x) -> str:
+    return "not traced" if x is None else f"{x:.2f} us"
+
+
 def _fmt(t: dict) -> str:
     return (f"device-only {t['device_ms'] * 1e3:.2f} us (CUDA graph of 100; torch.profiler "
-            f"{t['profiler_us']:.2f} us) | bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
+            f"{_us(t['profiler_us'])}) | bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
             f"({t['bytes'] / 1e6:.3f} MB, {t['ops'] / 1e6:.1f} M f32 ops), share "
             f"{t['bound_share']:.3f} | per call with the wrapper {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms")
@@ -294,6 +332,20 @@ def phase_k1(frames) -> dict:
         worst = max(worst, err)
         check(torch.equal(got, ref), f"K1 differs from its plain version on {name}: max {err}")
         parts.append(f"{name} {tuple(imgs.shape)} {imgs.dtype} equal, {int((ref > 0).sum())} kept")
+    # every NMS radius K1 is built for, at its least margin, with one
+    # threshold for the pair and one per image
+    for radius in hopper_fast.KERNEL_NMS_RADII:
+        for name, imgs in (("street", street), ("plateau", plateau)):
+            for thr in (20.0, torch.tensor([20.0, 10.0], device=DEV)):
+                got = fast_nms(imgs, thr, margin=3 + radius, radius=radius)
+                ref = fast_nms_plain(imgs, thr, margin=3 + radius, radius=radius)
+                err = float((got - ref).abs().max())
+                worst = max(worst, err)
+                check(torch.equal(got, ref), f"K1 differs from its plain version on {name} at "
+                      f"radius {radius}, thresholds {thr}: max {err}")
+    radii = hopper_fast.KERNEL_NMS_RADII
+    parts.append(f"NMS radii {radii[0]}-{radii[-1]} at margin 3 + r on street and plateau, "
+                 "one threshold and one per image (20, 10): equal")
     px = street.numel()
     n_fail, n_pass, n_kept = _fast_work(street, 20.0)
     times = _times("fast_nms_kernel", lambda: fast_nms(street, 20.0),
@@ -394,6 +446,17 @@ def phase_k3(frames, k1_device_ms: float) -> dict:
         check(got.shape == img.shape and torch.equal(got, ref),
               f"K3 differs from its plain version on {name}: max {err}")
         parts.append(f"{name} {tuple(img.shape)} {img.dtype} equal, {int((ref > 0).sum())} > th")
+    for name, imgs in (("street", street), ("plateau", plateau)):
+        for margin in (16, 2):
+            thr = torch.tensor([20.0, 10.0], device=DEV)
+            got = fast_score_map(imgs, thr, margin=margin)
+            ref = fast_score_map_plain(imgs, thr, margin=margin)
+            err = float((got - ref).abs().max())
+            worst = max(worst, err)
+            check(torch.equal(got, ref), f"K3 differs from its plain version on {name} at "
+                  f"per-image thresholds (20, 10), margin {margin}: max {err}")
+    parts.append("street and plateau pairs at per-image thresholds (20, 10), margins 16 and 2: "
+                 "equal")
     times, one = _k3_times(left)
     _pair_times, pair = _k3_times(street, k1_device_ms)
     print(f"[K3 fast_score_map] bit-exact: {'; '.join(parts)} | {one}")
@@ -467,26 +530,38 @@ def phase_slice(cam, frames, gt_poses):
           f"stereo matches median {int(np.median([r.num_stereo_matches for r in results]))}, "
           f"tracked median {int(np.median([r.tracked_from_last_frame for r in results[1:]]))} | "
           f"translation error at frame {len(frames)}: {t_err:.4f} m over {path:.2f} m")
-    print(f"[frontend] one extract_and_match of the street pair (frame 0) under "
-          f"torch.profiler: {front['launches']} kernel launches, device "
-          f"{front['device_us']:.1f} us, of which K1 {front['fast_nms_kernel']:.1f} us and "
-          f"K2 {front['orb_describe_kernel']:.1f} us (the blur inside K2)")
+    if front["traced"]:
+        print(f"[frontend] extract_and_match of the street pair (frame 0), "
+              f"{FRONTEND_PROFILE_REPS} calls under torch.profiler, per call: "
+              f"{front['launches']:.1f} kernel launches, device {front['device_us']:.1f} us, "
+              f"of which K1 {front['fast_nms_kernel']:.1f} us and "
+              f"K2 {front['orb_describe_kernel']:.1f} us (the blur inside K2)")
+    else:
+        print(f"[frontend] torch.profiler traced K1 and K2 in none of "
+              f"{kt.PROFILE_ATTEMPTS} attempts, though the wrappers launched them "
+              f"{front['wrapper_launches']}: the frontend's device time is not measured")
     return slice_ms
 
 
 def _frontend_profile(cam, left, right) -> dict:
-    """The frontend's launches and device µs for one stereo pair, as the
-    VO engine of phase 5 calls it."""
+    """The frontend's launches and device µs per call for one stereo pair,
+    as the VO engine of phase 5 calls it. The wrappers' counts must show K1
+    and K2 launched; a trace that holds neither is reported, not failed."""
     opts = VOOptions(fast_th=20, n_feats=500)
-    evs = kt.profile_calls(lambda: extract_and_match(
+    before = (fast_nms.launches, orb_descriptors.launches)
+    evs = kt.profile_until(lambda: extract_and_match(
         left, right, cam, 20.0, int(opts.orb_max_distance), k=512, cell=opts.min_distance,
-        max_y_diff=opts.max_y_diff, device=DEV))
+        max_y_diff=opts.max_y_diff, device=DEV), FRONTEND_KERNELS, FRONTEND_PROFILE_REPS)
+    launched = (fast_nms.launches - before[0], orb_descriptors.launches - before[1])
+    check(min(launched) > 0, f"the frontend launched K1, K2 {launched} times under the profiler")
+    if evs is None:
+        return {"traced": False, "wrapper_launches": launched}
     dev = kt.device_events(evs)
-    out = {"launches": kt.launch_count(evs),
-           "device_us": sum(e.self_device_time_total for e in dev)}
-    for name in ("fast_nms_kernel", "orb_describe_kernel"):
-        out[name] = sum(e.self_device_time_total for e in dev if name in e.key)
-        check(out[name] > 0, f"the frontend's trace holds no {name}")
+    out = {"traced": True, "launches": kt.launch_count(evs) / FRONTEND_PROFILE_REPS,
+           "device_us": sum(e.self_device_time_total for e in dev) / FRONTEND_PROFILE_REPS}
+    for name in FRONTEND_KERNELS:
+        out[name] = sum(e.self_device_time_total
+                        for e in dev if name in e.key) / FRONTEND_PROFILE_REPS
     return out
 
 
@@ -599,7 +674,7 @@ def phase_estimator(frames, gt_poses, profile: bool) -> dict:
     print(f"[estimator] profiler sections: {sections}")
     if profile:
         _profile_estimator(frames)
-    return counts
+    return counts, sum(ms) / 1e3
 
 
 def _count_blur_calls():
@@ -814,6 +889,173 @@ def phase_options(cam, frames, gt_poses, slice_ms: float) -> dict:
     return {"margin3_frontend": margin3, "two_octave_engine": octaves}
 
 
+def _kernel_line(imgs, thr, k: int = 512) -> str:
+    """K1 at ``thr`` and K2 at the keypoints K1 gives on ``imgs`` [N, H,
+    W] u8: each ``torch.equal`` to its plain version, then device-only
+    (CUDA graph) beside its bytes bound and the launch floor at its grid."""
+    n, h, w = imgs.shape
+    scores = fast_nms(imgs, thr)
+    check(torch.equal(scores, fast_nms_plain(imgs, thr)),
+          f"K1 differs from its plain version at {tuple(imgs.shape)}")
+    ys, xs, _sc, valid = grid_topk(scores, cell=5, k=k)
+    desc = orb_descriptors(imgs, ys, xs, valid)
+    check(torch.equal(desc, orb_descriptors_plain(imgs, ys, xs, valid)),
+          f"K2 differs from its plain version at {tuple(imgs.shape)}")
+    k1 = kt.graph_ms(lambda: fast_nms(imgs, thr))
+    k2 = kt.graph_ms(lambda: orb_descriptors(imgs, ys, xs, valid))
+    k1_floor = kt.launch_floor_ms(*hopper_fast.fast_nms_launch(n, h, w))
+    _pts, _sup, k2_bytes, k2_ops = _orb_work(imgs, ys, xs, valid)
+    k2_bound, k2_by = kt.bound_ms(k2_bytes, k2_ops)
+    return (f"K1 {k1 * 1e3:.2f} us (bytes bound {_px_bound_us(imgs):.2f} us, launch floor "
+            f"{k1_floor * 1e3:.2f} us at grid {hopper_fast.fast_nms_launch(n, h, w)[0]}, "
+            f"{int((scores > 0).sum())} kept), K2 at K={k} ({int(valid.sum())} valid) "
+            f"{k2 * 1e3:.2f} us (bound {k2_bound * 1e3:.3f} us by {k2_by}); both equal their "
+            f"plain versions")
+
+
+def phase_batched(frames, gt_poses, per_frame_s: float) -> dict:
+    """Phase 10: the bench estimator through perform_stereo_slam_batched."""
+    fp = bw.load_fingerprint()
+    scans, batches = [], [0]
+    scan = estimator_mod.vo_scan
+
+    def counted_scan(lefts, *a, **k):
+        scans.append(len(lefts))
+        return scan(lefts, *a, **k)
+
+    torch.use_deterministic_algorithms(True)
+    est = bench_estimator(DEV)
+    step_batch = est.step_batch
+
+    def counted_batch(lefts, rights):
+        batches[0] += 1
+        return step_batch(lefts, rights)
+
+    est.step_batch = counted_batch
+    estimator_mod.vo_scan = counted_scan
+    _reset_launches()
+    try:
+        t0 = time.perf_counter()
+        est.perform_stereo_slam_batched(frames, batch=BATCH)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        estimator_mod.vo_scan = scan
+    counts = _launches()
+    torch.use_deterministic_algorithms(False)
+    # frame 0 bootstraps through step(): one VO pass; then K1 and K2 once a scan
+    check(counts == {"fast_nms": len(scans) + 1, "orb_descriptors": len(scans) + 1,
+                     "fast_score_map": 0},
+          f"batched run: launches {counts} over {len(scans)} scans and the bootstrap frame")
+    got = bw.decisions(est.step_log)
+    diff = [(a, b) for a, b in zip(fp["decisions"], got) if a != b]
+    check(len(got) == len(frames) and not diff,
+          f"batched decisions differ from the JAX fingerprint at {len(diff)} frames: {diff[:5]}")
+    kf_frames = [r.frame_idx for r in est.step_log if r.inserted_kf is not None]
+    est.finalize()
+    final = est.final_poses_cam
+    ate = ate_rmse(final[:, 3:], gt_poses[kf_frames][:, 3:], align=True)
+    check(np.isfinite(final).all() and ate < ATE_GATE_M, f"batched: aligned ATE {ate} m")
+    d_jax = np.abs(final - np.asarray(fp["final_poses_cam"]))
+    imgs = torch.from_numpy(np.stack([f[0] for f in frames[1:1 + BATCH]]
+                                     + [f[1] for f in frames[1:1 + BATCH]])).to(DEV)
+    print(f"[batched] {len(frames)} frames 370x1226 on CUDA at batch {BATCH}, deterministic "
+          f"algorithms: total {wall:.3f} s, {len(frames) / wall:.2f} fps (phase 7 per-frame: "
+          f"{per_frame_s:.3f} s, {len(frames) / per_frame_s:.2f} fps; ratio "
+          f"{per_frame_s / wall:.3f}) | {batches[0]} batches, {len(scans)} scan dispatches "
+          f"(tails {[b for b in scans if b != BATCH]}), launches {counts}: K1 and K2 once per "
+          f"scan + the bootstrap frame | decisions equal the JAX fingerprint (the JAX "
+          f"package's batch-8 run makes the per-frame run's decisions, "
+          f"tests/test_torch_bench_fingerprint.py) | {est.store.n_kfs} KFs, "
+          f"{sum(r.kf_check for r in est.step_log)} checks | ATE {ate:.6f} m, final poses vs "
+          f"JAX max {d_jax[:, :3].max():.2e} rad / {d_jax[:, 3:].max():.2e} m")
+    print(f"[batched kernels] one scan's images [{2 * BATCH},370,1226] u8 at threshold 20: "
+          + _kernel_line(imgs, 20.0))
+    return counts
+
+
+def phase_fleet(cam) -> dict:
+    """Phase 11: FleetSLAM over four bench-workload street sequences
+    against each sequence's solo step() run, all on the card."""
+    seqs = [list(SyntheticSource(cam, n_frames=N_FLEET_FRAMES, seed=seed, step=bw.SOURCE["step"],
+                                 scene=bw.SOURCE["scene"])) for seed in FLEET_SEEDS]
+    torch.use_deterministic_algorithms(True)
+    # one vocabulary for all: trained on a scratch estimator over sequence
+    # 0's first voc_train_frames frames, as the CLI's --fleet does
+    scratch = bench_estimator(DEV)
+    for left, right in seqs[0][:max(1, scratch.opts.voc_train_frames)]:
+        scratch.step(left, right)
+    scratch.ensure_vocabulary()
+    voc = scratch.bow.voc
+
+    def estimator():
+        est = bench_estimator(DEV)
+        est.initialize(vocabulary=voc)
+        return est
+
+    solo, solo_s = [], 0.0
+    for frames in seqs:
+        est = estimator()
+        t0 = time.perf_counter()
+        for left, right in frames:
+            est.step(left, right)
+        sync()
+        solo_s += time.perf_counter() - t0
+        solo.append(est)
+    ests = [estimator() for _ in seqs]
+    attempts = [0]
+    frontend = fleet_mod.extract_and_match_batch
+
+    def counted(*a, **k):
+        attempts[0] += 1
+        return frontend(*a, **k)
+
+    fleet_mod.extract_and_match_batch = counted
+    _reset_launches()
+    try:
+        t0 = time.perf_counter()
+        fleet_mod.FleetSLAM(ests).run(seqs)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        fleet_mod.extract_and_match_batch = frontend
+    counts = _launches()
+    torch.use_deterministic_algorithms(False)
+    n_seq = len(seqs)
+    # the first frame bootstraps each sequence through step(); then one K1
+    # and one K2 launch per lockstep attempt over all pending sequences
+    check(counts == {"fast_nms": attempts[0] + n_seq, "orb_descriptors": attempts[0] + n_seq,
+                     "fast_score_map": 0},
+          f"fleet: launches {counts} over {attempts[0]} lockstep attempts")
+    check(attempts[0] >= N_FLEET_FRAMES - 1, f"{attempts[0]} attempts")
+    worst_rad = worst_m = 0.0
+    kfs = []
+    for i, (f, s) in enumerate(zip(ests, solo)):
+        check(bw.decisions(f.step_log) == bw.decisions(s.step_log),
+              f"fleet sequence {i} (seed {FLEET_SEEDS[i]}): decisions differ from its solo run")
+        n = s.store.n_kfs
+        check(f.store.n_kfs == n >= 2, f"sequence {i}: {f.store.n_kfs} vs {n} keyframes")
+        d = np.abs(f.rba.kf_global[:n] - s.rba.kf_global[:n])
+        worst_rad, worst_m = max(worst_rad, d[:, :3].max()), max(worst_m, d[:, 3:].max())
+        kfs.append(n)
+    check(worst_rad <= POSE_TOL_RAD and worst_m <= POSE_TOL_M,
+          f"fleet keyframe poses differ from the solo runs by {worst_rad} rad / {worst_m} m")
+    n_frames = n_seq * N_FLEET_FRAMES
+    first = [s[1] for s in seqs]
+    imgs = torch.from_numpy(np.stack([f[0] for f in first] + [f[1] for f in first])).to(DEV)
+    thr = torch.tensor([20.0, 15.0, 10.0, 5.0] * 2, device=DEV)
+    print(f"[fleet] {n_seq} street sequences (seeds {FLEET_SEEDS}) x {N_FLEET_FRAMES} frames "
+          f"370x1226 on CUDA, one vocabulary, deterministic algorithms: {wall:.3f} s, "
+          f"{n_frames / wall:.2f} frames/s aggregate (the four solo runs: {solo_s:.3f} s, "
+          f"{n_frames / solo_s:.2f} frames/s) | {attempts[0]} lockstep attempts, launches "
+          f"{counts}: K1 and K2 once per attempt + one bootstrap frame a sequence | every "
+          f"sequence's decisions equal its solo run; keyframes {kfs}; KF poses within "
+          f"{worst_rad:.2e} rad / {worst_m:.2e} m")
+    print(f"[fleet kernels] one lockstep frontend's images [{2 * n_seq},370,1226] u8 at "
+          f"per-image thresholds {[float(t) for t in thr]}: " + _kernel_line(imgs, thr))
+    return counts
+
+
 def _cli(args: list) -> tuple[int, str]:
     """The port's ``main`` in this process; returns (exit code, stdout)."""
     buf = io.StringIO()
@@ -840,11 +1082,18 @@ def _ini_copy(tmp: str, name: str, **subs) -> tuple[str, str]:
 def phase_cli() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         ini, out = _ini_copy(tmp, "full")
+        scans = []
+        scan = estimator_mod.vo_scan
+        estimator_mod.vo_scan = lambda lefts, *a, **k: (scans.append(len(lefts)),
+                                                        scan(lefts, *a, **k))[1]
         _reset_launches()
-        t0 = time.perf_counter()
-        rc, said = _cli([ini, "--synthetic", str(N_CLI_FRAMES)])
-        sync()
-        wall = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            rc, said = _cli([ini, "--synthetic", str(N_CLI_FRAMES)])    # default: --batch 8
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            estimator_mod.vo_scan = scan
         counts = _launches()
         check(rc == 0, f"the CLI exited with {rc}: {said}")
         m = re.search(r"(\d+) frames, (\d+) keyframes, ([0-9.]+) fps", said)
@@ -860,8 +1109,30 @@ def phase_cli() -> dict:
         check(len(rows) == n_kfs >= 3, f"{len(rows)} pose rows for {n_kfs} keyframes")
         check(np.isfinite(np.loadtxt(os.path.join(out, "out_kf_poses.txt"))).all(),
               "out_kf_poses.txt holds a non-finite pose")
-        check(counts["fast_nms"] >= N_CLI_FRAMES and counts["orb_descriptors"] >= N_CLI_FRAMES,
-              f"the CLI run launched {counts} over {N_CLI_FRAMES} frames")
+        check(len(scans) >= (N_CLI_FRAMES - 1) // BATCH
+              and counts["fast_nms"] == counts["orb_descriptors"] == len(scans) + 1,
+              f"the CLI run launched {counts} over {len(scans)} scans and the bootstrap frame")
+        # the default (batch 8 on the card) keeps the keyframes of per-frame stepping
+        ini1, out1 = _ini_copy(tmp, "per_frame")
+        t0 = time.perf_counter()
+        rc1, said1 = _cli([ini1, "--synthetic", str(N_CLI_FRAMES), "--batch", "1"])
+        wall1 = time.perf_counter() - t0
+        m1 = re.search(r"([0-9.]+) fps", said1)
+        kf_default = open(os.path.join(out, "kf_frames.txt")).read()
+        kf_per_frame = open(os.path.join(out1, "kf_frames.txt")).read()
+        check(rc1 == 0 and m1 is not None and kf_default == kf_per_frame,
+              f"--batch 1 exited {rc1}; its kf_frames.txt differs from the default run's")
+        # --fleet 2 over rendered sequences: two output directories
+        ini2f, outf = _ini_copy(tmp, "fleet")
+        t0 = time.perf_counter()
+        rcf, saidf = _cli([ini2f, "--synthetic", str(N_FLEET_CLI_FRAMES), "--fleet", "2"])
+        wallf = time.perf_counter() - t0
+        mf = re.search(r"fleet: 2 sequences x \d+ frames on 1 card, ([0-9.]+) frames/s", saidf)
+        seq_files = {i: sorted(os.listdir(os.path.join(outf, f"seq{i}")))
+                     if os.path.isdir(os.path.join(outf, f"seq{i}")) else [] for i in range(2)}
+        check(rcf == 0 and mf is not None
+              and all(set(CLI_FILES) <= set(f) for f in seq_files.values()),
+              f"--fleet 2 exited {rcf}, wrote {seq_files}: {saidf}")
 
         # checkpoint at frame 30, then the same continuation on the card and on the CPU
         ckpt = os.path.join(tmp, "s.npz")
@@ -904,9 +1175,13 @@ def phase_cli() -> dict:
             png = f"10 PNG pairs through {loader.group(1)}"
     print(f"[cli] {png}")
     print(f"[cli] main() on CUDA, {os.path.basename(EUROC_INI)} (752x480, unrectified) over "
-          f"--synthetic {N_CLI_FRAMES}: exit 0, {N_CLI_FRAMES} frames, {n_kfs} keyframes, "
-          f"{fps:.2f} fps (its own clock; {wall:.3f} s with set-up and the output files) | "
-          f"launches {counts} | files {sizes} | checkpoint at frame {N_RESUME_AT} resumed on "
+          f"--synthetic {N_CLI_FRAMES} at the default --batch ({BATCH} on the card): exit 0, "
+          f"{N_CLI_FRAMES} frames, {n_kfs} keyframes, {fps:.2f} fps (its own clock; {wall:.3f} s "
+          f"with set-up and the output files) | {len(scans)} scans, launches {counts} | "
+          f"--batch 1: the same kf_frames.txt, {m1.group(1)} fps ({wall1:.3f} s) | files "
+          f"{sizes} | --synthetic {N_FLEET_CLI_FRAMES} --fleet 2: exit 0, seq0/ and seq1/ "
+          f"written, {mf.group(1)} frames/s aggregate ({wallf:.3f} s with the vocabulary "
+          f"training and set-up) | checkpoint at frame {N_RESUME_AT} resumed on "
           f"CUDA and on the CPU: frames {N_RESUME_AT}-{N_CLI_FRAMES - 1} to equal decisions, "
           f"{cont[DEV][1]} keyframes")
     return counts
@@ -935,10 +1210,13 @@ def main():
     k2 = timed("K2", phase_k2, frames)
     slice_ms = timed("slice", phase_slice, cam, frames[:N_SLICE_FRAMES], src.gt_poses)
     k3 = timed("K3", phase_k3, frames, k1["device_ms"])
-    paths = {"estimator": timed("estimator", phase_estimator, frames, src.gt_poses, profile)}
+    est_counts, per_frame_s = timed("estimator", phase_estimator, frames, src.gt_poses, profile)
+    paths = {"estimator": est_counts}
     paths.update(timed("options", phase_options, cam, frames[:N_SLICE_FRAMES], src.gt_poses,
                        slice_ms))
     paths["cli"] = timed("cli", phase_cli)
+    paths["batched"] = timed("batched", phase_batched, frames, src.gt_poses, per_frame_s)
+    paths["fleet"] = timed("fleet", phase_fleet, cam)
     print(f"[phases] seconds {seconds}")
     for k in (k1, k2, k3):
         k["launches_by_path"] = {path: c[k["name"]] for path, c in paths.items()}

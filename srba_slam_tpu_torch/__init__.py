@@ -17,7 +17,10 @@ pose graph and the output files, with the host layer they need
 (``config``, ``utils/``), behind the command line of the JAX package
 (``python -m srba_slam_tpu_torch <config.ini>``, ``__main__.py``) with
 checkpoint and resume, the native frame loader, the debug dumps and the
-viewers. What is not ported yet: ROADMAP.md, Queue 1.
+viewers; the batched loop (``perform_stereo_slam_batched`` over
+``models/vo.py`` ``vo_scan``, the CLI's ``--batch``) and ``parallel/`` (the
+lockstep fleet of sequences, the CLI's ``--fleet``). What is not ported, and
+why: ROADMAP.md, Queue 1.
 """
 
 __version__ = "0.1.0"

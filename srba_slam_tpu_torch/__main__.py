@@ -4,15 +4,16 @@ Usage::
 
     python -m srba_slam_tpu_torch <config.ini> [--synthetic N] [--checkpoint path]
                                   [--resume path] [--gt file] [--serve [PORT]]
-                                  [--cpu]
+                                  [--batch B] [--fleet S] [--cpu]
 
 Counterpart of ``python -m srba_slam_tpu``: the same arguments and the same
 flow. It takes the reference's ``.ini`` config format unmodified (the demo
 configs load as they are). ``--synthetic N`` replaces the image source with
 an N-frame rendered sequence for dataset-free runs. The run is on the CUDA
-card unless ``--cpu`` is given. ``--batch`` above 1 (the batched VO scan,
-ROADMAP M12) and ``--fleet`` (lockstep sequences over several devices,
-ROADMAP M13) are not ported yet and exit with code 2.
+card unless ``--cpu`` is given. ``--batch B`` runs the VO of B frames as
+one batched scan (default: 8 on the card, frame by frame on the CPU);
+``--fleet S`` with ``--synthetic`` runs S independent rendered sequences in
+lockstep (``parallel/fleet.py``), their outputs under ``<out_dir>/seq<i>/``.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the default is the CUDA card)")
     ap.add_argument("--batch", type=int, default=0, metavar="B",
-                    help="frames per device dispatch: 0 and 1 step frame by "
-                         "frame; more is the batched VO scan, not ported yet")
+                    help="frames per batched VO scan (0 = auto: 8 on the card, "
+                         "frame by frame with --cpu; 1 = frame by frame)")
     ap.add_argument("--gt", "--eval", dest="gt", default="", metavar="FILE",
                     help="ground-truth trajectory (KITTI poses.txt, "
                          "out_kf_poses.txt format, or Nx3 xyz) to report "
@@ -43,8 +44,10 @@ def main(argv=None):
                          "EXISTING trajectory without re-running, use "
                          "python -m srba_slam_tpu_torch.utils.evaluation")
     ap.add_argument("--fleet", type=int, default=0, metavar="S",
-                    help="with --synthetic: S independent sequences in "
-                         "lockstep over the devices; not ported yet")
+                    help="with --synthetic: run S independent sequences in "
+                         "lockstep with one batched frontend "
+                         "(parallel.fleet); per-sequence outputs land in "
+                         "<out_dir>/seq<i>/")
     ap.add_argument("--serve", type=int, nargs="?", const=0, default=None,
                     metavar="PORT",
                     help="serve a LIVE interactive map viewer over HTTP "
@@ -53,16 +56,6 @@ def main(argv=None):
                          "reference's live 3D window; implies show3D-style "
                          "per-keyframe snapshots")
     args = ap.parse_args(argv)
-
-    if args.fleet:
-        print(f"{TAG} error: --fleet (parallel/fleet.py) is not ported yet "
-              "(ROADMAP M13)", file=sys.stderr)
-        return 2
-    if args.batch > 1:
-        print(f"{TAG} error: --batch {args.batch} needs the batched VO scan "
-              "(vo_scan), which is not ported yet (ROADMAP M12); use --batch 0 "
-              "or 1 for per-frame stepping", file=sys.stderr)
-        return 2
 
     import torch
 
@@ -108,6 +101,9 @@ def main(argv=None):
         load_state(est, resume_path)
         print(f"{TAG} resumed from {resume_path} ({est.store.n_kfs} KFs)")
 
+    if args.fleet:
+        return _fleet(args, est, device)
+
     if args.synthetic:
         source = SyntheticSource(est.cam, n_frames=args.synthetic, step=0.5)
     elif est.general.cap_src == "rawlog" or (
@@ -149,8 +145,18 @@ def main(argv=None):
         print(f"{TAG} will stop and save state at iteration "
               f"{est.general.save_at_iteration}")
 
+    batch = args.batch
+    if batch == 0:
+        batch = 1 if args.cpu else 8
+    if est.general.pause_at_each_iteration:
+        # interactive per-frame pausing needs per-frame stepping (≙ reference
+        # .cpp:934-935, a per-iteration pause)
+        batch = 1
     t0 = time.time()
-    log = est.perform_stereo_slam(source)
+    if batch > 1:
+        log = est.perform_stereo_slam_batched(source, batch=batch)
+    else:
+        log = est.perform_stereo_slam(source)
     dt = time.time() - t0
     n = len(log)
     print(f"{TAG} {n} frames, {est.store.n_kfs} keyframes, "
@@ -193,6 +199,53 @@ def main(argv=None):
     if save_path:
         est.save_checkpoint(save_path)
         print(f"{TAG} state saved to {save_path}")
+    return 0
+
+
+def _fleet(args, est, device) -> int:
+    """``--fleet S``: S independent rendered sequences (seeds 11 + 37 i) in
+    lockstep, ``est`` the first; one vocabulary for all; the outputs of
+    sequence i in ``<out_dir>/seq<i>/``."""
+    import os
+
+    from srba_slam_tpu_torch.models.estimator import SRBAStereoSLAMEstimator
+    from srba_slam_tpu_torch.parallel.fleet import FleetSLAM
+    from srba_slam_tpu_torch.utils.framesource import SyntheticSource
+
+    if not args.synthetic:
+        print(f"{TAG} error: --fleet requires --synthetic N (multi-directory image "
+              "fleets are not wired to the CLI)", file=sys.stderr)
+        return 2
+    ests = [est] + [SRBAStereoSLAMEstimator.from_config(args.config, device=device)
+                    for _ in range(args.fleet - 1)]
+    voc = est.bow.voc if est.bow is not None else None
+    if voc is None:
+        # no vocabulary file in the config: train one shared vocabulary from
+        # the first voc_train_frames frames of sequence 0, on a scratch
+        # estimator
+        scratch = SRBAStereoSLAMEstimator.from_config(args.config, device=device)
+        scratch.initialize()
+        n_train = max(1, scratch.opts.voc_train_frames)
+        for left, right in SyntheticSource(scratch.cam, n_frames=n_train, step=0.5, seed=11):
+            scratch.step(left, right)
+        scratch.ensure_vocabulary()
+        voc = scratch.bow.voc
+        est.initialize(vocabulary=voc)
+    for e in ests[1:]:
+        e.initialize(vocabulary=voc)
+    sources = [SyntheticSource(e.cam, n_frames=args.synthetic, step=0.5, seed=11 + 37 * i)
+               for i, e in enumerate(ests)]
+    fleet = FleetSLAM(ests)
+    t0 = time.time()
+    fleet.run(sources)
+    dt = time.time() - t0
+    n_frames = sum(e.frame_idx + 1 for e in ests)
+    print(f"{TAG} fleet: {len(ests)} sequences x {args.synthetic} frames on 1 card, "
+          f"{n_frames / max(dt, 1e-9):.2f} frames/s aggregate")
+    out_dir = est.general.out_dir or "out"
+    for i, e in enumerate(ests):
+        e.finalize(out_dir=os.path.join(out_dir, f"seq{i}"))
+        print(f"{TAG}   seq{i}: {e.store.n_kfs} keyframes -> {out_dir}/seq{i}/")
     return 0
 
 

@@ -3,7 +3,8 @@
 // Replaces the TPU kernel srba_slam_tpu/ops/pallas_fast.py
 // fast_score_map_pallas (kernel body _make_kernel). Output, for every image
 // n of a batch [N, H, W]:
-//   score = FAST-9/16 score (fast_circle.cuh), zero unless score > threshold,
+//   score = FAST-9/16 score (fast_circle.cuh), zero unless score >
+//           threshold[n] (one threshold for the batch or one per image),
 //           zero within `margin` of a border.
 // Bit-exact against its plain torch version ops/fast.py fast_score_map. The
 // plain version and the TPU kernel roll the image at its borders. From a
@@ -76,7 +77,7 @@ __device__ __forceinline__ void stage_tile_wrap(const T* __restrict__ src, S (*s
 template <typename T, bool WRAP>
 __global__ void __launch_bounds__(BX * BY, 2)
 fast_score_kernel(const T* __restrict__ img, float* __restrict__ out, int H, int W,
-                  float th, int margin) {
+                  float th, const float* __restrict__ thr, int margin) {
     using S = decltype(srba::stage_px(T()));
     __shared__ S s_img[IH][IW];
 
@@ -86,6 +87,7 @@ fast_score_kernel(const T* __restrict__ img, float* __restrict__ out, int H, int
     const int tx = threadIdx.x, ty = threadIdx.y;
     const T* src = img + (size_t)n * H * W;
     float* dst = out + (size_t)n * H * W;
+    const float t = thr != nullptr ? thr[n] : th;   // this image's threshold
 
     // 1. stage the tile plus halo; outside the image reads as 0 (only pixels
     //    within 3 px of a border see it, and a margin >= 3 zeroes them), or
@@ -114,7 +116,7 @@ fast_score_kernel(const T* __restrict__ img, float* __restrict__ out, int H, int
             s = srba::fast_score<IW>(s_img, ly + CR, tx + CR);
         }
         const bool inner = col_inner && gy >= margin && gy < H - margin;
-        dst[gy * W + gx] = (inner && s > th) ? s : 0.f;
+        dst[gy * W + gx] = (inner && s > t) ? s : 0.f;
     }
 }
 
@@ -125,22 +127,23 @@ __global__ void empty_kernel() {}
 }  // namespace
 
 // img: [n, h, w] uint8 (img_is_u8 != 0) or float32, contiguous, on the
-// current device; out: [n, h, w] float32; margin >= 0. Launches on `stream`
-// and returns cudaGetLastError() of the launch.
+// current device; out: [n, h, w] float32; thr: null (every image takes
+// `th`) or float32 [n] on the device (image i takes thr[i]); margin >= 0.
+// Launches on `stream` and returns cudaGetLastError() of the launch.
 extern "C" int srba_fast_score(const void* img, int img_is_u8, float* out, int n, int h, int w,
-                               float th, int margin, void* stream) {
+                               float th, const float* thr, int margin, void* stream) {
     const dim3 block(BX, BY);
     const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
     cudaStream_t s = (cudaStream_t)stream;
     const bool wrap = margin < CR;
     if (img_is_u8 && wrap) {
-        fast_score_kernel<uint8_t, true><<<grid, block, 0, s>>>((const uint8_t*)img, out, h, w, th, margin);
+        fast_score_kernel<uint8_t, true><<<grid, block, 0, s>>>((const uint8_t*)img, out, h, w, th, thr, margin);
     } else if (img_is_u8) {
-        fast_score_kernel<uint8_t, false><<<grid, block, 0, s>>>((const uint8_t*)img, out, h, w, th, margin);
+        fast_score_kernel<uint8_t, false><<<grid, block, 0, s>>>((const uint8_t*)img, out, h, w, th, thr, margin);
     } else if (wrap) {
-        fast_score_kernel<float, true><<<grid, block, 0, s>>>((const float*)img, out, h, w, th, margin);
+        fast_score_kernel<float, true><<<grid, block, 0, s>>>((const float*)img, out, h, w, th, thr, margin);
     } else {
-        fast_score_kernel<float, false><<<grid, block, 0, s>>>((const float*)img, out, h, w, th, margin);
+        fast_score_kernel<float, false><<<grid, block, 0, s>>>((const float*)img, out, h, w, th, thr, margin);
     }
     return (int)cudaGetLastError();
 }

@@ -10,18 +10,26 @@ pose graph and the output files.
 
 The parity reference is JAX's ``step()`` with ``solve_sync = True``: every
 window solve lands right after its insertion. This is the single copy of
-the per-frame host walk (ID chain, pose accumulators, triggers). A
-keyframe check runs the BoW query and DA cascade on the estimator's device
-and copies their outputs to the host once. The JAX package's tunnel
-scheduling (the batched loop, speculative checks, the frame uploader, bulk
-pulls) is not ported. The options around the loop run as in the JAX
+the per-frame host walk (``_walk_frame``: pose accumulators, triggers, the
+check; the ID chain is the VO engine's ``commit_frame``). A keyframe check
+runs the BoW query and DA cascade on the estimator's device and copies their
+outputs to the host once. The options around the loop run as in the JAX
 package: the rectification maps of an unrectified rig, the ``general.debug``
 file family, the ``show3D`` snapshots behind the live viewer, and the
 resumable checkpoint (``utils/checkpoint.py``).
+
+The batched loop (``perform_stereo_slam_batched``, the CLI's ``--batch N``)
+runs the VO of B frames as one ``vo_scan`` and walks the B frames through
+the same ``_walk_frame`` in ``step()``'s order, with the JAX package's
+adaptive-threshold protocol at batch granularity. It is synchronous: the
+JAX package's tunnel scheduling (speculative deferred checks, miss replay,
+the frame uploader, bulk pulls, queued solves) is not ported, since a
+keyframe inserted inside a batch changes no VO output.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from dataclasses import dataclass
@@ -38,7 +46,7 @@ from srba_slam_tpu_torch.models.data_association import (
 )
 from srba_slam_tpu_torch.models.keyframe import KeyframeStore
 from srba_slam_tpu_torch.models.srba import SRBAEngine, SRBAParams
-from srba_slam_tpu_torch.models.vo import StereoVOEngine
+from srba_slam_tpu_torch.models.vo import StereoVOEngine, vo_scan
 from srba_slam_tpu_torch.ops import prng
 from srba_slam_tpu_torch.ops.posegraph import optimize_pose_graph
 from srba_slam_tpu_torch.ops.ransac import hypotheses_for_prob
@@ -228,6 +236,9 @@ class SRBAStereoSLAMEstimator:
         self.query_log: list = []  # (frame_idx, scores, ids) per KF check
         self.debug = DebugDumper(os.path.join(self.general.out_dir or "out", "debug"),
                                  enabled=self.general.debug)
+        # frames a stop condition left unwalked inside a batch, for the next
+        # perform_stereo_slam_batched call
+        self._stashed_frames: list = []
         self._initialized = True
 
     def _skip_from_step(self, it):
@@ -258,12 +269,115 @@ class SRBAStereoSLAMEstimator:
         for left, right in it:
             self.step(left, right)
             self._pause_each_iteration()
-            if self.general.max_num_kfs and self.store.n_kfs >= self.general.max_num_kfs:
-                break
-            if self.general.to_step and self.frame_idx >= self.general.to_step:
+            if self._stop_reached():
                 break
         return self.step_log
 
+    def _stop_reached(self) -> bool:
+        """The main loop's stop conditions after a frame (≙ reference
+        .cpp:930-932): ``max_num_kfs`` keyframes, or frame ``to_step``."""
+        g = self.general
+        return bool((g.max_num_kfs and self.store.n_kfs >= g.max_num_kfs)
+                    or (g.to_step and self.frame_idx >= g.to_step))
+
+    # ---------------------------------------------------------- batched loop
+    def perform_stereo_slam_batched(self, frame_source, batch: int = 8) -> list[StepResult]:
+        """The main loop with the VO of ``batch`` frames as one ``vo_scan``
+        (one K1 and one K2 launch for their 2B images) and the frames
+        walked through ``step()``'s host walk in order. The first frame (and
+        the first after a resume, whose checkpoint holds no frame features)
+        goes through ``step()``. Stops where ``perform_stereo_slam`` stops,
+        at the frame: frames of the batch left unwalked are kept for the
+        next call."""
+        assert self._initialized, "call initialize() first"
+        stashed, self._stashed_frames = self._stashed_frames, []
+        it = self._skip_from_step(itertools.chain(stashed, iter(frame_source)))
+        if self.store.n_kfs == 0 or self.vo._prev is None:
+            first = next(it, None)
+            if first is None:
+                return self.step_log
+            self.step(*first)
+            if self._stop_reached():
+                return self.step_log
+        while True:
+            chunk = list(itertools.islice(it, batch))
+            if not chunk:
+                break
+            walked = self.step_batch(np.stack([f[0] for f in chunk]),
+                                     np.stack([f[1] for f in chunk]))
+            if walked < len(chunk) or self._stop_reached():
+                self._stashed_frames = chunk[walked:]
+                break
+        return self.step_log
+
+    def step_batch(self, lefts, rights) -> int:
+        """Process the B frames ``lefts``/``rights`` [B, H, W] with one
+        ``vo_scan`` (and one more for each adaptive retry's tail), each frame
+        walked to its keyframe decision before this returns. Returns the
+        number of frames walked: B, or fewer where a stop condition fired."""
+        dev = self.device
+        return self._process_scan(torch.as_tensor(lefts, device=dev),
+                                  torch.as_tensor(rights, device=dev))
+
+    def _process_scan(self, lefts: torch.Tensor, rights: torch.Tensor) -> int:
+        """One scan and its walk, with the adaptive-threshold protocol at
+        batch granularity (≙ JAX ``_process_scan``, reference .cpp:271-315):
+        if a frame's stereo matches fall under ``adaptive_th_min_matches``
+        while a threshold can still move, the frames before it are walked,
+        ``retry_step()`` moves a threshold, and the tail from that frame on
+        is scanned again, chained from the last walked frame (retries nest).
+        Otherwise the thresholds drift once, from the batch's fewest
+        matches. Returns the number of frames walked."""
+        eng = self.vo
+        fast_th, orb_th = eng.thresholds()
+        _last, _inc, outs = vo_scan(
+            lefts, rights, eng._prev,
+            torch.as_tensor(eng._last_pose_inc, dtype=torch.float32, device=self.device),
+            self.cam, fast_th, orb_th, **eng.frontend_options(), **eng.solve_options())
+        curs = outs[0]
+        scan = _to_host([outs[1], outs[2], curs.m_valid, outs[3], outs[4], outs[6]])
+        b = lefts.shape[0]
+        nm = scan[2].sum(axis=1)
+        th = self.opts.adaptive_th_min_matches
+        # the protocol runs only under orb_adaptive_fast_th (≙ .cpp:271)
+        adaptive = self.opts.orb_adaptive_fast_th
+        retry_j = None
+        if adaptive and (not eng.is_fast_th_min() or not eng.is_orb_th_max()):
+            below = np.nonzero(nm < th)[0]
+            if len(below):
+                retry_j = int(below[0])
+        if retry_j is not None:
+            walked = self._walk_scan(curs, scan, retry_j)
+            if walked < retry_j:
+                return walked
+            eng.retry_step()    # moves: gated above on a movable threshold
+            return retry_j + self._process_scan(lefts[retry_j:], rights[retry_j:])
+        if adaptive:
+            eng.drift_thresholds(int(nm.min()) if b else self.capacity, th)
+        return self._walk_scan(curs, scan, b)
+
+    def _walk_scan(self, curs, scan, upto: int) -> int:
+        """Walk frames [0, upto) of a scan in order: each through the VO
+        engine's ``commit_frame`` (IDs) and ``_walk_frame`` (pose, triggers,
+        check), as ``step()`` walks a frame. Returns the frames walked: fewer
+        than ``upto`` where a stop condition fired."""
+        track_idx, track_valid, m_valid, poses, pose_valid, mean_res = scan
+        for j in range(upto):
+            self.frame_idx += 1
+            res = StepResult(self.frame_idx)
+            self.step_log.append(res)
+            cur = type(curs)(*(a[j] for a in curs))
+            # (the scan's outputs, as the JAX package's, hold no GN iteration count)
+            vo = self.vo.commit_frame(cur, track_idx[j], track_valid[j], m_valid[j],
+                                      poses[j].copy(), bool(pose_valid[j]),
+                                      float(mean_res[j]), 0)
+            # a frame under 8 stereo matches is hopeless (≙ _vo_with_adaptive_retry)
+            self._walk_frame(res, None if vo.num_stereo_matches < 8 else vo)
+            if self._stop_reached():
+                return j + 1
+        return upto
+
+    # ------------------------------------------------------------------ step
     def step(self, left: np.ndarray, right: np.ndarray) -> StepResult:
         self.frame_idx += 1
         res = StepResult(self.frame_idx)
@@ -273,9 +387,16 @@ class SRBAStereoSLAMEstimator:
             self._insert_first_kf(left, right, res)
             return res
 
-        vo = self._vo_with_adaptive_retry(left, right, res)
+        self._walk_frame(res, self._vo_with_adaptive_retry(left, right, res))
+        return res
+
+    def _walk_frame(self, res: StepResult, vo):
+        """The host walk of one frame after its VO (``vo``, None for a
+        hopeless frame): pose integration, the keyframe triggers and, when
+        one fires, the keyframe check. Per-frame stepping, the batched walk
+        and the fleet's lockstep step all come here."""
         if vo is None or not vo.valid:
-            return res  # skip frame (≙ reference .cpp:318-323)
+            return  # skip frame (≙ reference .cpp:318-323)
         res.vo_valid = True
         res.n_stereo_matches = vo.num_stereo_matches
         res.tracked_from_last_kf = vo.tracked_from_last_kf
@@ -290,13 +411,12 @@ class SRBAStereoSLAMEstimator:
 
         force_new_kf, check = self._kf_triggers(vo.tracked_from_last_kf)
         if not check:
-            return res
+            return
         res.kf_check = True
         self.incr_from_last_check = np.zeros(6)
         ids = self._kf_check(self.vo.last_frame(), res, force_new_kf)
         if ids is not None:
             self.vo.set_frame_ids(ids, set(int(i) for i in ids if i >= 0))
-        return res
 
     def _kf_triggers(self, tracked_from_last_kf: int) -> tuple[bool, bool]:
         """KF-check triggers (≙ reference .cpp:366-394): hard force limit at
@@ -317,17 +437,32 @@ class SRBAStereoSLAMEstimator:
 
     # ------------------------------------------------------- adaptive VO
     def _vo_with_adaptive_retry(self, left, right, res: StepResult):
+        """One frame's VO under the adaptive retry protocol (:meth:`adaptive_vo`),
+        each pass a ``process_stereo_pair`` of the frame."""
+        proto = self.adaptive_vo()
+        next(proto)
+        try:
+            while True:
+                proto.send(self.vo.process_stereo_pair(left, right))
+        except StopIteration as done:
+            return done.value
+
+    def adaptive_vo(self):
         """≙ the FAST/ORB threshold retry protocol (reference .cpp:263-315),
         run only when orb_adaptive_fast_th is set (≙ the gate at .cpp:271);
-        otherwise one plain VO pass."""
+        otherwise one plain VO pass. A generator: each ``yield`` asks for one
+        VO pass of the frame at the engine's thresholds and takes its
+        VOResult (``send``); it returns the frame's result, None for a
+        hopeless frame. Per-frame stepping drives it with one frame; the
+        fleet drives one per sequence and batches their passes."""
         if not self.opts.orb_adaptive_fast_th:
-            vo = self.vo.process_stereo_pair(left, right)
+            vo = yield
             return None if vo.num_stereo_matches < 8 else vo
         th_min_matches = self.opts.adaptive_th_min_matches
         vo = None
         for _attempt in range(6):
             state = self.vo.get_state()
-            vo = self.vo.process_stereo_pair(left, right)
+            vo = yield
             if vo.num_stereo_matches >= th_min_matches:
                 break
             if not self.vo.retry_step():

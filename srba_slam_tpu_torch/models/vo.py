@@ -20,8 +20,14 @@ detector), image pyramids (``n_octaves > 1``: every octave through K1 and
 K2, on float32 images from octave 1 on), oriented ORB (plain torch: the JAX
 package has no kernel for it either), detector margins below 16 (K3 and a
 separate suppression where K1's fused window does not fit) and the
-fundamental-matrix filter of the tracked matches. Not ported yet: the
-batched ``vo_scan`` (ROADMAP M12).
+fundamental-matrix filter of the tracked matches.
+
+``vo_scan`` is the batched form behind the estimator's batched loop (the
+CLI's ``--batch N``): the frontend of B frames as one batch over their 2B
+images (K1 and K2 launch once), then the B frame-to-frame solves in order.
+The host half of a frame, ID propagation and the tracked-from-keyframe
+count, is :meth:`StereoVOEngine.commit_frame`, the one copy that per-frame
+stepping, the scan's walk and the fleet's lockstep step all call.
 """
 
 from __future__ import annotations
@@ -34,7 +40,9 @@ import torch
 
 from srba_slam_tpu_torch.config import VOOptions
 from srba_slam_tpu_torch.ops import prng
-from srba_slam_tpu_torch.ops.hopper_fast import fast_nms, fast_score_map, orb_descriptors
+from srba_slam_tpu_torch.ops.hopper_fast import (
+    fast_nms, fast_score_map, orb_descriptors,
+)
 from srba_slam_tpu_torch.ops.matching import interframe_match, stereo_match
 from srba_slam_tpu_torch.ops.nms import grid_topk, local_max_suppress
 from srba_slam_tpu_torch.ops.orb import describe
@@ -107,9 +115,11 @@ def _octave_budget(h0: int, w0: int, cell: int, k: int, n_levels: int):
 
 
 def _suppressed_scores(imgs, fast_th, margin, nms_radius):
-    """Suppressed FAST score maps of ``imgs`` [N, H, W]: K1 where its fused
-    5x5 window fits inside the margin; below that the score map (K3) and
-    the suppression as separate stages, as the JAX package leaves its fused
+    """Suppressed FAST score maps of ``imgs`` [N, H, W] at ``fast_th`` (a
+    float, or f32 [N]: one per image): K1 where its fused window fits inside
+    the margin (K1 refuses a radius outside 0-5, as the JAX package's
+    kernel takes no other); below that the score map (K3) and the
+    suppression as separate stages, as the JAX package leaves its fused
     kernel there."""
     if margin >= 3 + nms_radius:
         return fast_nms(imgs, fast_th, margin=margin, radius=nms_radius)
@@ -120,7 +130,8 @@ def _suppressed_scores(imgs, fast_th, margin, nms_radius):
 def _detect_describe_batch(imgs, fast_th, k, cell, nms_radius, margin,
                            oriented=False, n_levels=1):
     """Detect + describe for a batch of images [N, H, W] (uint8 or f32) at
-    once, over ``n_levels`` octaves of a 2x pyramid: per octave the
+    once, at ``fast_th`` (a float, or f32 [N]: one per image), over
+    ``n_levels`` octaves of a 2x pyramid: per octave the
     suppressed score maps (:func:`_suppressed_scores`), grid top-K with the
     octave's share of ``k``, and the descriptors (K2 with the blur inside
     for upright ones, plain torch for oriented ones). Coordinates are
@@ -171,6 +182,47 @@ def _build_frame(det_l, det_r, cam, orb_th, max_y_diff, min_disparity,
     )
 
 
+def _frames_on(x, device) -> torch.Tensor:
+    """Frames (numpy or tensors) on ``device``: uint8 stays uint8 (K1's DPX
+    route), every other type becomes float32, as the JAX package casts."""
+    x = torch.as_tensor(x, device=device)
+    return x if x.dtype == torch.uint8 else x.to(torch.float32)
+
+
+def extract_and_match_batch(
+    lefts, rights, cam: StereoCamera, fast_th, orb_th, k: int = 512, cell: int = 5,
+    nms_radius: int = 2, margin: int = 16, max_y_diff: float = 2.0,
+    min_disparity: float = 0.1, max_disparity: float = 1e9, oriented: bool = False,
+    n_levels: int = 1, robust_1to1: bool = False, rect_maps=None, device="cuda",
+) -> list[FrameFeatures]:
+    """The frontend of B stereo pairs ``lefts``/``rights`` [B, H, W] (numpy
+    or tensors, uint8 or float32) on ``device`` as one batch over their 2B
+    images: the remap with the rig's maps, then detect and describe (K1 and
+    K2 launch once), then the stereo match of each pair. ``fast_th`` is a
+    float or f32 [B] on ``device``, ``orb_th`` an int or B ints: one per
+    pair. Returns the B frames' FrameFeatures (see :func:`extract_and_match`
+    for the options)."""
+    lefts, rights = _frames_on(lefts, device), _frames_on(rights, device)
+    b = lefts.shape[0]
+    if rect_maps is not None:
+        lefts = remap_bilinear(lefts, rect_maps[0])
+        rights = remap_bilinear(rights, rect_maps[1])
+    if isinstance(fast_th, torch.Tensor):
+        fast_th = torch.cat([fast_th, fast_th])
+    det = _detect_describe_batch(torch.cat([lefts, rights]), fast_th, k=k, cell=cell,
+                                 nms_radius=nms_radius, margin=margin,
+                                 oriented=oriented, n_levels=n_levels)
+    orb_ths = [int(orb_th)] * b if np.ndim(orb_th) == 0 else [int(t) for t in orb_th]
+    return [_build_frame(tuple(a[j] for a in det), tuple(a[b + j] for a in det), cam,
+                         orb_ths[j], max_y_diff, min_disparity, max_disparity, robust_1to1)
+            for j in range(b)]
+
+
+def stack_features(frames) -> FrameFeatures:
+    """FrameFeatures with a leading frame dimension from a list of them."""
+    return FrameFeatures(*(torch.stack(parts) for parts in zip(*frames)))
+
+
 def extract_and_match(
     left,
     right,
@@ -202,19 +254,12 @@ def extract_and_match(
     ``rect_maps``, a (RectifyMaps_left, RectifyMaps_right) pair on
     ``device``, runs the RECTIFY stage first (≙ stereo-vo's rectification
     for ``rectified_images=false`` rigs)."""
-    left = torch.as_tensor(left, device=device)
-    right = torch.as_tensor(right, device=device)
-    if rect_maps is not None:
-        left = remap_bilinear(left, rect_maps[0])
-        right = remap_bilinear(right, rect_maps[1])
-    imgs = torch.stack([left, right])
-    out = _detect_describe_batch(imgs, fast_th, k=k, cell=cell,
-                                 nms_radius=nms_radius, margin=margin,
-                                 oriented=oriented, n_levels=n_levels)
-    det_l = tuple(a[0] for a in out)
-    det_r = tuple(a[1] for a in out)
-    return _build_frame(det_l, det_r, cam, orb_th, max_y_diff,
-                        min_disparity, max_disparity, robust_1to1)
+    left, right = _frames_on(left, device), _frames_on(right, device)
+    return extract_and_match_batch(
+        left[None], right[None], cam, fast_th, orb_th, k=k, cell=cell, nms_radius=nms_radius,
+        margin=margin, max_y_diff=max_y_diff, min_disparity=min_disparity,
+        max_disparity=max_disparity, oriented=oriented, n_levels=n_levels,
+        robust_1to1=robust_1to1, rect_maps=rect_maps, device=device)[0]
 
 
 class TrackSolveOut(NamedTuple):
@@ -271,6 +316,75 @@ def track_and_solve(
         max_incr_cost=max_incr_cost,
     )
     return TrackSolveOut(track_idx=m.idx, track_valid=valid, pose=res)
+
+
+def vo_scan(
+    lefts,
+    rights,
+    prev: FrameFeatures,
+    init_pose: torch.Tensor,
+    cam: StereoCamera,
+    fast_th: float,
+    orb_th: int,
+    k: int = 512,
+    cell: int = 5,
+    nms_radius: int = 2,
+    margin: int = 16,
+    max_y_diff: float = 2.0,
+    min_disparity: float = 0.1,
+    max_disparity: float = 1e9,
+    oriented: bool = False,
+    n_levels: int = 1,
+    kernel_param: float = 2.0,
+    residual_threshold: float = 15.0,
+    min_mod: float = 1e-3,
+    max_iters_initial: int = 30,
+    max_iters: int = 30,
+    min_inliers: int = 5,
+    max_incr_cost: int = 3,
+    robust_1to1: bool = False,
+    filter_fund_matrix: bool = False,
+    rect_maps=None,
+    device="cuda",
+):
+    """VO of B frames ``lefts``/``rights`` [B, H, W] (numpy or tensors,
+    uint8 or float32) on ``device``, chained from ``prev`` (the features of
+    the frame before them) and ``init_pose`` [6] (the initial increment
+    guess).
+
+    Two phases, as the JAX package's ``vo_scan``: (1) the frontend of all
+    2B images as one batch (remap, detect and describe with one K1 and one
+    K2 launch, then each pair's stereo match and triangulation); (2)
+    ``track_and_solve`` over the B frames in order, each against its
+    predecessor's features and warm-started from the last valid increment.
+    Each frame's math is that of per-frame stepping.
+
+    Returns ``(last_feat, last_inc, outs)`` in the JAX layout: the last
+    frame's features, the last valid increment, and ``outs = (curs,
+    track_idx [B, K], track_valid [B, K], poses [B, 6], pose_valid [B],
+    num_inliers [B], mean_residual [B])``, ``curs`` the frames'
+    FrameFeatures stacked along a leading B."""
+    curs = extract_and_match_batch(
+        lefts, rights, cam, fast_th, orb_th, k=k, cell=cell, nms_radius=nms_radius,
+        margin=margin, max_y_diff=max_y_diff, min_disparity=min_disparity,
+        max_disparity=max_disparity, oriented=oriented, n_levels=n_levels,
+        robust_1to1=robust_1to1, rect_maps=rect_maps, device=device)
+    prev_feat, last_inc = prev, init_pose
+    outs = []
+    for cur in curs:
+        out = track_and_solve(
+            prev_feat, cur, cam, last_inc, orb_th,
+            kernel_param=kernel_param, residual_threshold=residual_threshold,
+            min_mod=min_mod, max_iters_initial=max_iters_initial, max_iters=max_iters,
+            min_inliers=min_inliers, max_incr_cost=max_incr_cost,
+            filter_fund_matrix=filter_fund_matrix)
+        last_inc = torch.where(out.pose.valid, out.pose.pose, last_inc)
+        outs.append(out)
+        prev_feat = cur
+    souts = tuple(torch.stack(parts) for parts in zip(*(
+        (o.track_idx, o.track_valid, o.pose.pose, o.pose.valid, o.pose.num_inliers,
+         o.pose.mean_residual) for o in outs)))
+    return prev_feat, last_inc, (stack_features(curs),) + souts
 
 
 class VOResult(NamedTuple):
@@ -378,17 +492,40 @@ class StereoVOEngine:
             self.reset_orb_threshold()
 
     # --- main per-frame entry (≙ processNewImagePair) ---------------------
+    def frontend_options(self) -> dict:
+        """The engine's frontend options, as keyword arguments of
+        :func:`extract_and_match`, :func:`extract_and_match_batch` and
+        :func:`vo_scan`."""
+        o = self.opts
+        return dict(k=self.capacity, cell=o.min_distance, max_y_diff=o.max_y_diff,
+                    oriented=o.orb_oriented, n_levels=o.n_octaves,
+                    robust_1to1=o.enable_robust_1to1_match, rect_maps=self.rect_maps,
+                    device=self.device)
+
+    def solve_options(self) -> dict:
+        """The engine's tracking and pose-solve options, as keyword
+        arguments of :func:`track_and_solve` and :func:`vo_scan`."""
+        o = self.opts
+        return dict(kernel_param=o.kernel_param, residual_threshold=o.residual_threshold,
+                    min_mod=o.min_mod_out_vector, max_iters_initial=o.initial_max_iters,
+                    max_iters=o.max_iters, min_inliers=o.bad_tracking_th,
+                    max_incr_cost=o.max_incr_cost, filter_fund_matrix=o.filter_fund_matrix)
+
+    def thresholds(self) -> tuple[float, int]:
+        """The frontend's FAST and ORB thresholds now: FAST rounded to f32,
+        as the JAX package passes it."""
+        return float(np.float32(self.fast_th)), int(self.orb_th)
+
     def process_stereo_pair(self, left, right) -> VOResult:
-        cur = extract_and_match(
-            left, right, self.cam, float(np.float32(self.fast_th)), int(self.orb_th),
-            k=self.capacity, cell=self.opts.min_distance,
-            max_y_diff=self.opts.max_y_diff,
-            oriented=self.opts.orb_oriented,
-            n_levels=self.opts.n_octaves,
-            robust_1to1=self.opts.enable_robust_1to1_match,
-            rect_maps=self.rect_maps,
-            device=self.device,
-        )
+        fast_th, orb_th = self.thresholds()
+        return self.track(extract_and_match(left, right, self.cam, fast_th, orb_th,
+                                            **self.frontend_options()))
+
+    def track(self, cur: FrameFeatures) -> VOResult:
+        """The rest of a VO pass after the frontend: track ``cur`` (the
+        frame's features at the engine's thresholds) against the previous
+        frame, solve the increment, and commit the frame
+        (:meth:`commit_frame`). The first frame only mints its IDs."""
         if self._prev is None:
             m_valid_h = cur.m_valid.cpu().numpy()
             n_matches = int(m_valid_h.sum())
@@ -404,24 +541,21 @@ class StereoVOEngine:
             if self.opts.use_previous_pose_as_initial
             else torch.zeros(6, dtype=torch.float32, device=self.device)
         )
-        out = track_and_solve(
-            self._prev, cur, self.cam, init, int(self.orb_th),
-            kernel_param=self.opts.kernel_param,
-            residual_threshold=self.opts.residual_threshold,
-            min_mod=self.opts.min_mod_out_vector,
-            max_iters_initial=self.opts.initial_max_iters,
-            max_iters=self.opts.max_iters,
-            min_inliers=self.opts.bad_tracking_th,
-            max_incr_cost=self.opts.max_incr_cost,
-            filter_fund_matrix=self.opts.filter_fund_matrix,
-        )
-        track_idx = out.track_idx.cpu().numpy()
-        track_valid = out.track_valid.cpu().numpy()
-        m_valid_h = cur.m_valid.cpu().numpy()
-        pose_inc = out.pose.pose.cpu().numpy()
-        pose_ok = bool(out.pose.valid)
-        mean_res = float(out.pose.mean_residual)
-        iters = int(out.pose.iters)
+        out = track_and_solve(self._prev, cur, self.cam, init, int(self.orb_th),
+                              **self.solve_options())
+        return self.commit_frame(
+            cur, out.track_idx.cpu().numpy(), out.track_valid.cpu().numpy(),
+            cur.m_valid.cpu().numpy(), out.pose.pose.cpu().numpy(), bool(out.pose.valid),
+            float(out.pose.mean_residual), int(out.pose.iters))
+
+    def commit_frame(self, cur: FrameFeatures, track_idx: np.ndarray, track_valid: np.ndarray,
+                     m_valid_h: np.ndarray, pose_inc: np.ndarray, pose_ok: bool,
+                     mean_res: float, iters: int) -> VOResult:
+        """The host half of one tracked frame, on the host copies of its
+        tracking outputs: ID propagation, fresh IDs, the tracked counts, and
+        the hand-over of ``cur`` as the previous frame. The one copy of this
+        walk: per-frame stepping, the batched scan's walk and the fleet's
+        lockstep step all come here."""
         n_matches = int(m_valid_h.sum())
         # ID propagation: tracked features inherit the previous frame's IDs;
         # fresh stereo matches get fresh IDs from the engine counter (the

@@ -93,12 +93,12 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.srba_fast_nms.argtypes = [vp, ci, vp, ci, ci, ci, cf, ci, cf, vp]
+        lib.srba_fast_nms.argtypes = [vp, ci, vp, ci, ci, ci, cf, vp, ci, ci, cf, vp]
         lib.srba_fast_nms.restype = ci
         lib.srba_orb_describe.argtypes = [vp, ci, vp, vp, vp, vp, ctypes.POINTER(cf), vp,
                                           ci, ci, ci, ci, vp]
         lib.srba_orb_describe.restype = ci
-        lib.srba_fast_score.argtypes = [vp, ci, vp, ci, ci, ci, cf, ci, vp]
+        lib.srba_fast_score.argtypes = [vp, ci, vp, ci, ci, ci, cf, vp, ci, vp]
         lib.srba_fast_score.restype = ci
         lib.srba_empty_launch.argtypes = [ci, ci, ci, ci, ci, ci, vp]
         lib.srba_empty_launch.restype = ci

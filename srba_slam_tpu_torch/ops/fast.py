@@ -39,11 +39,12 @@ def _window9(x: torch.Tensor, combine) -> torch.Tensor:
     return combine(combine(w3, rot(w3, 3)), rot(w3, 6))
 
 
-def fast_score_map(img: torch.Tensor, threshold: float, margin: int = 16) -> torch.Tensor:
+def fast_score_map(img: torch.Tensor, threshold, margin: int = 16) -> torch.Tensor:
     """FAST-9/16 corner score for every pixel of ``img`` [..., H, W].
 
     Returns f32 scores, 0 where the pixel is no corner (score <= threshold)
-    or lies within ``margin`` pixels of a border.
+    or lies within ``margin`` pixels of a border. ``threshold`` is a float,
+    or an f32 tensor with one threshold per image (``img.shape[:-2]``).
     """
     img = img.to(torch.float32)
     h, w = img.shape[-2:]
@@ -54,6 +55,8 @@ def fast_score_map(img: torch.Tensor, threshold: float, margin: int = 16) -> tor
     bright = torch.amax(min9, dim=0)
     dark = -torch.amin(max9, dim=0)
     score = torch.maximum(bright, dark)
+    if isinstance(threshold, torch.Tensor):
+        threshold = threshold.reshape(*img.shape[:-2], 1, 1)
     score = torch.where(score > threshold, score, 0.0)
     if margin > 0:
         ys = torch.arange(h, device=img.device)[:, None]

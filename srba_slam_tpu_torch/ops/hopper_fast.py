@@ -13,7 +13,10 @@ Counterpart of ``srba_slam_tpu/ops/pallas_fast.py``:
   detector margins under 5, where K1's fused 5x5 window does not fit
   (``models/vo.py`` ``_suppressed_scores``).
 
-The tensors' device decides the route: a CUDA tensor launches the kernel
+K1 and K3 take their threshold as a float for the whole batch or as an
+f32 tensor with one threshold per image (a fleet step detects the frames
+of sequences whose adaptive thresholds differ). The tensors' device
+decides the route: a CUDA tensor launches the kernel
 (or the wrapper raises), a CPU tensor takes the kernel's plain torch version
 (:func:`fast_nms_plain`; :func:`orb_descriptors_plain`;
 ``ops/fast.py`` ``fast_score_map``). There is no fallback from one to the
@@ -33,7 +36,7 @@ from srba_slam_tpu_torch.ops.fast import fast_score_map as fast_score_map_plain
 from srba_slam_tpu_torch.ops.nms import local_max_suppress, nms_eps
 from srba_slam_tpu_torch.ops.orb import _G7_F32, PATTERN_OFFSETS, gauss_blur7, upright_descriptors
 
-_KERNEL_NMS_RADIUS = 2   # the 5x5 window csrc/fast_nms.cu is built for
+KERNEL_NMS_RADII = (0, 1, 2, 3, 4, 5)   # those of fast_nms_pallas; csrc/fast_nms.cu
 
 
 def _check(t: torch.Tensor, name: str, dtypes, ndim: int, device=None):
@@ -52,32 +55,54 @@ def _raise_on_error(code: int, kernel: str):
         raise RuntimeError(f"{kernel} launch failed: cudaError {code}")
 
 
-def fast_nms_plain(imgs: torch.Tensor, threshold: float, margin: int = 16,
+def _thresholds(threshold, n: int, device) -> tuple[float, int]:
+    """The kernels' two threshold arguments: (the batch's float, 0) or
+    (0, the address of the f32 [n] per-image tensor on ``device``)."""
+    if not isinstance(threshold, torch.Tensor):
+        return float(threshold), 0
+    _check(threshold, "threshold", (torch.float32,), 1, device)
+    if threshold.shape[0] != n:
+        raise ValueError(f"threshold: {threshold.shape[0]} values for {n} images")
+    return 0.0, threshold.data_ptr()
+
+
+def fast_nms_plain(imgs: torch.Tensor, threshold, margin: int = 16,
                    radius: int = 2) -> torch.Tensor:
     """Plain torch version of K1: ``local_max_suppress(fast_score_map(...))``
-    per image of ``imgs`` [N, H, W]."""
+    per image of ``imgs`` [N, H, W]; ``threshold`` a float or f32 [N]."""
     return local_max_suppress(fast_score_map_plain(imgs, threshold, margin=margin),
                               radius=radius)
 
 
-def fast_nms(imgs: torch.Tensor, threshold: float, margin: int = 16,
+def fast_nms_launch(n: int, h: int, w: int, radius: int = 2):
+    """K1's (grid, block) for ``n`` images of ``h`` x ``w`` at NMS
+    ``radius``: one block of 128 x 4 threads per (128 - 2r) x (36 - 2r)
+    output tile (csrc/fast_nms.cu; 10 x 12 blocks an image at 370x1226)."""
+    tw, th = 128 - 2 * radius, 36 - 2 * radius
+    return (-(-w // tw), -(-h // th), n), (128, 4, 1)
+
+
+def fast_nms(imgs: torch.Tensor, threshold, margin: int = 16,
              radius: int = 2) -> torch.Tensor:
     """Suppressed FAST-9/16 score maps f32 [N, H, W] of ``imgs`` [N, H, W]
-    (uint8 or float32); bit-exact against :func:`fast_nms_plain`.
+    (uint8 or float32), at ``threshold`` (a float, or f32 [N] on the
+    images' device: one per image) and NMS ``radius`` 0-5 (the radii of
+    the JAX package's ``fast_nms_pallas``); bit-exact
+    against :func:`fast_nms_plain`.
 
     Requires ``margin >= 3 + radius``, so that the circle and the NMS window
     of every surviving pixel stay inside the image."""
     if margin < 3 + radius:
         raise ValueError(f"margin {margin} must cover circle + NMS halo (3 + {radius})")
+    if radius not in KERNEL_NMS_RADII:
+        raise ValueError(f"NMS radius {radius} not in {KERNEL_NMS_RADII}")
     _check(imgs, "imgs", (torch.uint8, torch.float32), 3)
+    n, h, w = imgs.shape
+    th, thr = _thresholds(threshold, n, imgs.device)
     if imgs.device.type == "cpu":
         return fast_nms_plain(imgs, threshold, margin, radius)
     if imgs.device.type != "cuda":
         raise ValueError(f"imgs: unsupported device {imgs.device}")
-    if radius != _KERNEL_NMS_RADIUS:
-        raise NotImplementedError(
-            f"the CUDA kernel is built for NMS radius {_KERNEL_NMS_RADIUS}, got {radius}")
-    n, h, w = imgs.shape
     if h * w >= 1 << 31:
         raise ValueError(f"image of {h}x{w} pixels overflows the kernel's int32 index")
     out = torch.empty((n, h, w), dtype=torch.float32, device=imgs.device)
@@ -87,8 +112,8 @@ def fast_nms(imgs: torch.Tensor, threshold: float, margin: int = 16,
     with torch.cuda.device(imgs.device):
         stream = torch.cuda.current_stream(imgs.device).cuda_stream
         code = lib.srba_fast_nms(imgs.data_ptr(), int(imgs.dtype == torch.uint8),
-                                 out.data_ptr(), n, h, w, float(threshold),
-                                 int(margin), nms_eps(h, w), stream)
+                                 out.data_ptr(), n, h, w, th, thr, int(margin),
+                                 int(radius), nms_eps(h, w), stream)
     _raise_on_error(code, "fast_nms")
     fast_nms.launches += 1
     return out
@@ -164,11 +189,12 @@ def fast_score_launch(n: int, h: int, w: int):
     return (-(-w // tw), -(-h // th), n), _FAST_SCORE_BLOCK
 
 
-def fast_score_map(imgs: torch.Tensor, threshold: float, margin: int = 16) -> torch.Tensor:
+def fast_score_map(imgs: torch.Tensor, threshold, margin: int = 16) -> torch.Tensor:
     """FAST-9/16 score maps f32 of ``imgs`` [H, W] or [N, H, W] (uint8 or
     float32), the shape of ``imgs``: the score where it exceeds
-    ``threshold``, else 0, and 0 within ``margin`` of a border. Bit-exact
-    against ``ops/fast.py`` ``fast_score_map``.
+    ``threshold`` (a float, or f32 [N] on the images' device: one per
+    image; [1] for one image), else 0, and 0 within ``margin`` of a
+    border. Bit-exact against ``ops/fast.py`` ``fast_score_map``.
 
     Any ``margin >= 0``: under a margin of 3 the circle of a pixel near a
     border wraps to the opposite border, in the kernel as in the plain
@@ -178,11 +204,12 @@ def fast_score_map(imgs: torch.Tensor, threshold: float, margin: int = 16) -> to
     if imgs.dim() not in (2, 3):
         raise ValueError(f"imgs: expected [H, W] or [N, H, W], got {tuple(imgs.shape)}")
     _check(imgs, "imgs", (torch.uint8, torch.float32), imgs.dim())
+    n, h, w = imgs.shape if imgs.dim() == 3 else (1, *imgs.shape)
+    th, thr = _thresholds(threshold, n, imgs.device)
     if imgs.device.type == "cpu":
         return fast_score_map_plain(imgs, threshold, margin=margin)
     if imgs.device.type != "cuda":
         raise ValueError(f"imgs: unsupported device {imgs.device}")
-    n, h, w = imgs.shape if imgs.dim() == 3 else (1, *imgs.shape)
     if h * w >= 1 << 31:
         raise ValueError(f"image of {h}x{w} pixels overflows the kernel's int32 index")
     out = torch.empty(imgs.shape, dtype=torch.float32, device=imgs.device)
@@ -192,8 +219,7 @@ def fast_score_map(imgs: torch.Tensor, threshold: float, margin: int = 16) -> to
     with torch.cuda.device(imgs.device):
         stream = torch.cuda.current_stream(imgs.device).cuda_stream
         code = lib.srba_fast_score(imgs.data_ptr(), int(imgs.dtype == torch.uint8),
-                                   out.data_ptr(), n, h, w, float(threshold), int(margin),
-                                   stream)
+                                   out.data_ptr(), n, h, w, th, thr, int(margin), stream)
     _raise_on_error(code, "fast_score_map")
     fast_score_map.launches += 1
     return out

@@ -61,11 +61,12 @@ def build_maps(width: int, height: int, fx: float, fy: float, cx: float,
 
 
 def remap_bilinear(img: torch.Tensor, maps: RectifyMaps) -> torch.Tensor:
-    """Bilinear warp of ``img`` [H, W] (uint8 or f32) to f32 [H, W];
-    out-of-bounds samples clamp to the border. The four products are summed
-    left to right, each rounded."""
+    """Bilinear warp of ``img`` [..., H, W] (uint8 or f32) to f32 of the
+    same shape, every image through the same maps; out-of-bounds samples
+    clamp to the border. The four products are summed left to right, each
+    rounded."""
     img = img.to(torch.float32)
-    h, w = img.shape
+    h, w = img.shape[-2:]
     y = torch.clamp(maps.map_y, 0.0, h - 1.0)
     x = torch.clamp(maps.map_x, 0.0, w - 1.0)
     # keep the interpolation cell inside the image; at the far edge the
@@ -74,10 +75,10 @@ def remap_bilinear(img: torch.Tensor, maps: RectifyMaps) -> torch.Tensor:
     x0 = torch.clamp(torch.floor(x).to(torch.int64), 0, w - 2)
     fy = y - y0
     fx = x - x0
-    flat = img.reshape(-1)
+    flat = img.reshape(*img.shape[:-2], h * w)
 
     def at(yy, xx):
-        return flat[yy * w + xx]
+        return flat[..., yy * w + xx]
 
     return (
         at(y0, x0) * (1 - fy) * (1 - fx)

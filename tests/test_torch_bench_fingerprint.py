@@ -11,7 +11,11 @@ not in tier-1:
   decisions exactly, its poses and ATE within 1e-5;
 * the port's CPU run makes the same keyframe decisions on every frame, and
   its aligned ATE is inside the JAX gate (0.5 m,
-  ``tests/test_kitti_geometry_ate.py``).
+  ``tests/test_kitti_geometry_ate.py``);
+* the JAX package's batched loop (``perform_stereo_slam_batched``, batch 8)
+  makes the per-frame run's decisions, its poses and ATE within 1e-5, so
+  ``chip_smoke.py``'s batched phase holds the port's batched run to the
+  same file; the port's batched CPU run makes them too.
 
 Regenerate the file with ``python tests/test_torch_bench_fingerprint.py --write``.
 """
@@ -70,8 +74,9 @@ def _frames():
     return frames, sha, src.gt_poses
 
 
-def jax_fingerprint() -> dict:
-    """The JAX package's per-frame run of the bench workload."""
+def jax_fingerprint(batch: int = 1) -> dict:
+    """The JAX package's run of the bench workload: per frame, or through
+    its batched loop at ``batch`` frames a scan."""
     from srba_slam_tpu.config import GeneralOptions, SRBAStereoSLAMOptions, VOOptions
     from srba_slam_tpu.models.estimator import SRBAStereoSLAMEstimator
     from srba_slam_tpu.utils.camera import StereoCamera
@@ -83,19 +88,26 @@ def jax_fingerprint() -> dict:
         VOOptions(**bw.VO_OPTIONS), capacity=bw.CAPACITY, max_kfs=bw.MAX_KFS)
     est.initialize()
     est.solve_sync = True
-    for left, right in frames:
-        est.step(left, right)
+    if batch > 1:
+        est.perform_stereo_slam_batched(frames, batch=batch)
+    else:
+        for left, right in frames:
+            est.step(left, right)
     return _fingerprint(est, sha, gt)
 
 
-def port_fingerprint(device: str = "cpu") -> dict:
-    """The port's run of the same workload on ``device``."""
+def port_fingerprint(device: str = "cpu", batch: int = 1) -> dict:
+    """The port's run of the same workload on ``device``, per frame or at
+    ``batch`` frames a scan."""
     from srba_slam_tpu_torch.models.estimator import bench_estimator
 
     frames, sha, gt = _frames()
     est = bench_estimator(device)
-    for left, right in frames:
-        est.step(left, right)
+    if batch > 1:
+        est.perform_stereo_slam_batched(frames, batch=batch)
+    else:
+        for left, right in frames:
+            est.step(left, right)
     return _fingerprint(est, sha, gt)
 
 
@@ -115,6 +127,25 @@ def test_port_cpu_matches_fingerprint():
     ref = bw.load_fingerprint()
     got = port_fingerprint("cpu")
     assert got["workload"] == ref["workload"]
+    assert got["decisions"] == ref["decisions"]
+    assert got["ate_m"] < ATE_GATE_M
+
+
+@pytest.mark.slow
+def test_jax_batched_run_matches_fingerprint():
+    got = jax_fingerprint(batch=8)
+    ref = bw.load_fingerprint()
+    assert got["workload"] == ref["workload"]
+    assert got["decisions"] == ref["decisions"]
+    for key in ("kf_global", "final_poses_cam"):
+        np.testing.assert_allclose(got[key], ref[key], atol=POSE_TOL)
+    assert abs(got["ate_m"] - ref["ate_m"]) <= POSE_TOL
+
+
+@pytest.mark.slow
+def test_port_cpu_batched_matches_fingerprint():
+    ref = bw.load_fingerprint()
+    got = port_fingerprint("cpu", batch=8)
     assert got["decisions"] == ref["decisions"]
     assert got["ate_m"] < ATE_GATE_M
 

@@ -120,15 +120,42 @@ def test_cli_config_driven_state_file(tmp_path, capsys):
 
 @pytest.mark.parametrize("case", ["rawlog", "fleet", "batch8"])
 def test_cli_exit_2(tmp_path, capsys, case):
+    """A rawlog grabber and ``--fleet`` without ``--synthetic`` exit 2, as in
+    the JAX CLI; the ``batch8`` case: ``--batch`` above 1 runs the batched
+    scan, and ``--batch 6`` writes the JAX CLI's keyframes."""
     if case == "rawlog":
         ini, _ = _ini(tmp_path, "rawlog", grabber_type="rawlog")
         args, needle = [ini, "--cpu"], "grabber_type=rawlog is not supported"
     elif case == "fleet":
-        args, needle = [DEMO, "--cpu", "--synthetic", "4", "--fleet", "2"], "M13"
+        args, needle = [DEMO, "--cpu", "--fleet", "2"], "--fleet requires --synthetic N"
     else:
-        args, needle = [DEMO, "--cpu", "--synthetic", "4", "--batch", "8"], "M12"
+        kf = []
+        for name, fn in (("port", main), ("jax", jmain)):
+            ini, out = _ini(tmp_path, name)
+            assert fn([ini, "--cpu", "--synthetic", "18", "--batch", "6"]) == 0
+            kf.append(open(os.path.join(out, "kf_frames.txt")).read())
+        assert kf[0] == kf[1] and len(kf[0].splitlines()) >= 4
+        assert "18 frames" in capsys.readouterr().out
+        return
     assert main(args) == 2
     assert needle in capsys.readouterr().err
+
+
+def test_cli_fleet_matches_jax_cli(tmp_path, capsys):
+    """``--fleet 2 --synthetic 10``: each sequence's ``kf_frames.txt`` under
+    ``<out_dir>/seq<i>/`` equals the JAX CLI's."""
+    outs = []
+    for name, fn in (("port", main), ("jax", jmain)):
+        ini, out = _ini(tmp_path, name)
+        assert fn([ini, "--cpu", "--synthetic", "10", "--fleet", "2"]) == 0
+        outs.append(out)
+    said = capsys.readouterr().out
+    assert "[srba_slam_tpu_torch] fleet: 2 sequences x 10 frames on 1 card" in said
+    for i in range(2):
+        kf_t = open(os.path.join(outs[0], f"seq{i}", "kf_frames.txt")).read()
+        kf_j = open(os.path.join(outs[1], f"seq{i}", "kf_frames.txt")).read()
+        assert kf_t == kf_j and len(kf_t.splitlines()) >= 2
+        assert sorted(os.listdir(os.path.join(outs[0], f"seq{i}"))) == sorted(SEVEN)
 
 
 def test_cli_batch_0_and_1_step_per_frame(tmp_path, capsys):

@@ -148,6 +148,38 @@ SMALL_CAM = dict(fx_l=180.0, fy_l=180.0, cx_l=160.0, cy_l=100.0, fx_r=180.0, fy_
                  cx_r=160.0, cy_r=100.0, baseline=0.54, width=320, height=200)
 
 
+def _per_image(th: float, n: int, device) -> torch.Tensor:
+    """n thresholds around ``th``: th/2, th, 3th/2, 2th, ... (on a plateau
+    image the score meets each of them)."""
+    return torch.tensor([th * (0.5 + 0.5 * i) for i in range(n)], dtype=torch.float32,
+                        device=device)
+
+
+@pytest.mark.parametrize("thresholds", ["scalar", "per_image"])
+@pytest.mark.parametrize("kind", ["plateau", "u8", "f32"])
+@pytest.mark.parametrize("shape", [(3, 123, 300), (4, 370, 1226)])
+@pytest.mark.parametrize("radius", [0, 1, 2, 3, 4, 5])
+def test_fast_nms_kernel_radii_and_thresholds(cuda, radius, shape, kind, thresholds):
+    """Every NMS radius K1 is built for (its tile and halo follow the
+    radius), at the least margin 3 + radius and at 16, with one threshold
+    for the batch or one per image; an image at its own threshold equals a
+    batch of one at that float."""
+    imgs, th = _k1_images(kind, shape, np.random.default_rng(radius))
+    imgs = imgs.to(cuda)
+    thr = th if thresholds == "scalar" else _per_image(th, shape[0], cuda)
+    for margin in (3 + radius, 16):
+        before = hopper_fast.fast_nms.launches
+        got = hopper_fast.fast_nms(imgs, thr, margin=margin, radius=radius)
+        assert hopper_fast.fast_nms.launches == before + 1
+        assert torch.equal(got, hopper_fast.fast_nms_plain(imgs, thr, margin=margin,
+                                                           radius=radius))
+        if thresholds == "per_image":
+            for i in range(shape[0]):
+                one = hopper_fast.fast_nms(imgs[i:i + 1], float(thr[i]), margin=margin,
+                                           radius=radius)
+                assert torch.equal(one[0], got[i])
+
+
 @pytest.fixture(scope="module")
 def street_pair():
     """Frame 0 of the bench workload's street scene, [2, 370, 1226] uint8."""
@@ -205,6 +237,54 @@ def test_fast_score_kernel_matches_plain(cuda, street_pair, dtype, kind, margin,
     assert torch.equal(got, ref)
     if 2 * margin >= min(shape[-2:]):
         assert not ref.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("kind", ["street", "plateau", "noise"])
+@pytest.mark.parametrize("margin", [0, 2, 3, 16])
+@pytest.mark.parametrize("shape", [(3, 123, 300), (4, 370, 1226)])
+def test_fast_score_kernel_per_image_thresholds(cuda, street_pair, dtype, kind, margin, shape):
+    """K3 with one threshold per image, on both routes and at margins
+    where the halo wraps and where it does not."""
+    imgs, th = _k3_images(kind, shape, street_pair, np.random.default_rng(margin))
+    imgs = imgs.to(dtype).to(cuda)
+    thr = _per_image(th, shape[0], cuda)
+    before = hopper_fast.fast_score_map.launches
+    got = hopper_fast.fast_score_map(imgs, thr, margin=margin)
+    assert hopper_fast.fast_score_map.launches == before + 1
+    assert torch.equal(got, fast_score_map_plain(imgs, thr, margin=margin))
+    for i in range(shape[0]):
+        assert torch.equal(got[i], hopper_fast.fast_score_map(imgs[i], float(thr[i]),
+                                                              margin=margin))
+
+
+def test_vo_scan_cuda_matches_cpu(cuda):
+    """The batched scan over 4 bench frames on the card against the CPU
+    path: integer fields equal, poses within 1e-4 rad / 1e-3 m, one K1 and
+    one K2 launch for the 8 images."""
+    from srba_slam_tpu_torch.models.vo import vo_scan
+
+    frames = list(SyntheticSource(StereoCamera.kitti(), **{**bench_workload.SOURCE,
+                                                          "n_frames": 5}))
+    lefts = np.stack([f[0] for f in frames[1:]])
+    rights = np.stack([f[1] for f in frames[1:]])
+    cam = StereoCamera.kitti()
+    outs = {}
+    for dev in (cuda, "cpu"):
+        prev = extract_and_match(*frames[0], cam, 20.0, 60, k=512, device=dev)
+        before = (hopper_fast.fast_nms.launches, hopper_fast.orb_descriptors.launches)
+        outs[str(dev)] = vo_scan(lefts, rights, prev, torch.zeros(6, device=dev), cam, 20.0, 60,
+                                 k=512, device=dev)
+        after = (hopper_fast.fast_nms.launches, hopper_fast.orb_descriptors.launches)
+        if dev is cuda:
+            assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    (_l, inc_c, oc), (_m, inc_h, oh) = outs["cuda"], outs["cpu"]
+    for name in ("ys_l", "xs_l", "valid_l", "desc_l", "ys_r", "xs_r", "valid_r", "desc_r",
+                 "m_r_idx", "m_valid"):
+        assert torch.equal(getattr(oc[0], name).cpu(), getattr(oh[0], name)), name
+    assert torch.equal(oc[4].cpu(), oh[4]) and bool(oh[4].all())
+    d = (oc[3].cpu() - oh[3]).abs()
+    assert float(d[:, :3].max()) <= 1e-4 and float(d[:, 3:].max()) <= 1e-3
 
 
 def test_vo_engine_cuda_matches_cpu(cuda):
@@ -392,11 +472,14 @@ def test_cli_runs_on_the_card(cuda, tmp_path, capsys):
     txt = re.sub(r"(?m)^out_dir.*$", f"out_dir = {tmp_path / 'out'}", txt)
     ini = tmp_path / "small.ini"
     ini.write_text(txt)
-    before = hopper_fast.fast_nms.launches
+    before = (hopper_fast.fast_nms.launches, hopper_fast.orb_descriptors.launches)
     assert main([str(ini), "--synthetic", "12", "--checkpoint", str(tmp_path / "s.npz")]) == 0
     said = capsys.readouterr().out
     assert f"backend: cuda ({torch.cuda.get_device_name(0)})" in said and "12 frames" in said
-    assert hopper_fast.fast_nms.launches >= before + 12
+    # the card's default is --batch 8: frame 0 bootstraps, then K1 and K2
+    # launch once per scan of up to 8 frames (and per retry tail)
+    n_k1 = hopper_fast.fast_nms.launches - before[0]
+    assert n_k1 >= 3 and hopper_fast.orb_descriptors.launches - before[1] == n_k1
     assert (tmp_path / "out" / "map_viewer.html").exists() and (tmp_path / "s.npz").exists()
     assert main([str(ini), "--synthetic", "2", "--resume", str(tmp_path / "s.npz")]) == 0
     assert "resumed from" in capsys.readouterr().out

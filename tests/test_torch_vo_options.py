@@ -156,10 +156,14 @@ def test_rect_maps_match_jax(shared_blur, monkeypatch):
     """With both packages fed JAX's remapped frames, the rectified frontend
     is identical; the port's own remap is held in tests/test_torch_rectify.py."""
     jmaps, tmaps = _maps(jrectify), _maps(rectify, device="cpu")
-    monkeypatch.setattr(vo, "remap_bilinear", lambda img, maps: torch.from_numpy(np.array(
-        jrectify.remap_bilinear(jnp.asarray(img.numpy()),
-                                jrectify.RectifyMaps(jnp.asarray(maps.map_y.numpy()),
-                                                     jnp.asarray(maps.map_x.numpy()))))))
+    def jax_remap(img, maps):            # img [..., H, W]: one map for every image
+        jm = jrectify.RectifyMaps(jnp.asarray(maps.map_y.numpy()), jnp.asarray(maps.map_x.numpy()))
+        fn = lambda im: jrectify.remap_bilinear(im, jm)  # noqa: E731
+        for _ in range(img.dim() - 2):
+            fn = jax.vmap(fn)
+        return torch.from_numpy(np.array(fn(jnp.asarray(img.numpy()))))
+
+    monkeypatch.setattr(vo, "remap_bilinear", jax_remap)
     left, right = small_frames()[0][3]
     got, ref = _both(left, right, jkw=dict(rect_maps=jmaps), rect_maps=tmaps)
     _assert_features_equal(got, ref)
