@@ -56,6 +56,9 @@ not 0 (there is no CPU fallback):
                is under 0.5 m (the JAX package's gate,
                tests/test_kitti_geometry_ate.py); the four output files exist;
                ``gauss_blur7`` never runs on a CUDA tensor (K2 blurs inside);
+               the host syncs torch reports (``set_sync_debug_mode("warn")``)
+               per frame and per keyframe check; the inputs of every check
+               are kept for phase 12;
 8. options   - the frontend's options at KITTI geometry: (a) K1, K2 and K3
                (margins 3, 2 and 0: under 3 the circle wraps at the borders)
                ``torch.equal`` to their plain versions on the f32
@@ -93,7 +96,8 @@ not 0 (there is no CPU fallback):
                committed JAX fingerprint (the JAX package's batch-8 run makes
                its per-frame run's decisions), ATE under 0.5 m, K1 and K2 once
                per scan dispatch (retry tails included) and for the bootstrap
-               frame; total s and fps beside phase 7's; K1 and K2 device-only
+               frame; total s and fps beside phase 7's; host syncs per frame
+               and per check; K1 and K2 device-only
                at one scan's ``[16,370,1226]`` uint8 beside the bytes bound
                and the launch floor;
 11. fleet    - ``FleetSLAM`` over four bench-workload street sequences
@@ -101,8 +105,19 @@ not 0 (there is no CPU fallback):
                card against each sequence's solo ``step()`` run on the card:
                decisions equal, keyframe poses within 1e-4 rad / 1e-3 m; K1
                and K2 once per lockstep attempt (and per bootstrap frame);
-               the aggregate frames/s beside the solo runs'; K1 device-only
-               at ``[8,370,1226]`` with four thresholds, and K2 there.
+               the aggregate frames/s beside the solo runs'; host syncs per
+               frame and per batched check; K1 device-only
+               at ``[8,370,1226]`` with four thresholds, and K2 there;
+12. check    - one keyframe check of phase 7's run whose five candidates are
+               all valid (its first loop-closure check where one has five):
+               the five candidates as one batch (``query_and_associate``)
+               against the schedule before, five one-lane cascades in turn
+               (the same code, one key each), under deterministic algorithms:
+               equal outputs, host ms median and max over 10 calls, kernel
+               launches (torch.profiler) and host syncs of each; each stage
+               of the batch alone (BoW query, RANSAC, Horn seed, GN solve);
+               ``solve_pose`` at L = 5 against five L = 1 calls, and at exit-
+               test periods 1, 2, 4, 8 and 12, beside a VO solve (L = 1).
 
 Then one JSON line with, per kernel: its launches over the driven paths
 (``launches_by_path``: the estimator run, the margin-3 frontend, the
@@ -142,6 +157,7 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
 import time  # noqa: E402
+import warnings  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -150,10 +166,12 @@ from srba_slam_tpu_torch import (  # noqa: E402
     SRBAStereoSLAMEstimator, StereoCamera, StereoVOEngine, VOOptions, load_config,
 )
 from srba_slam_tpu_torch.__main__ import main as cli_main  # noqa: E402
+from srba_slam_tpu_torch.models import data_association as da_mod  # noqa: E402
 from srba_slam_tpu_torch.models import estimator as estimator_mod  # noqa: E402
+from srba_slam_tpu_torch.models import vo as vo_mod  # noqa: E402
 from srba_slam_tpu_torch.models.estimator import bench_estimator  # noqa: E402
 from srba_slam_tpu_torch.models.vo import _avgpool2, _octave_budget, extract_and_match  # noqa: E402
-from srba_slam_tpu_torch.ops import cuda_build, hopper_fast, orb  # noqa: E402
+from srba_slam_tpu_torch.ops import cuda_build, hopper_fast, orb, prng, robust_lm  # noqa: E402
 from srba_slam_tpu_torch.ops.fast import fast_score_map as fast_score_map_plain  # noqa: E402
 from srba_slam_tpu_torch.ops.hopper_fast import (  # noqa: E402
     fast_nms, fast_nms_plain, fast_score_map, orb_descriptors, orb_descriptors_plain,
@@ -191,6 +209,8 @@ FLEET_SEEDS = (11, 48, 85, 122)
 N_FLEET_FRAMES = 30
 N_FLEET_CLI_FRAMES = 20
 ORIENTED_ROWS_TOL = 0.02
+CHECK_REPS = 10
+EXIT_PERIODS = (1, 2, 4, 8, 12)
 PALLAS = "srba_slam_tpu/ops/pallas_fast.py"
 # f32 operations per pixel that the FAST score needs on given inputs (see
 # _fast_work): none within the margin, where the output is 0; 21 for an
@@ -262,6 +282,53 @@ def _fmt(t: dict) -> str:
 def p95(xs) -> float:
     srt = sorted(xs)
     return srt[min(len(srt) - 1, int(np.ceil(0.95 * len(srt))) - 1)]
+
+
+class SyncCount:
+    """Host synchronizations that torch makes on the card while the context
+    is open: ``torch.cuda.set_sync_debug_mode("warn")`` warns once per
+    synchronizing call (a device-to-host copy, ``.item()``, an SVD's info
+    check), and ``n`` counts the warnings so far."""
+
+    def __enter__(self):
+        self.n = 0
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def show(message, category, *args, **kwargs):
+            if "synchroniz" in str(message):
+                self.n += 1
+            else:
+                shown(message, category, *args, **kwargs)
+
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._cm.__exit__(*exc)
+
+
+def _count_calls_syncs(obj, name: str, syncs: SyncCount) -> list:
+    """Wrap ``obj.name`` so each call's host syncs are appended to the
+    returned list."""
+    counts, run = [], getattr(obj, name)
+
+    def counted(*a, **k):
+        n0 = syncs.n
+        out = run(*a, **k)
+        counts.append(syncs.n - n0)
+        return out
+
+    setattr(obj, name, counted)
+    return counts
+
+
+def _med(xs) -> str:
+    return f"{statistics.median(xs):g}" if xs else "n/a"
 
 
 def phase_device():
@@ -578,22 +645,69 @@ def _count_vo_passes(est) -> list:
     return passes
 
 
-def _run_estimator(device, frames, snapshot_at=None):
+def _run_estimator(device, frames, snapshot_at=None, syncs=None):
     """Step the bench estimator over ``frames``; returns it with per-frame
-    host ms (synchronized) and the keyframe poses after frame
-    ``snapshot_at``."""
+    host ms (synchronized), the keyframe poses after frame ``snapshot_at``,
+    and with a ``SyncCount`` the host syncs of each frame and of each
+    keyframe check."""
     est = bench_estimator(device)
     passes = _count_vo_passes(est)
-    ms, snap = [], None
+    check_syncs = _count_calls_syncs(est, "_kf_check", syncs) if syncs else []
+    ms, frame_syncs, snap = [], [], None
     for i, (left, right) in enumerate(frames):
         t0 = time.perf_counter()
+        n0 = syncs.n if syncs else 0
         est.step(left, right)
+        if syncs:
+            frame_syncs.append(syncs.n - n0)
         if device != "cpu":
             sync()
         ms.append((time.perf_counter() - t0) * 1e3)
         if i == snapshot_at:
             snap = est.rba.kf_global[: est.store.n_kfs].copy()
-    return est, passes[0], ms, snap
+    return est, passes[0], ms, snap, frame_syncs, check_syncs
+
+
+def _capture_checks():
+    """Record the inputs of every keyframe check the estimator makes (the
+    store and the BoW database as they were, copied on the card); returns
+    the records and the function that puts the original back."""
+    records, run = [], estimator_mod.query_and_associate
+
+    def capturing(frame, arrays, db, leaf_bits, weights, n_kfs, cam, key, **kw):
+        records.append(dict(frame=frame, arrays=type(arrays)(*(a.clone() for a in arrays)),
+                            db=db.clone(), leaf_bits=leaf_bits, weights=weights,
+                            n_kfs=n_kfs, cam=cam, key=key.clone(), kw=kw))
+        return run(frame, arrays, db, leaf_bits, weights, n_kfs, cam, key, **kw)
+
+    estimator_mod.query_and_associate = capturing
+
+    def restore():
+        estimator_mod.query_and_associate = run
+
+    return records, restore
+
+
+def _five_valid(rec) -> bool:
+    cur = vo_mod.FrameFeatures(*(a[None] for a in rec["frame"]))
+    cand_valid = da_mod.bow_candidates(cur, rec["db"][None], rec["leaf_bits"],
+                                       rec["weights"], rec["n_kfs"])[3]
+    return bool(cand_valid.all())
+
+
+def _pick_check(steps, records) -> dict:
+    """Phase 12's check: the first loop-closure check of the run whose five
+    candidates are all valid, else the first check with five valid ones."""
+    frames = [r for r in steps if r.kf_check]
+    check(len(frames) == len(records), f"{len(records)} checks recorded, {len(frames)} in "
+                                       f"the step log")
+    lc = [i for i, r in enumerate(frames) if r.loop_closure_with is not None]
+    for i in lc + list(range(len(frames))):
+        if _five_valid(records[i]):
+            rec = dict(records[i], frame_idx=frames[i].frame_idx,
+                       lc=frames[i].loop_closure_with)
+            return rec
+    raise RuntimeError("no keyframe check of the run had five valid candidates")
 
 
 def phase_estimator(frames, gt_poses, profile: bool) -> dict:
@@ -607,8 +721,12 @@ def phase_estimator(frames, gt_poses, profile: bool) -> dict:
 
     torch.use_deterministic_algorithms(True)
     blur_calls, unguard = _count_blur_calls()
+    records, uncapture = _capture_checks()
     _reset_launches()
-    est, n_passes, ms, snap = _run_estimator(DEV, frames, snapshot_at=n_cpu - 1)
+    with SyncCount() as syncs:
+        est, n_passes, ms, snap, frame_syncs, check_syncs = _run_estimator(
+            DEV, frames, snapshot_at=n_cpu - 1, syncs=syncs)
+    uncapture()
     counts = _launches()
     check(blur_calls["cuda"] == 0,
           f"gauss_blur7 ran {blur_calls['cuda']} times on CUDA tensors: K2 must blur inside")
@@ -636,8 +754,8 @@ def phase_estimator(frames, gt_poses, profile: bool) -> dict:
     jax_final = np.asarray(fp["final_poses_cam"])
     d_jax = np.abs(final - jax_final)
 
-    cpu, _n_cpu_passes, cpu_ms, cpu_snap = _run_estimator("cpu", frames[:n_cpu],
-                                                          snapshot_at=n_cpu - 1)
+    cpu, _n_cpu_passes, cpu_ms, cpu_snap, _fs, _cs = _run_estimator(
+        "cpu", frames[:n_cpu], snapshot_at=n_cpu - 1)
     unguard()
     check(bw.decisions(cpu.step_log) == got[:n_cpu],
           f"frames 0-{n_cpu - 1}: CUDA and CPU decisions differ")
@@ -672,9 +790,18 @@ def phase_estimator(frames, gt_poses, profile: bool) -> dict:
           f"(JAX {fp['ate_m']:.6f} m), final poses vs JAX max {d_jax[:, :3].max():.2e} rad / "
           f"{d_jax[:, 3:].max():.2e} m | files {sizes}")
     print(f"[estimator] profiler sections: {sections}")
+    quiet_syncs = [n for n, r in zip(frame_syncs, steps) if not r.kf_check and r.frame_idx > 0]
+    chk_syncs = [n for n, r in zip(frame_syncs, steps) if r.kf_check]
+    print(f"[estimator syncs] host syncs (torch sync debug warnings) over the {len(frames)} "
+          f"frames: {syncs.n}, per frame median {_med(frame_syncs)} (without a check "
+          f"{_med(quiet_syncs)}, with a check {_med(chk_syncs)}); inside the keyframe check "
+          f"(query, cascade, one copy out) median {_med(check_syncs)}, max "
+          f"{max(check_syncs, default=0)} over {len(check_syncs)} checks")
+    picked = _pick_check(steps, records)
+    del records
     if profile:
         _profile_estimator(frames)
-    return counts, sum(ms) / 1e3
+    return counts, sum(ms) / 1e3, picked
 
 
 def _count_blur_calls():
@@ -935,10 +1062,12 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> dict:
     estimator_mod.vo_scan = counted_scan
     _reset_launches()
     try:
-        t0 = time.perf_counter()
-        est.perform_stereo_slam_batched(frames, batch=BATCH)
-        sync()
-        wall = time.perf_counter() - t0
+        with SyncCount() as syncs:
+            check_syncs = _count_calls_syncs(est, "_kf_check", syncs)
+            t0 = time.perf_counter()
+            est.perform_stereo_slam_batched(frames, batch=BATCH)
+            sync()
+            wall = time.perf_counter() - t0
     finally:
         estimator_mod.vo_scan = scan
     counts = _launches()
@@ -969,6 +1098,10 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> dict:
           f"tests/test_torch_bench_fingerprint.py) | {est.store.n_kfs} KFs, "
           f"{sum(r.kf_check for r in est.step_log)} checks | ATE {ate:.6f} m, final poses vs "
           f"JAX max {d_jax[:, :3].max():.2e} rad / {d_jax[:, 3:].max():.2e} m")
+    print(f"[batched syncs] host syncs (torch sync debug warnings): {syncs.n} over "
+          f"{len(frames)} frames ({syncs.n / len(frames):.2f} a frame), inside the keyframe "
+          f"check median {_med(check_syncs)}, max {max(check_syncs, default=0)} over "
+          f"{len(check_syncs)} checks")
     print(f"[batched kernels] one scan's images [{2 * BATCH},370,1226] u8 at threshold 20: "
           + _kernel_line(imgs, 20.0))
     return counts
@@ -1012,11 +1145,14 @@ def phase_fleet(cam) -> dict:
 
     fleet_mod.extract_and_match_batch = counted
     _reset_launches()
+    flt = fleet_mod.FleetSLAM(ests)
     try:
-        t0 = time.perf_counter()
-        fleet_mod.FleetSLAM(ests).run(seqs)
-        sync()
-        wall = time.perf_counter() - t0
+        with SyncCount() as syncs:
+            check_syncs = _count_calls_syncs(flt, "_check_group", syncs)
+            t0 = time.perf_counter()
+            flt.run(seqs)
+            sync()
+            wall = time.perf_counter() - t0
     finally:
         fleet_mod.extract_and_match_batch = frontend
     counts = _launches()
@@ -1051,9 +1187,224 @@ def phase_fleet(cam) -> dict:
           f"{counts}: K1 and K2 once per attempt + one bootstrap frame a sequence | every "
           f"sequence's decisions equal its solo run; keyframes {kfs}; KF poses within "
           f"{worst_rad:.2e} rad / {worst_m:.2e} m")
+    n_checks = sum(r.kf_check for e in ests for r in e.step_log)
+    print(f"[fleet syncs] host syncs (torch sync debug warnings): {syncs.n} over {n_frames} "
+          f"frames ({syncs.n / n_frames:.2f} a sequence-frame, {syncs.n / N_FLEET_FRAMES:.2f} "
+          f"a lockstep step); {len(check_syncs)} batched checks for {n_checks} sequence "
+          f"checks, syncs inside each (query, cascade, one copy out) median "
+          f"{_med(check_syncs)}, max {max(check_syncs, default=0)}")
     print(f"[fleet kernels] one lockstep frontend's images [{2 * n_seq},370,1226] u8 at "
           f"per-image thresholds {[float(t) for t in thr]}: " + _kernel_line(imgs, thr))
     return counts
+
+
+def _host_ms(fn, reps: int = CHECK_REPS) -> tuple[float, float]:
+    """Median and max over ``reps`` calls of ``fn`` of host ms, each call
+    ending in a synchronize (after one warm-up call)."""
+    fn()
+    sync()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms), max(ms)
+
+
+def _schedule_counts(fn) -> dict:
+    """One call of ``fn``: kernel launches and cudaStreamSynchronize calls
+    under torch.profiler, and the host syncs torch reports."""
+    evs = kt.profile_calls(fn)
+    with SyncCount() as syncs:
+        fn()
+    sync()
+    return {"launches": kt.launch_count(evs), "syncs": syncs.n,
+            "graphs": sum(e.count for e in evs if e.key == "cudaGraphLaunch"),
+            "stream_syncs": sum(e.count for e in evs if e.key == "cudaStreamSynchronize")}
+
+
+def _serial_check(rec):
+    """The check as the port scheduled it before its candidates became
+    lanes: the BoW query, then the five candidates one after another, each
+    a one-lane cascade with its own key (the same code, L = 1)."""
+    kw = rec["kw"]
+    cur = vo_mod.FrameFeatures(*(a[None] for a in rec["frame"]))
+    top_s, top_i, cand, cand_valid = da_mod.bow_candidates(
+        cur, rec["db"][None], rec["leaf_bits"], rec["weights"], rec["n_kfs"])
+    keys = prng.split(rec["key"], cand.shape[1])
+    others = [a[cand[0].long()] for a in rec["arrays"]]
+    init = torch.zeros((1, 6), dtype=torch.float32, device=DEV)
+    lanes = [da_mod._da_single(
+        cur, tuple(a[j:j + 1] for a in others), cand_valid[0, j:j + 1], init, rec["cam"],
+        keys[j:j + 1], kw["max_orb_distance_da"], kw["residual_th"],
+        kw["max_y_diff_epipolar"], kw["filter_by_direction"], kw["use_fund_matrix"],
+        kw["use_change_pose"], kw["kernel_param"],
+        filter_by_orb_distance=kw["filter_by_orb_distance"], ransac_n_hyp=kw["ransac_n_hyp"])
+        for j in range(cand.shape[1])]
+    (status, oidx, tracked, pose, pose_ok, mean_res, raw, bd,
+     res) = (torch.cat(parts) for parts in zip(*lanes))
+    valid = cand_valid[0]
+    return top_s[0], top_i[0], cand[0], da_mod.DAResult(
+        status, oidx, torch.where(valid, tracked, 0), pose, pose_ok & valid, mean_res, raw,
+        bd, res)
+
+
+def _batched_check(rec):
+    return da_mod.query_and_associate(rec["frame"], rec["arrays"], rec["db"], rec["leaf_bits"],
+                                      rec["weights"], rec["n_kfs"], rec["cam"], rec["key"],
+                                      **rec["kw"])
+
+
+def _capture_args(module, name: str, fn) -> list:
+    """The positional and keyword arguments of every call of
+    ``module.name`` while ``fn`` runs."""
+    calls, run = [], getattr(module, name)
+
+    def capturing(*a, **k):
+        calls.append((a, k))
+        return run(*a, **k)
+
+    setattr(module, name, capturing)
+    try:
+        fn()
+    finally:
+        setattr(module, name, run)
+    return calls
+
+
+def _same_solve(a, b) -> float:
+    """Largest pose difference of two PoseSolveResults whose integer and
+    boolean fields are equal."""
+    for name in ("inliers", "num_inliers", "iters", "valid"):
+        check(torch.equal(getattr(a, name), getattr(b, name)),
+              f"solve_pose L=5 and five L=1 calls differ in {name}")
+    return float((a.pose - b.pose).abs().max())
+
+
+def _exit_period_ms(fn) -> dict:
+    """``fn``'s host ms (median) at each period of the GN exit test."""
+    keep, out = robust_lm.GN_EXIT_EVERY, {}
+    try:
+        for e in EXIT_PERIODS:
+            robust_lm.GN_EXIT_EVERY = e
+            out[e] = round(_host_ms(fn)[0], 3)
+    finally:
+        robust_lm.GN_EXIT_EVERY = keep
+    return out
+
+
+def _eager(fn):
+    """``fn`` with the GN blocks run eagerly (no CUDA graphs)."""
+    def run():
+        keep = robust_lm.GN_GRAPHS
+        robust_lm.GN_GRAPHS = False
+        try:
+            return fn()
+        finally:
+            robust_lm.GN_GRAPHS = keep
+    return run
+
+
+def _in_turns(fn_a, fn_b) -> tuple[float, float]:
+    """Host ms medians of two functions timed in turns (a, b, b, a)."""
+    a1, b1, b2, a2 = (_host_ms(f)[0] for f in (fn_a, fn_b, fn_b, fn_a))
+    return statistics.median([a1, a2]), statistics.median([b1, b2])
+
+
+def phase_check(cam, frames, rec) -> None:
+    """Phase 12: one keyframe check of phase 7's run with five valid
+    candidates, as one batch of five lanes against the schedule before it
+    (five one-lane cascades), in this call, under deterministic algorithms;
+    the check's split between its stages; solve_pose at L = 5 against five
+    L = 1 calls, and at each period of its exit test."""
+    torch.use_deterministic_algorithms(True)
+    batched, serial = (lambda: _batched_check(rec)), (lambda: _serial_check(rec))
+    a, b = batched(), serial()
+    for x, y, name in zip(a[:3], b[:3], ("scores", "ids", "candidates")):
+        check(torch.equal(x, y), f"the two schedules' {name} differ")
+    for name in ("status", "other_idx", "tracked_count", "pose_valid", "raw_oidx"):
+        check(torch.equal(getattr(a[3], name), getattr(b[3], name)),
+              f"the two schedules' {name} differ")
+    ok = a[3].pose_valid
+    d_pose = float((a[3].pose - b[3].pose)[ok].abs().max()) if bool(ok.any()) else 0.0
+    check(d_pose <= POSE_TOL_RAD, f"the two schedules' poses differ by {d_pose}")
+    t_a, t_b = _host_ms(batched), _host_ms(serial)
+    c_a, c_b = _schedule_counts(batched), _schedule_counts(serial)
+
+    # the stages of the batched check, each called alone on its inputs
+    stages = {}
+    for name in ("bow_candidates", "ransac_fundamental", "_horn_seed", "solve_pose"):
+        (args, kwargs), = _capture_args(da_mod, name, batched)
+        stages[name] = (args, kwargs, _host_ms(lambda: getattr(da_mod, name)(*args, **kwargs)),
+                        _schedule_counts(lambda: getattr(da_mod, name)(*args, **kwargs)))
+    args, kwargs = stages["solve_pose"][:2]
+
+    def one_lane_solves():
+        return [da_mod.solve_pose(*(x[j:j + 1] for x in args[:3]), args[3],
+                                  **dict(kwargs, initial_pose=kwargs["initial_pose"][j:j + 1]))
+                for j in range(args[0].shape[0])]
+
+    five = da_mod.solve_pose(*args, **kwargs)
+    ones = robust_lm.PoseSolveResult(*(torch.cat(p) for p in zip(*one_lane_solves())))
+    d_solve = _same_solve(five, ones)
+    t_ones = _host_ms(one_lane_solves)
+    da_periods = _exit_period_ms(lambda: da_mod.solve_pose(*args, **kwargs))
+
+    # a VO pose solve (30/30 iterations, one lane) of the bench frames 40-41
+    eng = StereoVOEngine(cam, VOOptions(fast_th=20, n_feats=500), capacity=512, device=DEV)
+    eng.process_stereo_pair(*frames[40])
+    ((vargs, vkw),) = _capture_args(vo_mod, "solve_pose",
+                                    lambda: eng.process_stereo_pair(*frames[41]))
+    vo_iters = int(vo_mod.solve_pose(*vargs, **vkw).iters)
+    vo_periods = _exit_period_ms(lambda: vo_mod.solve_pose(*vargs, **vkw))
+
+    # the GN blocks as CUDA graphs (the default) against eager blocks
+    e = _eager(batched)()
+    for name, x, y in zip(a[3]._fields, a[3], e[3]):
+        check(torch.equal(x, y), f"the check's {name} differs between graph and eager blocks")
+    da_solve = (lambda: da_mod.solve_pose(*args, **kwargs))
+    vo_solve = (lambda: vo_mod.solve_pose(*vargs, **vkw))
+    for fn in (da_solve, vo_solve):
+        for name, x, y in zip(robust_lm.PoseSolveResult._fields, fn(), _eager(fn)()):
+            check(torch.equal(x, y), f"solve_pose's {name} differs between graph and eager")
+    turns = {name: _in_turns(_eager(fn), fn) for name, fn in
+             (("check", batched), ("da_solve", da_solve), ("vo_solve", vo_solve))}
+    c_e = _schedule_counts(_eager(batched))
+    torch.use_deterministic_algorithms(False)
+
+    def fmt(t, c):
+        return (f"median {t[0]:.3f} ms, max {t[1]:.3f} ms ({CHECK_REPS} calls), "
+                f"{c['launches']} kernel launches and {c['graphs']} graph launches, "
+                f"{c['syncs']} host syncs ({c['stream_syncs']} cudaStreamSynchronize)")
+
+    what = (f"loop closure with KF {rec['lc']}" if rec["lc"] is not None
+            else "no loop closure; the first check with five valid candidates")
+    print(f"[check] the keyframe check of frame {rec['frame_idx']} of phase 7 ({what}; "
+          f"{rec['n_kfs']} KFs stored), deterministic algorithms | five candidates as one "
+          f"batch (query_and_associate): {fmt(t_a, c_a)} | five one-lane cascades in turn "
+          f"(the schedule before): {fmt(t_b, c_b)} | batch / serial median "
+          f"{t_a[0] / t_b[0]:.3f} | equal outputs: scores, candidates, status, other_idx, "
+          f"tracked {a[3].tracked_count.tolist()}, pose validity; poses within {d_pose:.2e}")
+    print("[check stages] each stage of the batched check alone, on its inputs: "
+          + "; ".join(f"{name} {t[0]:.3f} ms ({c['launches']} kernel and {c['graphs']} graph "
+                      f"launches, {c['syncs']} syncs)"
+                      for name, (_a, _k, t, c) in stages.items())
+          + f" | the rest (Hamming matching, filters 1-2, gathers, the depth gate) "
+          f"{t_a[0] - sum(v[2][0] for v in stages.values()):.3f} ms of the check's "
+          f"{t_a[0]:.3f}")
+    print(f"[solve] the check's GN solve (12/12 iterations): L = 5 one call "
+          f"{stages['solve_pose'][2][0]:.3f} ms against five L = 1 calls {t_ones[0]:.3f} ms "
+          f"(equal inliers, iters and validity, poses within {d_solve:.2e}); median ms by "
+          f"exit-test period E (GN_EXIT_EVERY {robust_lm.GN_EXIT_EVERY}): L = 5 {da_periods}; "
+          f"a VO solve of frames 40-41 (L = 1, 30/30, {vo_iters} stage-2 iterations) "
+          f"{vo_periods}")
+    print("[graphs] GN blocks replayed as CUDA graphs (GN_GRAPHS, the default) against eager "
+          "blocks, in turns (eager, graph, graph, eager), median ms: "
+          + "; ".join(f"{name} eager {ms_e:.3f}, graphs {ms_g:.3f} ({ms_g / ms_e:.3f}x)"
+                      for name, (ms_e, ms_g) in turns.items())
+          + f" | the check eagerly: {c_e['launches']} launches, {c_e['syncs']} host syncs "
+          f"({c_e['stream_syncs']} cudaStreamSynchronize) | outputs equal bit for bit")
 
 
 def _cli(args: list) -> tuple[int, str]:
@@ -1210,13 +1561,15 @@ def main():
     k2 = timed("K2", phase_k2, frames)
     slice_ms = timed("slice", phase_slice, cam, frames[:N_SLICE_FRAMES], src.gt_poses)
     k3 = timed("K3", phase_k3, frames, k1["device_ms"])
-    est_counts, per_frame_s = timed("estimator", phase_estimator, frames, src.gt_poses, profile)
+    est_counts, per_frame_s, picked = timed("estimator", phase_estimator, frames, src.gt_poses,
+                                            profile)
     paths = {"estimator": est_counts}
     paths.update(timed("options", phase_options, cam, frames[:N_SLICE_FRAMES], src.gt_poses,
                        slice_ms))
     paths["cli"] = timed("cli", phase_cli)
     paths["batched"] = timed("batched", phase_batched, frames, src.gt_poses, per_frame_s)
     paths["fleet"] = timed("fleet", phase_fleet, cam)
+    timed("check", phase_check, cam, frames, picked)
     print(f"[phases] seconds {seconds}")
     for k in (k1, k2, k3):
         k["launches_by_path"] = {path: c[k["name"]] for path, c in paths.items()}

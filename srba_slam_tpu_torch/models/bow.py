@@ -156,20 +156,21 @@ class Vocabulary:
 
 def bow_vector(desc_packed: torch.Tensor, valid: torch.Tensor,
                leaf_bits: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Quantize K packed descriptors int32 [K, 8] to leaf words and build
-    the TF-IDF L1-normalized BoW vector f32 [W_pad]. ``leaf_bits`` is the
-    vocabulary's {0,1} bits as f32 [W_pad, 256]."""
-    db = unpack_bits(desc_packed, torch.float32)             # [K, 256]
+    """Quantize K packed descriptors int32 [..., K, 8] to leaf words and
+    build the TF-IDF L1-normalized BoW vector f32 [..., W_pad] (leading
+    dimensions are separate frames). ``leaf_bits`` is the vocabulary's
+    {0,1} bits as f32 [W_pad, 256]."""
+    db = unpack_bits(desc_packed, torch.float32)             # [..., K, 256]
     # Hamming = pop(d) + pop(w) - 2 d.w; pop(d) is constant per row. Every
     # term is an integer <= 256, exact in f32 whatever the summation order
-    dot = db @ leaf_bits.T                                   # [K, W]
-    dist = torch.sum(leaf_bits, dim=-1)[None, :] - 2.0 * dot
-    w_pad = dist.shape[1]
+    dot = db @ leaf_bits.T                                   # [..., K, W]
+    dist = torch.sum(leaf_bits, dim=-1) - 2.0 * dot
+    w_pad = dist.shape[-1]
     word = torch.argmin(dist, dim=-1)                        # first minimum on ties
     contrib = torch.where(valid, weights[word], 0.0)
-    onehot = word[:, None] == torch.arange(w_pad, device=dist.device)[None, :]
-    v = torch.sum(torch.where(onehot, contrib[:, None], 0.0), dim=0)
-    n = torch.sum(v)
+    onehot = word[..., None] == torch.arange(w_pad, device=dist.device)
+    v = torch.sum(torch.where(onehot, contrib[..., None], 0.0), dim=-2)
+    n = torch.sum(v, dim=-1, keepdim=True)
     return v / torch.clamp(n, min=1e-12)
 
 
@@ -177,7 +178,7 @@ def rank_scores(scores: torch.Tensor, k: int):
     """``jax.lax.top_k``: the k largest, ties to the lower index (a stable
     descending sort; ``torch.topk`` does not order ties)."""
     s, i = torch.sort(scores, descending=True, stable=True)
-    return s[:k], i[:k].to(torch.int32)
+    return s[..., :k], i[..., :k].to(torch.int32)
 
 
 class BoWDatabase:

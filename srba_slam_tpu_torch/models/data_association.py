@@ -16,9 +16,13 @@ candidate keyframe:
    current pose from the candidate's 3D points, then a depth-consistency
    gate (.cpp:2113-2177).
 
-The S = 5 candidates run one after another (the JAX package vmaps them);
-each draws its RANSAC hypotheses from its own ``ops/prng.py`` key, split
-from the check's key as JAX splits it, so the draws are JAX's. Statuses use
+The S = 5 candidates run as one batch, lanes of every stage (the JAX
+package vmaps them), and a fleet's checks add a sequence dimension in front
+(lanes = (sequence, candidate)); every reduction stays inside its lane.
+Each candidate draws its RANSAC hypotheses from its own ``ops/prng.py``
+key, split from the check's key as JAX splits it, so the draws are JAX's.
+Per check the host waits on the card only for the two batched Horn SVDs
+and the GN solves' exit tests (``ops/robust_lm.py``). Statuses use
 the reference's enum values. The tunnel machinery of the JAX module (the
 packed check blobs, ``fused_check_write``, ``fused_checks_batch``) is not
 ported: a check here is one call whose outputs the caller copies to the
@@ -37,7 +41,7 @@ from srba_slam_tpu_torch.models.vo import FrameFeatures
 from srba_slam_tpu_torch.ops import prng
 from srba_slam_tpu_torch.ops.hamming import hamming_matrix
 from srba_slam_tpu_torch.ops.ransac import ransac_fundamental
-from srba_slam_tpu_torch.ops.robust_lm import solve_pose
+from srba_slam_tpu_torch.ops.robust_lm import lanewise, solve_pose
 from srba_slam_tpu_torch.utils import se3
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
@@ -75,9 +79,11 @@ class DAResult(NamedTuple):
 
 def _horn_seed(p_oth: torch.Tensor, p_cur: torch.Tensor, w0: torch.Tensor,
                fallback: torch.Tensor, min_pts: int = 8) -> torch.Tensor:
-    """Robust 3D-3D alignment seed for the change-in-pose solve: Kabsch of
-    R p_oth + t ≈ p_cur over the masked correspondences, one median-
-    residual trim pass; ``fallback`` when the geometry is too thin."""
+    """Robust 3D-3D alignment seed for the change-in-pose solve, per lane
+    of ``[L, K, 3]``: Kabsch of R p_oth + t ≈ p_cur over the masked
+    correspondences, one median-residual trim pass; ``fallback`` [L, 6]
+    where the geometry is too thin. One batched SVD a fit; the matrix
+    products run per lane (``lanewise``)."""
     finite = torch.isfinite(p_oth).all(-1) & torch.isfinite(p_cur).all(-1)
     no = torch.linalg.vector_norm(p_oth, dim=-1)
     nc = torch.linalg.vector_norm(p_cur, dim=-1)
@@ -86,57 +92,59 @@ def _horn_seed(p_oth: torch.Tensor, p_cur: torch.Tensor, w0: torch.Tensor,
     eye = torch.eye(3, dtype=torch.float32, device=p_oth.device)
 
     def fit(w):
-        wf = w.to(torch.float32)
-        n = torch.sum(wf)
+        wf = w.to(torch.float32)[..., None]
+        n = torch.sum(wf, dim=-2)                              # [L, 1]
         nz = torch.clamp(n, min=1.0)
-        co = torch.sum(p_oth * wf[:, None], dim=0) / nz
-        cp = torch.sum(p_cur * wf[:, None], dim=0) / nz
-        H = ((p_oth - co) * wf[:, None]).T @ (p_cur - cp)
+        co = torch.sum(p_oth * wf, dim=-2) / nz
+        cp = torch.sum(p_cur * wf, dim=-2) / nz
+        H = lanewise(lambda a, b: a.T @ b, (p_oth - co[:, None]) * wf, p_cur - cp[:, None])
         # LAPACK refuses non-finite input; JAX's SVD returns NaNs there,
         # which end in the fallback below. Keep that outcome.
-        bad = ~torch.isfinite(H).all()
+        bad = ~torch.isfinite(H).all(-1).all(-1)[:, None, None]
         U, _S, Vt = torch.linalg.svd(torch.where(bad, eye, H))
-        d = torch.linalg.det(Vt.T @ U.T)
-        D = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
-        R = Vt.T @ D @ U.T
-        R = torch.where(bad, float("nan"), R)
-        t = cp - R @ co
-        return R, t, n
+        d = torch.linalg.det(lanewise(lambda u, vt: vt.T @ u.T, U, Vt))
+        D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1))
+        R = torch.where(bad, float("nan"), lanewise(lambda u, dd, vt: vt.T @ dd @ u.T, U, D, Vt))
+        t = cp - lanewise(torch.mv, R, co)
+        return R, t, n[:, 0]
 
     R, t, n = fit(base)
-    res = torch.linalg.vector_norm(p_oth @ R.T + t - p_cur, dim=-1)
-    res_sorted = torch.sort(torch.where(base, res, float("inf"))).values
+    res = torch.linalg.vector_norm(lanewise(lambda p, r: p @ r.T, p_oth, R) + t[:, None] - p_cur,
+                                   dim=-1)
+    res_sorted = torch.sort(torch.where(base, res, float("inf")), dim=-1).values
     mid = torch.clamp(torch.div(n.to(torch.int64) - 1, 2, rounding_mode="floor"),
-                      0, res.shape[0] - 1)
-    med = res_sorted[mid]
+                      0, res.shape[-1] - 1)
+    med = torch.gather(res_sorted, -1, mid[:, None])
     keep2 = base & (res <= torch.clamp(3.0 * med, min=0.5))
     R, t, n2 = fit(keep2)
     pose = se3.log(R, t)
-    ok = (n2 >= min_pts) & torch.isfinite(pose).all()
-    return torch.where(ok, pose, fallback)
+    ok = (n2 >= min_pts) & torch.isfinite(pose).all(-1)
+    return torch.where(ok[:, None], pose, fallback)
+
+
+def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` [L, K] of each lane of ``a`` [L, M, ...]."""
+    return a[torch.arange(a.shape[0], device=a.device)[:, None], idx]
 
 
 def _direction_filter(keep, cur_y, cur_x, oth_y, oth_x, oidx, img_h: float):
     """Mode-bin direction histogram (36 bins of 10 degrees), mode ±1 kept,
     with the reference's binning of the slope across vertically stacked
-    images (reference .cpp:1883-1946, offset = image height at :1486).
-    The histogram is a one-hot count, never a scatter-add."""
+    images (reference .cpp:1883-1946, offset = image height at :1486), per
+    lane of ``[L, K]``. The histogram is a one-hot count, never a
+    scatter-add."""
     f32 = torch.float32
-    dy = oth_y[oidx].to(f32) + img_h - cur_y.to(f32)
-    dx = oth_x[oidx].to(f32) - cur_x.to(f32)
+    dy = _take(oth_y, oidx).to(f32) + img_h - cur_y.to(f32)
+    dx = _take(oth_x, oidx).to(f32) - cur_x.to(f32)
     ang = torch.rad2deg(torch.atan(dy / torch.where(dx == 0, 1e-9, dx))) + 180.0
     bins = torch.clamp((ang / 10.0).to(torch.int32), 0, 35)
-    onehot = bins[:, None] == torch.arange(36, dtype=torch.int32, device=bins.device)
-    hist = torch.sum(onehot & keep[:, None], dim=0)
-    mode = torch.argmax(hist).to(torch.int32)  # first mode on ties, as jnp.argmax
+    onehot = bins[..., None] == torch.arange(36, dtype=torch.int32, device=bins.device)
+    hist = torch.sum(onehot & keep[..., None], dim=-2)
+    # first mode on ties, as jnp.argmax
+    mode = torch.argmax(hist, dim=-1, keepdim=True).to(torch.int32)
     diff = torch.abs(bins - mode)
     diff = torch.minimum(diff, 36 - diff)
     return diff <= 1
-
-
-def _transform_points(pose: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    R, t = se3.exp(pose)
-    return torch.einsum("ij,nj->ni", R, pts) + t
 
 
 def _da_single(cur: FrameFeatures, oth_row, oth_valid_kf, init_pose, cam: StereoCamera,
@@ -146,19 +154,23 @@ def _da_single(cur: FrameFeatures, oth_row, oth_valid_kf, init_pose, cam: Stereo
                filter_by_orb_distance: bool = True, ransac_n_hyp: int = 128,
                min_alive: int = 15, seed_from_init: bool = False,
                init_gate_budget_m: float = 0.0):
-    """The cascade of ``cur`` against one candidate keyframe row."""
+    """The cascade of ``cur`` against one candidate keyframe row, per lane:
+    every argument leads with the lane dimension L (``cur``'s fields and
+    ``oth_row``'s arrays [L, K, ...], ``oth_valid_kf`` [L], ``init_pose``
+    [L, 6], ``key`` [L, 2]); lane j is JAX's ``_da_single`` on lane j's
+    inputs."""
     (oy_l, ox_l, _oval_l, odesc_l, _oy_r, _oxr, _ovr, _odesc_r, _om_ridx,
      om_valid, opts3d, ooct) = oth_row
     f32, i8 = torch.float32, torch.int8
-    k = cur.desc_l.shape[0]
+    n_lanes, k = cur.desc_l.shape[:2]
     dev = cur.desc_l.device
 
     dist = hamming_matrix(cur.desc_l, odesc_l)
-    gate = (cur.m_valid[:, None] & om_valid[None, :] & oth_valid_kf
-            & (cur.octave[:, None] == ooct[None, :]))
+    gate = (cur.m_valid[:, :, None] & om_valid[:, None, :] & oth_valid_kf[:, None, None]
+            & (cur.octave[:, :, None] == ooct[:, None, :]))
     d = torch.where(gate, dist, _BIG)
-    oidx = torch.argmin(d, dim=1)  # first index on ties, as jnp.argmin
-    bd = torch.amin(d, dim=1)
+    oidx = torch.argmin(d, dim=-1)  # first index on ties, as jnp.argmin
+    bd = torch.amin(d, dim=-1)
     raw = bd < _BIG
     status = torch.where(raw, S_TRACKED, S_NON_TRACKED).to(i8)
     keep = raw
@@ -177,46 +189,47 @@ def _da_single(cur: FrameFeatures, oth_row, oth_valid_kf, init_pose, cam: Stereo
         keep = keep & ok
         rows = torch.arange(k, dtype=f32, device=dev)
         lex = torch.where(keep, bd * k + rows, _BIG)
-        claimed = torch.arange(k, device=dev)[None, :] == oidx[:, None]
-        col_best = torch.amin(torch.where(claimed, lex[:, None], _BIG), dim=0)
-        ok = lex == col_best[oidx]
+        claimed = torch.arange(k, device=dev) == oidx[..., None]
+        col_best = torch.amin(torch.where(claimed, lex[..., None], _BIG), dim=-2)
+        ok = lex == torch.gather(col_best, -1, oidx)
         status = torch.where(keep & ~ok, S_REJ_CONSISTENCY, status).to(i8)
         keep = keep & ok
 
     # filter 3: fundamental-matrix RANSAC on left pixel pairs
     if use_fund_matrix:
-        n_alive = torch.sum(keep.to(torch.int32))
+        n_alive = torch.sum(keep.to(torch.int32), dim=-1, keepdim=True)
         inl, _cnt, _F = ransac_fundamental(
-            cur.xs_l.to(f32), cur.ys_l.to(f32), ox_l[oidx].to(f32), oy_l[oidx].to(f32),
-            keep, key, threshold=max_y_diff_epipolar, n_hyp=ransac_n_hyp)
+            cur.xs_l.to(f32), cur.ys_l.to(f32), _take(ox_l, oidx).to(f32),
+            _take(oy_l, oidx).to(f32), keep, key, threshold=max_y_diff_epipolar,
+            n_hyp=ransac_n_hyp)
         ok = torch.where(n_alive >= min_alive, inl, keep)
         status = torch.where(keep & ~ok, S_REJ_FUND_MATRIX, status).to(i8)
         keep = keep & ok
 
     # filter 4: change-in-pose residual gating (≙ getChangeInPose)
-    pose = torch.zeros(6, dtype=f32, device=dev)
-    pose_ok = torch.tensor(False, device=dev)
-    mean_res = torch.tensor(0.0, dtype=f32, device=dev)
-    residuals = torch.zeros(k, dtype=f32, device=dev)
+    pose = torch.zeros((n_lanes, 6), dtype=f32, device=dev)
+    pose_ok = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
+    mean_res = torch.zeros(n_lanes, dtype=f32, device=dev)
+    residuals = torch.zeros((n_lanes, k), dtype=f32, device=dev)
     if use_change_pose:
-        ur = cur.xs_r[cur.m_r_idx.long()].to(f32)
+        ur = _take(cur.xs_r, cur.m_r_idx.long()).to(f32)
         obs = torch.stack([cur.xs_l.to(f32), cur.ys_l.to(f32), ur], dim=-1)
-        p_oth = opts3d[oidx]
+        p_oth = _take(opts3d, oidx)
         if seed_from_init:
             # loop-closure recovery: the odometry prior seeds the solve, and
             # matches whose residual AT the prior exceeds what the drift
             # budget allows are dropped first (depth-adaptive: a budget_m
             # offset at depth z subtends ~budget*fx/z pixels)
             seed = init_pose
-            p_pred = _transform_points(init_pose, p_oth)
-            zq = torch.clamp(p_pred[:, 2], min=1.0)
-            ulp = cam.cx_l + cam.fx_l * p_pred[:, 0] / zq
-            vlp = cam.cy_l + cam.fy_l * p_pred[:, 1] / zq
-            urp = cam.cx_r + cam.fx_r * (p_pred[:, 0] - cam.baseline) / zq
+            p_pred = se3.transform_points(init_pose, p_oth)
+            zq = torch.clamp(p_pred[..., 2], min=1.0)
+            ulp = cam.cx_l + cam.fx_l * p_pred[..., 0] / zq
+            vlp = cam.cy_l + cam.fy_l * p_pred[..., 1] / zq
+            urp = cam.cx_r + cam.fx_r * (p_pred[..., 0] - cam.baseline) / zq
             e_px = torch.maximum(torch.abs(ulp - cur.xs_l.to(f32)),
                                  torch.maximum(torch.abs(vlp - cur.ys_l.to(f32)),
                                                torch.abs(urp - ur)))
-            budget = torch.tensor(init_gate_budget_m, dtype=f32, device=dev)
+            budget = torch.full((), init_gate_budget_m, dtype=f32, device=dev)
             allow = budget * cam.fx_l / zq + residual_th
             okg = (budget <= 0.0) | (e_px <= allow)
             status = torch.where(keep & ~okg, S_REJ_CHANGE_POSE, status).to(i8)
@@ -229,23 +242,41 @@ def _da_single(cur: FrameFeatures, oth_row, oth_valid_kf, init_pose, cam: Stereo
                          max_iters=DA_SOLVE_ITERS_STAGE2)
         pose, pose_ok, mean_res = sol.pose, sol.valid, sol.mean_residual
         residuals = sol.residuals
-        ok = torch.where(pose_ok, sol.inliers, torch.zeros_like(keep))
+        ok = sol.inliers & pose_ok[:, None]
         # depth-consistency gate: predicted vs triangulated depth within a
         # stereo-noise-proportional tolerance (sigma_z ~ z^2 * 2 px / (fx b),
         # 4 sigma + 0.5 m floor)
-        p_pred = _transform_points(pose, p_oth)
-        z = torch.clamp(cur.pts3d[:, 2], min=0.5)
+        p_pred = se3.transform_points(pose, p_oth)
+        z = torch.clamp(cur.pts3d[..., 2], min=0.5)
         depth_sig = z * z * 2.0 / (cam.fx_l * cam.baseline)
-        ok3d = torch.abs(p_pred[:, 2] - cur.pts3d[:, 2]) <= 4.0 * depth_sig + 0.5
+        ok3d = torch.abs(p_pred[..., 2] - cur.pts3d[..., 2]) <= 4.0 * depth_sig + 0.5
         ok = ok & ok3d
         status = torch.where(keep & ~ok, S_REJ_CHANGE_POSE, status).to(i8)
         keep = keep & ok
 
-    tracked = torch.sum(keep.to(torch.int32))
+    tracked = torch.sum(keep.to(torch.int32), dim=-1)
     status = torch.where(keep, S_TRACKED, status).to(i8)
     oidx32 = oidx.to(torch.int32)
     return (status, torch.where(keep, oidx32, 0), tracked, pose, pose_ok, mean_res,
             oidx32, bd, residuals)
+
+
+def _tree(fn, x):
+    """``fn`` on a tensor, or on each tensor of (nested, named) tuples."""
+    if isinstance(x, tuple):
+        parts = [_tree(fn, a) for a in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return fn(x)
+
+
+def _leading(x, seqs: bool):
+    """``x`` (a tensor, or a tuple of them) with a sequence dimension of 1
+    in front where the call has none."""
+    return x if seqs else _tree(lambda a: a[None], x)
+
+
+def _drop_leading(x, seqs: bool):
+    return x if seqs else _tree(lambda a: a[0], x)
 
 
 def da_cascade(cur: FrameFeatures, store_arrays: KFArrays, similar_idx: torch.Tensor,
@@ -256,30 +287,74 @@ def da_cascade(cur: FrameFeatures, store_arrays: KFArrays, similar_idx: torch.Te
                use_fund_matrix: bool = True, use_change_pose: bool = True,
                kernel_param: float = 2.0, ransac_n_hyp: int = 128) -> DAResult:
     """The full cascade of the current KF against S candidate KFs
-    (``similar_idx`` int [S] rows of the store, ``others_valid`` bool [S])."""
-    s = others_valid.shape[0]
-    idx = similar_idx.long()
-    others = [a[idx] for a in store_arrays]
-    keys = prng.split(key, s)
+    (``similar_idx`` int [S] rows of the store, ``others_valid`` bool [S]),
+    the S candidates as lanes of one batch.
+
+    With a leading sequence dimension Q on every argument (``cur``'s fields
+    [Q, K, ...], ``store_arrays`` [Q, M, K, ...], ``similar_idx`` and
+    ``others_valid`` [Q, S], ``key`` [Q, 2], ``init_poses`` [Q, S, 6]) the
+    Q cascades run as one batch of Q × S lanes, and every field of the
+    result leads with Q."""
+    seqs = similar_idx.dim() == 2
+    cur, store_arrays, similar_idx, others_valid, key = (
+        _leading(x, seqs) for x in (cur, tuple(store_arrays), similar_idx, others_valid, key))
+    q, s = similar_idx.shape
+    dev = similar_idx.device
     if init_poses is None:
-        init_poses = torch.zeros((s, 6), dtype=torch.float32, device=key.device)
-    lanes = [
-        _da_single(cur, tuple(a[j] for a in others), others_valid[j], init_poses[j], cam,
-                   keys[j], max_orb_distance_da, residual_th, max_y_diff_epipolar,
-                   filter_by_direction, use_fund_matrix, use_change_pose, kernel_param,
-                   filter_by_orb_distance=filter_by_orb_distance,
-                   ransac_n_hyp=ransac_n_hyp)
-        for j in range(s)
-    ]
+        init_poses = torch.zeros((q, s, 6), dtype=torch.float32, device=dev)
+    else:
+        init_poses = _leading(init_poses, seqs)
+    seq = torch.arange(q, device=dev)[:, None]
+    idx = similar_idx.long()
+    others = tuple(a[seq, idx].flatten(0, 1) for a in store_arrays)
+    cur_lanes = FrameFeatures(*(a[:, None].expand(q, s, *a.shape[1:]).flatten(0, 1)
+                                for a in cur))
+    keys = prng.split(key, s).flatten(0, 1)
+    lanes = _da_single(cur_lanes, others, others_valid.flatten(), init_poses.flatten(0, 1),
+                       cam, keys, max_orb_distance_da, residual_th, max_y_diff_epipolar,
+                       filter_by_direction, use_fund_matrix, use_change_pose, kernel_param,
+                       filter_by_orb_distance=filter_by_orb_distance,
+                       ransac_n_hyp=ransac_n_hyp)
     (status, oidx, tracked, pose, pose_ok, mean_res, raw_oidx, bd,
-     residuals) = (torch.stack(x) for x in zip(*lanes))
+     residuals) = (a.unflatten(0, (q, s)) for a in lanes)
     tracked = torch.where(others_valid, tracked, 0)
-    return DAResult(status, oidx, tracked, pose, pose_ok & others_valid, mean_res,
-                    raw_oidx, bd, residuals)
+    return _drop_leading(DAResult(status, oidx, tracked, pose, pose_ok & others_valid,
+                                  mean_res, raw_oidx, bd, residuals), seqs)
+
+
+def _counts(n_kfs, q: int, device) -> torch.Tensor:
+    """Stored-keyframe counts (an int, or a list of Q) as an int32 [Q]
+    tensor on ``device``, without a blocking copy."""
+    if isinstance(n_kfs, int):
+        return torch.full((q,), n_kfs, dtype=torch.int32, device=device)
+    return torch.tensor(list(n_kfs), dtype=torch.int32).to(device, non_blocking=True)
+
+
+def bow_candidates(cur: FrameFeatures, db: torch.Tensor, leaf_bits: torch.Tensor,
+                   weights: torch.Tensor, n_kfs, n_query: int = 4):
+    """The BoW query of a check, Q sequences at once (``cur``'s fields [Q,
+    K, ...], ``db`` [Q, M, W], ``n_kfs`` Q counts): quantize, score the
+    ``n_kfs`` stored rows, rank. Returns (scores [Q, n_query], ids [Q,
+    n_query], candidates [Q, 1 + n_query] = the previous KF and the ids,
+    their validity [Q, 1 + n_query])."""
+    q, m = db.shape[:2]
+    dev = db.device
+    v = bow_vector(cur.desc_l, cur.m_valid, leaf_bits, weights)
+    scores_all = torch.sum(torch.minimum(db, v[:, None, :]), dim=-1)
+    n = _counts(n_kfs, q, dev)
+    rows = torch.arange(m, device=dev)
+    scores_all = torch.where(rows < n[:, None], scores_all, -1.0)
+    top_s, top_i = rank_scores(scores_all, n_query)
+
+    prev_kf = (n - 1)[:, None]
+    cand = torch.cat([prev_kf, top_i], dim=-1)
+    cand_valid = torch.cat([torch.ones((q, 1), dtype=torch.bool, device=dev),
+                            (top_s > 0) & (top_i != prev_kf)], dim=-1)
+    return top_s, top_i, torch.clamp(cand, 0, m - 1), cand_valid
 
 
 def query_and_associate(cur: FrameFeatures, store_arrays: KFArrays, db: torch.Tensor,
-                        leaf_bits: torch.Tensor, weights: torch.Tensor, n_kfs: int,
+                        leaf_bits: torch.Tensor, weights: torch.Tensor, n_kfs,
                         cam: StereoCamera, key: torch.Tensor,
                         init_poses: torch.Tensor | None = None, n_query: int = 4,
                         max_orb_distance_da: float = 60.0, residual_th: float = 30.0,
@@ -292,21 +367,24 @@ def query_and_associate(cur: FrameFeatures, store_arrays: KFArrays, db: torch.Te
     (``n_kfs`` stored KFs; the new one is not in yet). ``init_poses[i]``
     seeds the change-in-pose solve against KF i (zeros when omitted).
 
-    Returns (scores [n_query], ids [n_query], cand [1+n_query], DAResult)."""
-    q = bow_vector(cur.desc_l, cur.m_valid, leaf_bits, weights)
-    scores_all = torch.sum(torch.minimum(db, q[None, :]), dim=-1)
-    rows = torch.arange(db.shape[0], device=db.device)
-    scores_all = torch.where(rows < n_kfs, scores_all, -1.0)
-    top_s, top_i = rank_scores(scores_all, n_query)
+    Several sequences' checks run as one batch (≙ the JAX fleet's vmapped
+    ``query_and_associate``) when every argument leads with a sequence
+    dimension Q: ``cur``'s fields [Q, K, ...], ``store_arrays`` [Q, M, K,
+    ...], ``db`` [Q, M, W], ``n_kfs`` a list of Q counts,
+    ``key`` [Q, 2], ``init_poses`` [Q, M, 6]; the vocabulary is shared.
 
-    prev_kf = n_kfs - 1
-    dev = db.device
-    cand = torch.cat([torch.tensor([prev_kf], dtype=torch.int32, device=dev), top_i])
-    cand_valid = torch.cat([torch.tensor([True], device=dev),
-                            (top_s > 0) & (top_i != prev_kf)])
-    cand = torch.clamp(cand, 0, db.shape[0] - 1)
-    init_cand = (init_poses[cand.long()] if init_poses is not None
-                 else torch.zeros((cand.shape[0], 6), dtype=torch.float32, device=dev))
+    Returns (scores [n_query], ids [n_query], cand [1+n_query], DAResult),
+    each leading with Q in the batched form."""
+    seqs = db.dim() == 3
+    cur, store_arrays, db, key = (_leading(x, seqs)
+                                  for x in (cur, tuple(store_arrays), db, key))
+    top_s, top_i, cand, cand_valid = bow_candidates(cur, db, leaf_bits, weights, n_kfs,
+                                                    n_query)
+    init_cand = None
+    if init_poses is not None:
+        init_poses = _leading(init_poses, seqs)
+        init_cand = init_poses[torch.arange(db.shape[0], device=db.device)[:, None],
+                               cand.long()]
     da = da_cascade(cur, store_arrays, cand, cand_valid, cam, key, init_poses=init_cand,
                     max_orb_distance_da=max_orb_distance_da, residual_th=residual_th,
                     max_y_diff_epipolar=max_y_diff_epipolar,
@@ -314,7 +392,7 @@ def query_and_associate(cur: FrameFeatures, store_arrays: KFArrays, db: torch.Te
                     filter_by_orb_distance=filter_by_orb_distance,
                     use_fund_matrix=use_fund_matrix, use_change_pose=use_change_pose,
                     kernel_param=kernel_param, ransac_n_hyp=ransac_n_hyp)
-    return top_s, top_i, cand, da
+    return _drop_leading((top_s, top_i, cand, da), seqs)
 
 
 def recheck_candidate(store_arrays: KFArrays, row_new: int, row_old: int,
@@ -325,16 +403,16 @@ def recheck_candidate(store_arrays: KFArrays, row_new: int, row_old: int,
                       kernel_param: float = 2.0, ransac_n_hyp: int = 128,
                       init_gate_budget_m: float = 0.0):
     """Loop-closure RECOVERY re-check (framework extension; no reference
-    counterpart): the cascade for ONE candidate with the change-in-pose
-    solve started from the odometry-implied relative pose ``init_pose``
-    instead of the Horn appearance alignment, behind a hard residual
-    pre-gate at that prior (``init_gate_budget_m`` meters of drift; 0
-    disables). On an aliased world this keeps the odometry-consistent
+    counterpart): the cascade for ONE candidate (one lane) with the
+    change-in-pose solve started from the odometry-implied relative pose
+    ``init_pose`` instead of the Horn appearance alignment, behind a hard
+    residual pre-gate at that prior (``init_gate_budget_m`` meters of drift;
+    0 disables). On an aliased world this keeps the odometry-consistent
     subset of the raw matches. Both keyframes are read from the store (the
     new KF's row must be written). Returns (status [K], other_idx [K],
     tracked, pose [6])."""
-    oth_row = tuple(a[row_old] for a in store_arrays)
-    r = KFArrays(*(a[row_new] for a in store_arrays))
+    oth_row = tuple(a[row_old][None] for a in store_arrays)
+    r = KFArrays(*(a[row_new][None] for a in store_arrays))
     cur = FrameFeatures(
         ys_l=r.ys_l, xs_l=r.xs_l, score_l=torch.zeros_like(r.xs_l, dtype=torch.float32),
         valid_l=r.valid_l, desc_l=r.desc_l, ys_r=r.ys_r, xs_r=r.xs_r, valid_r=r.valid_r,
@@ -342,11 +420,11 @@ def recheck_candidate(store_arrays: KFArrays, row_new: int, row_old: int,
         octave=r.octave)
     dev = r.ys_l.device
     key = prng.PRNGKey(seed, device=dev)
+    init = torch.as_tensor(init_pose, dtype=torch.float32).to(dev, non_blocking=True)
     (status, oidx, tracked, pose, *_rest) = _da_single(
-        cur, oth_row, torch.tensor(True, device=dev),
-        torch.as_tensor(init_pose, dtype=torch.float32, device=dev), cam, key,
+        cur, oth_row, torch.ones(1, dtype=torch.bool, device=dev), init[None], cam, key[None],
         max_orb_distance_da, residual_th, max_y_diff_epipolar, filter_by_direction,
         use_fund_matrix, True, kernel_param, filter_by_orb_distance=filter_by_orb_distance,
         ransac_n_hyp=ransac_n_hyp, seed_from_init=True,
         init_gate_budget_m=float(init_gate_budget_m))
-    return status, oidx, tracked, pose
+    return status[0], oidx[0], tracked[0], pose[0]

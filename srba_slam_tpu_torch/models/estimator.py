@@ -10,13 +10,16 @@ pose graph and the output files.
 
 The parity reference is JAX's ``step()`` with ``solve_sync = True``: every
 window solve lands right after its insertion. This is the single copy of
-the per-frame host walk (``_walk_frame``: pose accumulators, triggers, the
-check; the ID chain is the VO engine's ``commit_frame``). A keyframe check
-runs the BoW query and DA cascade on the estimator's device and copies their
-outputs to the host once. The options around the loop run as in the JAX
-package: the rectification maps of an unrectified rig, the ``general.debug``
-file family, the ``show3D`` snapshots behind the live viewer, and the
-resumable checkpoint (``utils/checkpoint.py``).
+the per-frame host walk (``_walk_frame``: its head, pose accumulators and
+triggers; the check; its tail, the keyframe decision; the ID chain is the
+VO engine's ``commit_frame``). A keyframe check runs the BoW query and the
+DA cascade, its five candidates as one batch, on the estimator's device and
+copies their outputs to the host once; the fleet runs the heads of its
+sequences, one batched check for those that check, then their tails. The
+options around the loop run as in the JAX package: the rectification maps
+of an unrectified rig, the ``general.debug`` file family, the ``show3D``
+snapshots behind the live viewer, and the resumable checkpoint
+(``utils/checkpoint.py``).
 
 The batched loop (``perform_stereo_slam_batched``, the CLI's ``--batch N``)
 runs the VO of B frames as one ``vo_scan`` and walks the B frames through
@@ -46,7 +49,7 @@ from srba_slam_tpu_torch.models.data_association import (
 )
 from srba_slam_tpu_torch.models.keyframe import KeyframeStore
 from srba_slam_tpu_torch.models.srba import SRBAEngine, SRBAParams
-from srba_slam_tpu_torch.models.vo import StereoVOEngine, vo_scan
+from srba_slam_tpu_torch.models.vo import StereoVOEngine, to_host, vo_scan
 from srba_slam_tpu_torch.ops import prng
 from srba_slam_tpu_torch.ops.posegraph import optimize_pose_graph
 from srba_slam_tpu_torch.ops.ransac import hypotheses_for_prob
@@ -60,26 +63,6 @@ from srba_slam_tpu_torch.utils.thresholds import (
 )
 
 MAX_SIMILAR = 5  # prev KF + up to 4 BoW results (reference queries n=4)
-
-
-def _to_host(tensors) -> list[np.ndarray]:
-    """Copy several device tensors (int8/int32/int64-small/bool/f32) to the
-    host in ONE transfer: all as 32-bit words in one buffer."""
-    flat = [t.reshape(-1) for t in tensors]
-    words = torch.cat([f.view(torch.int32) if f.dtype == torch.float32 else f.to(torch.int32)
-                       for f in flat]).cpu().numpy()
-    out, o = [], 0
-    for t, f in zip(tensors, flat):
-        w = words[o:o + f.numel()]
-        o += f.numel()
-        if t.dtype == torch.float32:
-            a = w.view(np.float32)
-        elif t.dtype == torch.bool:
-            a = w.astype(bool)
-        else:
-            a = w.astype(np.int8 if t.dtype == torch.int8 else np.int32)
-        out.append(a.reshape(tuple(t.shape)))
-    return out
 
 
 def _ypr_from_rotmat(R: np.ndarray) -> np.ndarray:
@@ -335,7 +318,7 @@ class SRBAStereoSLAMEstimator:
             torch.as_tensor(eng._last_pose_inc, dtype=torch.float32, device=self.device),
             self.cam, fast_th, orb_th, **eng.frontend_options(), **eng.solve_options())
         curs = outs[0]
-        scan = _to_host([outs[1], outs[2], curs.m_valid, outs[3], outs[4], outs[6]])
+        scan = to_host([outs[1], outs[2], curs.m_valid, outs[3], outs[4], outs[6]])
         b = lefts.shape[0]
         nm = scan[2].sum(axis=1)
         th = self.opts.adaptive_th_min_matches
@@ -392,11 +375,22 @@ class SRBAStereoSLAMEstimator:
 
     def _walk_frame(self, res: StepResult, vo):
         """The host walk of one frame after its VO (``vo``, None for a
-        hopeless frame): pose integration, the keyframe triggers and, when
-        one fires, the keyframe check. Per-frame stepping, the batched walk
-        and the fleet's lockstep step all come here."""
+        hopeless frame): pose integration and the keyframe triggers
+        (:meth:`_walk_head`), and when one fires, the keyframe check
+        (:meth:`_kf_check`) and its decision (:meth:`_walk_tail`).
+        Per-frame stepping and the batched walk call the three in a row;
+        the fleet calls every sequence's head, one check for all the
+        sequences that check, then their tails."""
+        force_new_kf = self._walk_head(res, vo)
+        if force_new_kf is not None:
+            frame = self.vo.last_frame()
+            self._walk_tail(res, frame, force_new_kf, self._kf_check(frame))
+
+    def _walk_head(self, res: StepResult, vo) -> bool | None:
+        """Pose integration and the keyframe triggers of one frame. Returns
+        None when no check fires, else the check's force-new-KF flag."""
         if vo is None or not vo.valid:
-            return  # skip frame (≙ reference .cpp:318-323)
+            return None  # skip frame (≙ reference .cpp:318-323)
         res.vo_valid = True
         res.n_stereo_matches = vo.num_stereo_matches
         res.tracked_from_last_kf = vo.tracked_from_last_kf
@@ -411,10 +405,15 @@ class SRBAStereoSLAMEstimator:
 
         force_new_kf, check = self._kf_triggers(vo.tracked_from_last_kf)
         if not check:
-            return
+            return None
         res.kf_check = True
         self.incr_from_last_check = np.zeros(6)
-        ids = self._kf_check(self.vo.last_frame(), res, force_new_kf)
+        return force_new_kf
+
+    def _walk_tail(self, res: StepResult, frame, force_new_kf: bool, pulled):
+        """The keyframe decision from a check's host outputs ``pulled``,
+        and the hand-over of an inserted keyframe's IDs to the VO engine."""
+        ids = self._kf_check_host(pulled, frame, res, force_new_kf)
         if ids is not None:
             self.vo.set_frame_ids(ids, set(int(i) for i in ids if i >= 0))
 
@@ -520,8 +519,8 @@ class SRBAStereoSLAMEstimator:
             return
         ents = [e for e in self._voc_buffer if limit_fidx is None or e[0] <= limit_fidx]
         if ents:
-            dh, vh = _to_host([torch.stack([d for _, d, _ in ents]),
-                               torch.stack([v for _, _, v in ents])])
+            dh, vh = to_host([torch.stack([d for _, d, _ in ents]),
+                              torch.stack([v for _, _, v in ents])])
             desc = dh.reshape(-1, dh.shape[-1])[vh.ravel()]
         else:
             desc = np.zeros((0, 8), np.uint32)
@@ -539,38 +538,48 @@ class SRBAStereoSLAMEstimator:
         self._voc_buffer = []
 
     # ------------------------------------------------------------- KF check
-    def _kf_check(self, frame, res: StepResult, force_new_kf: bool):
-        """BoW query -> similar KFs -> DA -> LC confirm -> possible insertion.
-        Returns the inserted keyframe's match IDs, or None if no KF was
-        inserted. The check's outputs come to the host in one copy (with
-        ``general.debug``, the cascade's intermediates for the dumps too)."""
+    def check_options(self) -> dict:
+        """The keyframe check's options, as keyword arguments of
+        ``query_and_associate``."""
+        o = self.opts
+        return dict(max_orb_distance_da=o.max_orb_distance_da, residual_th=o.residual_th,
+                    max_y_diff_epipolar=o.max_y_diff_epipolar,
+                    filter_by_direction=o.da_filter_by_direction,
+                    filter_by_orb_distance=o.da_filter_by_orb_distance,
+                    use_fund_matrix=o.da_filter_by_fund_matrix,
+                    use_change_pose=o.da_filter_by_pose_change,
+                    kernel_param=self.vo_opts.kernel_param, ransac_n_hyp=self._ransac_n_hyp)
+
+    def next_check_key(self) -> int:
+        """The vocabulary for a keyframe check (trained at the first one),
+        and the check's seed of the DA RNG stream."""
         self.ensure_vocabulary(limit_fidx=self.frame_idx)
         sub = self._da_seed
         self._da_seed += 1
-        o = self.opts
+        return sub
+
+    def check_outputs(self, top_s, top_i, da, frame) -> list:
+        """A check's outputs as ``_kf_check_host`` takes them: the tensors
+        (with ``general.debug``, the cascade's intermediates for the dumps
+        too), each leading with a sequence dimension when the check ran
+        batched over sequences."""
+        return ([top_s, top_i, da.status, da.other_idx, da.tracked_count, frame.m_valid,
+                 frame.xs_l, frame.ys_l, frame.xs_r, frame.m_r_idx, frame.pts3d]
+                + ([da.raw_oidx, da.distance, da.residuals] if self.debug.enabled else []))
+
+    def _kf_check(self, frame) -> list:
+        """BoW query and DA cascade of ``frame`` on the device, outputs
+        copied to the host in one copy (the decision is
+        :meth:`_kf_check_host`)."""
+        key = prng.PRNGKey(self.next_check_key(), device=self.device)
         with self.profiler.section("queryDB"):
             top_s, top_i, _cand, da = query_and_associate(
                 frame, self.store.arrays, self.bow._db, self.bow._leaf_bits,
-                self.bow._weights, self.store.n_kfs, self.cam,
-                prng.PRNGKey(sub, device=self.device),
-                max_orb_distance_da=o.max_orb_distance_da,
-                residual_th=o.residual_th,
-                max_y_diff_epipolar=o.max_y_diff_epipolar,
-                filter_by_direction=o.da_filter_by_direction,
-                filter_by_orb_distance=o.da_filter_by_orb_distance,
-                use_fund_matrix=o.da_filter_by_fund_matrix,
-                use_change_pose=o.da_filter_by_pose_change,
-                kernel_param=self.vo_opts.kernel_param,
-                ransac_n_hyp=self._ransac_n_hyp,
-            )
+                self.bow._weights, self.store.n_kfs, self.cam, key, **self.check_options())
         with self.profiler.section("performDA"):
-            pulled = _to_host([top_s, top_i, da.status, da.other_idx, da.tracked_count,
-                               frame.m_valid, frame.xs_l, frame.ys_l, frame.xs_r,
-                               frame.m_r_idx, frame.pts3d]
-                              + ([da.raw_oidx, da.distance, da.residuals]
-                                 if self.debug.enabled else []))
+            pulled = to_host(self.check_outputs(top_s, top_i, da, frame))
             self._reanchor_if_dirty()
-        return self._kf_check_host(pulled, frame, res, force_new_kf)
+        return pulled
 
     def _kf_check_host(self, pulled, frame, res: StepResult, force_new_kf: bool):
         """Host half of the keyframe check: similar-KF selection, LC
@@ -670,8 +679,8 @@ class SRBAStereoSLAMEstimator:
         distance = extras["distance"][positions]
         residuals = extras["residuals"][positions]
         # the other KFs' left keypoints: one device read, debug mode only
-        oth_x, oth_y = _to_host([self.store.arrays.xs_l[similar],
-                                 self.store.arrays.ys_l[similar]])
+        oth_x, oth_y = to_host([self.store.arrays.xs_l[similar],
+                                self.store.arrays.ys_l[similar]])
         for s, other_kf in enumerate(similar):
             self.debug.dump_if_raw_match(
                 kf_id, other_kf, xs_l, ys_l, oth_x[s], oth_y[s],
@@ -855,7 +864,7 @@ class SRBAStereoSLAMEstimator:
             # recovery GN converges back into the aliased basin
             init_gate_budget_m=self.rba.lc_budget(lc_kf, kf_id),
         )
-        status, oidx, tracked, _pose = _to_host(out)
+        status, oidx, tracked, _pose = to_host(out)
         best = int(max(d["tracked"])) if len(d["tracked"]) else 0
         if int(tracked) < max(15, int(0.5 * best)):
             self.log(1, f"kf{kf_id}: LC recovery re-check tracked only "
@@ -994,8 +1003,8 @@ class SRBAStereoSLAMEstimator:
     def _build_obs(self, frame, ids):
         """Observation arrays for SRBA (≙ .cpp:139-161 / 685-728) from a
         frame on the device (one copy)."""
-        host = _to_host([frame.m_valid, frame.xs_l, frame.ys_l, frame.xs_r,
-                         frame.m_r_idx, frame.pts3d])
+        host = to_host([frame.m_valid, frame.xs_l, frame.ys_l, frame.xs_r,
+                        frame.m_r_idx, frame.pts3d])
         return self._build_obs_host(*host, ids)
 
     def _build_obs_host(self, m_valid, xs_l, ys_l, xs_r, m_r, pts, ids):

@@ -273,7 +273,7 @@ def track_and_solve(
     cur: FrameFeatures,
     cam: StereoCamera,
     initial_pose: torch.Tensor,
-    orb_th: int,
+    orb_th,
     kernel_param: float = 2.0,
     residual_threshold: float = 15.0,
     min_mod: float = 1e-3,
@@ -284,25 +284,37 @@ def track_and_solve(
     filter_fund_matrix: bool = False,
 ) -> TrackSolveOut:
     """Track stereo-matched features into the current frame and solve the
-    frame-to-frame pose increment (x_cur = T x_prev)."""
+    frame-to-frame pose increment (x_cur = T x_prev).
+
+    With a leading sequence dimension B on ``prev``, ``cur`` and
+    ``initial_pose`` [B, 6] (``orb_th`` one number, or one per sequence as a
+    tensor [B]), the B sequences track together and their poses are one
+    ``solve_pose`` of B lanes (≙ the JAX package's vmapped
+    ``track_and_solve``); every output leads with B."""
+    lanes = cur.desc_l.dim() == 3
+    if not lanes:
+        prev, cur = (FrameFeatures(*(a[None] for a in f)) for f in (prev, cur))
+        initial_pose = initial_pose[None]
     m = interframe_match(cur.desc_l, prev.desc_l, cur.m_valid, prev.m_valid,
                          orb_max_distance=orb_th,
                          oct_a=cur.octave, oct_b=prev.octave)
     f32 = torch.float32
-    pts_prev = prev.pts3d[m.idx.long()]
-    ur = cur.xs_r[cur.m_r_idx.long()].to(f32)
+    seq = torch.arange(cur.desc_l.shape[0], device=cur.desc_l.device)[:, None]
+    prev_idx = m.idx.long()
+    pts_prev = prev.pts3d[seq, prev_idx]
+    ur = cur.xs_r[seq, cur.m_r_idx.long()].to(f32)
     obs = torch.stack([cur.xs_l.to(f32), cur.ys_l.to(f32), ur], dim=-1)
     valid = m.valid & cur.m_valid
     if filter_fund_matrix:
         # ≙ the stereo-vo IF-MATCH filter_fund_matrix option: gate the
         # tracked matches by fundamental-matrix RANSAC over the left pixels
         # before the pose solve (applied only when enough matches survive)
-        prev_idx = m.idx.long()
+        key = prng.PRNGKey(0, device=valid.device).expand(valid.shape[0], 2)
         inl, _cnt, _F = ransac_fundamental(
             cur.xs_l.to(f32), cur.ys_l.to(f32),
-            prev.xs_l[prev_idx].to(f32), prev.ys_l[prev_idx].to(f32),
-            valid, prng.PRNGKey(0, device=valid.device), threshold=2.0, n_hyp=64)
-        n_alive = torch.sum(valid.to(torch.int32))
+            prev.xs_l[seq, prev_idx].to(f32), prev.ys_l[seq, prev_idx].to(f32),
+            valid, key, threshold=2.0, n_hyp=64)
+        n_alive = torch.sum(valid.to(torch.int32), dim=-1, keepdim=True)
         valid = torch.where(n_alive >= 15, valid & inl, valid)
     res = solve_pose(
         pts_prev, obs, valid, cam,
@@ -315,7 +327,53 @@ def track_and_solve(
         min_inliers=min_inliers,
         max_incr_cost=max_incr_cost,
     )
-    return TrackSolveOut(track_idx=m.idx, track_valid=valid, pose=res)
+    out = TrackSolveOut(track_idx=m.idx, track_valid=valid, pose=res)
+    if lanes:
+        return out
+    return TrackSolveOut(out.track_idx[0], out.track_valid[0],
+                         PoseSolveResult(*(a[0] for a in out.pose)))
+
+
+def to_host(tensors) -> list[np.ndarray]:
+    """Copy several device tensors (int8/int32/int64-small/bool/f32) to the
+    host in ONE transfer: all as 32-bit words in one buffer."""
+    flat = [t.reshape(-1) for t in tensors]
+    words = torch.cat([f.view(torch.int32) if f.dtype == torch.float32 else f.to(torch.int32)
+                       for f in flat]).cpu().numpy()
+    out, o = [], 0
+    for t, f in zip(tensors, flat):
+        w = words[o:o + f.numel()]
+        o += f.numel()
+        if t.dtype == torch.float32:
+            a = w.view(np.float32)
+        elif t.dtype == torch.bool:
+            a = w.astype(bool)
+        else:
+            a = w.astype(np.int8 if t.dtype == torch.int8 else np.int32)
+        out.append(a.reshape(tuple(t.shape)))
+    return out
+
+
+def track_batch(engines, curs) -> list:
+    """Track each engine's frame ``curs[i]`` (its features at the engine's
+    thresholds) against the engine's previous frame with ONE pose solve of
+    ``len(engines)`` lanes, copy the outputs to the host once, and commit
+    each frame through its engine's ``commit_frame``. The engines share
+    camera, device and solve options (a fleet's sequences; per-frame
+    stepping is one engine). Returns the VOResults."""
+    e0 = engines[0]
+    init = np.stack([e.initial_increment() for e in engines]).astype(np.float32)
+    orb = np.array([int(e.orb_th) for e in engines], np.float32)
+    out = track_and_solve(
+        stack_features([e._prev for e in engines]), stack_features(curs), e0.cam,
+        *(torch.from_numpy(a).to(e0.device, non_blocking=True) for a in (init, orb)),
+        **e0.solve_options())
+    ti, tv, mv, pose, ok, res, iters = to_host(
+        [out.track_idx, out.track_valid, torch.stack([c.m_valid for c in curs]),
+         out.pose.pose, out.pose.valid, out.pose.mean_residual, out.pose.iters])
+    return [e.commit_frame(cur, ti[i], tv[i], mv[i], pose[i].copy(), bool(ok[i]),
+                           float(res[i]), int(iters[i]))
+            for i, (e, cur) in enumerate(zip(engines, curs))]
 
 
 def vo_scan(
@@ -521,11 +579,19 @@ class StereoVOEngine:
         return self.track(extract_and_match(left, right, self.cam, fast_th, orb_th,
                                             **self.frontend_options()))
 
+    def initial_increment(self) -> np.ndarray:
+        """The pose solve's starting increment for the next frame: the last
+        valid one under ``use_previous_pose_as_initial``, else zero."""
+        if self.opts.use_previous_pose_as_initial:
+            return self._last_pose_inc
+        return np.zeros(6, np.float32)
+
     def track(self, cur: FrameFeatures) -> VOResult:
         """The rest of a VO pass after the frontend: track ``cur`` (the
         frame's features at the engine's thresholds) against the previous
         frame, solve the increment, and commit the frame
-        (:meth:`commit_frame`). The first frame only mints its IDs."""
+        (:func:`track_batch` of this engine alone). The first frame only
+        mints its IDs."""
         if self._prev is None:
             m_valid_h = cur.m_valid.cpu().numpy()
             n_matches = int(m_valid_h.sum())
@@ -535,18 +601,7 @@ class StereoVOEngine:
             )
             self._advance()
             return VOResult(True, np.zeros(6, np.float32), n_matches, 0, 0, 0.0, 0)
-
-        init = (
-            torch.as_tensor(self._last_pose_inc, device=self.device)
-            if self.opts.use_previous_pose_as_initial
-            else torch.zeros(6, dtype=torch.float32, device=self.device)
-        )
-        out = track_and_solve(self._prev, cur, self.cam, init, int(self.orb_th),
-                              **self.solve_options())
-        return self.commit_frame(
-            cur, out.track_idx.cpu().numpy(), out.track_valid.cpu().numpy(),
-            cur.m_valid.cpu().numpy(), out.pose.pose.cpu().numpy(), bool(out.pose.valid),
-            float(out.pose.mean_residual), int(out.pose.iters))
+        return track_batch([self], [cur])[0]
 
     def commit_frame(self, cur: FrameFeatures, track_idx: np.ndarray, track_valid: np.ndarray,
                      m_valid_h: np.ndarray, pose_inc: np.ndarray, pose_ok: bool,

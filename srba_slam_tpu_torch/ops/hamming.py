@@ -14,8 +14,9 @@ from srba_slam_tpu_torch.ops.bits import popcount32, popcount_desc
 
 
 def hamming_matrix(a_packed: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
-    """int32[N,8] x int32[M,8] packed descriptors -> f32[N,M] distances."""
-    x = torch.bitwise_xor(a_packed[:, None, :], b_packed[None, :, :])
+    """int32[..., N, 8] x int32[..., M, 8] packed descriptors -> f32[..., N, M]
+    distances (leading dimensions broadcast)."""
+    x = torch.bitwise_xor(a_packed[..., :, None, :], b_packed[..., None, :, :])
     return torch.sum(popcount32(x), dim=-1).to(torch.float32)
 
 

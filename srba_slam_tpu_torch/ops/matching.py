@@ -38,30 +38,34 @@ def masked_best_match(
     """Row-wise best match under a mask, with optional 1-to-1 uniqueness.
 
     Args:
-      dist: [N, M] f32 distance matrix.
-      gate: [N, M] bool; False entries are excluded.
-      max_dist: distance threshold (inclusive).
+      dist: [..., N, M] f32 distance matrix (leading dimensions are lanes).
+      gate: [..., N, M] bool; False entries are excluded.
+      max_dist: distance threshold (inclusive); a number, or a tensor of
+        one threshold per lane.
       unique: each column is claimed by at most one row (the row with the
         smallest distance wins; ties break to the lowest row).
       mutual: additionally require STRICT mutual best (≙ the stereo-vo
         ``enable_robust_1to1_match`` MATCH option).
     """
-    n, m = dist.shape
+    n, m = dist.shape[-2:]
     d = torch.where(gate, dist.to(torch.float32), _BIG)
-    best_j = torch.argmin(d, dim=1)
-    best_d = torch.amin(d, dim=1)
+    best_j = torch.argmin(d, dim=-1)
+    best_d = torch.amin(d, dim=-1)
+    if isinstance(max_dist, torch.Tensor):
+        max_dist = max_dist[..., None]
     valid = best_d <= max_dist
     if unique:
         # (distance, row) keys stay exact in f32: dist*n + row < 2^24
         rows = torch.arange(n, dtype=torch.float32, device=dist.device)
         key = torch.where(valid, best_d * n + rows, _BIG)
-        col_best = torch.full((m,), _BIG, dtype=torch.float32, device=dist.device)
-        col_best = col_best.scatter_reduce(0, best_j, key, reduce="amin",
+        col_best = torch.full((*d.shape[:-2], m), _BIG, dtype=torch.float32,
+                              device=dist.device)
+        col_best = col_best.scatter_reduce(-1, best_j, key, reduce="amin",
                                            include_self=True)
-        valid = valid & (key == col_best[best_j])
+        valid = valid & (key == torch.gather(col_best, -1, best_j))
     if mutual:
-        col_min_all = torch.amin(d, dim=0)
-        valid = valid & (best_d <= col_min_all[best_j])
+        col_min_all = torch.amin(d, dim=-2)
+        valid = valid & (best_d <= torch.gather(col_min_all, -1, best_j))
     best_j = torch.where(valid, best_j, 0).to(torch.int32)
     best_d = torch.where(valid, best_d, _BIG)
     return MatchResult(best_j, best_d, valid)
@@ -114,9 +118,11 @@ def interframe_match(
     oct_b: torch.Tensor | None = None,
 ) -> MatchResult:
     """Brute-force matching of feature set A against B (≙ ifmDescBF);
-    restricted to same-octave pairs when octave tensors are given."""
+    restricted to same-octave pairs when octave tensors are given. Every
+    tensor may lead with a lane dimension (``orb_max_distance`` then a
+    number or one threshold per lane)."""
     dist = hamming_matrix(desc_a, desc_b)
-    gate = valid_a[:, None] & valid_b[None, :]
+    gate = valid_a[..., :, None] & valid_b[..., None, :]
     if oct_a is not None:
-        gate = gate & (oct_a[:, None] == oct_b[None, :])
+        gate = gate & (oct_a[..., :, None] == oct_b[..., None, :])
     return masked_best_match(dist, gate, orb_max_distance, unique=unique)

@@ -13,7 +13,9 @@ decisions follow JAX's instead of diverging statistically.
 
 Keys are int64 tensors ``[..., 2]`` holding the two uint32 words (torch's
 uint32 lacks the arithmetic); every sum and shift is masked back to 32
-bits. Everything runs on the key's device.
+bits. Everything runs on the key's device. ``split`` and ``uniform`` take a
+batch of keys ``[L, 2]`` as well (the DA cascade's candidates, one key
+each): lane ``j`` draws exactly what the key ``j`` alone draws.
 """
 
 from __future__ import annotations
@@ -51,7 +53,9 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     seed = int(seed)
     if not 0 <= seed <= _M32:
         raise ValueError(f"seed {seed} outside [0, 2^32)")
-    return torch.tensor([0, seed], dtype=torch.int64, device=device)
+    # built on the host and sent without waiting: a blocking copy would
+    # synchronize the host with the card once a keyframe check
+    return torch.tensor([0, seed], dtype=torch.int64).to(device, non_blocking=True)
 
 
 def _counters(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -60,26 +64,29 @@ def _counters(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
-    """≙ ``jax.random.split(key, n)``: keys ``[n, 2]``."""
+    """≙ ``jax.random.split(key, n)``: keys ``[..., n, 2]`` for keys
+    ``[..., 2]``."""
     hi, lo = _counters(n, key.device)
-    b0, b1 = threefry2x32(key[0], key[1], hi, lo)
+    b0, b1 = threefry2x32(key[..., 0, None], key[..., 1, None], hi, lo)
     return torch.stack([b0, b1], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """32-bit draws ``shape`` (values in [0, 2^32) as int64)."""
+    """32-bit draws ``[..., *shape]`` for keys ``[..., 2]`` (values in
+    [0, 2^32) as int64)."""
     shape = tuple(int(s) for s in shape)
     n = 1
     for s in shape:
         n *= s
     hi, lo = _counters(n, key.device)
-    b0, b1 = threefry2x32(key[0], key[1], hi, lo)
-    return (b0 ^ b1).reshape(shape)
+    b0, b1 = threefry2x32(key[..., 0, None], key[..., 1, None], hi, lo)
+    return (b0 ^ b1).reshape(key.shape[:-1] + shape)
 
 
 def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """≙ ``jax.random.uniform(key, shape)`` (float32 in [0, 1)): the top 23
-    bits of each draw as the mantissa of a float in [1, 2), minus 1."""
+    """≙ ``jax.random.uniform(key, shape)`` (float32 in [0, 1)), per key of
+    ``[..., 2]``: the top 23 bits of each draw as the mantissa of a float
+    in [1, 2), minus 1."""
     bits = random_bits(key, shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0

@@ -5,9 +5,8 @@ a leading batch of sequences across a device mesh (``make_mesh``,
 ``shard_batch``) and lets XLA partition the step. One H100 has no mesh: the
 batch is a leading dimension on the card, so those two functions have no
 counterpart here. The frontend of the B sequences' 2B images is one batch
-(one K1 and one K2 launch); each sequence's frame-to-frame solve runs in
-turn, since ``solve_pose`` reads its exit test on the host every
-iteration.
+(one K1 and one K2 launch), and their frame-to-frame tracking and pose
+solve one ``track_and_solve`` of B lanes (≙ JAX's ``_batched_step``).
 """
 
 from __future__ import annotations
@@ -35,14 +34,10 @@ def batched_vo_step(lefts, rights, prev: FrameFeatures, init_pose, cam: StereoCa
     curs = extract_and_match_batch(lefts, rights, cam, th, int(orb_th), k=k, cell=cell,
                                    device=device)
     init_pose = torch.as_tensor(init_pose, dtype=torch.float32, device=device)
-    outs = [track_and_solve(type(prev)(*(a[i] for a in prev)), cur, cam, init_pose[i],
-                            int(orb_th)).pose
-            for i, cur in enumerate(curs)]
-    poses = torch.stack([o.pose for o in outs])
-    valid = torch.stack([o.valid for o in outs])
-    res = torch.stack([o.mean_residual for o in outs])
-    return (stack_features(curs), poses, valid, torch.mean(res),
-            torch.mean(valid.to(torch.float32)))
+    cur = stack_features(curs)
+    out = track_and_solve(prev, cur, cam, init_pose, int(orb_th)).pose
+    return (cur, out.pose, out.valid, torch.mean(out.mean_residual),
+            torch.mean(out.valid.to(torch.float32)))
 
 
 def empty_features(batch: int, k: int, device="cuda") -> FrameFeatures:

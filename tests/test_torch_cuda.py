@@ -287,6 +287,39 @@ def test_vo_scan_cuda_matches_cpu(cuda):
     assert float(d[:, :3].max()) <= 1e-4 and float(d[:, 3:].max()) <= 1e-3
 
 
+@pytest.mark.parametrize("n_lanes", [1, 5])
+def test_solve_pose_graph_blocks_match_eager(cuda, monkeypatch, n_lanes):
+    """The GN blocks replayed as CUDA graphs give the eager blocks' bits,
+    lane by lane, and the CPU path's inliers and validity with poses within
+    1e-4."""
+    from srba_slam_tpu_torch.ops import robust_lm
+
+    rng = np.random.default_rng(4)
+    n = 256
+    pts = np.stack([rng.uniform(-6, 6, (n_lanes, n)), rng.uniform(-2, 2, (n_lanes, n)),
+                    rng.uniform(4, 25, (n_lanes, n))], -1).astype(np.float32)
+    cam = StereoCamera(**SMALL_CAM)
+    x = pts + np.array([0.1, -0.05, -0.6], np.float32)
+    obs = np.stack([cam.cx_l + cam.fx_l * x[..., 0] / x[..., 2],
+                    cam.cy_l + cam.fy_l * x[..., 1] / x[..., 2],
+                    cam.cx_r + cam.fx_r * (x[..., 0] - cam.baseline) / x[..., 2]], -1)
+    obs = (obs + rng.normal(0, 0.5, obs.shape)).astype(np.float32)
+    valid = rng.random((n_lanes, n)) < 0.9
+    init = (rng.normal(0, 0.02, (n_lanes, 6))).astype(np.float32)
+    outs = {}
+    for name, dev, graphs in (("graph", cuda, True), ("eager", cuda, False),
+                              ("cpu", "cpu", False)):
+        monkeypatch.setattr(robust_lm, "GN_GRAPHS", graphs)
+        args = [torch.from_numpy(a).to(dev) for a in (pts, obs, valid, init)]
+        outs[name] = robust_lm.solve_pose(*args[:3], cam, initial_pose=args[3])
+    for field, a, b in zip(outs["graph"]._fields, outs["graph"], outs["eager"]):
+        assert torch.equal(a, b), field
+    assert torch.equal(outs["graph"].inliers.cpu(), outs["cpu"].inliers)
+    assert torch.equal(outs["graph"].valid.cpu(), outs["cpu"].valid)
+    assert bool(outs["cpu"].valid.all())
+    assert float((outs["graph"].pose.cpu() - outs["cpu"].pose).abs().max()) <= 1e-4
+
+
 def test_vo_engine_cuda_matches_cpu(cuda):
     cam = StereoCamera(**SMALL_CAM)
     scene = PlaneScene(np.random.default_rng(11))
