@@ -117,7 +117,24 @@ not 0 (there is no CPU fallback):
                launches (torch.profiler) and host syncs of each; each stage
                of the batch alone (BoW query, RANSAC, Horn seed, GN solve);
                ``solve_pose`` at L = 5 against five L = 1 calls, and at exit-
-               test periods 1, 2, 4, 8 and 12, beside a VO solve (L = 1).
+               test periods 1, 2, 4, 8 and 12, beside a VO solve (L = 1);
+13. insertion - where an insertion's and the epilogue's time goes: the
+               bench estimator of phase 7 again over the 81 frames (its
+               decisions equal the fingerprint), each part of an insertion
+               timed alone, synchronized around it (``define_new_keyframe``'s
+               host work, the window upload, ``assembly_plan``,
+               ``optimize_window``, the copy out, ``_commit_one``,
+               ``spanning_tree(0)``, ``on_commit``, ``bow.insert``,
+               ``store.append``); every window solved again, whole and with
+               ``max_iters=0`` (stage 1), at its bucket's shapes; the LM
+               blocks as CUDA graphs against eager blocks in turns, equal bit
+               for bit, and by exit period; launches and syncs of the largest
+               window's solve. The pose graph of phase 7's ``finalize``: its
+               first call against later calls on the same inputs, graph
+               replays against eager iterations (equal bit for bit) and
+               against the dense-``jacfwd`` loop it replaced (poses within
+               1e-3), in turns; one iteration split in its parts; launches
+               and syncs of one call.
 
 Then one JSON line with, per kernel: its launches over the driven paths
 (``launches_by_path``: the estimator run, the margin-3 frontend, the
@@ -168,10 +185,13 @@ from srba_slam_tpu_torch import (  # noqa: E402
 from srba_slam_tpu_torch.__main__ import main as cli_main  # noqa: E402
 from srba_slam_tpu_torch.models import data_association as da_mod  # noqa: E402
 from srba_slam_tpu_torch.models import estimator as estimator_mod  # noqa: E402
+from srba_slam_tpu_torch.models import srba as srba_mod  # noqa: E402
 from srba_slam_tpu_torch.models import vo as vo_mod  # noqa: E402
 from srba_slam_tpu_torch.models.estimator import bench_estimator  # noqa: E402
 from srba_slam_tpu_torch.models.vo import _avgpool2, _octave_budget, extract_and_match  # noqa: E402
-from srba_slam_tpu_torch.ops import cuda_build, hopper_fast, orb, prng, robust_lm  # noqa: E402
+from srba_slam_tpu_torch.ops import (  # noqa: E402
+    cuda_build, hopper_fast, orb, posegraph, prng, robust_lm, window_ba,
+)
 from srba_slam_tpu_torch.ops.fast import fast_score_map as fast_score_map_plain  # noqa: E402
 from srba_slam_tpu_torch.ops.hopper_fast import (  # noqa: E402
     fast_nms, fast_nms_plain, fast_score_map, orb_descriptors, orb_descriptors_plain,
@@ -211,6 +231,10 @@ N_FLEET_CLI_FRAMES = 20
 ORIENTED_ROWS_TOL = 0.02
 CHECK_REPS = 10
 EXIT_PERIODS = (1, 2, 4, 8, 12)
+INSERTION_PARTS = ("define_new_keyframe", "upload", "assembly_plan", "optimize_window",
+                   "copy_out", "_commit_one", "spanning_tree(0)", "on_commit", "bow.insert",
+                   "store.append")
+SPLIT_REPS = 2
 PALLAS = "srba_slam_tpu/ops/pallas_fast.py"
 # f32 operations per pixel that the FAST score needs on given inputs (see
 # _fast_work): none within the margin, where the output is 0; 21 for an
@@ -737,9 +761,11 @@ def phase_estimator(frames, gt_poses, profile: bool) -> dict:
     check(not diff, f"decisions differ from the JAX fingerprint at {len(diff)} frames: "
                     f"{diff[:5]} (JAX, port)")
     with tempfile.TemporaryDirectory() as out_dir:
+        pg_calls, unrecord = _record_calls(estimator_mod, "optimize_pose_graph")
         t0 = time.perf_counter()
         est.finalize(out_dir=out_dir)
         finalize_ms = (time.perf_counter() - t0) * 1e3
+        unrecord()
         sizes = {f: os.path.getsize(os.path.join(out_dir, f)) for f in OUTPUT_FILES
                  if os.path.exists(os.path.join(out_dir, f))}
     check(len(sizes) == len(OUTPUT_FILES) and all(sizes.values()),
@@ -801,7 +827,29 @@ def phase_estimator(frames, gt_poses, profile: bool) -> dict:
     del records
     if profile:
         _profile_estimator(frames)
-    return counts, sum(ms) / 1e3, picked
+    return counts, sum(ms) / 1e3, picked, pg_calls[0]
+
+
+def _record_calls(module, name: str):
+    """Record the arguments and the host ms (synchronized) of every call of
+    ``module.name``; returns the records and the function that puts the
+    original back."""
+    calls, run = [], getattr(module, name)
+
+    def recording(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        out = run(*a, **k)
+        sync()
+        calls.append(dict(args=a, kw=k, ms=(time.perf_counter() - t0) * 1e3))
+        return out
+
+    setattr(module, name, recording)
+
+    def restore():
+        setattr(module, name, run)
+
+    return calls, restore
 
 
 def _count_blur_calls():
@@ -1294,21 +1342,21 @@ def _exit_period_ms(fn) -> dict:
     return out
 
 
-def _eager(fn):
-    """``fn`` with the GN blocks run eagerly (no CUDA graphs)."""
+def _flag_off(module, name: str, fn):
+    """``fn`` with ``module.name`` (a graphs flag) set False."""
     def run():
-        keep = robust_lm.GN_GRAPHS
-        robust_lm.GN_GRAPHS = False
+        keep = getattr(module, name)
+        setattr(module, name, False)
         try:
             return fn()
         finally:
-            robust_lm.GN_GRAPHS = keep
+            setattr(module, name, keep)
     return run
 
 
-def _in_turns(fn_a, fn_b) -> tuple[float, float]:
+def _in_turns(fn_a, fn_b, reps: int = CHECK_REPS) -> tuple[float, float]:
     """Host ms medians of two functions timed in turns (a, b, b, a)."""
-    a1, b1, b2, a2 = (_host_ms(f)[0] for f in (fn_a, fn_b, fn_b, fn_a))
+    a1, b1, b2, a2 = (_host_ms(f, reps)[0] for f in (fn_a, fn_b, fn_b, fn_a))
     return statistics.median([a1, a2]), statistics.median([b1, b2])
 
 
@@ -1360,17 +1408,18 @@ def phase_check(cam, frames, rec) -> None:
     vo_periods = _exit_period_ms(lambda: vo_mod.solve_pose(*vargs, **vkw))
 
     # the GN blocks as CUDA graphs (the default) against eager blocks
-    e = _eager(batched)()
+    e = _flag_off(robust_lm, "GN_GRAPHS", batched)()
     for name, x, y in zip(a[3]._fields, a[3], e[3]):
         check(torch.equal(x, y), f"the check's {name} differs between graph and eager blocks")
     da_solve = (lambda: da_mod.solve_pose(*args, **kwargs))
     vo_solve = (lambda: vo_mod.solve_pose(*vargs, **vkw))
     for fn in (da_solve, vo_solve):
-        for name, x, y in zip(robust_lm.PoseSolveResult._fields, fn(), _eager(fn)()):
+        for name, x, y in zip(robust_lm.PoseSolveResult._fields, fn(),
+                              _flag_off(robust_lm, "GN_GRAPHS", fn)()):
             check(torch.equal(x, y), f"solve_pose's {name} differs between graph and eager")
-    turns = {name: _in_turns(_eager(fn), fn) for name, fn in
+    turns = {name: _in_turns(_flag_off(robust_lm, "GN_GRAPHS", fn), fn) for name, fn in
              (("check", batched), ("da_solve", da_solve), ("vo_solve", vo_solve))}
-    c_e = _schedule_counts(_eager(batched))
+    c_e = _schedule_counts(_flag_off(robust_lm, "GN_GRAPHS", batched))
     torch.use_deterministic_algorithms(False)
 
     def fmt(t, c):
@@ -1405,6 +1454,271 @@ def phase_check(cam, frames, rec) -> None:
                       for name, (ms_e, ms_g) in turns.items())
           + f" | the check eagerly: {c_e['launches']} launches, {c_e['syncs']} host syncs "
           f"({c_e['stream_syncs']} cudaStreamSynchronize) | outputs equal bit for bit")
+
+
+
+def _split_run(frames):
+    """The bench estimator over ``frames`` with each part of an insertion
+    timed on the host clock, synchronized before and after the part, and
+    every window solve recorded. ``upload`` runs from the entry of
+    ``SRBAEngine._solve`` to ``assembly_plan``, ``copy_out`` from the end of
+    ``optimize_window`` to the end of ``_solve``."""
+    est = bench_estimator(DEV)
+    rba = est.rba
+    parts = {name: [] for name in INSERTION_PARTS}
+    solves, marks = [], {}
+
+    def timing(fn, name, keep=lambda a: True):
+        def wrapped(*a, **k):
+            if not keep(a):
+                return fn(*a, **k)
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            parts[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    run_solve, run_plan, run_opt = rba._solve, srba_mod.assembly_plan, srba_mod.optimize_window
+
+    def solve(entry):
+        sync()
+        marks["start"] = time.perf_counter()
+        out = run_solve(entry)
+        parts["copy_out"].append((time.perf_counter() - marks["solved"]) * 1e3)
+        return out
+
+    def plan(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        parts["upload"].append((t0 - marks["start"]) * 1e3)
+        out = run_plan(*a, **k)
+        sync()
+        parts["assembly_plan"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def opt(win, cam, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = run_opt(win, cam, **kw)
+        sync()
+        marks["solved"] = time.perf_counter()
+        parts["optimize_window"].append((marks["solved"] - t0) * 1e3)
+        solves.append((win, cam, kw))
+        return out
+
+    rba._solve = solve
+    srba_mod.assembly_plan, srba_mod.optimize_window = plan, opt
+    rba.define_new_keyframe = timing(rba.define_new_keyframe, "define_new_keyframe")
+    rba._commit_one = timing(rba._commit_one, "_commit_one")
+    rba.spanning_tree = timing(rba.spanning_tree, "spanning_tree(0)", lambda a: a[0] == 0)
+    rba.on_commit = timing(rba.on_commit, "on_commit")
+    bow_cls, store_cls = estimator_mod.BoWDatabase, estimator_mod.KeyframeStore
+    run_insert, run_append = bow_cls.insert, store_cls.append
+    bow_cls.insert = timing(run_insert, "bow.insert")     # the database is made at frame 0
+    store_cls.append = timing(run_append, "store.append")
+    try:
+        for left, right in frames:
+            est.step(left, right)
+    finally:
+        srba_mod.assembly_plan, srba_mod.optimize_window = run_plan, run_opt
+        bow_cls.insert, store_cls.append = run_insert, run_append
+    n_ins = sum(r.inserted_kf not in (None, 0) for r in est.step_log)
+    return est, parts, solves, n_ins, run_opt
+
+
+def _window_shape(win) -> tuple:
+    return (win.cam_pose.shape[0], win.lm_pos.shape[0], win.obs_px.shape[0])
+
+
+def _pg_inputs(args):
+    poses, node_valid, eu, ev, rel, edge_valid = args
+    n = poses.shape[0]
+    free = node_valid & (torch.arange(n, device=poses.device) != 0)
+    return (poses, eu.long(), ev.long(), rel, edge_valid.to(torch.float32),
+            free[:, None].to(torch.float32), torch.repeat_interleave(free, 6))
+
+
+def _dense_pose_graph(args, max_iters: int, init_lambda: float = 1e-4):
+    """The pose graph as the port ran it before its Jacobian went per edge:
+    each iteration the dense ``[6E, 6N]`` Jacobian (``posegraph.dense_jacobian``),
+    ``J.T @ J``, the Cholesky, eagerly."""
+    poses, eu, ev, rel, w, freef, free6 = _pg_inputs(args)
+    eye = torch.eye(free6.shape[0], dtype=torch.float32, device=poses.device)
+
+    def cost_of(q):
+        r = posegraph._residuals(q, eu, ev, rel, w)
+        return torch.sum(r * r)
+
+    cost = cost_of(poses)
+    lam = torch.tensor(init_lambda, dtype=torch.float32, device=poses.device)
+    for _ in range(max_iters):
+        J = posegraph.dense_jacobian(poses, eu, ev, rel, w, freef)
+        r0 = posegraph._residuals(poses, eu, ev, rel, w).reshape(-1)
+        H = J.T @ J
+        H = H + lam * torch.diag(torch.diagonal(H)) + 1e-9 * eye
+        H = torch.where(free6[:, None] & free6[None, :], H, 0.0)
+        H = H + torch.diag(torch.where(free6, 0.0, 1.0))
+        g = torch.where(free6, J.T @ r0, 0.0)
+        L, info = torch.linalg.cholesky_ex(H)
+        delta = -torch.cholesky_solve(g[:, None], L)[:, 0]
+        ok = torch.all(torch.isfinite(delta)) & (info == 0)
+        new = posegraph._apply_delta(poses, torch.where(ok, delta, 0.0).reshape(-1, 6) * freef)
+        new_cost = cost_of(new)
+        accept = ok & (new_cost < cost)
+        poses = torch.where(accept, new, poses)
+        cost = torch.where(accept, new_cost, cost)
+        lam = torch.where(accept, torch.clamp(lam * 0.3, min=1e-9), torch.clamp(lam * 8.0, max=1e4))
+    return poses, cost
+
+
+def _iteration_split(args) -> dict:
+    """Device ms (CUDA events) of the parts of one pose-graph iteration:
+    the dense Jacobian and ``J.T @ J`` (the form before), the per-edge
+    Jacobian and the normal equations summed from its blocks (the form
+    now), and the Cholesky with its solve."""
+    poses, eu, ev, rel, w, freef, free6 = _pg_inputs(args)
+    J = posegraph.dense_jacobian(poses, eu, ev, rel, w, freef)
+    H = torch.where(free6[:, None] & free6[None, :], J.T @ J, 0.0) \
+        + torch.diag(torch.where(free6, 1e-9, 1.0))
+    g = torch.where(free6, J.T @ posegraph._residuals(poses, eu, ev, rel, w).reshape(-1), 0.0)
+    seen, run = [], posegraph._normal_equations
+    posegraph._normal_equations = lambda k, q: (seen.append(k), run(k, q))[1]
+    try:
+        _flag_off(posegraph, "PG_GRAPHS", lambda: posegraph.optimize_pose_graph(*args,
+                                                                               max_iters=1))()
+    finally:
+        posegraph._normal_equations = run
+    return {"dense jacobian": cuda_ms(lambda: posegraph.dense_jacobian(poses, eu, ev, rel, w,
+                                                                       freef), reps=5),
+            "J.T @ J": cuda_ms(lambda: J.T @ J, reps=5),
+            "edge jacobian": cuda_ms(lambda: posegraph._edge_jacobian(poses, eu, ev, rel, w,
+                                                                      freef), reps=5),
+            "normal equations": cuda_ms(lambda: run(seen[0], poses), reps=5),
+            "cholesky + solve": cuda_ms(lambda: torch.cholesky_solve(
+                g[:, None], torch.linalg.cholesky_ex(H)[0]), reps=5),
+            "J": tuple(J.shape)}
+
+
+def _one_call(fn) -> tuple[float, object]:
+    """Host ms of one call of ``fn`` (synchronized), and its output."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _solve_all(run_opt, solves):
+    return [run_opt(win, cam, **kw) for win, cam, kw in solves]
+
+
+def _counts(c) -> str:
+    return (f"{c['launches']} kernel and {c['graphs']} graph launches, {c['syncs']} host "
+            f"syncs ({c['stream_syncs']} cudaStreamSynchronize)")
+
+
+def phase_insertion(frames, pg_call) -> None:
+    """Phase 13: where an insertion's and the epilogue's time goes. The
+    bench estimator of phase 7 again over the 81 frames, each part of an
+    insertion timed alone (synchronized around it); every window solve
+    recorded and solved again: whole, and with ``max_iters=0`` (the
+    pose-only stage 1 and the cost reads) to split the two LM stages; the
+    LM blocks as CUDA graphs (``WBA_GRAPHS``, the default) against eager
+    blocks, equal bit for bit, timed in turns on the largest window of each
+    bucket; by exit period; the kernel
+    launches and host syncs of one window solve. The pose graph of phase
+    7's ``finalize``: its first call (phase 7) against later calls on the
+    same inputs; its graph replays against eager iterations (equal bit for
+    bit) and against the dense-``jacfwd`` loop it replaced (poses within
+    1e-3 rad / m, the parity tolerance against JAX), in turns; one
+    iteration split in its parts; the launches and syncs of one call."""
+    torch.use_deterministic_algorithms(True)
+    est, parts, solves, n_ins, run_opt = _split_run(frames)
+    fp = bw.load_fingerprint()
+    check(bw.decisions(est.step_log) == fp["decisions"],
+          "phase 13's run made other decisions than the JAX fingerprint")
+    n_solve = len(solves)
+    split = "; ".join(f"{name} {_med(v)} ms ({len(v)}x, {sum(v) / max(n_ins, 1):.3f} ms an "
+                      f"insertion)" for name, v in parts.items())
+    insertion_ms = [r.define_kf_ms for r in est.step_log if r.inserted_kf not in (None, 0)]
+    print(f"[insertion] {n_ins} insertions, {n_solve} window solves, define_kf_ms median "
+          f"{_med(insertion_ms)} under the timers | per part, median ms a call (calls, ms an "
+          f"insertion): {split}")
+
+    full, stage1 = [], []
+    for win, cam, kw in solves:
+        full.append(_host_ms(lambda: run_opt(win, cam, **kw), SPLIT_REPS)[0])
+        stage1.append(_host_ms(lambda: run_opt(win, cam, **dict(kw, max_iters=0)),
+                               SPLIT_REPS)[0])
+    stage2 = [a - b for a, b in zip(full, stage1)]
+    shapes = [_window_shape(w) for w, _c, _k in solves]
+    graphs = _solve_all(run_opt, solves)
+    eager = _flag_off(window_ba, "WBA_GRAPHS", lambda: _solve_all(run_opt, solves))()
+    for i, (a, b) in enumerate(zip(graphs, eager)):
+        for name, x, y in zip(a._fields, a, b):
+            check(torch.equal(x, y), f"window {i} {shapes[i]}: {name} differs between graph "
+                                     f"and eager LM blocks")
+    # timed on the largest window of each bucket (eager blocks take ~0.4 s)
+    per_bucket = [solves[max((i for i in range(n_solve) if shapes[i] == b),
+                             key=lambda i: solves[i][0].obs_valid.sum().item())]
+                  for b in sorted(set(shapes))]
+    ms_e, ms_g = _in_turns(_flag_off(window_ba, "WBA_GRAPHS",
+                                     lambda: _solve_all(run_opt, per_bucket)),
+                           lambda: _solve_all(run_opt, per_bucket), SPLIT_REPS)
+    keep, periods = window_ba.WBA_EXIT_EVERY, {}
+    try:
+        for e in (1, 2, 4, 8):
+            window_ba.WBA_EXIT_EVERY = e
+            periods[e] = round(_host_ms(lambda: _solve_all(run_opt, solves), SPLIT_REPS)[0], 3)
+    finally:
+        window_ba.WBA_EXIT_EVERY = keep
+    big = max(range(n_solve), key=lambda i: np.prod(shapes[i]))
+    win, cam, kw = solves[big]
+    c_g = _schedule_counts(lambda: run_opt(win, cam, **kw))
+    c_e = _schedule_counts(_flag_off(window_ba, "WBA_GRAPHS", lambda: run_opt(win, cam, **kw)))
+    print(f"[insertion solves] the {n_solve} windows solved again (median of {SPLIT_REPS}): "
+          f"whole median {_med(full)} ms, max {max(full):.3f}; stage 1 with the cost reads "
+          f"(max_iters=0) median {_med(stage1)} ms; stage 2 median {_med(stage2)} ms | window "
+          f"shapes (C, L, O): {sorted(set(shapes))}; graph and eager LM blocks give equal "
+          f"outputs on all {n_solve}, bit for bit | the largest window of each bucket in turns "
+          f"(eager, graphs, graphs, eager): eager LM blocks {ms_e:.3f} ms, CUDA-graph blocks "
+          f"{ms_g:.3f} ms ({ms_g / ms_e:.3f}x) | all {n_solve} by exit period WBA_EXIT_EVERY "
+          f"(now {keep}): {periods} | the largest {shapes[big]}: graphs {_counts(c_g)}; eager "
+          f"{_counts(c_e)}")
+
+    args, kw = pg_call["args"], pg_call["kw"]
+
+    def pg():
+        return posegraph.optimize_pose_graph(*args, **kw)
+
+    later = [_one_call(pg)[0] for _ in range(3)]
+    e_ms, e_out = _one_call(_flag_off(posegraph, "PG_GRAPHS", pg))
+    g_out = pg()
+    for name, x, y in zip(("poses", "cost_init", "cost_final", "iters"), g_out, e_out):
+        check(torch.equal(x, y), f"the pose graph's {name} differs between replays and eager")
+    # in turns, one call each (the dense loop takes seconds): dense, new, new, dense
+    (d1, (d_poses, d_cost)), (n1, _), (n2, _), (d2, _) = (
+        _one_call(f) for f in (lambda: _dense_pose_graph(args, kw["max_iters"]), pg, pg,
+                               lambda: _dense_pose_graph(args, kw["max_iters"])))
+    pg_d, pg_n = statistics.median([d1, d2]), statistics.median([n1, n2])
+    d = (g_out[0] - d_poses).abs().max(dim=0).values
+    check(bool((d <= 1e-3).all()), f"the pose graph differs from the dense loop by {d.tolist()}")
+    pg_counts = _schedule_counts(pg)
+    it = _iteration_split(args)
+    torch.use_deterministic_algorithms(False)
+    print(f"[epilogue] optimize_pose_graph at N {args[0].shape[0]}, E {args[2].shape[0]}, "
+          f"{kw}: first call {pg_call['ms']:.3f} ms (phase 7's finalize), then "
+          f"{', '.join(f'{x:.3f}' for x in later)} ms on the same inputs | "
+          f"preferred_linalg_library {torch.backends.cuda.preferred_linalg_library()} | eager "
+          f"iterations {e_ms:.3f} ms (one call), equal to the graph replays bit for bit | in "
+          f"turns (dense, new, new, dense): the dense-jacfwd loop {pg_d:.3f} ms, per-edge graphs "
+          f"{pg_n:.3f} ms ({pg_n / pg_d:.3f}x), poses within {d[:3].max():.2e} rad / {d[3:].max():.2e} m, "
+          f"cost {float(g_out[2]):.6g} against {float(d_cost):.6g} | one call: "
+          f"{_counts(pg_counts)} | one iteration, device ms: "
+          + ", ".join(f"{name} {v:.3f}" for name, v in it.items() if name != "J")
+          + f" (dense J {it['J']})")
 
 
 def _cli(args: list) -> tuple[int, str]:
@@ -1561,8 +1875,8 @@ def main():
     k2 = timed("K2", phase_k2, frames)
     slice_ms = timed("slice", phase_slice, cam, frames[:N_SLICE_FRAMES], src.gt_poses)
     k3 = timed("K3", phase_k3, frames, k1["device_ms"])
-    est_counts, per_frame_s, picked = timed("estimator", phase_estimator, frames, src.gt_poses,
-                                            profile)
+    est_counts, per_frame_s, picked, pg_call = timed("estimator", phase_estimator, frames,
+                                                     src.gt_poses, profile)
     paths = {"estimator": est_counts}
     paths.update(timed("options", phase_options, cam, frames[:N_SLICE_FRAMES], src.gt_poses,
                        slice_ms))
@@ -1570,6 +1884,7 @@ def main():
     paths["batched"] = timed("batched", phase_batched, frames, src.gt_poses, per_frame_s)
     paths["fleet"] = timed("fleet", phase_fleet, cam)
     timed("check", phase_check, cam, frames, picked)
+    timed("insertion", phase_insertion, frames, pg_call)
     print(f"[phases] seconds {seconds}")
     for k in (k1, k2, k3):
         k["launches_by_path"] = {path: c[k["name"]] for path, c in paths.items()}

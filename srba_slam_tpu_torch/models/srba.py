@@ -19,7 +19,8 @@ define_new_keyframe call sites src/CSRBAStereoSLAMEstimator.cpp:166-168,
 
 The graph bookkeeping is the JAX package's host numpy, carried over. The
 windowed LM + Schur + Cholesky solve runs on the engine's device
-(``ops/window_ba.py``).
+(``ops/window_ba.py``), each window padded to one of the JAX engine's
+capacity buckets (``window_buckets``).
 
 Solve scheduling is the JAX package's strict one (its ``solve_sync``): an
 insertion builds its window from the host state and queues it; ``flush()``
@@ -795,6 +796,18 @@ class SRBAEngine:
         return li
 
     # ----------------------------------------------------------- optimization
+    def window_buckets(self) -> list[tuple[int, int, int]]:
+        """The (C, L, O) capacities a window is padded to, smallest first
+        (the JAX engine's ladder); the last is the engine's capacity."""
+        p = self.p
+        return [
+            (min(8, p.win_cams), min(512, p.win_lms), min(1024, p.win_obs)),
+            (min(8, p.win_cams), min(1024, p.win_lms), min(2048, p.win_obs)),
+            (min(16, p.win_cams), min(1024, p.win_lms), min(2048, p.win_obs)),
+            (p.win_cams, min(2048, p.win_lms), min(4096, p.win_obs)),
+            (p.win_cams, p.win_lms, p.win_obs),
+        ]
+
     def _dispatch_window_opt(self, root: int, created_edges) -> NewKFInfo:
         """Build the <= max_optimize_depth window from the current host state
         and queue it; ``flush()`` solves it."""
@@ -862,9 +875,14 @@ class SRBAEngine:
             else:
                 self.log(1, msg)
 
-        # the window runs at its own size (at least one landmark and one
-        # observation slot, so no tensor is empty)
-        C, L, O = len(win_kfs), max(len(lms), 1), max(len(sel), 1)
+        # the JAX engine's capacity buckets: every window of a bucket solves
+        # on the same shapes, so its LM blocks replay as CUDA graphs. The
+        # ladder reflects post-pruning shapes: landmark/observation counts
+        # stay small (multi-obs landmarks only), while deep spanning-tree
+        # balls still raise the camera count.
+        for C, L, O in self.window_buckets():
+            if len(win_kfs) <= C and len(lms) <= L and len(sel) <= O:
+                break
         win_arr = np.asarray(win_kfs)
         cam_pose = np.zeros((C, 6), np.float32)
         cam_valid = np.zeros(C, bool)

@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from srba_slam_tpu_torch.ops import cuda_graphs
 from srba_slam_tpu_torch.utils import se3
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
@@ -155,44 +156,6 @@ def _gn_block(c: dict, k: dict, n: int, cam: StereoCamera, use_kernel: bool,
                 best_R=best_R, best_t=best_t, best_cost=best_cost, more=more)
 
 
-# The stage's blocks as CUDA graphs, by their shapes and options: captured
-# at a shape's first solve, replayed after (see _graph_blocks).
-_GRAPHS: dict = {}
-
-
-def _graph_blocks(c: dict, k: dict, opts: tuple, max_iters: int) -> dict:
-    """The stage's blocks of ``GN_EXIT_EVERY`` iterations as replays of one
-    CUDA graph on fixed buffers: one launch a block in place of one a
-    kernel. Same kernels as the eager blocks, so the same result."""
-    key = (tuple(k["pts"].shape), k["pts"].device, GN_EXIT_EVERY, max_iters) + opts
-    entry = _GRAPHS.get(key)
-    if entry is None:
-        sc = {name: v.clone() for name, v in c.items()}
-        sk = {name: v.clone() for name, v in k.items()}
-        side = torch.cuda.Stream(device=k["pts"].device)
-        side.wait_stream(torch.cuda.current_stream())
-        cam, use_kernel, *rest = opts
-        with torch.cuda.stream(side):  # library handles and workspaces first
-            _gn_block(sc, sk, 1, cam, use_kernel, max_iters, *rest)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = _gn_block(sc, sk, GN_EXIT_EVERY, cam, use_kernel, max_iters, *rest)
-            for name, v in out.items():
-                sc[name].copy_(v)
-        entry = _GRAPHS[key] = (graph, sc, sk)
-    graph, sc, sk = entry
-    for name, v in c.items():
-        sc[name].copy_(v)
-    for name, v in k.items():
-        sk[name].copy_(v)
-    for start in range(0, max_iters, GN_EXIT_EVERY):
-        if start and not bool(sc["more"]):
-            break
-        graph.replay()
-    return {name: v.clone() for name, v in sc.items()}
-
-
 def _gn_stage(R0, t0, pts, obs, w_valid, cam, kernel_param, use_kernel,
               max_iters: int, min_mod: float, damping: float,
               max_incr_cost=1 << 30):
@@ -215,15 +178,14 @@ def _gn_stage(R0, t0, pts, obs, w_valid, cam, kernel_param, use_kernel,
              more=torch.ones((), dtype=torch.bool, device=dev))
     k = dict(pts=pts, obs=obs, w_valid=w_valid, kp=kernel_param,
              eye6=torch.eye(6, dtype=torch.float32, device=dev))
-    opts = (cam, use_kernel, min_mod, damping, max_incr_cost)
-    if dev.type == "cuda" and GN_GRAPHS:
-        c = _graph_blocks(c, k, opts, max_iters)
-    else:
-        for start in range(0, max_iters, GN_EXIT_EVERY):
-            if start and not bool(c["more"]):
-                break
-            c = _gn_block(c, k, GN_EXIT_EVERY, cam, use_kernel, max_iters, min_mod, damping,
-                          max_incr_cost)
+
+    def block(c_, k_):
+        return _gn_block(c_, k_, GN_EXIT_EVERY, cam, use_kernel, max_iters, min_mod, damping,
+                         max_incr_cost)
+
+    c = cuda_graphs.loop(block, c, k, -(-max_iters // GN_EXIT_EVERY),
+                         ("gn", GN_EXIT_EVERY, max_iters, cam, use_kernel, min_mod, damping,
+                          max_incr_cost), GN_GRAPHS)
     R, t = c["R"], c["t"]
     r_fin, _ = stereo_residuals(R, t, pts, obs, cam)
     diverged = (c["incr"] >= max_incr_cost) & (_cost(r_fin, w_valid, kernel_param, use_kernel)

@@ -14,12 +14,20 @@ dense Cholesky solve of the 6C camera system, masked accept/reject with
 adaptive damping; an optional pose-only stage 1 first, and the init-anchor
 pose prior of the JAX package.
 
+Windows come padded to the capacities of one of the engine's buckets
+(``models/srba.py``), as in the JAX package: invalid cameras are frozen,
+invalid landmarks get an identity block, invalid observations weight 0.
 Assembly is deterministic on every device: each block sum is a fixed
 gather plus fixed-width sums over a table of the observations that feed
-it (``assembly_plan``, built on the host once per solve), never a float
-scatter-add, whose order on a GPU changes from run to run. The JAX
-package's static window buckets are an XLA compile device; windows here
-run at their own size.
+it (``assembly_plan``, built on the host once per solve, of shapes fixed
+by the window's capacities), never a float scatter-add, whose order on a
+GPU changes from run to run.
+
+JAX's LM ``while_loop`` becomes blocks of ``WBA_EXIT_EVERY`` iterations
+whose updates are masked by the loop's ``cond``, so an iteration past the
+exit changes nothing and the result does not depend on the period; the
+host reads the exit test between blocks only. On a card each block
+replays as one CUDA graph, captured at a shape's first solve.
 """
 
 from __future__ import annotations
@@ -29,10 +37,20 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from srba_slam_tpu_torch.ops import cuda_graphs
 from srba_slam_tpu_torch.utils import se3
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
 _SEG_WIDTH = 32  # items summed per gather row of a segment-sum level
+# LM iterations between two host reads of a stage's exit test. The result
+# does not depend on it (an iteration past the exit changes nothing); it
+# trades host reads against iterations run past the exit. 8 = the engine's
+# opt_iters: a stage is one block, with no read (chip_smoke.py phase 13
+# times 1, 2, 4 and 8).
+WBA_EXIT_EVERY = 8
+# On a CUDA device, each block of WBA_EXIT_EVERY iterations of a stage
+# replays as one CUDA graph; eager otherwise.
+WBA_GRAPHS = True
 
 
 class BAWindow(NamedTuple):
@@ -59,34 +77,61 @@ class BAResult(NamedTuple):
     obs_rmse_stg1: torch.Tensor  # raw pixel RMSE after the pose-only stage 1
 
 
-def segment_tables(seg: np.ndarray, n_seg: int, width: int = _SEG_WIDTH) -> list[np.ndarray]:
+def _fixed_levels(n: int, n_seg: int, width: int) -> list[int]:
+    """Row counts of the levels of :func:`segment_tables` with ``fixed``:
+    the most that ``n`` items into ``n_seg`` segments can need, whatever
+    the segments are. The last level has one row per segment."""
+    k = min(n_seg, n)          # segments that can hold an item
+    rows, top = [], n          # top: the most items one segment can hold
+    while top > width:
+        rows.append((rows[-1] if rows else n) // width + k)
+        top = -(-top // width)
+    return rows + [n_seg]
+
+
+def segment_tables(seg: np.ndarray, n_seg: int, width: int = _SEG_WIDTH,
+                   fixed: bool = False) -> list[np.ndarray]:
     """Gather tables that sum items into segments: item i belongs to
-    segment ``seg[i]``. Each level groups the rows of one segment, in item
-    order, into rows of at most ``width`` (a pad index points at an
-    appended zero row); the last level has exactly one row per segment.
-    Memory stays O(items + segments) however skewed the segments are."""
+    segment ``seg[i]``, and an item with ``seg[i] < 0`` is left out. Each
+    level groups the rows of one segment, in item order, into rows of
+    ``width`` (a pad index points at an appended zero row); the last level
+    has one row per segment. Memory stays O(items + segments x width)
+    however skewed the segments are.
+
+    ``fixed`` gives tables whose shapes depend only on ``len(seg)``,
+    ``n_seg`` and ``width`` (:func:`_fixed_levels`): pad rows, and the
+    worst case's number of levels (a level past the data's last one has one
+    row per segment). Each segment sums the same items at the same places
+    of its rows, and the later levels add +0.0 only, so the sums keep
+    their bits."""
     seg = np.asarray(seg, np.int64)
+    n_in = len(seg)
+    bounds = _fixed_levels(n_in, n_seg, width) if fixed else None
     tables = []
     while True:
-        n = len(seg)
-        order = np.argsort(seg, kind="stable")
-        counts = np.bincount(seg, minlength=n_seg)
-        starts = np.cumsum(counts) - counts
+        idx = np.nonzero(seg >= 0)[0]
+        order = idx[np.argsort(seg[idx], kind="stable")]
         s_sorted = seg[order]
-        pos = np.arange(n) - starts[s_sorted]
+        counts = np.bincount(s_sorted, minlength=n_seg)
+        starts = np.cumsum(counts) - counts
+        pos = np.arange(len(order)) - starts[s_sorted]
         top = int(counts.max(initial=0))
-        if top <= width:
-            tab = np.full((n_seg, max(top, 1)), n, np.int64)
+        last = len(tables) == len(bounds) - 1 if fixed else top <= width
+        if last:
+            tab = np.full((n_seg, width), n_in, np.int64)
             tab[s_sorted, pos] = order
             tables.append(tab)
             return tables
         n_chunks = -(-counts // width)
         chunk_base = np.cumsum(n_chunks) - n_chunks
         rows = int(n_chunks.sum())
-        tab = np.full((rows, width), n, np.int64)
+        n_rows = bounds[len(tables)] if fixed else rows
+        tab = np.full((n_rows, width), n_in, np.int64)
         tab[chunk_base[s_sorted] + pos // width, pos % width] = order
         tables.append(tab)
-        seg = np.repeat(np.arange(n_seg), n_chunks)
+        seg = np.full(n_rows, -1, np.int64)
+        seg[:rows] = np.repeat(np.arange(n_seg), n_chunks)
+        n_in = n_rows
 
 
 def segment_sum(data: torch.Tensor, tables) -> torch.Tensor:
@@ -98,35 +143,38 @@ def segment_sum(data: torch.Tensor, tables) -> torch.Tensor:
 
 
 class AssemblyPlan(NamedTuple):
-    """The gather tables of one window's block sums (loop-invariant)."""
+    """The gather tables of one window's block sums (loop-invariant), of
+    fixed shapes for the window's (C, L, O)."""
 
     g_c: list     # [rA; rB] -> C
     h_cc: list    # [aa; bb; ab; ab^T] -> C*C
     lm: list      # rC, cc -> L
     h_cl: list    # [ac; bc] -> C*L
-    obs: torch.Tensor  # int64 indices of the valid observations
 
 
 def assembly_plan(obs_cam, obs_lm, lm_base, obs_valid, C: int, L: int,
                   device) -> AssemblyPlan:
-    """Host-side gather tables for the block sums of a window (numpy
-    index arrays in); padded observations (``obs_valid`` False) are left
-    out, since their weight is zero."""
-    sel = np.nonzero(np.asarray(obs_valid))[0]
-    a = np.asarray(obs_cam, np.int64)[sel]
-    li = np.asarray(obs_lm, np.int64)[sel]
-    b = np.asarray(lm_base, np.int64)[li]
+    """Host-side gather tables for the block sums of a window (numpy index
+    arrays in). Padded observations (``obs_valid`` False) are left out,
+    since their weight is zero; the tables' shapes follow (C, L, O) only,
+    so every window of a bucket solves on the same shapes."""
+    valid = np.asarray(obs_valid, bool)
+    a = np.where(valid, np.asarray(obs_cam, np.int64), -1)
+    li = np.where(valid, np.asarray(obs_lm, np.int64), -1)
+    b = np.where(valid, np.asarray(lm_base, np.int64)[np.where(valid, li, 0)], -1)
 
-    def up(tabs):
-        return [torch.as_tensor(t, device=device) for t in tabs]
+    def pair(x, y, n):  # segment x * n + y, left out where x is
+        return np.where(x >= 0, x * n + y, -1)
+
+    def up(seg, n_seg):
+        return [torch.as_tensor(t, device=device) for t in segment_tables(seg, n_seg, fixed=True)]
 
     return AssemblyPlan(
-        g_c=up(segment_tables(np.concatenate([a, b]), C)),
-        h_cc=up(segment_tables(np.concatenate([a * C + a, b * C + b, a * C + b, b * C + a]),
-                               C * C)),
-        lm=up(segment_tables(li, L)),
-        h_cl=up(segment_tables(np.concatenate([a * L + li, b * L + li]), C * L)),
-        obs=torch.as_tensor(sel, device=device),
+        g_c=up(np.concatenate([a, b]), C),
+        h_cc=up(np.concatenate([pair(a, a, C), pair(b, b, C), pair(a, b, C), pair(b, a, C)]),
+                C * C),
+        lm=up(li, L),
+        h_cl=up(np.concatenate([pair(a, li, L), pair(b, li, L)]), C * L),
     )
 
 
@@ -193,6 +241,183 @@ def _robust_cost(r, w_valid, kernel_param, use_kernel: bool):
     return torch.sum(rsq * w_valid)
 
 
+def _prior_residual(k: dict, cam_pose):
+    """The init-anchor prior's residual: the left twist from each camera's
+    init pose to ``cam_pose``."""
+    Rq, tq = se3.exp(cam_pose)
+    dR = torch.einsum("cij,ckj->cik", Rq, k["init_R"])
+    w = se3.so3_log(dR)
+    dt = tq - torch.einsum("cij,cj->ci", dR, k["init_t"])
+    return w, dt
+
+
+def _residuals(k: dict, cam_pose, lm_pos, cam: StereoCamera):
+    return _project_residuals(cam_pose, lm_pos, k["lm_base"], k["obs_cam"], k["obs_lm"],
+                              k["obs_px"], cam)
+
+
+def _cost(k: dict, cam_pose, lm_pos, cam: StereoCamera, kern: bool):
+    r = _residuals(k, cam_pose, lm_pos, cam)[0]
+    w, dt = _prior_residual(k, cam_pose)
+    prior = torch.sum(k["free_w"] * (k["prior_w6"][0] * torch.sum(w * w, -1)
+                                     + k["prior_w6"][3] * torch.sum(dt * dt, -1)))
+    return _robust_cost(r, k["obs_w"], k["kp"], kern) + prior
+
+
+def _rmse(k: dict, cam_pose, lm_pos, cam: StereoCamera):
+    r = _residuals(k, cam_pose, lm_pos, cam)[0]
+    n_obs = torch.clamp(torch.sum(k["obs_w"]), min=1.0)
+    return torch.sqrt(torch.sum(torch.sum(r * r, -1) * k["obs_w"]) / n_obs)
+
+
+def _assemble(k: dict, r, wJA, wJB, wJC, JA, JB, JC, skip_lms: bool):
+    C, L = k["free_cam"].shape[0], k["lm_base"].shape[0]
+    rA = torch.einsum("oij,oi->oj", wJA, r)
+    rB = torch.einsum("oij,oi->oj", wJB, r)
+    aa = torch.einsum("oij,oik->ojk", wJA, JA)
+    bb = torch.einsum("oij,oik->ojk", wJB, JB)
+    ab = torch.einsum("oij,oik->ojk", wJA, JB)
+    g_c = segment_sum(torch.cat([rA, rB]), k["g_c"])
+    Hcc = segment_sum(torch.cat([aa, bb, ab, ab.transpose(-1, -2)]), k["h_cc"])
+    if skip_lms:
+        return g_c, None, Hcc, None, None
+    rC = torch.einsum("oij,oi->oj", wJC, r)
+    ac = torch.einsum("oij,oik->ojk", wJA, JC)
+    bc = torch.einsum("oij,oik->ojk", wJB, JC)
+    cc = torch.einsum("oij,oik->ojk", wJC, JC)
+    g_l = segment_sum(rC, k["lm"])
+    Hll = segment_sum(cc, k["lm"])
+    Hcl = segment_sum(torch.cat([ac, bc]), k["h_cl"]).reshape(C, L, 6, 3)
+    return g_c, g_l, Hcc, Hcl, Hll
+
+
+def _lm_step(k: dict, cam_pose, lm_pos, lam, cam: StereoCamera, kern: bool, freeze_lms: bool):
+    """One LM step: the proposed poses and landmarks, whether the solve
+    was finite, and the predicted decrease of the local quadratic model."""
+    C = cam_pose.shape[0]
+    r, x, X, Rc, Q_R = _residuals(k, cam_pose, lm_pos, cam)
+    P = _dproj(x, cam)
+    rnorm = torch.linalg.vector_norm(r, dim=-1)
+    w_rob = 1.0 / torch.sqrt(1.0 + (rnorm / k["kp"]) ** 2) if kern else torch.ones_like(rnorm)
+    w = w_rob * k["obs_w"]
+    RcT = Rc.transpose(-1, -2)
+    # dx/d(base twist) = R_c^T [ -[X]x | I ];  dx/d(cam twist) = -that
+    dB_rot = torch.einsum("oij,ojk->oik", RcT, -se3.hat(X))
+    dB = torch.cat([dB_rot, RcT], dim=-1)
+    JB = torch.einsum("oij,ojk->oik", P, dB)
+    JA = -JB
+    Rb = Q_R[k["lm_base"]][k["obs_lm"]]
+    dP = torch.einsum("oij,ojk->oik", RcT, Rb)              # dx/dp = R_c^T R_base
+    JC = torch.einsum("oij,ojk->oik", P, dP)
+    wJA, wJB, wJC = (J * w[:, None, None] for J in (JA, JB, JC))
+
+    g_c, g_l, Hcc, Hcl, Hll = _assemble(k, r, wJA, wJB, wJC, JA, JB, JC, freeze_lms)
+    pw, pdt = _prior_residual(k, cam_pose)
+    g_c = g_c + torch.cat([pw, pdt], -1) * k["prior_w6"][None, :]
+    Hcc = Hcc + k["prior_blocks"]
+    if freeze_lms:
+        # pose-only stage 1: landmarks held, plain Hcc, no Schur step
+        S = Hcc.reshape(C, C, 6, 6)
+        rhs = g_c
+    else:
+        eye3 = k["eye6C"][:3, :3]
+        Hll = Hll + (lam + 1e-6) * eye3[None]
+        Hll = torch.where(k["lm_w"][:, None, None] > 0, Hll, eye3[None])
+        g_l = g_l * k["lm_w"][:, None]
+        Hll_inv = _inv3x3(Hll)
+        W = torch.einsum("clij,ljk->clik", Hcl, Hll_inv)
+        S = Hcc.reshape(C, C, 6, 6) - torch.einsum("clij,dlkj->cdik", W, Hcl)
+        rhs = g_c - torch.einsum("clij,lj->ci", W, g_l)
+
+    free6 = k["free6"]
+    S = S.permute(0, 2, 1, 3).reshape(C * 6, C * 6)
+    S = S + lam * torch.diag(torch.diagonal(S)) + 1e-8 * k["eye6C"]
+    rhs_f = rhs.reshape(C * 6)
+    S = torch.where(free6[:, None] & free6[None, :], S, 0.0)
+    S = S + torch.diag(torch.where(free6, 0.0, 1.0))
+    rhs_f = torch.where(free6, rhs_f, 0.0)
+    Lchol, info = torch.linalg.cholesky_ex(S)
+    dc = -torch.cholesky_solve(rhs_f[:, None], Lchol)[:, 0]
+    ok = torch.all(torch.isfinite(dc)) & (info == 0)
+    dc = torch.where(ok, dc, 0.0).reshape(C, 6)
+    # predicted decrease of the local quadratic model (~0 at convergence)
+    pred = -torch.sum(dc.reshape(-1) * rhs_f)
+    if freeze_lms:
+        dl = torch.zeros_like(lm_pos)
+    else:
+        corr = torch.einsum("clij,ci->lj", Hcl, dc)
+        dl = -torch.einsum("lij,lj->li", Hll_inv, g_l + corr)
+        dl = dl * k["lm_w"][:, None]
+        pred = pred - torch.sum(dl * g_l)
+    dR = se3.so3_exp(dc[:, :3])
+    Rq, tq = se3.exp(cam_pose)
+    R_new = torch.einsum("cij,cjk->cik", dR, Rq)
+    t_new = torch.einsum("cij,cj->ci", dR, tq) + dc[:, 3:]
+    cam_new = torch.where(k["free_cam"][:, None], se3.log(R_new, t_new), cam_pose)
+    return cam_new, lm_pos + dl, ok, pred
+
+
+def _active(c: dict, n_iters: int):
+    """JAX's ``cond`` of the LM ``while_loop``."""
+    return (c["it"] < n_iters) & (c["stall"] < 3) & (c["rejects"] < 6)
+
+
+def _lm_block(c: dict, k: dict, n: int, n_iters: int, cam: StereoCamera, kern: bool,
+              freeze_lms: bool) -> dict:
+    """``n`` LM iterations on the carry ``c`` (cam_pose, lm_pos, cost, lam,
+    iters, it, stall, rejects) over the window's tensors ``k``; returns the
+    new carry with ``more``, "the loop is still active". Every update is
+    masked by the loop's ``cond``, so an iteration past the exit changes
+    nothing. No host read."""
+    c = dict(c)
+    for _ in range(n):
+        active = _active(c, n_iters)
+        cost, stall = c["cost"], c["stall"]
+        cam_new, lm_new, ok, pred = _lm_step(k, c["cam_pose"], c["lm_pos"], c["lam"], cam,
+                                             kern, freeze_lms)
+        new_cost = _cost(k, cam_new, lm_new, cam, kern)
+        accept = active & ok & (new_cost < cost)
+        improving = accept & (cost - new_cost > 1e-6 * cost)
+        converged = ok & (torch.abs(pred) < 1e-8 * (cost + 1.0))
+        stall = torch.where(improving, 0, torch.where(accept, stall + 1, stall))
+        stall = torch.where(converged, 3, stall)
+        c["stall"] = torch.where(active, stall, c["stall"])
+        c["rejects"] = torch.where(active, torch.where(accept, 0, c["rejects"] + 1),
+                                   c["rejects"])
+        c["cam_pose"] = torch.where(accept, cam_new, c["cam_pose"])
+        c["lm_pos"] = torch.where(accept, lm_new, c["lm_pos"])
+        c["cost"] = torch.where(accept, new_cost, cost)
+        c["lam"] = torch.where(active, torch.where(accept, torch.clamp(c["lam"] * 0.4, min=1e-7),
+                                                   torch.clamp(c["lam"] * 6.0, max=1e3)),
+                               c["lam"])
+        c["iters"] = c["iters"] + accept.to(torch.int32)
+        c["it"] = c["it"] + active.to(torch.int32)
+    c["more"] = _active(c, n_iters)
+    return c
+
+
+def _run_stage(k: dict, cam_pose, lm_pos, n_iters: int, cam: StereoCamera, kern: bool,
+               freeze_lms: bool, init_lambda: float):
+    """JAX's LM ``while_loop``: up to ``n_iters`` iterations, stopping once
+    accepted steps stop improving (3 sub-1e-6 relative decreases, or a
+    vanishing predicted decrease), or after 6 rejected steps in a row. In
+    blocks of ``WBA_EXIT_EVERY`` iterations, each a CUDA graph on a card
+    (``WBA_GRAPHS``); the host reads the exit test between blocks only."""
+    dev = cam_pose.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    c = dict(cam_pose=cam_pose, lm_pos=lm_pos, cost=_cost(k, cam_pose, lm_pos, cam, kern),
+             lam=torch.full((), init_lambda, dtype=torch.float32, device=dev), iters=zero,
+             it=zero, stall=zero, rejects=zero, more=torch.ones((), dtype=torch.bool, device=dev))
+    n = max(1, min(WBA_EXIT_EVERY, n_iters))
+
+    def block(c_, k_):
+        return _lm_block(c_, k_, n, n_iters, cam, kern, freeze_lms)
+
+    c = cuda_graphs.loop(block, c, k, -(-n_iters // n), ("lm", n, n_iters, cam, kern, freeze_lms),
+                         WBA_GRAPHS)
+    return c["cam_pose"], c["lm_pos"], c["iters"]
+
+
 def optimize_window(
     win: BAWindow,
     cam: StereoCamera,
@@ -216,171 +441,36 @@ def optimize_window(
         plan = assembly_plan(win.obs_cam.cpu().numpy(), win.obs_lm.cpu().numpy(),
                              win.lm_base.cpu().numpy(), win.obs_valid.cpu().numpy(),
                              C, L_n, dev)
-    lm_base = win.lm_base.long()
-    obs_cam = win.obs_cam.long()
-    obs_lm = win.obs_lm.long()
-    kp = torch.tensor(kernel_param, dtype=f32, device=dev)
-    obs_w = win.obs_valid.to(f32)
-    lm_w = win.lm_valid.to(f32)
     free_cam = win.cam_valid & (torch.arange(C, device=dev) != 0)
-    free6 = torch.repeat_interleave(free_cam, 6)
-    eye3 = torch.eye(3, dtype=f32, device=dev)
-    eye6 = torch.eye(6, dtype=f32, device=dev)
-
     # init-anchor pose prior (a deliberate deviation from the reference
     # SRBA objective, as in the JAX package): every free camera is tied to
     # its spanning-tree init pose with weights w_prior_rot (twist, rad) and
     # w_prior_trans (m), so a small aliased consensus cannot fold the map
     init_R, init_t = se3.exp(win.cam_pose)
-    prior_w6 = torch.tensor([w_prior_rot] * 3 + [w_prior_trans] * 3, dtype=f32, device=dev)
+    # scalars made on the device (torch.full), not copied there: a copy
+    # from the host synchronizes it
+    prior_w6 = torch.cat([torch.full((3,), w_prior_rot, dtype=f32, device=dev),
+                          torch.full((3,), w_prior_trans, dtype=f32, device=dev)])
+    on_diag = torch.arange(C * C, device=dev) % (C + 1) == 0
+    prior_blocks = torch.where(on_diag[:, None, None], torch.diag(prior_w6), 0.0)
+    k = dict(lm_base=win.lm_base.long(), obs_cam=win.obs_cam.long(),
+             obs_lm=win.obs_lm.long(), obs_px=win.obs_px, obs_w=win.obs_valid.to(f32),
+             lm_w=win.lm_valid.to(f32), free_cam=free_cam, free_w=free_cam.to(f32),
+             free6=torch.repeat_interleave(free_cam, 6),
+             kp=torch.full((), kernel_param, dtype=f32, device=dev), prior_w6=prior_w6,
+             prior_blocks=prior_blocks, init_R=init_R, init_t=init_t,
+             eye6C=torch.eye(C * 6, dtype=f32, device=dev), **plan._asdict())
 
-    def prior_residual(cam_pose):
-        Rq, tq = se3.exp(cam_pose)
-        dR = torch.einsum("cij,ckj->cik", Rq, init_R)
-        w = se3.so3_log(dR)
-        dt = tq - torch.einsum("cij,cj->ci", dR, init_t)
-        return w, dt
-
-    def prior_cost(cam_pose):
-        w, dt = prior_residual(cam_pose)
-        m = free_cam.to(f32)
-        return torch.sum(m * (prior_w6[0] * torch.sum(w * w, -1)
-                              + prior_w6[3] * torch.sum(dt * dt, -1)))
-
-    def residuals(cam_pose, lm_pos):
-        return _project_residuals(cam_pose, lm_pos, lm_base, obs_cam, obs_lm,
-                                  win.obs_px, cam)
-
-    def cost_of(cam_pose, lm_pos, kern):
-        r = residuals(cam_pose, lm_pos)[0]
-        return _robust_cost(r, obs_w, kp, kern) + prior_cost(cam_pose)
-
-    def rmse_of(cam_pose, lm_pos):
-        r = residuals(cam_pose, lm_pos)[0]
-        n_obs = torch.clamp(torch.sum(obs_w), min=1.0)
-        return torch.sqrt(torch.sum(torch.sum(r * r, -1) * obs_w) / n_obs)
-
-    def assemble(r, wJA, wJB, wJC, JA, JB, JC, skip_lms):
-        o = plan.obs
-        r, wJA, wJB, wJC, JA, JB, JC = (t[o] for t in (r, wJA, wJB, wJC, JA, JB, JC))
-        rA = torch.einsum("oij,oi->oj", wJA, r)
-        rB = torch.einsum("oij,oi->oj", wJB, r)
-        aa = torch.einsum("oij,oik->ojk", wJA, JA)
-        bb = torch.einsum("oij,oik->ojk", wJB, JB)
-        ab = torch.einsum("oij,oik->ojk", wJA, JB)
-        g_c = segment_sum(torch.cat([rA, rB]), plan.g_c)
-        Hcc = segment_sum(torch.cat([aa, bb, ab, ab.transpose(-1, -2)]), plan.h_cc)
-        if skip_lms:
-            return g_c, None, Hcc, None, None
-        rC = torch.einsum("oij,oi->oj", wJC, r)
-        ac = torch.einsum("oij,oik->ojk", wJA, JC)
-        bc = torch.einsum("oij,oik->ojk", wJB, JC)
-        cc = torch.einsum("oij,oik->ojk", wJC, JC)
-        g_l = segment_sum(rC, plan.lm)
-        Hll = segment_sum(cc, plan.lm)
-        Hcl = segment_sum(torch.cat([ac, bc]), plan.h_cl).reshape(C, L_n, 6, 3)
-        return g_c, g_l, Hcc, Hcl, Hll
-
-    def lm_step(cam_pose, lm_pos, lam, kern, freeze_lms):
-        r, x, X, Rc, Q_R = residuals(cam_pose, lm_pos)
-        P = _dproj(x, cam)
-        rnorm = torch.linalg.vector_norm(r, dim=-1)
-        w_rob = 1.0 / torch.sqrt(1.0 + (rnorm / kp) ** 2) if kern else torch.ones_like(rnorm)
-        w = w_rob * obs_w
-        RcT = Rc.transpose(-1, -2)
-        # dx/d(base twist) = R_c^T [ -[X]x | I ];  dx/d(cam twist) = -that
-        dB_rot = torch.einsum("oij,ojk->oik", RcT, -se3.hat(X))
-        dB = torch.cat([dB_rot, RcT], dim=-1)
-        JB = torch.einsum("oij,ojk->oik", P, dB)
-        JA = -JB
-        Rb = Q_R[lm_base][obs_lm]
-        dP = torch.einsum("oij,ojk->oik", RcT, Rb)              # dx/dp = R_c^T R_base
-        JC = torch.einsum("oij,ojk->oik", P, dP)
-        wJA, wJB, wJC = (J * w[:, None, None] for J in (JA, JB, JC))
-
-        g_c, g_l, Hcc, Hcl, Hll = assemble(r, wJA, wJB, wJC, JA, JB, JC, freeze_lms)
-        pw, pdt = prior_residual(cam_pose)
-        g_c = g_c + torch.cat([pw, pdt], -1) * prior_w6[None, :]
-        diag = torch.arange(C, device=dev) * (C + 1)
-        Hcc = Hcc.clone()
-        Hcc[diag] = Hcc[diag] + prior_w6[None, :, None] * eye6[None]
-        if freeze_lms:
-            # pose-only stage 1: landmarks held, plain Hcc, no Schur step
-            S = Hcc.reshape(C, C, 6, 6)
-            rhs = g_c
-        else:
-            Hll = Hll + (lam + 1e-6) * eye3[None]
-            Hll = torch.where(lm_w[:, None, None] > 0, Hll, eye3[None])
-            g_l = g_l * lm_w[:, None]
-            Hll_inv = _inv3x3(Hll)
-            W = torch.einsum("clij,ljk->clik", Hcl, Hll_inv)
-            S = Hcc.reshape(C, C, 6, 6) - torch.einsum("clij,dlkj->cdik", W, Hcl)
-            rhs = g_c - torch.einsum("clij,lj->ci", W, g_l)
-
-        S = S.permute(0, 2, 1, 3).reshape(C * 6, C * 6)
-        S = S + lam * torch.diag(torch.diagonal(S)) + 1e-8 * torch.eye(C * 6, dtype=f32,
-                                                                       device=dev)
-        rhs_f = rhs.reshape(C * 6)
-        S = torch.where(free6[:, None] & free6[None, :], S, 0.0)
-        S = S + torch.diag(torch.where(free6, 0.0, 1.0))
-        rhs_f = torch.where(free6, rhs_f, 0.0)
-        Lchol, info = torch.linalg.cholesky_ex(S)
-        dc = -torch.cholesky_solve(rhs_f[:, None], Lchol)[:, 0]
-        ok = torch.all(torch.isfinite(dc)) & (info == 0)
-        dc = torch.where(ok, dc, 0.0).reshape(C, 6)
-        # predicted decrease of the local quadratic model (~0 at convergence)
-        pred = -torch.sum(dc.reshape(-1) * rhs_f)
-        if freeze_lms:
-            dl = torch.zeros_like(lm_pos)
-        else:
-            corr = torch.einsum("clij,ci->lj", Hcl, dc)
-            dl = -torch.einsum("lij,lj->li", Hll_inv, g_l + corr)
-            dl = dl * lm_w[:, None]
-            pred = pred - torch.sum(dl * g_l)
-        dR = se3.so3_exp(dc[:, :3])
-        Rq, tq = se3.exp(cam_pose)
-        R_new = torch.einsum("cij,cjk->cik", dR, Rq)
-        t_new = torch.einsum("cij,cj->ci", dR, tq) + dc[:, 3:]
-        cam_new = torch.where(free_cam[:, None], se3.log(R_new, t_new), cam_pose)
-        return cam_new, lm_pos + dl, ok, pred
-
-    def run_loop(cam_pose, lm_pos, n_iters, kern, freeze_lms):
-        """The LM loop. Its exit test is read on the host each iteration.
-        Stops once accepted steps stop improving (3 sub-1e-6 relative
-        decreases, or a vanishing predicted decrease), or after 6 rejected
-        steps in a row."""
-        cost = cost_of(cam_pose, lm_pos, kern)
-        lam = torch.tensor(init_lambda, dtype=f32, device=dev)
-        zero = torch.tensor(0, dtype=torch.int32, device=dev)
-        iters, stall, rejects = zero, zero, zero
-        for _ in range(n_iters):
-            cam_new, lm_new, ok, pred = lm_step(cam_pose, lm_pos, lam, kern, freeze_lms)
-            new_cost = cost_of(cam_new, lm_new, kern)
-            accept = ok & (new_cost < cost)
-            improving = accept & (cost - new_cost > 1e-6 * cost)
-            converged = ok & (torch.abs(pred) < 1e-8 * (cost + 1.0))
-            stall = torch.where(improving, 0, torch.where(accept, stall + 1, stall))
-            stall = torch.where(converged, 3, stall)
-            rejects = torch.where(accept, 0, rejects + 1)
-            cam_pose = torch.where(accept, cam_new, cam_pose)
-            lm_pos = torch.where(accept, lm_new, lm_pos)
-            cost = torch.where(accept, new_cost, cost)
-            lam = torch.where(accept, torch.clamp(lam * 0.4, min=1e-7),
-                              torch.clamp(lam * 6.0, max=1e3))
-            iters = iters + accept.to(torch.int32)
-            if not bool(((stall < 3) & (rejects < 6)).item()):
-                break
-        return cam_pose, lm_pos, iters
-
-    cost0 = cost_of(win.cam_pose, win.lm_pos, use_kernel)
+    cost0 = _cost(k, win.cam_pose, win.lm_pos, cam, use_kernel)
     cam_pose, lm_pos = win.cam_pose, win.lm_pos
     if stage1_iters > 0:
         # stage 1 (≙ SRBA's first pass over the new kf2kf edges, kernel flag
         # use_robust_kernel_stage1, reference .cpp:1159): pose-only
-        cam_pose, lm_pos, _ = run_loop(cam_pose, lm_pos, stage1_iters, use_kernel_stage1,
-                                       True)
-    rmse_stg1 = rmse_of(cam_pose, lm_pos)
-    cam_pose, lm_pos, iters = run_loop(cam_pose, lm_pos, max_iters, use_kernel, False)
-    cost = cost_of(cam_pose, lm_pos, use_kernel)
-    rmse = rmse_of(cam_pose, lm_pos)
+        cam_pose, lm_pos, _ = _run_stage(k, cam_pose, lm_pos, stage1_iters, cam,
+                                         use_kernel_stage1, True, init_lambda)
+    rmse_stg1 = _rmse(k, cam_pose, lm_pos, cam)
+    cam_pose, lm_pos, iters = _run_stage(k, cam_pose, lm_pos, max_iters, cam, use_kernel,
+                                         False, init_lambda)
+    cost = _cost(k, cam_pose, lm_pos, cam, use_kernel)
+    rmse = _rmse(k, cam_pose, lm_pos, cam)
     return BAResult(cam_pose, lm_pos, cost0, cost, rmse, iters, rmse_stg1)

@@ -320,6 +320,106 @@ def test_solve_pose_graph_blocks_match_eager(cuda, monkeypatch, n_lanes):
     assert float((outs["graph"].pose.cpu() - outs["cpu"].pose).abs().max()) <= 1e-4
 
 
+def _bucket_window(C, L, O, seed=5):
+    from srba_slam_tpu_torch.utils.synthworld import make_ba_window_problem
+
+    win, _gt = make_ba_window_problem(StereoCamera.kitti(), np.random.default_rng(seed), C, L, O,
+                                      min(C - 2, 12), L // 2)
+    return win
+
+
+@pytest.mark.parametrize("bucket", [(8, 512, 1024), (8, 1024, 2048), (16, 1024, 2048),
+                                    (32, 2048, 4096), (32, 8192, 16384)])
+def test_window_graph_blocks_match_eager(cuda, monkeypatch, bucket):
+    """At each of the engine's default buckets, the LM blocks replayed as
+    CUDA graphs give the eager blocks' bits, and (up to C x L = 16384) the
+    CPU path's costs within 1e-4 relative; the capture, from an empty cache, synchronizes
+    nothing (a synchronize inside a capture raises), and a replayed solve
+    synchronizes at most once a block after the first, plus its copy out."""
+    from srba_slam_tpu_torch.ops import cuda_graphs, window_ba
+    from srba_slam_tpu_torch.utils import kernel_timing
+
+    win = _bucket_window(*bucket)
+    cam = StereoCamera.kitti()
+    kw = dict(kernel_param=1.5, max_iters=8, stage1_iters=2)
+    win_c = window_ba.BAWindow(*(a.to(cuda) for a in win))
+    monkeypatch.setattr(cuda_graphs, "_GRAPHS", {})
+    graph = window_ba.optimize_window(win_c, cam, **kw)
+    assert len(cuda_graphs._GRAPHS) == 2               # stage 1 and stage 2
+    monkeypatch.setattr(window_ba, "WBA_GRAPHS", False)
+    eager = window_ba.optimize_window(win_c, cam, **kw)
+    monkeypatch.setattr(window_ba, "WBA_GRAPHS", True)
+    for field, a, b in zip(graph._fields, graph, eager):
+        assert torch.equal(a, b), field
+    if bucket[0] * bucket[1] <= 16384:                # the CPU takes minutes past that
+        cpu = window_ba.optimize_window(win, cam, **kw)
+        for field in ("cost_init", "cost_final", "obs_rmse"):
+            np.testing.assert_allclose(float(getattr(graph, field)),
+                                       float(getattr(cpu, field)), rtol=1e-4, err_msg=field)
+    plan = window_ba.assembly_plan(*(a.numpy() for a in (win.obs_cam, win.obs_lm, win.lm_base,
+                                                         win.obs_valid)), *bucket[:2], cuda)
+    evs = kernel_timing.profile_calls(
+        lambda: window_ba.optimize_window(win_c, cam, plan=plan, **kw).cam_pose.cpu())
+    # an exit read between two blocks of a stage, and the copy out
+    reads = sum(-(-n // min(window_ba.WBA_EXIT_EVERY, n)) - 1 for n in (2, 8))
+    assert sum(e.count for e in evs if e.key == "cudaStreamSynchronize") <= reads + 1
+    assert sum(e.count for e in evs if e.key == "cudaGraphLaunch") >= 2
+
+
+def _loop_graph_np(rng, n=30, n_pad=64, e_pad=64, n_lc=3):
+    from srba_slam_tpu_torch.utils import se3_np
+
+    gt = [np.zeros(6)]
+    inc = np.array([0, np.deg2rad(-360.0 / n), 0, 0.2, 0, 1.5])
+    for _ in range(n - 1):
+        gt.append(se3_np.compose(gt[-1], inc + rng.normal(0, 0.01, 6)))
+    eu, ev, rel = [], [], []
+    for i in range(n - 1):
+        eu.append(i), ev.append(i + 1)
+        rel.append(se3_np.relative(gt[i + 1], gt[i]) + rng.normal(0, 0.02, 6))
+    for j in range(n_lc):
+        eu.append(j), ev.append(n - 1 - j)
+        rel.append(se3_np.relative(gt[n - 1 - j], gt[j]))
+    poses0 = np.zeros((n_pad, 6), np.float32)
+    for i in range(1, n):
+        poses0[i] = se3_np.compose(poses0[i - 1], rel[i - 1])
+    eu_a = np.zeros(e_pad, np.int32); eu_a[: len(eu)] = eu
+    ev_a = np.zeros(e_pad, np.int32); ev_a[: len(ev)] = ev
+    rel_a = np.zeros((e_pad, 6), np.float32); rel_a[: len(rel)] = rel
+    return poses0, np.arange(n_pad) < n, eu_a, ev_a, rel_a, np.arange(e_pad) < len(eu)
+
+
+def test_pose_graph_replays_match_eager(cuda, monkeypatch):
+    """The pose graph's iterations replayed as a CUDA graph give the eager
+    iterations' bits, and the CPU path's poses within 1e-3; the capture
+    synchronizes nothing, and a call synchronizes only for its tables."""
+    from srba_slam_tpu_torch.ops import cuda_graphs, posegraph, window_ba
+    from srba_slam_tpu_torch.utils import kernel_timing
+
+    args = _loop_graph_np(np.random.default_rng(30))
+    args_c = [torch.from_numpy(a).to(cuda) for a in args]
+    monkeypatch.setattr(cuda_graphs, "_GRAPHS", {})
+    graph = posegraph.optimize_pose_graph(*args_c, max_iters=25)
+    assert len(cuda_graphs._GRAPHS) == 1
+    monkeypatch.setattr(posegraph, "PG_GRAPHS", False)
+    eager = posegraph.optimize_pose_graph(*args_c, max_iters=25)
+    monkeypatch.setattr(posegraph, "PG_GRAPHS", True)
+    for name, a, b in zip(("poses", "cost_init", "cost_final", "iters"), graph, eager):
+        assert torch.equal(a, b), name
+    cpu = posegraph.optimize_pose_graph(*map(torch.from_numpy, args), max_iters=25)
+    assert float((graph[0].cpu() - cpu[0]).abs().max()) <= 1e-3
+    assert float(graph[2]) < 0.05 * float(graph[1])
+    evs = kernel_timing.profile_calls(
+        lambda: posegraph.optimize_pose_graph(*args_c, max_iters=25)[0].cpu())
+    # the edges to the host, the tables' uploads and the copy out; none in
+    # the iterations
+    n_e, n = len(args[2]), len(args[0])
+    n_tables = len(window_ba._fixed_levels(4 * n_e, n * n, 32)) \
+        + len(window_ba._fixed_levels(2 * n_e, n, 32))
+    assert sum(e.count for e in evs if e.key == "cudaStreamSynchronize") <= 3 + n_tables + 1
+    assert sum(e.count for e in evs if e.key == "cudaGraphLaunch") == 25
+
+
 def test_vo_engine_cuda_matches_cpu(cuda):
     cam = StereoCamera(**SMALL_CAM)
     scene = PlaneScene(np.random.default_rng(11))
