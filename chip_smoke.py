@@ -134,12 +134,29 @@ not 0 (there is no CPU fallback):
                replays against eager iterations (equal bit for bit) and
                against the dense-``jacfwd`` loop it replaced (poses within
                1e-3), in turns; one iteration split in its parts; launches
-               and syncs of one call.
+               and syncs of one call;
+14. mesh     - the sharded paths over a mesh of 4 devices: 4 distinct cards
+               where the machine has them, else ``cuda:0`` 4 times (a
+               repeated card runs its shards one after the other: no time
+               of it is a scaling number). (a) ``batched_vo_step`` on 4
+               street pairs, one a shard, twice: features bit-equal to the
+               one-card step, one K1 and one K2 launch a shard a step; (b)
+               phase 11's four sequences on the mesh, each estimator on its
+               shard's device: each sequence's decisions equal its solo
+               run, keyframe poses within 1e-4 rad / 1e-3 m, K1 and K2 once
+               per shard per attempt, aggregate frames/s beside phase 11's,
+               host syncs; (c) the loop-closure-bucket window (C=32,
+               L=8192, O=16384) sharded over the mesh against the unsharded
+               solve, max |dpose| under 1e-3, both times; phase 13's
+               windows through ``SRBAEngine(mesh=)`` against the engine
+               without a mesh, window poses within 1e-3; (d)
+               ``parallel/multichip.py`` ``dryrun_multichip`` on the same
+               devices.
 
 Then one JSON line with, per kernel: its launches over the driven paths
 (``launches_by_path``: the estimator run, the margin-3 frontend, the
-two-octave engine, the CLI run, the batched run and the fleet run, each
-counted from 0;
+two-octave engine, the CLI run, the batched run, the fleet run and the
+mesh runs of phase 14 (a) and (b), each counted from 0;
 ``on_main_path`` says whether one of the paths a user of the entry points
 can reach, all but the margin-3 frontend, launched it); its
 largest error against the plain version; ``ms`` and ``plain_ms``, the time
@@ -199,10 +216,15 @@ from srba_slam_tpu_torch.ops.hopper_fast import (  # noqa: E402
 from srba_slam_tpu_torch.ops.nms import grid_topk, local_max_suppress  # noqa: E402
 from srba_slam_tpu_torch.ops.rectify import build_maps, remap_bilinear  # noqa: E402
 from srba_slam_tpu_torch.parallel import fleet as fleet_mod  # noqa: E402
+from srba_slam_tpu_torch.parallel.batch import (  # noqa: E402
+    batched_vo_step, empty_features, make_mesh,
+)
+from srba_slam_tpu_torch.parallel.multichip import dryrun_multichip  # noqa: E402
 from srba_slam_tpu_torch.utils import bench_workload as bw  # noqa: E402
 from srba_slam_tpu_torch.utils import kernel_timing as kt  # noqa: E402
 from srba_slam_tpu_torch.utils import se3_np  # noqa: E402
 from srba_slam_tpu_torch.utils.checkpoint import load_state  # noqa: E402
+from srba_slam_tpu_torch.utils.synthworld import make_ba_window_problem  # noqa: E402
 from srba_slam_tpu_torch.utils.evaluation import ate_rmse  # noqa: E402
 from srba_slam_tpu_torch.utils.framesource import SyntheticSource  # noqa: E402
 
@@ -223,7 +245,7 @@ N_CLI_FRAMES = 60
 N_RESUME_AT = 30
 # the paths a user of the entry points can reach (phase_options' margin-3
 # frontend is reached through the library's extract_and_match only)
-USER_PATHS = ("estimator", "two_octave_engine", "cli", "batched", "fleet")
+USER_PATHS = ("estimator", "two_octave_engine", "cli", "batched", "fleet", "mesh")
 BATCH = 8
 FLEET_SEEDS = (11, 48, 85, 122)
 N_FLEET_FRAMES = 30
@@ -235,6 +257,9 @@ INSERTION_PARTS = ("define_new_keyframe", "upload", "assembly_plan", "optimize_w
                    "copy_out", "_commit_one", "spanning_tree(0)", "on_commit", "bow.insert",
                    "store.append")
 SPLIT_REPS = 2
+MESH_SIZE = 4
+LC_BUCKET = dict(C=32, L=8192, O=16384, n_cams=30, n_lms=5000, pose_noise=0.03, px_noise=0.3)
+SHARDED_TOL = 1e-3
 PALLAS = "srba_slam_tpu/ops/pallas_fast.py"
 # f32 operations per pixel that the FAST score needs on given inputs (see
 # _fast_work): none within the margin, where the output is 0; 21 for an
@@ -1155,9 +1180,11 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> dict:
     return counts
 
 
-def phase_fleet(cam) -> dict:
+def phase_fleet(cam) -> tuple[dict, dict]:
     """Phase 11: FleetSLAM over four bench-workload street sequences
-    against each sequence's solo step() run, all on the card."""
+    against each sequence's solo step() run, all on the card (a mesh of
+    the one card). Returns the launches and what phase 14 reuses: the
+    sequences, the vocabulary, the solo runs and the fleet's frames/s."""
     seqs = [list(SyntheticSource(cam, n_frames=N_FLEET_FRAMES, seed=seed, step=bw.SOURCE["step"],
                                  scene=bw.SOURCE["scene"])) for seed in FLEET_SEEDS]
     torch.use_deterministic_algorithms(True)
@@ -1193,10 +1220,11 @@ def phase_fleet(cam) -> dict:
 
     fleet_mod.extract_and_match_batch = counted
     _reset_launches()
-    flt = fleet_mod.FleetSLAM(ests)
+    flt = fleet_mod.FleetSLAM(ests, mesh=make_mesh(devices=[DEV]))
     try:
         with SyncCount() as syncs:
-            check_syncs = _count_calls_syncs(flt, "_check_group", syncs)
+            query_syncs = _count_calls_syncs(flt, "_check_group", syncs)
+            pull_syncs = _count_calls_syncs(flt, "_pull_group", syncs)
             t0 = time.perf_counter()
             flt.run(seqs)
             sync()
@@ -1205,6 +1233,7 @@ def phase_fleet(cam) -> dict:
         fleet_mod.extract_and_match_batch = frontend
     counts = _launches()
     torch.use_deterministic_algorithms(False)
+    check_syncs = [a + b for a, b in zip(query_syncs, pull_syncs)]
     n_seq = len(seqs)
     # the first frame bootstraps each sequence through step(); then one K1
     # and one K2 launch per lockstep attempt over all pending sequences
@@ -1243,7 +1272,8 @@ def phase_fleet(cam) -> dict:
           f"{_med(check_syncs)}, max {max(check_syncs, default=0)}")
     print(f"[fleet kernels] one lockstep frontend's images [{2 * n_seq},370,1226] u8 at "
           f"per-image thresholds {[float(t) for t in thr]}: " + _kernel_line(imgs, thr))
-    return counts
+    return counts, dict(seqs=seqs, voc=voc, solo=solo, fps=n_frames / wall, wall=wall,
+                        attempts=attempts[0])
 
 
 def _host_ms(fn, reps: int = CHECK_REPS) -> tuple[float, float]:
@@ -1466,7 +1496,7 @@ def _split_run(frames):
     est = bench_estimator(DEV)
     rba = est.rba
     parts = {name: [] for name in INSERTION_PARTS}
-    solves, marks = [], {}
+    solves, entries, marks = [], [], {}
 
     def timing(fn, name, keep=lambda a: True):
         def wrapped(*a, **k):
@@ -1483,6 +1513,7 @@ def _split_run(frames):
     run_solve, run_plan, run_opt = rba._solve, srba_mod.assembly_plan, srba_mod.optimize_window
 
     def solve(entry):
+        entries.append(entry)
         sync()
         marks["start"] = time.perf_counter()
         out = run_solve(entry)
@@ -1525,7 +1556,7 @@ def _split_run(frames):
         srba_mod.assembly_plan, srba_mod.optimize_window = run_plan, run_opt
         bow_cls.insert, store_cls.append = run_insert, run_append
     n_ins = sum(r.inserted_kf not in (None, 0) for r in est.step_log)
-    return est, parts, solves, n_ins, run_opt
+    return est, parts, solves, entries, n_ins, run_opt
 
 
 def _window_shape(win) -> tuple:
@@ -1619,7 +1650,7 @@ def _counts(c) -> str:
             f"syncs ({c['stream_syncs']} cudaStreamSynchronize)")
 
 
-def phase_insertion(frames, pg_call) -> None:
+def phase_insertion(frames, pg_call) -> tuple[list, srba_mod.SRBAEngine]:
     """Phase 13: where an insertion's and the epilogue's time goes. The
     bench estimator of phase 7 again over the 81 frames, each part of an
     insertion timed alone (synchronized around it); every window solve
@@ -1633,9 +1664,11 @@ def phase_insertion(frames, pg_call) -> None:
     same inputs; its graph replays against eager iterations (equal bit for
     bit) and against the dense-``jacfwd`` loop it replaced (poses within
     1e-3 rad / m, the parity tolerance against JAX), in turns; one
-    iteration split in its parts; the launches and syncs of one call."""
+    iteration split in its parts; the launches and syncs of one call.
+    Returns the run's window solves (``SRBAEngine._solve``'s entries) and
+    its engine, for phase 14."""
     torch.use_deterministic_algorithms(True)
-    est, parts, solves, n_ins, run_opt = _split_run(frames)
+    est, parts, solves, entries, n_ins, run_opt = _split_run(frames)
     fp = bw.load_fingerprint()
     check(bw.decisions(est.step_log) == fp["decisions"],
           "phase 13's run made other decisions than the JAX fingerprint")
@@ -1719,6 +1752,164 @@ def phase_insertion(frames, pg_call) -> None:
           f"{_counts(pg_counts)} | one iteration, device ms: "
           + ", ".join(f"{name} {v:.3f}" for name, v in it.items() if name != "J")
           + f" (dense J {it['J']})")
+    return entries, est.rba
+
+
+def _mesh():
+    """Phase 14's mesh: 4 distinct cards where the machine has them, else
+    the one card 4 times (a virtual mesh), and which it is."""
+    if torch.cuda.device_count() >= MESH_SIZE:
+        return make_mesh(MESH_SIZE), f"{MESH_SIZE} distinct cards"
+    return (make_mesh(devices=[f"{DEV}:0"] * MESH_SIZE),
+            f"cuda:0 x {MESH_SIZE}, a REPEATED card: its shards run one after the other, "
+            "so no time here is a scaling number")
+
+
+def _timed_twice(fn) -> tuple[float, object]:
+    """Host ms of the second of two synchronized calls of ``fn``, and its
+    output."""
+    _one_call(fn)
+    return _one_call(fn)
+
+
+def phase_mesh(frames, cam, fleet_ref: dict, entries: list, rba) -> dict:
+    """Phase 14: the sharded paths over a mesh of 4 devices. (a)
+    batched_vo_step on 4 street pairs, twice, against the one-card mesh;
+    (b) phase 11's four sequences on the mesh against their solo runs;
+    (c) the loop-closure-bucket window sharded against unsharded, and
+    phase 13's windows through SRBAEngine(mesh=) against the engine
+    without one; (d) dryrun_multichip on the same devices. Returns the
+    launches of the mesh runs of (a) and (b)."""
+    mesh, kind = _mesh()
+    one = make_mesh(devices=[f"{DEV}:0"])
+    torch.use_deterministic_algorithms(True)
+    launches = {name: 0 for name in _launches()}
+
+    def on_mesh(fn):
+        _reset_launches()
+        out = fn()
+        sync()
+        for name, n in _launches().items():
+            launches[name] += n
+        return out
+
+    # (a) four sequences' street pairs, one a shard, two steps
+    b, k = MESH_SIZE, 512
+    steps = [[np.stack([frames[1 + s + i][j] for i in range(b)]) for j in (0, 1)]
+             for s in range(2)]
+    init = np.zeros((b, 6), np.float32)
+    outs = {}
+    for name, m in (("one", one), ("mesh", mesh)):
+        prev = empty_features(b, k, device=m.lead)
+        run = []
+        for lefts, rights in steps:
+            def step(m=m, lefts=lefts, rights=rights, prev=prev):
+                return batched_vo_step(m, lefts, rights, prev, init, cam, k=k)
+            out = on_mesh(step) if name == "mesh" else step()
+            run.append(out)
+            prev = out[0]
+        outs[name] = run
+    d_vo = 0.0
+    for i, (x, y) in enumerate(zip(outs["one"], outs["mesh"])):
+        for field, a_, b_ in zip(x[0]._fields, x[0], y[0]):
+            check(torch.equal(a_, b_), f"batched_vo_step step {i}: {field} differs on the mesh")
+        check(torch.equal(x[2], y[2]), f"batched_vo_step step {i}: validity differs")
+        d_vo = max(d_vo, float((x[1] - y[1]).abs().max()))
+    check(d_vo <= POSE_TOL_RAD, f"batched_vo_step poses differ on the mesh by {d_vo}")
+    check(bool(outs["mesh"][1][2].all()), "batched_vo_step: a sequence lost tracking")
+    step_launches = dict(launches)
+    check(step_launches == {"fast_nms": 2 * b, "orb_descriptors": 2 * b, "fast_score_map": 0},
+          f"batched_vo_step on the mesh: launches {step_launches}, not one a shard a step")
+
+    # (b) phase 11's sequences, each estimator on its shard's device
+    seqs, solo = fleet_ref["seqs"], fleet_ref["solo"]
+    per = len(seqs) // len(mesh.devices)
+    ests = []
+    for i in range(len(seqs)):
+        est = bench_estimator(mesh.devices[i // per])
+        est.initialize(vocabulary=fleet_ref["voc"])
+        ests.append(est)
+    shard_attempts = [0]
+    frontend = fleet_mod.extract_and_match_batch
+
+    def counted(*a, **kw):
+        shard_attempts[0] += 1
+        return frontend(*a, **kw)
+
+    fleet_mod.extract_and_match_batch = counted
+    flt = fleet_mod.FleetSLAM(ests, mesh=mesh)
+    try:
+        with SyncCount() as syncs:
+            t0 = time.perf_counter()
+            on_mesh(lambda: flt.run(seqs))
+            wall = time.perf_counter() - t0
+    finally:
+        fleet_mod.extract_and_match_batch = frontend
+    fleet_launches = {name: launches[name] - step_launches[name] for name in launches}
+    check(fleet_launches == {"fast_nms": shard_attempts[0] + len(seqs),
+                             "orb_descriptors": shard_attempts[0] + len(seqs),
+                             "fast_score_map": 0},
+          f"mesh fleet: launches {fleet_launches} over {shard_attempts[0]} shard attempts")
+    worst_rad = worst_m = 0.0
+    for i, (f, s_) in enumerate(zip(ests, solo)):
+        check(bw.decisions(f.step_log) == bw.decisions(s_.step_log),
+              f"mesh fleet sequence {i}: decisions differ from its solo run")
+        n = s_.store.n_kfs
+        check(f.store.n_kfs == n, f"mesh fleet sequence {i}: {f.store.n_kfs} vs {n} keyframes")
+        d = np.abs(f.rba.kf_global[:n] - s_.rba.kf_global[:n])
+        worst_rad, worst_m = max(worst_rad, d[:, :3].max()), max(worst_m, d[:, 3:].max())
+    check(worst_rad <= POSE_TOL_RAD and worst_m <= POSE_TOL_M,
+          f"mesh fleet keyframe poses differ from the solo runs by {worst_rad} / {worst_m}")
+    n_frames = len(seqs) * N_FLEET_FRAMES
+
+    # (c) the loop-closure bucket, sharded against unsharded, and phase 13's
+    # windows through the engine with a mesh against the engine without one
+    kcam = StereoCamera.kitti()
+    big, _gt = make_ba_window_problem(kcam, np.random.default_rng(7), **LC_BUCKET)
+    big = window_ba.BAWindow(*(t.to(mesh.lead) for t in big))
+    kw = dict(kernel_param=1.5, max_iters=8)
+    ms_1, r1 = _timed_twice(lambda: window_ba.optimize_window(big, kcam, **kw))
+    sharded = window_ba.shard_window_obs(big, make_mesh(devices=mesh.devices, axis="obs"))
+    ms_n, rn = _timed_twice(lambda: window_ba.optimize_window(sharded, kcam, **kw))
+    lc_err = float((rn.cam_pose - r1.cam_pose).abs().max())
+    check(lc_err < SHARDED_TOL, f"the sharded loop-closure-bucket window differs by {lc_err}")
+    check(float(r1.cost_final) < float(r1.cost_init), "the LC-bucket solve did not improve")
+    plain_eng = srba_mod.SRBAEngine(rba.cam, rba.p, device=mesh.lead)
+    mesh_eng = srba_mod.SRBAEngine(rba.cam, rba.p, mesh=make_mesh(devices=mesh.devices,
+                                                                axis="obs"))
+    eng_err, t_plain, t_mesh = 0.0, [], []
+    for entry in entries:
+        c6 = entry["C"] * 6
+        ta, blob_a = _one_call(lambda: plain_eng._solve(entry))
+        tb, blob_b = _one_call(lambda: mesh_eng._solve(entry))
+        t_plain.append(ta)
+        t_mesh.append(tb)
+        eng_err = max(eng_err, float(np.abs(blob_a[:c6] - blob_b[:c6]).max()))
+    check(bool(entries) and eng_err < SHARDED_TOL,
+          f"SRBAEngine(mesh=) window poses differ by {eng_err} over {len(entries)} windows")
+
+    # (d) the dry run on the same devices
+    dry = dryrun_multichip(MESH_SIZE, devices=list(mesh.devices))
+    torch.use_deterministic_algorithms(False)
+    print(f"[mesh] {kind}: {[str(d) for d in mesh.devices]} | (a) batched_vo_step on {b} "
+          f"street pairs 370x1226, one a shard, twice: features bit-equal to the one-card "
+          f"step, poses within {d_vo:.2e}, launches {step_launches} (one K1 and one K2 a shard "
+          f"a step) | (b) phase 11's {len(seqs)} sequences x {N_FLEET_FRAMES} frames on the "
+          f"mesh: {wall:.3f} s, {n_frames / wall:.2f} frames/s aggregate (phase 11 on one "
+          f"card: {fleet_ref['wall']:.3f} s, {fleet_ref['fps']:.2f} frames/s); every "
+          f"sequence's decisions equal its solo run, KF poses within {worst_rad:.2e} rad / "
+          f"{worst_m:.2e} m; {shard_attempts[0]} shard attempts ({fleet_ref['attempts']} "
+          f"lockstep attempts on one card), launches {fleet_launches}; host syncs "
+          f"{syncs.n} ({syncs.n / N_FLEET_FRAMES:.2f} a lockstep step)")
+    print(f"[mesh windows] (c) the loop-closure bucket {LC_BUCKET}, {kw['max_iters']} LM "
+          f"iterations, second of two calls: unsharded (CUDA-graph "
+          f"blocks) {ms_1:.3f} ms, sharded over {MESH_SIZE} (eager blocks) {ms_n:.3f} ms, "
+          f"max |dpose| {lc_err:.2e} | phase 13's {len(entries)} windows through "
+          f"SRBAEngine(mesh=): window poses within {eng_err:.2e} of the engine without a mesh; "
+          f"median {_med(t_mesh)} ms a solve against {_med(t_plain)} ms")
+    print(f"[mesh dryrun] (d) dryrun_multichip({MESH_SIZE}) on {dry['devices']}: "
+          + json.dumps({k_: v for k_, v in dry.items() if k_ != "devices"}))
+    return launches
 
 
 def _cli(args: list) -> tuple[int, str]:
@@ -1792,7 +1983,8 @@ def phase_cli() -> dict:
         t0 = time.perf_counter()
         rcf, saidf = _cli([ini2f, "--synthetic", str(N_FLEET_CLI_FRAMES), "--fleet", "2"])
         wallf = time.perf_counter() - t0
-        mf = re.search(r"fleet: 2 sequences x \d+ frames on 1 card, ([0-9.]+) frames/s", saidf)
+        mf = re.search(r"fleet: 2 sequences x \d+ frames on a (\d+)-device mesh, ([0-9.]+) "
+                       r"frames/s", saidf)
         seq_files = {i: sorted(os.listdir(os.path.join(outf, f"seq{i}")))
                      if os.path.isdir(os.path.join(outf, f"seq{i}")) else [] for i in range(2)}
         check(rcf == 0 and mf is not None
@@ -1845,7 +2037,8 @@ def phase_cli() -> dict:
           f"with set-up and the output files) | {len(scans)} scans, launches {counts} | "
           f"--batch 1: the same kf_frames.txt, {m1.group(1)} fps ({wall1:.3f} s) | files "
           f"{sizes} | --synthetic {N_FLEET_CLI_FRAMES} --fleet 2: exit 0, seq0/ and seq1/ "
-          f"written, {mf.group(1)} frames/s aggregate ({wallf:.3f} s with the vocabulary "
+          f"written, on a {mf.group(1)}-device mesh, {mf.group(2)} frames/s aggregate "
+          f"({wallf:.3f} s with the vocabulary "
           f"training and set-up) | checkpoint at frame {N_RESUME_AT} resumed on "
           f"CUDA and on the CPU: frames {N_RESUME_AT}-{N_CLI_FRAMES - 1} to equal decisions, "
           f"{cont[DEV][1]} keyframes")
@@ -1882,9 +2075,10 @@ def main():
                        slice_ms))
     paths["cli"] = timed("cli", phase_cli)
     paths["batched"] = timed("batched", phase_batched, frames, src.gt_poses, per_frame_s)
-    paths["fleet"] = timed("fleet", phase_fleet, cam)
+    paths["fleet"], fleet_ref = timed("fleet", phase_fleet, cam)
     timed("check", phase_check, cam, frames, picked)
-    timed("insertion", phase_insertion, frames, pg_call)
+    entries, rba = timed("insertion", phase_insertion, frames, pg_call)
+    paths["mesh"] = timed("mesh", phase_mesh, frames, cam, fleet_ref, entries, rba)
     print(f"[phases] seconds {seconds}")
     for k in (k1, k2, k3):
         k["launches_by_path"] = {path: c[k["name"]] for path, c in paths.items()}

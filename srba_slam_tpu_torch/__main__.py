@@ -13,7 +13,9 @@ an N-frame rendered sequence for dataset-free runs. The run is on the CUDA
 card unless ``--cpu`` is given. ``--batch B`` runs the VO of B frames as
 one batched scan (default: 8 on the card, frame by frame on the CPU);
 ``--fleet S`` with ``--synthetic`` runs S independent rendered sequences in
-lockstep (``parallel/fleet.py``), their outputs under ``<out_dir>/seq<i>/``.
+lockstep (``parallel/fleet.py``), sharded over the device mesh (the
+largest count of the machine's cards that divides S), their outputs under
+``<out_dir>/seq<i>/``.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ def main(argv=None):
                          "python -m srba_slam_tpu_torch.utils.evaluation")
     ap.add_argument("--fleet", type=int, default=0, metavar="S",
                     help="with --synthetic: run S independent sequences in "
-                         "lockstep with one batched frontend "
+                         "lockstep, sharded over the device mesh "
                          "(parallel.fleet); per-sequence outputs land in "
                          "<out_dir>/seq<i>/")
     ap.add_argument("--serve", type=int, nargs="?", const=0, default=None,
@@ -204,11 +206,14 @@ def main(argv=None):
 
 def _fleet(args, est, device) -> int:
     """``--fleet S``: S independent rendered sequences (seeds 11 + 37 i) in
-    lockstep, ``est`` the first; one vocabulary for all; the outputs of
-    sequence i in ``<out_dir>/seq<i>/``."""
+    lockstep over JAX's default mesh of the machine's cards (``--cpu``: the
+    CPU), each estimator built on its shard's device and ``est`` the first;
+    one vocabulary for all; the outputs of sequence i in
+    ``<out_dir>/seq<i>/``."""
     import os
 
     from srba_slam_tpu_torch.models.estimator import SRBAStereoSLAMEstimator
+    from srba_slam_tpu_torch.parallel.batch import fleet_mesh
     from srba_slam_tpu_torch.parallel.fleet import FleetSLAM
     from srba_slam_tpu_torch.utils.framesource import SyntheticSource
 
@@ -216,8 +221,10 @@ def _fleet(args, est, device) -> int:
         print(f"{TAG} error: --fleet requires --synthetic N (multi-directory image "
               "fleets are not wired to the CLI)", file=sys.stderr)
         return 2
-    ests = [est] + [SRBAStereoSLAMEstimator.from_config(args.config, device=device)
-                    for _ in range(args.fleet - 1)]
+    mesh = fleet_mesh(args.fleet, est.device)
+    per = args.fleet // len(mesh.devices)
+    ests = [est] + [SRBAStereoSLAMEstimator.from_config(args.config, device=mesh.devices[i // per])
+                    for i in range(1, args.fleet)]
     voc = est.bow.voc if est.bow is not None else None
     if voc is None:
         # no vocabulary file in the config: train one shared vocabulary from
@@ -235,13 +242,13 @@ def _fleet(args, est, device) -> int:
         e.initialize(vocabulary=voc)
     sources = [SyntheticSource(e.cam, n_frames=args.synthetic, step=0.5, seed=11 + 37 * i)
                for i, e in enumerate(ests)]
-    fleet = FleetSLAM(ests)
+    fleet = FleetSLAM(ests, mesh)
     t0 = time.time()
     fleet.run(sources)
     dt = time.time() - t0
     n_frames = sum(e.frame_idx + 1 for e in ests)
-    print(f"{TAG} fleet: {len(ests)} sequences x {args.synthetic} frames on 1 card, "
-          f"{n_frames / max(dt, 1e-9):.2f} frames/s aggregate")
+    print(f"{TAG} fleet: {len(ests)} sequences x {args.synthetic} frames on a "
+          f"{len(mesh.devices)}-device mesh, {n_frames / max(dt, 1e-9):.2f} frames/s aggregate")
     out_dir = est.general.out_dir or "out"
     for i, e in enumerate(ests):
         e.finalize(out_dir=os.path.join(out_dir, f"seq{i}"))

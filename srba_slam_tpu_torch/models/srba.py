@@ -30,8 +30,14 @@ The estimator flushes right after each insertion, so a window solved in
 the same insertion as a loop-closure recovery is built from the same
 pre-solve state as in the JAX package. With ``lazy=False``,
 ``define_new_keyframe`` flushes before it returns. The JAX package's
-tunnel scheduling (queued solve groups, packed blobs, bulk pulls, the mesh
-branch) is not ported.
+tunnel scheduling (queued solve groups, packed blobs, bulk pulls) is not
+ported.
+
+With a device mesh (``mesh=``, ``parallel/batch.py``), each window solve
+runs observation-sharded over the mesh (``ops/window_ba.py``
+``shard_window_obs``; ≙ the JAX engine's mesh branch): one sequence's
+bundle adjustment spread over the mesh's devices, its result on the lead
+device.
 """
 
 from __future__ import annotations
@@ -41,7 +47,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from srba_slam_tpu_torch.ops.window_ba import BAWindow, assembly_plan, optimize_window
+from srba_slam_tpu_torch.ops.window_ba import (
+    BAWindow, assembly_plan, optimize_window, shard_window_obs,
+)
 from srba_slam_tpu_torch.utils import se3_np
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
@@ -125,10 +133,13 @@ class NewKFInfo:
 
 class SRBAEngine:
     def __init__(self, cam: StereoCamera, params: SRBAParams | None = None,
-                 logger=None, on_commit=None, lazy: bool = False, device="cuda"):
+                 logger=None, on_commit=None, lazy: bool = False, device="cuda", mesh=None):
         self.cam = cam
         self.p = params or SRBAParams()
-        self.device = torch.device(device)
+        # with a mesh, window solves run observation-sharded over it, on its
+        # lead device (which is then the engine's device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.lead
         self.log = logger if logger is not None else (lambda level, msg: None)
         # called as on_commit(kf_id, old_root_global, new_root_global) after a
         # window solve lands, so the owner can re-anchor bookkeeping
@@ -990,9 +1001,15 @@ class SRBAEngine:
         rmse_stg1]`` (one copy back)."""
         p = self.p
         _pose, _cv, _lp, lm_base_loc, _lv, oc, ol, _px, ov = entry["window"]
-        dev = self.device
-        win = BAWindow(*(torch.as_tensor(a, device=dev) for a in entry["window"]))
-        plan = assembly_plan(oc, ol, lm_base_loc, ov, entry["C"], entry["L"], dev)
+        if self.mesh is not None:
+            # built from the host arrays, then laid out over the mesh
+            win = shard_window_obs(BAWindow(*(torch.as_tensor(a) for a in entry["window"])),
+                                   self.mesh)
+            plan = None
+        else:
+            dev = self.device
+            win = BAWindow(*(torch.as_tensor(a, device=dev) for a in entry["window"]))
+            plan = assembly_plan(oc, ol, lm_base_loc, ov, entry["C"], entry["L"], dev)
         r = optimize_window(
             win, self.cam, kernel_param=p.kernel_param, max_iters=p.opt_iters,
             use_kernel=p.use_robust_kernel, w_prior_rot=p.anchor_prior_w_rot,

@@ -361,6 +361,13 @@ def track_batch(engines, curs) -> list:
     each frame through its engine's ``commit_frame``. The engines share
     camera, device and solve options (a fleet's sequences; per-frame
     stepping is one engine). Returns the VOResults."""
+    return commit_tracks(engines, curs, to_host(solve_tracks(engines, curs)))
+
+
+def solve_tracks(engines, curs) -> list[torch.Tensor]:
+    """The device half of :func:`track_batch`: the one pose solve of
+    ``len(engines)`` lanes, and the tensors that :func:`commit_tracks`
+    reads (``to_host`` copies them out in one transfer)."""
     e0 = engines[0]
     init = np.stack([e.initial_increment() for e in engines]).astype(np.float32)
     orb = np.array([int(e.orb_th) for e in engines], np.float32)
@@ -368,9 +375,14 @@ def track_batch(engines, curs) -> list:
         stack_features([e._prev for e in engines]), stack_features(curs), e0.cam,
         *(torch.from_numpy(a).to(e0.device, non_blocking=True) for a in (init, orb)),
         **e0.solve_options())
-    ti, tv, mv, pose, ok, res, iters = to_host(
-        [out.track_idx, out.track_valid, torch.stack([c.m_valid for c in curs]),
-         out.pose.pose, out.pose.valid, out.pose.mean_residual, out.pose.iters])
+    return [out.track_idx, out.track_valid, torch.stack([c.m_valid for c in curs]),
+            out.pose.pose, out.pose.valid, out.pose.mean_residual, out.pose.iters]
+
+
+def commit_tracks(engines, curs, host: list) -> list:
+    """The host half of :func:`track_batch`: commit each frame from the
+    host copies ``host`` of :func:`solve_tracks`' outputs."""
+    ti, tv, mv, pose, ok, res, iters = host
     return [e.commit_frame(cur, ti[i], tv[i], mv[i], pose[i].copy(), bool(ok[i]),
                            float(res[i]), int(iters[i]))
             for i, (e, cur) in enumerate(zip(engines, curs))]

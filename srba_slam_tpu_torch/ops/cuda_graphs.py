@@ -48,31 +48,37 @@ def loop(step, c: dict, k: dict, n: int, static: tuple, graphs: bool) -> dict:
 
 def _replay(step, c: dict, k: dict, n: int, static: tuple) -> dict:
     """``loop`` as replays of one CUDA graph of ``step`` on fixed buffers,
-    keyed by ``static`` (the step's options) and the shapes of ``c`` and
-    ``k``, captured at a key's first call. The inputs are copied in and
-    the carry cloned out, so callers share a graph."""
+    keyed by ``static`` (the step's options), the device and the shapes of
+    ``c`` and ``k``, captured at a key's first call. The inputs are copied
+    in and the carry cloned out, so callers share a graph. The warm-up, the
+    capture and the replays run on the inputs' device and its current
+    stream, whichever device is current."""
     dev = next(_tensors(k)).device
     key = (static, dev, tuple(tuple(t.shape) for t in _tensors(c)),
            tuple(tuple(t.shape) for t in _tensors(k)))
-    entry = _GRAPHS.get(key)
-    if entry is None:
-        sc, sk = _clone(c), _clone(k)
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):  # library handles and workspaces first
-            step(sc, sk)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = step(sc, sk)
-            for name, v in out.items():
-                sc[name].copy_(v)
-        entry = _GRAPHS[key] = (graph, sc, sk)
-    graph, sc, sk = entry
-    _copy_into(sc, c)
-    _copy_into(sk, k)
-    for i in range(n):
-        if i and "more" in sc and not bool(sc["more"]):
-            break
-        graph.replay()
-    return {name: v.clone() for name, v in sc.items()}
+    with torch.cuda.device(dev):
+        entry = _GRAPHS.get(key)
+        if entry is None:
+            sc, sk = _clone(c), _clone(k)
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):  # library handles and workspaces first
+                step(sc, sk)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # captured on this device's stream: torch.cuda.graph's default
+            # capture stream is one for the process, on the first device
+            # that captured
+            with torch.cuda.graph(graph, stream=side):
+                out = step(sc, sk)
+                for name, v in out.items():
+                    sc[name].copy_(v)
+            entry = _GRAPHS[key] = (graph, sc, sk)
+        graph, sc, sk = entry
+        _copy_into(sc, c)
+        _copy_into(sk, k)
+        for i in range(n):
+            if i and "more" in sc and not bool(sc["more"]):
+                break
+            graph.replay()
+        return {name: v.clone() for name, v in sc.items()}

@@ -28,6 +28,16 @@ whose updates are masked by the loop's ``cond``, so an iteration past the
 exit changes nothing and the result does not depend on the period; the
 host reads the exit test between blocks only. On a card each block
 replays as one CUDA graph, captured at a shape's first solve.
+
+``shard_window_obs`` lays one window out over a device mesh (≙ the JAX
+package's SPMD solve over sharded observations): each device holds a
+replica of the camera and landmark state and a contiguous slice of the
+observations with its own gather tables. Each LM step, each shard
+computes its residuals, its partial gradient and Hessian blocks and its
+cost terms; the partials are summed on the lead device in shard order,
+the Schur/Cholesky solve runs there, and the step goes back to every
+shard. A sharded solve runs its LM blocks eagerly: a CUDA graph belongs
+to one device.
 """
 
 from __future__ import annotations
@@ -65,6 +75,14 @@ class BAWindow(NamedTuple):
     obs_lm: torch.Tensor     # int [O] window-local landmark index
     obs_px: torch.Tensor     # f32 [O, 3] (ul, vl, ur)
     obs_valid: torch.Tensor  # bool [O]
+
+
+class ShardedWindow(NamedTuple):
+    """A window laid out over a mesh by :func:`shard_window_obs`."""
+
+    shards: tuple   # BAWindow per mesh device: the state replicated, a slice of the obs;
+    #                 the first device's (the mesh's lead) solves and holds the result
+    plans: tuple    # AssemblyPlan of each shard's observations, on its device
 
 
 class BAResult(NamedTuple):
@@ -256,22 +274,49 @@ def _residuals(k: dict, cam_pose, lm_pos, cam: StereoCamera):
                               k["obs_px"], cam)
 
 
+def _shards(k: dict) -> list[dict]:
+    """The observation tensors of ``k``: one dict a shard of a sharded
+    window, else ``k`` itself."""
+    return k["shards"] if "shards" in k else [k]
+
+
+def _summed(parts, dev):
+    """The shards' partial sums ``parts`` added on ``dev``, in shard order
+    (one part: itself)."""
+    total = None
+    for p in parts:
+        p = p.to(dev)
+        total = p if total is None else total + p
+    return total
+
+
+def _shard_residuals(s: dict, cam_pose, lm_pos, cam: StereoCamera):
+    """The residuals of shard ``s``'s observations, the state sent to its
+    device."""
+    dev = s["obs_px"].device
+    return _residuals(s, cam_pose.to(dev), lm_pos.to(dev), cam)[0]
+
+
 def _cost(k: dict, cam_pose, lm_pos, cam: StereoCamera, kern: bool):
-    r = _residuals(k, cam_pose, lm_pos, cam)[0]
+    robust = _summed([_robust_cost(_shard_residuals(s, cam_pose, lm_pos, cam), s["obs_w"],
+                                   s["kp"], kern) for s in _shards(k)], cam_pose.device)
     w, dt = _prior_residual(k, cam_pose)
     prior = torch.sum(k["free_w"] * (k["prior_w6"][0] * torch.sum(w * w, -1)
                                      + k["prior_w6"][3] * torch.sum(dt * dt, -1)))
-    return _robust_cost(r, k["obs_w"], k["kp"], kern) + prior
+    return robust + prior
 
 
 def _rmse(k: dict, cam_pose, lm_pos, cam: StereoCamera):
-    r = _residuals(k, cam_pose, lm_pos, cam)[0]
-    n_obs = torch.clamp(torch.sum(k["obs_w"]), min=1.0)
-    return torch.sqrt(torch.sum(torch.sum(r * r, -1) * k["obs_w"]) / n_obs)
+    sq, n_obs = [], []
+    for s in _shards(k):
+        r = _shard_residuals(s, cam_pose, lm_pos, cam)
+        sq.append(torch.sum(torch.sum(r * r, -1) * s["obs_w"]))
+        n_obs.append(torch.sum(s["obs_w"]))
+    dev = cam_pose.device
+    return torch.sqrt(_summed(sq, dev) / torch.clamp(_summed(n_obs, dev), min=1.0))
 
 
 def _assemble(k: dict, r, wJA, wJB, wJC, JA, JB, JC, skip_lms: bool):
-    C, L = k["free_cam"].shape[0], k["lm_base"].shape[0]
     rA = torch.einsum("oij,oi->oj", wJA, r)
     rB = torch.einsum("oij,oi->oj", wJB, r)
     aa = torch.einsum("oij,oik->ojk", wJA, JA)
@@ -287,31 +332,40 @@ def _assemble(k: dict, r, wJA, wJB, wJC, JA, JB, JC, skip_lms: bool):
     cc = torch.einsum("oij,oik->ojk", wJC, JC)
     g_l = segment_sum(rC, k["lm"])
     Hll = segment_sum(cc, k["lm"])
-    Hcl = segment_sum(torch.cat([ac, bc]), k["h_cl"]).reshape(C, L, 6, 3)
+    Hcl = segment_sum(torch.cat([ac, bc]), k["h_cl"]).reshape(g_c.shape[0],
+                                                              k["lm_base"].shape[0], 6, 3)
     return g_c, g_l, Hcc, Hcl, Hll
 
 
-def _lm_step(k: dict, cam_pose, lm_pos, lam, cam: StereoCamera, kern: bool, freeze_lms: bool):
-    """One LM step: the proposed poses and landmarks, whether the solve
-    was finite, and the predicted decrease of the local quadratic model."""
-    C = cam_pose.shape[0]
-    r, x, X, Rc, Q_R = _residuals(k, cam_pose, lm_pos, cam)
+def _partials(s: dict, cam_pose, lm_pos, cam: StereoCamera, kern: bool, freeze_lms: bool):
+    """The gradient and Hessian blocks ``(g_c, g_l, Hcc, Hcl, Hll)`` of the
+    observations of ``s`` (a window's, or one shard's on its device)."""
+    dev = s["obs_px"].device
+    r, x, X, Rc, Q_R = _residuals(s, cam_pose.to(dev), lm_pos.to(dev), cam)
     P = _dproj(x, cam)
     rnorm = torch.linalg.vector_norm(r, dim=-1)
-    w_rob = 1.0 / torch.sqrt(1.0 + (rnorm / k["kp"]) ** 2) if kern else torch.ones_like(rnorm)
-    w = w_rob * k["obs_w"]
+    w_rob = 1.0 / torch.sqrt(1.0 + (rnorm / s["kp"]) ** 2) if kern else torch.ones_like(rnorm)
+    w = w_rob * s["obs_w"]
     RcT = Rc.transpose(-1, -2)
     # dx/d(base twist) = R_c^T [ -[X]x | I ];  dx/d(cam twist) = -that
     dB_rot = torch.einsum("oij,ojk->oik", RcT, -se3.hat(X))
     dB = torch.cat([dB_rot, RcT], dim=-1)
     JB = torch.einsum("oij,ojk->oik", P, dB)
     JA = -JB
-    Rb = Q_R[k["lm_base"]][k["obs_lm"]]
+    Rb = Q_R[s["lm_base"]][s["obs_lm"]]
     dP = torch.einsum("oij,ojk->oik", RcT, Rb)              # dx/dp = R_c^T R_base
     JC = torch.einsum("oij,ojk->oik", P, dP)
     wJA, wJB, wJC = (J * w[:, None, None] for J in (JA, JB, JC))
+    return _assemble(s, r, wJA, wJB, wJC, JA, JB, JC, freeze_lms)
 
-    g_c, g_l, Hcc, Hcl, Hll = _assemble(k, r, wJA, wJB, wJC, JA, JB, JC, freeze_lms)
+
+def _lm_step(k: dict, cam_pose, lm_pos, lam, cam: StereoCamera, kern: bool, freeze_lms: bool):
+    """One LM step: the proposed poses and landmarks, whether the solve
+    was finite, and the predicted decrease of the local quadratic model."""
+    C = cam_pose.shape[0]
+    parts = [_partials(s, cam_pose, lm_pos, cam, kern, freeze_lms) for s in _shards(k)]
+    g_c, g_l, Hcc, Hcl, Hll = (None if p[0] is None else _summed(p, cam_pose.device)
+                               for p in zip(*parts))
     pw, pdt = _prior_residual(k, cam_pose)
     g_c = g_c + torch.cat([pw, pdt], -1) * k["prior_w6"][None, :]
     Hcc = Hcc + k["prior_blocks"]
@@ -402,7 +456,8 @@ def _run_stage(k: dict, cam_pose, lm_pos, n_iters: int, cam: StereoCamera, kern:
     accepted steps stop improving (3 sub-1e-6 relative decreases, or a
     vanishing predicted decrease), or after 6 rejected steps in a row. In
     blocks of ``WBA_EXIT_EVERY`` iterations, each a CUDA graph on a card
-    (``WBA_GRAPHS``); the host reads the exit test between blocks only."""
+    (``WBA_GRAPHS``; eager for a sharded window); the host reads the exit
+    test between blocks only."""
     dev = cam_pose.device
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     c = dict(cam_pose=cam_pose, lm_pos=lm_pos, cost=_cost(k, cam_pose, lm_pos, cam, kern),
@@ -414,12 +469,47 @@ def _run_stage(k: dict, cam_pose, lm_pos, n_iters: int, cam: StereoCamera, kern:
         return _lm_block(c_, k_, n, n_iters, cam, kern, freeze_lms)
 
     c = cuda_graphs.loop(block, c, k, -(-n_iters // n), ("lm", n, n_iters, cam, kern, freeze_lms),
-                         WBA_GRAPHS)
+                         WBA_GRAPHS and "shards" not in k)
     return c["cam_pose"], c["lm_pos"], c["iters"]
 
 
+def shard_window_obs(win: BAWindow, mesh) -> ShardedWindow:
+    """Lay ``win`` out over ``mesh`` (``parallel/batch.py``): shard i, on
+    ``mesh.devices[i]``, holds a replica of the camera and landmark state
+    and the i-th of ``len(mesh.devices)`` contiguous slices of the
+    observations, with its slice's gather tables (``assembly_plan``; the
+    index arrays are read to the host once, at no cost for a window on the
+    CPU). O must divide over the mesh: every bucket's O is a power of two.
+    :func:`optimize_window` solves the result."""
+    n = len(mesh.devices)
+    n_obs = win.obs_cam.shape[0]
+    if n_obs % n:
+        raise ValueError(f"{n_obs} observations do not split over a mesh of {n} devices")
+    C, L = win.cam_pose.shape[0], win.lm_pos.shape[0]
+    obs_cam, obs_lm, lm_base, obs_valid = (t.cpu().numpy() for t in (
+        win.obs_cam, win.obs_lm, win.lm_base, win.obs_valid))
+    m = n_obs // n
+    shards, plans = [], []
+    for i, dev in enumerate(mesh.devices):
+        sl = slice(i * m, (i + 1) * m)
+        shards.append(BAWindow(*(t.to(dev) for t in win[:5]),
+                               *(t[sl].to(dev) for t in win[5:])))
+        plans.append(assembly_plan(obs_cam[sl], obs_lm[sl], lm_base, obs_valid[sl], C, L, dev))
+    return ShardedWindow(tuple(shards), tuple(plans))
+
+
+def _obs_keys(win: BAWindow, plan: AssemblyPlan, kernel_param: float) -> dict:
+    """The observation tensors of a window (or of a shard) and its gather
+    tables, as the LM step reads them."""
+    return dict(lm_base=win.lm_base.long(), obs_cam=win.obs_cam.long(),
+                obs_lm=win.obs_lm.long(), obs_px=win.obs_px,
+                obs_w=win.obs_valid.to(torch.float32),
+                kp=torch.full((), kernel_param, dtype=torch.float32, device=win.obs_px.device),
+                **plan._asdict())
+
+
 def optimize_window(
-    win: BAWindow,
+    win: BAWindow | ShardedWindow,
     cam: StereoCamera,
     kernel_param: float = 1.5,
     max_iters: int = 12,
@@ -432,15 +522,21 @@ def optimize_window(
     plan: AssemblyPlan | None = None,
 ) -> BAResult:
     """Optimize one window. ``plan`` (``assembly_plan`` of the window's
-    index arrays) saves a device-to-host copy when the caller has them."""
+    index arrays) saves a device-to-host copy when the caller has them. A
+    :class:`ShardedWindow` solves over its mesh, the result on the lead
+    device (``plan`` unused: each shard has its own)."""
     f32 = torch.float32
+    if isinstance(win, ShardedWindow):
+        obs = dict(shards=[_obs_keys(w, p, kernel_param) for w, p in zip(win.shards, win.plans)])
+        win = win.shards[0]  # the lead device's replica of the state
+    else:
+        if plan is None:
+            plan = assembly_plan(win.obs_cam.cpu().numpy(), win.obs_lm.cpu().numpy(),
+                                 win.lm_base.cpu().numpy(), win.obs_valid.cpu().numpy(),
+                                 win.cam_pose.shape[0], win.lm_pos.shape[0], win.cam_pose.device)
+        obs = _obs_keys(win, plan, kernel_param)
     dev = win.cam_pose.device
     C = win.cam_pose.shape[0]
-    L_n = win.lm_pos.shape[0]
-    if plan is None:
-        plan = assembly_plan(win.obs_cam.cpu().numpy(), win.obs_lm.cpu().numpy(),
-                             win.lm_base.cpu().numpy(), win.obs_valid.cpu().numpy(),
-                             C, L_n, dev)
     free_cam = win.cam_valid & (torch.arange(C, device=dev) != 0)
     # init-anchor pose prior (a deliberate deviation from the reference
     # SRBA objective, as in the JAX package): every free camera is tied to
@@ -453,13 +549,10 @@ def optimize_window(
                           torch.full((3,), w_prior_trans, dtype=f32, device=dev)])
     on_diag = torch.arange(C * C, device=dev) % (C + 1) == 0
     prior_blocks = torch.where(on_diag[:, None, None], torch.diag(prior_w6), 0.0)
-    k = dict(lm_base=win.lm_base.long(), obs_cam=win.obs_cam.long(),
-             obs_lm=win.obs_lm.long(), obs_px=win.obs_px, obs_w=win.obs_valid.to(f32),
-             lm_w=win.lm_valid.to(f32), free_cam=free_cam, free_w=free_cam.to(f32),
-             free6=torch.repeat_interleave(free_cam, 6),
-             kp=torch.full((), kernel_param, dtype=f32, device=dev), prior_w6=prior_w6,
+    k = dict(lm_w=win.lm_valid.to(f32), free_cam=free_cam, free_w=free_cam.to(f32),
+             free6=torch.repeat_interleave(free_cam, 6), prior_w6=prior_w6,
              prior_blocks=prior_blocks, init_R=init_R, init_t=init_t,
-             eye6C=torch.eye(C * 6, dtype=f32, device=dev), **plan._asdict())
+             eye6C=torch.eye(C * 6, dtype=f32, device=dev), **obs)
 
     cost0 = _cost(k, win.cam_pose, win.lm_pos, cam, use_kernel)
     cam_pose, lm_pos = win.cam_pose, win.lm_pos

@@ -1,31 +1,38 @@
-"""Several independent SLAM runs in frame lockstep on one card.
+"""Several independent SLAM runs in frame lockstep over a mesh of devices.
 
 Counterpart of ``srba_slam_tpu/parallel/fleet.py``. ``FleetSLAM`` advances S
 sequences one frame at a time together (multi-run evaluation, parameter
-sweeps, fleet replay; the reference app runs one sequence, single-threaded):
+sweeps, fleet replay; the reference app runs one sequence, single-threaded).
+The S sequences are sharded over a mesh (``parallel/batch.py``): sequence
+``i`` lives on ``mesh.devices[i // (S // n)]`` for a mesh of n devices, and
+its estimator was built there. The default mesh is JAX's: the largest
+count of the machine's cards that divides S (one card: the whole fleet on
+it).
 
-* the frontend of all S sequences is one ``extract_and_match_batch`` over
-  their 2S images, each sequence at its own adaptive FAST/ORB thresholds
-  (K1 takes one threshold per image): one K1 and one K2 launch per
-  attempt. The low-match retry protocol (reference
-  src/CSRBAStereoSLAMEstimator.cpp:263-315) runs per sequence, fleet-wide:
-  the sequences whose matches fell short go through the frontend again
-  together, at most 6 attempts;
-* the tracking and pose solve of the sequences in an attempt is one
-  ``solve_pose`` of one lane per sequence (``models/vo.py`` ``track_batch``;
-  ≙ JAX's ``_build_vo_prog``);
-* the keyframe checks of the sequences that check this step are one
+* the frontend of each shard's sequences is one ``extract_and_match_batch``
+  over their images on the shard's device, each sequence at its own
+  adaptive FAST/ORB thresholds (K1 takes one threshold per image): one K1
+  and one K2 launch per shard per attempt. The low-match retry protocol
+  (reference src/CSRBAStereoSLAMEstimator.cpp:263-315) runs per sequence,
+  fleet-wide: the sequences whose matches fell short go through the
+  frontend again together, at most 6 attempts;
+* the tracking and pose solve of a shard's sequences in an attempt is one
+  ``solve_pose`` of one lane per sequence (``models/vo.py``
+  ``solve_tracks``; ≙ JAX's ``_build_vo_prog``), and its outputs come to the
+  host in one copy per shard;
+* the keyframe checks of a shard's sequences that check this step are one
   batched ``query_and_associate`` over their stacked keyframe stores and
   BoW databases, lanes = (sequence, candidate) (≙ JAX's
   ``_build_qa_prog``); only the checking sequences advance their DA seeds;
+* every shard's frontends, and every shard's checks, are enqueued before
+  the host reads any of their outputs, so distinct cards overlap (a pose
+  solve reads its exit test between GN blocks, so the shards' solves take
+  turns on the host);
 * every sequence's host bookkeeping goes through its own estimator's
   methods, the single copy that per-frame stepping uses: the retry protocol
   ``adaptive_vo``, the VO engine's ``commit_frame`` (IDs), and the walk's
   head (pose, triggers) and tail (the keyframe decision). So a fleet run
-  makes each sequence's solo decisions.
-
-The JAX package shards the fleet over a device mesh; one H100 has no mesh,
-and the fleet is a leading batch dimension.
+  makes each sequence's solo decisions, on any mesh.
 """
 
 from __future__ import annotations
@@ -39,24 +46,37 @@ from srba_slam_tpu_torch.models.data_association import query_and_associate
 from srba_slam_tpu_torch.models.estimator import SRBAStereoSLAMEstimator, StepResult
 from srba_slam_tpu_torch.models.keyframe import KFArrays
 from srba_slam_tpu_torch.models.vo import (
-    FrameFeatures, extract_and_match_batch, stack_features, to_host, track_batch,
+    FrameFeatures, commit_tracks, extract_and_match_batch, solve_tracks, stack_features,
+    to_host,
 )
 from srba_slam_tpu_torch.ops import prng
+from srba_slam_tpu_torch.parallel.batch import Mesh, canonical_device, fleet_mesh
 
 
 class FleetSLAM:
     """Lockstep multi-sequence SLAM with a batched frontend, pose solve
-    and keyframe check."""
+    and keyframe check per shard of a device mesh."""
 
-    def __init__(self, estimators: list[SRBAStereoSLAMEstimator]):
+    def __init__(self, estimators: list[SRBAStereoSLAMEstimator], mesh: Mesh | None = None):
         assert estimators, "need at least one estimator"
         self.ests = estimators
         e0 = estimators[0]
         for e in estimators[1:]:
             assert e.capacity == e0.capacity and e.max_kfs == e0.max_kfs, \
                 "fleet sequences must share capacities"
-            assert e.device == e0.device and e.cam == e0.cam and e.vo_opts == e0.vo_opts, \
-                "fleet sequences share one frontend: device, camera and VO options"
+            assert e.cam == e0.cam and e.vo_opts == e0.vo_opts, \
+                "fleet sequences share one frontend: camera and VO options"
+        self.mesh = fleet_mesh(len(estimators), e0.device) if mesh is None else mesh
+        n = len(self.mesh.devices)
+        if len(estimators) % n:
+            raise ValueError(f"{len(estimators)} sequences do not split over a mesh of {n} "
+                             "devices")
+        per = len(estimators) // n
+        self.shards = [list(range(s * per, (s + 1) * per)) for s in range(n)]
+        for dev, shard in zip(self.mesh.devices, self.shards):
+            assert all(canonical_device(estimators[i].device) == dev for i in shard), \
+                f"the estimators of a shard live on its device {dev}"
+        self._shard_of = {i: s for s, shard in enumerate(self.shards) for i in shard}
 
     def run(self, sources, max_frames: int | None = None):
         """Drive S frame sources in lockstep until the shortest is
@@ -101,58 +121,71 @@ class FleetSLAM:
                 e.step(left, right)
             return
 
-        e0 = self.ests[0]
-        lefts = torch.as_tensor(np.stack([f[0] for f in frames]), device=e0.device)
-        rights = torch.as_tensor(np.stack([f[1] for f in frames]), device=e0.device)
+        frames_on = [[torch.as_tensor(np.stack([frames[i][j] for i in shard]), device=dev)
+                      for j in (0, 1)] for dev, shard in zip(self.mesh.devices, self.shards)]
         results = []
         for e in self.ests:
             e.frame_idx += 1
             results.append(StepResult(e.frame_idx))
             e.step_log.append(results[-1])
 
-        # the frontend of the sequences still in the retry protocol as one
-        # batch, each at its own thresholds; every sequence's protocol is its
-        # estimator's own (one VO pass per send)
+        # the frontend of each shard's sequences still in the retry protocol
+        # as one batch, each at its own thresholds; every sequence's protocol
+        # is its estimator's own (one VO pass per send)
         protos = [e.adaptive_vo() for e in self.ests]
         for p in protos:
             next(p)
         vos = [None] * S
         pending = list(range(S))
         while pending:
-            ths = [self.ests[i].vo.thresholds() for i in pending]
-            sel = torch.as_tensor(pending, device=e0.device)
-            fast = torch.tensor([t[0] for t in ths], dtype=torch.float32, device=e0.device)
-            curs = extract_and_match_batch(lefts[sel], rights[sel], e0.cam, fast,
-                                           [t[1] for t in ths], **e0.vo.frontend_options())
+            work = []  # (sequences, their frames' features) per shard
+            for (lefts, rights), dev, shard in zip(frames_on, self.mesh.devices, self.shards):
+                idx = [i for i in pending if i in shard]
+                if not idx:
+                    continue
+                ths = [self.ests[i].vo.thresholds() for i in idx]
+                sel = torch.as_tensor([i - shard[0] for i in idx], device=dev)
+                fast = torch.tensor([t[0] for t in ths], dtype=torch.float32, device=dev)
+                work.append((idx, extract_and_match_batch(
+                    lefts[sel], rights[sel], self.ests[idx[0]].cam, fast, [t[1] for t in ths],
+                    **self.ests[idx[0]].vo.frontend_options())))
+            solved = [(idx, curs, solve_tracks([self.ests[i].vo for i in idx], curs))
+                      for idx, curs in work]
             still = []
-            for i, vo in zip(pending, track_batch([self.ests[i].vo for i in pending], curs)):
-                try:
-                    protos[i].send(vo)
-                    still.append(i)
-                except StopIteration as done:
-                    vos[i] = done.value
+            for idx, curs, outs in solved:
+                engines = [self.ests[i].vo for i in idx]
+                for i, vo in zip(idx, commit_tracks(engines, curs, to_host(outs))):
+                    try:
+                        protos[i].send(vo)
+                        still.append(i)
+                    except StopIteration as done:
+                        vos[i] = done.value
             pending = still
 
-        # each sequence's walk head (pose, triggers); the checks of all the
-        # sequences that check as one batch; then each one's decision
-        checks = [(e, res, force) for e, res, vo in zip(self.ests, results, vos)
+        # each sequence's walk head (pose, triggers); the checks of each
+        # shard's sequences that check as one batch; then each one's decision
+        checks = [(i, res, force) for i, (e, res, vo) in enumerate(zip(self.ests, results, vos))
                   if (force := e._walk_head(res, vo)) is not None]
         if checks:
             self._check(checks)
 
     def _check(self, checks):
-        """The keyframe checks ``checks`` [(estimator, StepResult,
-        force_new_kf)] of one step: one batched check for the sequences
-        whose vocabulary and check options agree (one batch in a fleet
-        built as the CLI builds it), then each sequence's decision."""
+        """The keyframe checks ``checks`` [(sequence, StepResult,
+        force_new_kf)] of one step: one batched check per shard for the
+        sequences whose vocabulary and check options agree (one batch a
+        shard in a fleet built as the CLI builds it), every batch enqueued
+        before any is read; then each sequence's decision."""
         groups = {}
-        for e, res, force in checks:
+        for i, res, force in checks:
+            e = self.ests[i]
             seed = e.next_check_key()
             opts = e.check_options()
-            sig = (id(e.bow.voc), tuple(sorted(opts.items())), e.debug.enabled)
+            sig = (self._shard_of[i], id(e.bow.voc), tuple(sorted(opts.items())),
+                   e.debug.enabled)
             groups.setdefault(sig, (opts, []))[1].append((e, res, force, seed))
-        for opts, group in groups.values():
-            pulled = self._check_group(opts, group)
+        queried = [(group, self._check_group(opts, group)) for opts, group in groups.values()]
+        for group, outs in queried:
+            pulled = self._pull_group(group, outs)
             for q, (e, res, force, _seed) in enumerate(group):
                 e._walk_tail(res, e.vo.last_frame(), force, [a[q] for a in pulled])
 
@@ -160,8 +193,8 @@ class FleetSLAM:
     def _check_group(opts: dict, group: list) -> list:
         """One ``query_and_associate`` for the sequences of ``group``
         [(estimator, StepResult, force_new_kf, seed)] over their stacked
-        frames, stores and BoW databases, its outputs copied to the host
-        once (the sequence dimension leading)."""
+        frames, stores and BoW databases (one device); returns the check's
+        outputs (the sequence dimension leading), not yet read."""
         ests = [e for e, *_ in group]
         e0 = ests[0]
         cur = stack_features([e.vo.last_frame() for e in ests])
@@ -174,10 +207,16 @@ class FleetSLAM:
                                                                       for e in ests)))),
                 torch.stack([e.bow._db for e in ests]), e0.bow._leaf_bits, e0.bow._weights,
                 [e.store.n_kfs for e in ests], e0.cam, keys, **opts)
+        return e0.check_outputs(top_s, top_i, da, cur)
+
+    @staticmethod
+    def _pull_group(group: list, outs: list) -> list:
+        """The outputs ``outs`` of ``_check_group`` copied to the host once."""
+        ests = [e for e, *_ in group]
         with contextlib.ExitStack() as sections:
             for e in ests:
                 sections.enter_context(e.profiler.section("performDA"))
-            pulled = to_host(e0.check_outputs(top_s, top_i, da, cur))
+            pulled = to_host(outs)
             for e in ests:
                 e._reanchor_if_dirty()
         return pulled

@@ -22,6 +22,7 @@ import statistics
 import torch
 
 from srba_slam_tpu_torch.ops import cuda_build
+from srba_slam_tpu_torch.parallel.batch import canonical_device
 
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
@@ -36,47 +37,54 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def graph_ms(fn, reps: int = 100, replays: int = 5) -> float:
+def graph_ms(fn, reps: int = 100, replays: int = 5, device=None) -> float:
     """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
     graph after 3 warm-up calls, the median of ``replays`` timed replays
-    divided by ``reps``. ``fn``'s inputs stay fixed."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    divided by ``reps``. ``fn``'s inputs stay fixed and live on ``device``
+    (the current device by default); the warm-up, the capture, the replays
+    and the events run on its current stream."""
+    dev = canonical_device("cuda" if device is None else device)
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):  # a capture stream on ``dev``
+            for _ in range(reps):
+                fn()
         graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    del graph
+        torch.cuda.synchronize(dev)
+        times = []
+        for _ in range(replays):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+        del graph
     return statistics.median(times)
 
 
-def launch_floor_ms(grid: tuple[int, int, int], block: tuple[int, int, int]) -> float:
+def launch_floor_ms(grid: tuple[int, int, int], block: tuple[int, int, int],
+                    device=None) -> float:
     """Device ms of one launch of an empty kernel on ``grid`` blocks of
-    ``block`` threads, captured and replayed as ``graph_ms`` does."""
+    ``block`` threads on ``device`` (the current device by default),
+    captured and replayed as ``graph_ms`` does."""
     lib = cuda_build.load()
+    dev = canonical_device("cuda" if device is None else device)
 
     def launch():
-        code = lib.srba_empty_launch(*grid, *block, torch.cuda.current_stream().cuda_stream)
+        code = lib.srba_empty_launch(*grid, *block, torch.cuda.current_stream(dev).cuda_stream)
         if code != 0:
             raise RuntimeError(f"empty kernel launch failed: cudaError {code}")
 
-    return graph_ms(launch)
+    return graph_ms(launch, device=dev)
 
 
 def profile_calls(fn, reps: int = 1):

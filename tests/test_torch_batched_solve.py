@@ -243,8 +243,8 @@ def test_batched_vo_step_b3_matches_jax(shared_blur):
         jout = jax.device_get(jbatch.batched_vo_step(
             mesh, jnp.asarray(lefts), jnp.asarray(rights), jprev, jnp.asarray(init),
             JCam(**SMALL), fast_th=8.0, k=k))
-        tout = batch.batched_vo_step(lefts, rights, tprev, init, StereoCamera(**SMALL),
-                                     fast_th=8.0, k=k, device="cpu")
+        tout = batch.batched_vo_step(batch.make_mesh(devices=["cpu"]), lefts, rights, tprev,
+                                     init, StereoCamera(**SMALL), fast_th=8.0, k=k)
         for name in ("xs_l", "ys_l", "m_valid", "m_r_idx"):
             np.testing.assert_array_equal(getattr(tout[0], name).numpy(),
                                           np.asarray(getattr(jout[0], name)), err_msg=name)

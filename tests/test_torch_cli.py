@@ -150,7 +150,7 @@ def test_cli_fleet_matches_jax_cli(tmp_path, capsys):
         assert fn([ini, "--cpu", "--synthetic", "10", "--fleet", "2"]) == 0
         outs.append(out)
     said = capsys.readouterr().out
-    assert "[srba_slam_tpu_torch] fleet: 2 sequences x 10 frames on 1 card" in said
+    assert "[srba_slam_tpu_torch] fleet: 2 sequences x 10 frames on a 1-device mesh" in said
     for i in range(2):
         kf_t = open(os.path.join(outs[0], f"seq{i}", "kf_frames.txt")).read()
         kf_j = open(os.path.join(outs[1], f"seq{i}", "kf_frames.txt")).read()

@@ -616,3 +616,93 @@ def test_cli_runs_on_the_card(cuda, tmp_path, capsys):
     assert (tmp_path / "out" / "map_viewer.html").exists() and (tmp_path / "s.npz").exists()
     assert main([str(ini), "--synthetic", "2", "--resume", str(tmp_path / "s.npz")]) == 0
     assert "resumed from" in capsys.readouterr().out
+
+
+FLEET_CAM = dict(fx_l=90.0, fy_l=90.0, cx_l=80.0, cy_l=48.0, fx_r=90.0, fy_r=90.0, cx_r=80.0,
+                 cy_r=48.0, baseline=0.5, width=160, height=96)
+FLEET_OPTIONS = dict(orb_adaptive_fast_th=True, n_feats=128, detect_fast_th=12,
+                     adaptive_th_min_matches=30, max_translation=0.5, max_rotation=10.0,
+                     updated_matches_th=30, vo_id_tracking_th=25, srba_submap_size=5,
+                     srba_max_optimize_depth=3, da_filter_by_direction=False, residual_th=10.0)
+
+
+def test_fleet_on_a_repeated_card_mesh_equals_meshless(cuda, monkeypatch):
+    """Four sequences (the workload of tests/test_torch_parallel.py's fleet,
+    two more seeds) on ``["cuda:0"] * 4``, one sequence a shard: the
+    mesh-less fleet's decisions, keyframe poses within 1e-4; K1 and K2 once
+    per shard per lockstep attempt."""
+    from srba_slam_tpu_torch.models.bow import Vocabulary
+    from srba_slam_tpu_torch.parallel import fleet
+    from srba_slam_tpu_torch.parallel.batch import make_mesh
+
+    cam = StereoCamera(**FLEET_CAM)
+    rng = np.random.default_rng(0)
+    voc = Vocabulary.train(rng.integers(0, 2**32, (512, 8), dtype=np.uint64).astype(np.uint32),
+                           k=8, L=2, seed=0)
+    seqs = [list(SyntheticSource(cam, n_frames=12, seed=s, step=0.12)) for s in (11, 23, 35, 47)]
+
+    sizes = []
+    frontend = fleet.extract_and_match_batch
+    monkeypatch.setattr(fleet, "extract_and_match_batch", lambda lefts, *a, **k: (
+        sizes.append(len(lefts)), frontend(lefts, *a, **k))[1])
+
+    def run(mesh):
+        sizes.clear()
+        ests = []
+        for _ in seqs:
+            e = SRBAStereoSLAMEstimator(
+                GeneralOptions(), SRBAStereoSLAMOptions(camera=cam, **FLEET_OPTIONS),
+                VOOptions(fast_th=12, n_feats=128), capacity=128, max_kfs=32, device=cuda)
+            e.initialize(vocabulary=voc)
+            ests.append(e)
+        before = hopper_fast.fast_nms.launches, hopper_fast.orb_descriptors.launches
+        fleet.FleetSLAM(ests, mesh=mesh).run(seqs)
+        n_k1 = hopper_fast.fast_nms.launches - before[0]
+        assert hopper_fast.orb_descriptors.launches - before[1] == n_k1
+        return ests, n_k1, list(sizes)
+
+    plain, n_plain, sizes_plain = run(make_mesh(devices=[cuda]))
+    meshed, n_meshed, sizes_meshed = run(make_mesh(devices=[cuda] * 4))
+    for m, p in zip(meshed, plain):
+        assert decisions(m.step_log) == decisions(p.step_log)
+        n = p.store.n_kfs
+        assert m.store.n_kfs == n >= 2
+        assert float(np.abs(m.rba.kf_global[:n] - p.rba.kf_global[:n]).max()) <= 1e-4
+    # bootstrap frames: one launch a sequence; then one a shard an attempt:
+    # the mesh-less fleet's batch of an attempt is one launch a sequence here
+    assert n_plain == 4 + len(sizes_plain) and len(sizes_plain) >= 11
+    assert n_meshed == 4 + len(sizes_meshed) == 4 + sum(sizes_plain)
+    assert set(sizes_meshed) == {1}
+
+
+def test_kernels_and_graphs_on_a_second_card(cuda):
+    """Where the machine has two cards: K1 and K2 on ``cuda:1`` equal their
+    plain versions bit for bit, and a window solve on ``cuda:1`` replayed
+    as CUDA graphs equals its eager blocks, with ``cuda:0`` the current
+    device throughout (the graph helper captures and replays on the
+    tensors' card)."""
+    from srba_slam_tpu_torch.ops import cuda_graphs, window_ba
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA card")
+    dev = torch.device("cuda", 1)
+    rng = np.random.default_rng(2)
+    with torch.cuda.device(0):
+        imgs = torch.from_numpy(rng.integers(0, 256, (2, 370, 1226)).astype(np.uint8)).to(dev)
+        scores = hopper_fast.fast_nms(imgs, 12.0)
+        assert scores.device == dev
+        assert torch.equal(scores, hopper_fast.fast_nms_plain(imgs, 12.0))
+        ys, xs, _, valid = grid_topk(scores, cell=5, k=512)
+        assert torch.equal(hopper_fast.orb_descriptors(imgs, ys, xs, valid),
+                           hopper_fast.orb_descriptors_plain(imgs, ys, xs, valid))
+        win = window_ba.BAWindow(*(a.to(dev) for a in _bucket_window(8, 512, 1024)))
+        kw = dict(kernel_param=1.5, max_iters=8, stage1_iters=2)
+        graph = window_ba.optimize_window(win, StereoCamera.kitti(), **kw)
+        assert any(key[1] == dev for key in cuda_graphs._GRAPHS)
+        window_ba.WBA_GRAPHS = False
+        try:
+            eager = window_ba.optimize_window(win, StereoCamera.kitti(), **kw)
+        finally:
+            window_ba.WBA_GRAPHS = True
+    for field, a, b in zip(graph._fields, graph, eager):
+        assert a.device == dev and torch.equal(a, b), field

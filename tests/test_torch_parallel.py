@@ -2,7 +2,7 @@
 
 The small camera of tests/test_parallel.py (160x96). The JAX side runs over
 the virtual CPU devices tests/conftest.py sets up (``make_mesh``); the port
-has one device and no mesh.
+over a mesh of the one CPU device (tests/test_torch_mesh.py shards).
 
 * ``batched_vo_step`` over 8 sequences (random frames, the right image the
   left rolled by 3 px), twice, the second step tracking the first's
@@ -89,8 +89,8 @@ def test_batched_vo_step_matches_jax(shared_blur):
         jout = jax.device_get(jbatch.batched_vo_step(
             mesh, jnp.asarray(lefts), jnp.asarray(rights), jprev, jnp.asarray(init),
             JCam(**CAM), fast_th=8.0, k=k))
-        tout = batch.batched_vo_step(lefts, rights, tprev, init, StereoCamera(**CAM),
-                                     fast_th=8.0, k=k, device="cpu")
+        tout = batch.batched_vo_step(batch.make_mesh(devices=["cpu"]), lefts, rights, tprev,
+                                     init, StereoCamera(**CAM), fast_th=8.0, k=k)
         _assert_same_features(tout[0], jout[0])
         np.testing.assert_array_equal(tout[2].numpy(), jout[2])
         np.testing.assert_allclose(tout[1].numpy(), jout[1], atol=1e-4)
