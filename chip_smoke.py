@@ -46,7 +46,8 @@ not 0 (there is no CPU fallback):
                the margin-3 frontend of phase 8 is what launches K3;
 7. estimator - ``SRBAStereoSLAMEstimator`` on the card over the 81-frame
                bench workload, under ``torch.use_deterministic_algorithms``,
-               then ``finalize``. K1 and K2 launch once per VO pass (the
+               with the strict solve schedule (``solve_sync``, as the
+               fingerprint was made), then ``finalize``. K1 and K2 launch once per VO pass (the
                adaptive retry re-runs frames); the per-frame keyframe
                decisions equal the JAX package's per-frame run, committed as
                ``srba_slam_tpu_torch/data/jax_bench_steplog.json``; the frames
@@ -92,7 +93,8 @@ not 0 (there is no CPU fallback):
                and the CLI reads them through whichever loader builds;
 10. batched  - the bench estimator through ``perform_stereo_slam_batched``
                at batch 8 over the 81 frames, under
-               ``torch.use_deterministic_algorithms``: decisions equal the
+               ``torch.use_deterministic_algorithms``, with the strict solve
+               schedule (its keyframe checks deferred): decisions equal the
                committed JAX fingerprint (the JAX package's batch-8 run makes
                its per-frame run's decisions), ATE under 0.5 m, K1 and K2 once
                per scan dispatch (retry tails included) and for the bootstrap
@@ -119,11 +121,12 @@ not 0 (there is no CPU fallback):
                ``solve_pose`` at L = 5 against five L = 1 calls, and at exit-
                test periods 1, 2, 4, 8 and 12, beside a VO solve (L = 1);
 13. insertion - where an insertion's and the epilogue's time goes: the
-               bench estimator of phase 7 again over the 81 frames (its
-               decisions equal the fingerprint), each part of an insertion
+               bench estimator of phase 7 again over the 81 frames (strict
+               schedule, each window a group of one; its decisions equal the
+               fingerprint), each part of an insertion
                timed alone, synchronized around it (``define_new_keyframe``'s
-               host work, the window upload, ``assembly_plan``,
-               ``optimize_window``, the copy out, ``_commit_one``,
+               host work, the group's upload, ``assembly_plan``,
+               ``optimize_window``, the group's read, ``_commit_one``,
                ``spanning_tree(0)``, ``on_commit``, ``bow.insert``,
                ``store.append``); every window solved again, whole and with
                ``max_iters=0`` (stage 1), at its bucket's shapes; the LM
@@ -151,12 +154,38 @@ not 0 (there is no CPU fallback):
                windows through ``SRBAEngine(mesh=)`` against the engine
                without a mesh, window poses within 1e-3; (d)
                ``parallel/multichip.py`` ``dryrun_multichip`` on the same
-               devices.
+               devices;
+15. pipeline - the JAX package's default schedule on the bench workload:
+               window solves pipelined in groups, keyframe checks deferred
+               and fused per batch, one read of the host a batch. (a)
+               ``perform_stereo_slam_batched`` at batch 20 (the JAX bench's)
+               and at 8: 21 warm-up frames, then the 60 timed: decisions
+               equal the fingerprint, ATE under 0.5 m, keyframe positions
+               within 1e-3 m of the JAX package's run of the same schedule
+               (``utils/bench_workload.py`` ``PIPELINE_FINGERPRINT``) and
+               within 0.15 m of phase 10's strict run (the JAX package's
+               scheduling gate); reads (``to_host``) and host syncs a batch,
+               predictions, misses, demotions and replays, window groups
+               and their sizes, fused check groups, total s and frames/s
+               beside phase 10's; (b) ``solve_flush_before_insert`` at
+               batch 8: the same checks, no farther from strict than
+               pipelined; (c) the device-resident loop (the 60 frames on
+               the card in one chunk, one scan): the same checks but the
+               distance to strict, which is printed beside the JAX run's;
+               (d) phase 13's windows in groups by bucket through
+               ``optimize_windows_batch_blob``: each slot equal to its
+               one-window solve, graph blocks equal to eager ones, ms a
+               group beside the one-window solves; (e) one fused check group
+               of (a) again under ``set_sync_debug_mode("error")`` (no host
+               sync), each slot equal to the one-check path on the same
+               rows; the solves' exit reads on and off at batch 8, strict
+               and pipelined, in turns: s and syncs, the same bits.
 
 Then one JSON line with, per kernel: its launches over the driven paths
 (``launches_by_path``: the estimator run, the margin-3 frontend, the
-two-octave engine, the CLI run, the batched run, the fleet run and the
-mesh runs of phase 14 (a) and (b), each counted from 0;
+two-octave engine, the CLI run, the batched run, the fleet run, the
+mesh runs of phase 14 (a) and (b) and the runs of phase 15 (a)-(c), each
+counted from 0;
 ``on_main_path`` says whether one of the paths a user of the entry points
 can reach, all but the margin-3 frontend, launched it); its
 largest error against the plain version; ``ms`` and ``plain_ms``, the time
@@ -207,7 +236,7 @@ from srba_slam_tpu_torch.models import vo as vo_mod  # noqa: E402
 from srba_slam_tpu_torch.models.estimator import bench_estimator  # noqa: E402
 from srba_slam_tpu_torch.models.vo import _avgpool2, _octave_budget, extract_and_match  # noqa: E402
 from srba_slam_tpu_torch.ops import (  # noqa: E402
-    cuda_build, hopper_fast, orb, posegraph, prng, robust_lm, window_ba,
+    cuda_build, cuda_graphs, hopper_fast, orb, posegraph, prng, robust_lm, window_ba,
 )
 from srba_slam_tpu_torch.ops.fast import fast_score_map as fast_score_map_plain  # noqa: E402
 from srba_slam_tpu_torch.ops.hopper_fast import (  # noqa: E402
@@ -245,7 +274,7 @@ N_CLI_FRAMES = 60
 N_RESUME_AT = 30
 # the paths a user of the entry points can reach (phase_options' margin-3
 # frontend is reached through the library's extract_and_match only)
-USER_PATHS = ("estimator", "two_octave_engine", "cli", "batched", "fleet", "mesh")
+USER_PATHS = ("estimator", "two_octave_engine", "cli", "batched", "fleet", "mesh", "pipeline")
 BATCH = 8
 FLEET_SEEDS = (11, 48, 85, 122)
 N_FLEET_FRAMES = 30
@@ -260,6 +289,17 @@ SPLIT_REPS = 2
 MESH_SIZE = 4
 LC_BUCKET = dict(C=32, L=8192, O=16384, n_cams=30, n_lms=5000, pose_noise=0.03, px_noise=0.3)
 SHARDED_TOL = 1e-3
+# phase 15: the JAX package's bench loop (bench.py: 21 warm-up frames at
+# batch 20, the device-resident loop in chunks of 60) and its scheduling
+# gate (tests/test_batch_mode.py: pipelined keyframe poses within 0.15 m of
+# the strict schedule's)
+PIPE_WARMUP = bw.WARMUP_FRAMES
+PIPE_BATCH = bw.SCHEDULES["pipelined b20"][0]
+DEV_CHUNK = bw.DEV_CHUNK
+PIPE_POSE_GATE_M = 0.15
+# keyframe positions against the JAX package's run of the same schedule:
+# the CPU's tolerance for pipelined runs (tests/test_torch_pipeline.py)
+PIPE_JAX_GATE_M = 1e-3
 PALLAS = "srba_slam_tpu/ops/pallas_fast.py"
 # f32 operations per pixel that the FAST score needs on given inputs (see
 # _fast_work): none within the margin, where the output is 0; 21 for an
@@ -698,8 +738,8 @@ def _run_estimator(device, frames, snapshot_at=None, syncs=None):
     """Step the bench estimator over ``frames``; returns it with per-frame
     host ms (synchronized), the keyframe poses after frame ``snapshot_at``,
     and with a ``SyncCount`` the host syncs of each frame and of each
-    keyframe check."""
-    est = bench_estimator(device)
+    keyframe check. The strict solve schedule: the fingerprint's."""
+    est = bench_estimator(device, solve_sync=True)
     passes = _count_vo_passes(est)
     check_syncs = _count_calls_syncs(est, "_kf_check", syncs) if syncs else []
     ms, frame_syncs, snap = [], [], None
@@ -721,18 +761,19 @@ def _capture_checks():
     """Record the inputs of every keyframe check the estimator makes (the
     store and the BoW database as they were, copied on the card); returns
     the records and the function that puts the original back."""
-    records, run = [], estimator_mod.query_and_associate
+    records, run = [], estimator_mod.query_and_associate_packed
 
-    def capturing(frame, arrays, db, leaf_bits, weights, n_kfs, cam, key, **kw):
+    def capturing(frame, arrays, db, leaf_bits, weights, n_kfs, cam, seed, debug=False, **kw):
         records.append(dict(frame=frame, arrays=type(arrays)(*(a.clone() for a in arrays)),
                             db=db.clone(), leaf_bits=leaf_bits, weights=weights,
-                            n_kfs=n_kfs, cam=cam, key=key.clone(), kw=kw))
-        return run(frame, arrays, db, leaf_bits, weights, n_kfs, cam, key, **kw)
+                            n_kfs=n_kfs, cam=cam, key=prng.PRNGKey(seed, device=db.device),
+                            kw=kw))
+        return run(frame, arrays, db, leaf_bits, weights, n_kfs, cam, seed, debug=debug, **kw)
 
-    estimator_mod.query_and_associate = capturing
+    estimator_mod.query_and_associate_packed = capturing
 
     def restore():
-        estimator_mod.query_and_associate = run
+        estimator_mod.query_and_associate_packed = run
 
     return records, restore
 
@@ -1113,10 +1154,13 @@ def _kernel_line(imgs, thr, k: int = 512) -> str:
             f"plain versions")
 
 
-def phase_batched(frames, gt_poses, per_frame_s: float) -> dict:
-    """Phase 10: the bench estimator through perform_stereo_slam_batched."""
+def phase_batched(frames, gt_poses, per_frame_s: float) -> tuple[dict, dict]:
+    """Phase 10: the bench estimator through perform_stereo_slam_batched,
+    with the strict solve schedule (the fingerprint's). Returns the
+    launches and what phase 15 compares with: the keyframe poses and the
+    total seconds."""
     fp = bw.load_fingerprint()
-    scans, batches = [], [0]
+    scans = []
     scan = estimator_mod.vo_scan
 
     def counted_scan(lefts, *a, **k):
@@ -1124,14 +1168,7 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> dict:
         return scan(lefts, *a, **k)
 
     torch.use_deterministic_algorithms(True)
-    est = bench_estimator(DEV)
-    step_batch = est.step_batch
-
-    def counted_batch(lefts, rights):
-        batches[0] += 1
-        return step_batch(lefts, rights)
-
-    est.step_batch = counted_batch
+    est = bench_estimator(DEV, solve_sync=True)
     estimator_mod.vo_scan = counted_scan
     _reset_launches()
     try:
@@ -1145,6 +1182,7 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> dict:
         estimator_mod.vo_scan = scan
     counts = _launches()
     torch.use_deterministic_algorithms(False)
+    n_batches = len(est.lat["batches"])
     # frame 0 bootstraps through step(): one VO pass; then K1 and K2 once a scan
     check(counts == {"fast_nms": len(scans) + 1, "orb_descriptors": len(scans) + 1,
                      "fast_score_map": 0},
@@ -1155,16 +1193,18 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> dict:
           f"batched decisions differ from the JAX fingerprint at {len(diff)} frames: {diff[:5]}")
     kf_frames = [r.frame_idx for r in est.step_log if r.inserted_kf is not None]
     est.finalize()
+    strict_kf = est.rba.kf_global[:est.store.n_kfs].copy()
     final = est.final_poses_cam
     ate = ate_rmse(final[:, 3:], gt_poses[kf_frames][:, 3:], align=True)
     check(np.isfinite(final).all() and ate < ATE_GATE_M, f"batched: aligned ATE {ate} m")
     d_jax = np.abs(final - np.asarray(fp["final_poses_cam"]))
     imgs = torch.from_numpy(np.stack([f[0] for f in frames[1:1 + BATCH]]
                                      + [f[1] for f in frames[1:1 + BATCH]])).to(DEV)
-    print(f"[batched] {len(frames)} frames 370x1226 on CUDA at batch {BATCH}, deterministic "
+    print(f"[batched] {len(frames)} frames 370x1226 on CUDA at batch {BATCH}, strict solve "
+          f"schedule, deterministic "
           f"algorithms: total {wall:.3f} s, {len(frames) / wall:.2f} fps (phase 7 per-frame: "
           f"{per_frame_s:.3f} s, {len(frames) / per_frame_s:.2f} fps; ratio "
-          f"{per_frame_s / wall:.3f}) | {batches[0]} batches, {len(scans)} scan dispatches "
+          f"{per_frame_s / wall:.3f}) | {n_batches} batches, {len(scans)} scan dispatches "
           f"(tails {[b for b in scans if b != BATCH]}), launches {counts}: K1 and K2 once per "
           f"scan + the bootstrap frame | decisions equal the JAX fingerprint (the JAX "
           f"package's batch-8 run makes the per-frame run's decisions, "
@@ -1172,12 +1212,12 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> dict:
           f"{sum(r.kf_check for r in est.step_log)} checks | ATE {ate:.6f} m, final poses vs "
           f"JAX max {d_jax[:, :3].max():.2e} rad / {d_jax[:, 3:].max():.2e} m")
     print(f"[batched syncs] host syncs (torch sync debug warnings): {syncs.n} over "
-          f"{len(frames)} frames ({syncs.n / len(frames):.2f} a frame), inside the keyframe "
-          f"check median {_med(check_syncs)}, max {max(check_syncs, default=0)} over "
-          f"{len(check_syncs)} checks")
+          f"{len(frames)} frames ({syncs.n / len(frames):.2f} a frame, "
+          f"{syncs.n / max(n_batches, 1):.2f} a batch); synchronous checks (miss replays) "
+          f"{len(check_syncs)}, syncs inside each median {_med(check_syncs)}")
     print(f"[batched kernels] one scan's images [{2 * BATCH},370,1226] u8 at threshold 20: "
           + _kernel_line(imgs, 20.0))
-    return counts
+    return counts, dict(kf_global=strict_kf, wall=wall, syncs=syncs.n, batches=n_batches)
 
 
 def phase_fleet(cam) -> tuple[dict, dict]:
@@ -1488,12 +1528,13 @@ def phase_check(cam, frames, rec) -> None:
 
 
 def _split_run(frames):
-    """The bench estimator over ``frames`` with each part of an insertion
-    timed on the host clock, synchronized before and after the part, and
-    every window solve recorded. ``upload`` runs from the entry of
-    ``SRBAEngine._solve`` to ``assembly_plan``, ``copy_out`` from the end of
-    ``optimize_window`` to the end of ``_solve``."""
-    est = bench_estimator(DEV)
+    """The bench estimator over ``frames`` (the strict solve schedule: each
+    window a group of one, landed at its insertion) with each part of an
+    insertion timed on the host clock, synchronized before and after the
+    part, and every window solve recorded. ``upload`` runs from the launch
+    of a group (``SRBAEngine._dispatch_queued``) to its first
+    ``assembly_plan``, ``copy_out`` is the group's read at its commit."""
+    est = bench_estimator(DEV, solve_sync=True)
     rba = est.rba
     parts = {name: [] for name in INSERTION_PARTS}
     solves, entries, marks = [], [], {}
@@ -1510,23 +1551,32 @@ def _split_run(frames):
             return out
         return wrapped
 
-    run_solve, run_plan, run_opt = rba._solve, srba_mod.assembly_plan, srba_mod.optimize_window
+    run_dispatch, run_plan, run_opt = (rba._dispatch_queued, srba_mod._packed_plan,
+                                       srba_mod.optimize_window)
+    run_host = srba_mod.to_host
 
-    def solve(entry):
-        entries.append(entry)
-        sync()
-        marks["start"] = time.perf_counter()
-        out = run_solve(entry)
-        parts["copy_out"].append((time.perf_counter() - marks["solved"]) * 1e3)
-        return out
+    def dispatch():
+        if rba._queued:
+            entries.extend(q["entry"] for q in rba._queued)
+            sync()
+            marks["start"] = time.perf_counter()
+        return run_dispatch()
 
     def plan(*a, **k):
         sync()
         t0 = time.perf_counter()
-        parts["upload"].append((t0 - marks["start"]) * 1e3)
+        if "start" in marks:
+            parts["upload"].append((t0 - marks.pop("start")) * 1e3)
         out = run_plan(*a, **k)
         sync()
         parts["assembly_plan"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def copy_out(tensors):
+        sync()
+        t0 = time.perf_counter()
+        out = run_host(tensors)
+        parts["copy_out"].append((time.perf_counter() - t0) * 1e3)
         return out
 
     def opt(win, cam, **kw):
@@ -1539,8 +1589,8 @@ def _split_run(frames):
         solves.append((win, cam, kw))
         return out
 
-    rba._solve = solve
-    srba_mod.assembly_plan, srba_mod.optimize_window = plan, opt
+    rba._dispatch_queued = dispatch
+    srba_mod._packed_plan, srba_mod.optimize_window, srba_mod.to_host = plan, opt, copy_out
     rba.define_new_keyframe = timing(rba.define_new_keyframe, "define_new_keyframe")
     rba._commit_one = timing(rba._commit_one, "_commit_one")
     rba.spanning_tree = timing(rba.spanning_tree, "spanning_tree(0)", lambda a: a[0] == 0)
@@ -1553,7 +1603,8 @@ def _split_run(frames):
         for left, right in frames:
             est.step(left, right)
     finally:
-        srba_mod.assembly_plan, srba_mod.optimize_window = run_plan, run_opt
+        srba_mod._packed_plan, srba_mod.optimize_window = run_plan, run_opt
+        srba_mod.to_host = run_host
         bow_cls.insert, store_cls.append = run_insert, run_append
     n_ins = sum(r.inserted_kf not in (None, 0) for r in est.step_log)
     return est, parts, solves, entries, n_ins, run_opt
@@ -1912,6 +1963,354 @@ def phase_mesh(frames, cam, fleet_ref: dict, entries: list, rba) -> dict:
     return launches
 
 
+def _pipeline_counters(est):
+    """Wrap what phase 15 counts on one estimator: the batched walk's reads
+    (``to_host`` in the estimator and the engine), the deferred checks'
+    predictions, misses (fast and classic replays) and demotions, the
+    synchronous checks of the replays, the window-solve groups and the
+    fused check groups with their valid slots. Returns the counters and the
+    function that puts the originals back."""
+    n = dict(reads=0, predictions=0, fast_replays=0, classic_replays=0, demotions=0,
+             sync_checks=0, window_groups=[], check_groups=[], first_group=None)
+    run_host_e, run_host_s = estimator_mod.to_host, srba_mod.to_host
+    run_group, run_fused = srba_mod.optimize_windows_batch_blob, estimator_mod.fused_checks_batch
+
+    def host(tensors):
+        n["reads"] += 1
+        return run_host_e(tensors)
+
+    def group(ints, floats, valids, *a, **k):
+        n["window_groups"].append(sum(bool(v) for v in valids))
+        return run_group(ints, floats, valids, *a, **k)
+
+    def fused(feats, arrays, db, leaf_bits, weights, js, rows, valids, cam, seeds, **k):
+        n_valid = sum(bool(v) for v in valids)
+        n["check_groups"].append(n_valid)
+        if n["first_group"] is None and n_valid >= 2:
+            # the first group of two checks or more, its inputs copied as
+            # they were, for (e)
+            n["first_group"] = dict(
+                feats=feats, arrays=type(arrays)(*(a.clone() for a in arrays)), db=db.clone(),
+                leaf_bits=leaf_bits, weights=weights, js=list(js), rows=list(rows),
+                valids=list(valids), cam=cam, seeds=list(seeds), kw=k)
+        return run_fused(feats, arrays, db, leaf_bits, weights, js, rows, valids, cam, seeds,
+                         **k)
+
+    estimator_mod.to_host, srba_mod.to_host = host, host
+    srba_mod.optimize_windows_batch_blob, estimator_mod.fused_checks_batch = group, fused
+    run_defer, run_miss, run_dem = est._defer_check, est._miss_recover, est._demote_shrink_miss
+    run_check = est._kf_check
+
+    def defer(*a):
+        n["predictions"] += 1
+        return run_defer(*a)
+
+    def miss(c, d):
+        before = est._replay_flag
+        out = run_miss(c, d)
+        n["classic_replays" if est._replay_flag and not before else "fast_replays"] += 1
+        return out
+
+    def dem(c, d):
+        out = run_dem(c, d)
+        n["demotions"] += int(out)
+        return out
+
+    def sync_check(frame):
+        n["sync_checks"] += 1
+        return run_check(frame)
+
+    est._defer_check, est._miss_recover, est._demote_shrink_miss = defer, miss, dem
+    est._kf_check = sync_check
+
+    def restore():
+        estimator_mod.to_host, srba_mod.to_host = run_host_e, run_host_s
+        srba_mod.optimize_windows_batch_blob, estimator_mod.fused_checks_batch = (run_group,
+                                                                                  run_fused)
+        for name in ("_defer_check", "_miss_recover", "_demote_shrink_miss", "_kf_check"):
+            del est.__dict__[name]
+
+    return n, restore
+
+
+def _pipelined_run(frames, batch: int, mid: bool = False) -> dict:
+    """The bench estimator with the JAX package's default schedule over
+    ``frames``: ``PIPE_WARMUP`` frames at ``batch``, then the rest in a
+    second call (timed), as the JAX package's bench loop runs; the window
+    solves in flight land (``flush``) inside each timed part."""
+    est = bench_estimator(DEV)
+    est.solve_flush_before_insert = mid
+    n, restore = _pipeline_counters(est)
+    try:
+        t0 = time.perf_counter()
+        est.perform_stereo_slam_batched(frames[:PIPE_WARMUP], batch=batch)
+        est.rba.flush()
+        sync()
+        warm_s = time.perf_counter() - t0
+        n_b0, reads0 = len(est.lat["batches"]), n["reads"]
+        n_groups0 = len(n["window_groups"])
+        with SyncCount() as syncs:
+            t0 = time.perf_counter()
+            est.perform_stereo_slam_batched(frames[PIPE_WARMUP:], batch=batch)
+            est.rba.flush()
+            sync()
+            timed_s = time.perf_counter() - t0
+    finally:
+        restore()
+    n_timed = len(frames) - PIPE_WARMUP
+    n_batches = len(est.lat["batches"]) - n_b0
+    return dict(est=est, n=n, warm_s=warm_s, timed_s=timed_s, fps=n_timed / timed_s,
+                batches=n_batches, reads=n["reads"] - reads0, syncs=syncs.n,
+                timed_groups=n["window_groups"][n_groups0:])
+
+
+def _gate_run(name: str, run: dict, fp: dict, jax_run: dict, gt_poses, strict_kf) -> dict:
+    """Phase 15's checks of one run: the fingerprint's decisions, the ATE
+    gate, the keyframe positions within ``PIPE_JAX_GATE_M`` of the JAX
+    package's run of the same schedule (``bw.PIPELINE_FINGERPRINT``), and
+    for the batched runs the JAX package's scheduling gate, within 0.15 m
+    of the strict batched run. The device-resident loop is held to the JAX
+    run of its schedule only: its one 60-frame chunk builds each
+    insertion's window before the solves before it have landed, which
+    moves the JAX package's own run of it farther than 0.15 m from strict
+    (the committed file; tests/test_torch_bench_fingerprint.py); its
+    distance to strict is printed."""
+    est = run["est"]
+    got = bw.decisions(est.step_log)
+    diff = [(a, b) for a, b in zip(fp["decisions"], got) if a != b]
+    check(len(got) == len(fp["decisions"]) and not diff,
+          f"{name}: decisions differ from the JAX fingerprint at {len(diff)} frames: "
+          f"{diff[:5]}")
+    kf_frames = [r.frame_idx for r in est.step_log if r.inserted_kf is not None]
+    n = est.store.n_kfs
+    kf = est.rba.kf_global[:n].copy()
+    check(kf.shape == strict_kf.shape, f"{name}: {kf.shape} keyframes, strict {strict_kf.shape}")
+    d_strict = float(np.max(np.linalg.norm(kf[:, 3:] - strict_kf[:, 3:], axis=1)))
+    check(name == "device-resident" or d_strict < PIPE_POSE_GATE_M,
+          f"{name}: keyframe positions {d_strict} m from the strict run (gate "
+          f"{PIPE_POSE_GATE_M} m)")
+    jax_kf = np.asarray(jax_run["kf_global"])
+    check(kf.shape == jax_kf.shape, f"{name}: {kf.shape} keyframes, JAX {jax_kf.shape}")
+    d_jax = float(np.max(np.linalg.norm(kf[:, 3:] - jax_kf[:, 3:], axis=1)))
+    check(d_jax < PIPE_JAX_GATE_M,
+          f"{name}: keyframe positions {d_jax} m from the JAX package's run of the same "
+          f"schedule (gate {PIPE_JAX_GATE_M} m)")
+    est.finalize()
+    ate = ate_rmse(est.final_poses_cam[:, 3:], gt_poses[kf_frames][:, 3:], align=True)
+    check(np.isfinite(est.final_poses_cam).all() and ate < ATE_GATE_M,
+          f"{name}: aligned ATE {ate} m")
+    return dict(d_strict=d_strict, d_jax=d_jax, jax_d_strict=float(np.max(np.linalg.norm(
+        jax_kf[:, 3:] - strict_kf[:, 3:], axis=1))), ate=ate, jax_ate=jax_run["ate_m"], n_kfs=n,
+        checks=sum(r.kf_check for r in est.step_log))
+
+
+def _window_groups(entries) -> str:
+    """(d): phase 13's windows in groups by bucket through
+    ``optimize_windows_batch_blob``: every slot equal to its one-window
+    solve bit for bit, graph blocks equal to eager blocks; ms a group
+    beside the sum of its one-window solves."""
+    cam = StereoCamera.kitti()
+    buckets: dict = {}
+    for e in entries:
+        buckets.setdefault((e["C"], e["L"], e["O"]), []).append(e)
+    rows, kw = [], None
+    for (C, L, O), es in sorted(buckets.items()):
+        grp = es[:window_ba.WINDOW_SLOTS]
+        kw = dict(kernel_param=1.5, max_iters=8, stage1_iters=2)
+        packed = [window_ba.pack_window(*e["window"]) for e in grp]
+        pad = window_ba.WINDOW_SLOTS - len(grp)
+        ints = torch.from_numpy(np.stack([p[0] for p in packed] + [packed[0][0]] * pad)).to(DEV)
+        floats = torch.from_numpy(np.stack([p[1] for p in packed]
+                                           + [packed[0][1]] * pad)).to(DEV)
+        valids = [True] * len(grp) + [False] * pad
+        plans = [window_ba._packed_plan(p[0], C, L, O, DEV) for p in packed]
+        plans = plans + plans[:1] * pad
+        ones = [window_ba.optimize_window_packed_blob(ints[i], floats[i], C, L, O, cam,
+                                                      plan=plans[i], **kw)
+                for i in range(len(grp))]
+        def call():
+            return window_ba.optimize_windows_batch_blob(ints, floats, valids, C, L, O, cam,
+                                                         plans=plans, **kw)
+        out = call()
+        eager = _flag_off(window_ba, "WBA_GRAPHS", call)()
+        for i, one in enumerate(ones):
+            check(torch.equal(out[i], one), f"bucket {(C, L, O)}: slot {i} differs from its "
+                                            f"one-window solve")
+        check(torch.equal(out, eager), f"bucket {(C, L, O)}: graph and eager LM blocks differ")
+        check(not out[len(grp):].any(), f"bucket {(C, L, O)}: a padded row is not 0")
+        group_ms = _host_ms(call, 3)[0]
+        one_ms = sum(_host_ms(lambda i=i: window_ba.optimize_window_packed_blob(
+            ints[i], floats[i], C, L, O, cam, plan=plans[i], **kw), 3)[0]
+            for i in range(len(grp)))
+        rows.append(f"{(C, L, O)} x {len(grp)}: the group {group_ms:.3f} ms, the one-window "
+                    f"solves {one_ms:.3f} ms summed")
+    return "; ".join(rows)
+
+
+def _fused_group_check(g: dict) -> str:
+    """(e): one fused check group of the run again, on copies of its
+    inputs, under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
+    raises), then each slot against the one-check path on the same rows."""
+    arrays = type(g["arrays"])(*(a.clone() for a in g["arrays"]))
+    db = g["db"].clone()
+    call = (lambda: da_mod.fused_checks_batch(
+        g["feats"], arrays, db, g["leaf_bits"], g["weights"], g["js"], g["rows"], g["valids"],
+        g["cam"], g["seeds"], **g["kw"]))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        blobs, _a, _d = call()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    arrays1 = type(g["arrays"])(*(a.clone() for a in g["arrays"]))
+    db1 = g["db"].clone()
+    kw = dict(g["kw"])
+    debug = kw.pop("debug", False)
+    n_valid = sum(g["valids"])
+    k = g["feats"].m_valid.shape[-1]
+    worst = 0.0
+    for i in range(n_valid):
+        frame = vo_mod.FrameFeatures(*(a[g["js"][i]] for a in g["feats"]))
+        row = g["rows"][i]
+        for name in da_mod._ROW_FIELDS:
+            getattr(arrays1, name)[row] = getattr(frame, name)
+        db1[row] = da_mod.bow_vector(frame.desc_l, frame.m_valid, g["leaf_bits"], g["weights"])
+        (one,) = da_mod.query_and_associate_packed(frame, arrays1, db1, g["leaf_bits"],
+                                                   g["weights"], row, g["cam"], g["seeds"][i],
+                                                   debug=debug, **kw)
+        a = da_mod.unpack_check_outputs(blobs[i].cpu().numpy(), 5, k, 4, debug)
+        b = da_mod.unpack_check_outputs(one.cpu().numpy(), 5, k, 4, debug)
+        for name, x, y in zip(("ids", "status", "other_idx", "tracked", "m_valid", "xs_l",
+                               "ys_l", "xs_r", "m_r_idx"), a[1:10], b[1:10]):
+            check(np.array_equal(x, y), f"fused slot {i}: {name} differs from the one-check path")
+        worst = max(worst, float(np.abs(a[0] - b[0]).max()), float(np.abs(a[10] - b[10]).max()))
+        check(worst <= 1e-6, f"fused slot {i}: scores or points differ by {worst}")
+    return (f"one fused_checks_batch of {n_valid} checks in {len(g['valids'])} slots under "
+            f"set_sync_debug_mode('error'): no host sync, {host_ms:.3f} ms host | every slot "
+            f"equal to the one-check path on the same rows (integer fields exact, scores and "
+            f"points within {worst:.1e})")
+
+
+def _exit_read_ab(frames) -> str:
+    """The GN and LM solves' exit reads on (``cuda_graphs.no_exit_reads``
+    made a no-op) and off (the default: the steps past an exit skipped by
+    the graphs' conditional nodes), in turns (on, off, off, on), over the
+    81 frames at batch 8, under the strict and the pipelined schedule:
+    total s and host syncs, medians of two; the decisions and keyframe
+    poses the same bits either way."""
+    rows = []
+    for label, strict_ in (("strict", True), ("pipelined", False)):
+        res = {True: [], False: []}
+        for reads in (True, False, False, True):
+            est = bench_estimator(DEV, solve_sync=strict_)
+            keep = cuda_graphs.no_exit_reads
+            if reads:
+                cuda_graphs.no_exit_reads = contextlib.nullcontext
+            try:
+                with SyncCount() as syncs:
+                    t0 = time.perf_counter()
+                    est.perform_stereo_slam_batched(frames, batch=BATCH)
+                    est.rba.flush()
+                    sync()
+                    wall = time.perf_counter() - t0
+            finally:
+                cuda_graphs.no_exit_reads = keep
+            res[reads].append((wall, syncs.n, bw.decisions(est.step_log),
+                               est.rba.kf_global[:est.store.n_kfs].copy()))
+        ref = res[True][0]
+        for wall, n, dec, kf in res[True] + res[False]:
+            check(dec == ref[2] and np.array_equal(kf, ref[3]),
+                  f"exit reads ({label}): the runs with and without them differ")
+        med = {r: (statistics.median(x[0] for x in v), statistics.median(x[1] for x in v))
+               for r, v in res.items()}
+        rows.append(f"{label}: with exit reads {med[True][0]:.3f} s ({med[True][1]:.0f} syncs), "
+                    f"without (the default) {med[False][0]:.3f} s ({med[False][1]:.0f} syncs)")
+    return "; ".join(rows)
+
+
+def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
+    """Phase 15: the JAX package's default schedule on the bench workload
+    (pipelined window solves, deferred checks, one read a batch): (a) at
+    batch 20 and 8, (b) with solve_flush_before_insert, (c) the device-
+    resident loop, (d) phase 13's windows in groups, (e) one fused check
+    group under the sync debug mode's "error"."""
+    fp = bw.load_fingerprint()
+    _reset_launches()
+    runs = {}
+    for name, (batch, mid) in bw.SCHEDULES.items():
+        if name != "device-resident":
+            runs[name] = _pipelined_run(frames, batch, mid)
+    # (c) the device-resident loop: 21 frames at batch 20, then chunks of 60
+    # frames already on the card, each one scan chained from the one before
+    est = bench_estimator(DEV)
+    est.perform_stereo_slam_batched(frames[:PIPE_WARMUP], batch=PIPE_BATCH)
+    est.rba.flush()
+    rest = frames[PIPE_WARMUP:]
+    chunks = [(torch.from_numpy(np.stack([f[0] for f in rest[c:c + DEV_CHUNK]])).to(DEV),
+               torch.from_numpy(np.stack([f[1] for f in rest[c:c + DEV_CHUNK]])).to(DEV))
+              for c in range(0, len(rest), DEV_CHUNK)]
+    sync()
+    with SyncCount() as dsyncs:
+        t0 = time.perf_counter()
+        est.perform_stereo_slam_device(chunks)
+        est.rba.flush()
+        sync()
+        dev_s = time.perf_counter() - t0
+    runs["device-resident"] = dict(est=est, timed_s=dev_s, fps=len(rest) / dev_s,
+                                   syncs=dsyncs.n, batches=len(chunks))
+    counts = _launches()
+    jax_runs = bw.load_fingerprint(bw.PIPELINE_FINGERPRINT)["runs"]
+    check(set(jax_runs) == set(runs), f"{bw.PIPELINE_FINGERPRINT}: runs {sorted(jax_runs)}")
+    gates = {name: _gate_run(name, r, fp, jax_runs[name], gt_poses, strict["kf_global"])
+             for name, r in runs.items()}
+    check(gates["flush-before-insert b8"]["d_strict"]
+          <= gates["pipelined b8"]["d_strict"] + 1e-9,
+          f"flush-before-insert lands farther from strict ({gates['flush-before-insert b8']}) "
+          f"than pipelined ({gates['pipelined b8']})")
+    n_scans = sum(len(r["est"].lat["batches"]) for r in runs.values())
+    for name, r in runs.items():
+        g = gates[name]
+        extra = ""
+        if "n" in r:
+            c = r["n"]
+            wg = r["timed_groups"]
+            extra = (f" | reads {r['reads']} over {r['batches']} batches "
+                     f"({r['reads'] / max(r['batches'], 1):.2f} a batch; synchronous checks of "
+                     f"the replays {c['sync_checks']}) | host syncs {r['syncs']} "
+                     f"({r['syncs'] / max(r['batches'], 1):.2f} a batch) | predictions "
+                     f"{c['predictions']}, misses {c['fast_replays'] + c['classic_replays']} "
+                     f"(fast replays {c['fast_replays']}, classic {c['classic_replays']}), "
+                     f"demotions {c['demotions']} | window groups {len(c['window_groups'])}, "
+                     f"windows a group {c['window_groups']} (timed part {wg}) | fused check "
+                     f"groups {len(c['check_groups'])}, checks a group {c['check_groups']} | "
+                     f"warm-up {r['warm_s']:.3f} s")
+        else:
+            extra = (f" | host syncs {r['syncs']} ({r['syncs'] / r['batches']:.2f} a chunk of "
+                     f"{DEV_CHUNK})")
+        print(f"[pipeline] {name}: {len(frames) - PIPE_WARMUP} timed frames after "
+              f"{PIPE_WARMUP}: {r['timed_s']:.3f} s, {r['fps']:.2f} fps (phase 10 strict b8: "
+              f"{strict['wall']:.3f} s for all {len(frames)}, {len(frames) / strict['wall']:.2f} "
+              f"fps, {strict['syncs'] / max(strict['batches'], 1):.2f} syncs a batch) | "
+              f"decisions equal the JAX fingerprint; {g['n_kfs']} KFs, {g['checks']} checks | "
+              f"KF positions within {g['d_jax']:.2e} m of the JAX run of this schedule (gate "
+              f"{PIPE_JAX_GATE_M} m), {g['d_strict']:.2e} m of phase 10's strict run ("
+              + (f"gate {PIPE_POSE_GATE_M} m" if name != "device-resident" else "not gated")
+              + f"; JAX's run {g['jax_d_strict']:.2e} m) | ATE {g['ate']:.6f} m (gate "
+              f"{ATE_GATE_M} m; JAX's run {g['jax_ate']:.6f} m)" + extra)
+    print(f"[pipeline kernels] launches over (a)-(c) {counts}: K1 and K2 once per scan and per "
+          f"bootstrap frame ({n_scans} batch reads)")
+    b20 = runs["pipelined b20"]["n"]
+    check(b20["first_group"] is not None, "no fused check group of two checks or more")
+    print(f"[pipeline windows] (d) phase 13's {len(entries)} windows by bucket: "
+          + _window_groups(entries))
+    print(f"[pipeline checks] (e) " + _fused_group_check(b20["first_group"]))
+    print(f"[pipeline exit reads] the solves' exit reads, {len(frames)} frames at batch "
+          f"{BATCH}, in turns: " + _exit_read_ab(frames))
+    return counts
+
+
 def _cli(args: list) -> tuple[int, str]:
     """The port's ``main`` in this process; returns (exit code, stdout)."""
     buf = io.StringIO()
@@ -2074,11 +2473,13 @@ def main():
     paths.update(timed("options", phase_options, cam, frames[:N_SLICE_FRAMES], src.gt_poses,
                        slice_ms))
     paths["cli"] = timed("cli", phase_cli)
-    paths["batched"] = timed("batched", phase_batched, frames, src.gt_poses, per_frame_s)
+    paths["batched"], strict = timed("batched", phase_batched, frames, src.gt_poses,
+                                     per_frame_s)
     paths["fleet"], fleet_ref = timed("fleet", phase_fleet, cam)
     timed("check", phase_check, cam, frames, picked)
     entries, rba = timed("insertion", phase_insertion, frames, pg_call)
     paths["mesh"] = timed("mesh", phase_mesh, frames, cam, fleet_ref, entries, rba)
+    paths["pipeline"] = timed("pipeline", phase_pipeline, frames, src.gt_poses, strict, entries)
     print(f"[phases] seconds {seconds}")
     for k in (k1, k2, k3):
         k["launches_by_path"] = {path: c[k["name"]] for path, c in paths.items()}

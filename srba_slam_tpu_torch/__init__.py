@@ -17,10 +17,12 @@ pose graph and the output files, with the host layer they need
 (``config``, ``utils/``), behind the command line of the JAX package
 (``python -m srba_slam_tpu_torch <config.ini>``, ``__main__.py``) with
 checkpoint and resume, the native frame loader, the debug dumps and the
-viewers; the batched loop (``perform_stereo_slam_batched`` over
-``models/vo.py`` ``vo_scan``, the CLI's ``--batch``) and ``parallel/`` (the
-lockstep fleet of sequences, the CLI's ``--fleet``). What is not ported, and
-why: ROADMAP.md, Queue 1.
+viewers; the JAX package's default schedule (pipelined window solves in
+groups, and the batched loop ``perform_stereo_slam_batched`` over
+``models/vo.py`` ``vo_scan`` with deferred keyframe checks and one read of
+the host a batch, the CLI's ``--batch``) and ``parallel/`` (the lockstep
+fleet of sequences, the CLI's ``--fleet``). What is left: ROADMAP.md,
+Queue 1.
 """
 
 __version__ = "0.1.0"

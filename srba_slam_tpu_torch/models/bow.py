@@ -213,12 +213,22 @@ class BoWDatabase:
             self._db[i] = self.compute_bow(store_arrays.desc_l[i], store_arrays.m_valid[i])
         self.n_kfs = n_kfs
 
-    def insert(self, desc_packed: torch.Tensor, valid: torch.Tensor) -> int:
-        """Insert a keyframe's descriptors; returns its DB entry id (== KF id)."""
-        assert self.n_kfs < self.max_kfs, f"BoW database full ({self.max_kfs} keyframes)"
-        self._db[self.n_kfs] = self.compute_bow(desc_packed, valid)
+    def write_row(self, desc_packed: torch.Tensor, valid: torch.Tensor, row: int):
+        """Write a keyframe's BoW vector at ``row`` without committing the
+        entry count (≙ the JAX database's ``write_row``): a row at or past
+        ``n_kfs`` never scores, so a speculative write is inert."""
+        assert row < self.max_kfs, f"BoW database full ({self.max_kfs} keyframes)"
+        self._db[row] = self.compute_bow(desc_packed, valid)
+
+    def commit_row(self) -> int:
+        """Commit the next row; returns its entry id (== KF id)."""
         self.n_kfs += 1
         return self.n_kfs - 1
+
+    def insert(self, desc_packed: torch.Tensor, valid: torch.Tensor) -> int:
+        """Insert a keyframe's descriptors; returns its DB entry id (== KF id)."""
+        self.write_row(desc_packed, valid, self.n_kfs)
+        return self.commit_row()
 
     def scores(self, q: torch.Tensor, n_kfs: int) -> torch.Tensor:
         """L1 scores of BoW vector ``q`` against every row; -1 past ``n_kfs``."""

@@ -21,24 +21,32 @@ package vmaps them), and a fleet's checks add a sequence dimension in front
 (lanes = (sequence, candidate)); every reduction stays inside its lane.
 Each candidate draws its RANSAC hypotheses from its own ``ops/prng.py``
 key, split from the check's key as JAX splits it, so the draws are JAX's.
-Per check the host waits on the card only for the two batched Horn SVDs
-and the GN solves' exit tests (``ops/robust_lm.py``). Statuses use
-the reference's enum values. The tunnel machinery of the JAX module (the
-packed check blobs, ``fused_check_write``, ``fused_checks_batch``) is not
-ported: a check here is one call whose outputs the caller copies to the
-host once.
+On a card the Horn seed's rotation comes from Jacobi sweeps, not the
+library SVD (which reads the host there), so a check reads the host only
+for the GN solves' exit tests (``ops/robust_lm.py``), and not at all
+inside ``cuda_graphs.no_exit_reads``. Statuses use the reference's enum values.
+
+A check's outputs travel as one int32 blob (``pack_check_outputs``; the
+floats bitcast), unpacked on the host (``unpack_check_outputs``). The
+batched loop's deferred checks run as ``fused_checks_batch``: up to
+``CHECK_SLOTS`` checks of one scanned batch, each writing its frame's
+keyframe-store and BoW rows at its speculative row (inert until the
+estimator commits it) and checking against the rows before it, so a slot
+sees the rows of the slots before it (≙ the JAX package's ``lax.scan``
+over slots); nothing is read on the host.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from srba_slam_tpu_torch.models.bow import bow_vector, rank_scores
-from srba_slam_tpu_torch.models.keyframe import KFArrays
+from srba_slam_tpu_torch.models.keyframe import _ROW_FIELDS, KFArrays
 from srba_slam_tpu_torch.models.vo import FrameFeatures
-from srba_slam_tpu_torch.ops import prng
+from srba_slam_tpu_torch.ops import cuda_graphs, prng
 from srba_slam_tpu_torch.ops.hamming import hamming_matrix
 from srba_slam_tpu_torch.ops.ransac import ransac_fundamental
 from srba_slam_tpu_torch.ops.robust_lm import lanewise, solve_pose
@@ -77,13 +85,95 @@ class DAResult(NamedTuple):
     residuals: torch.Tensor      # f32 [S, K] filter-4 residuals
 
 
+_JACOBI_SWEEPS = 8   # cyclic Jacobi sweeps of Horn's 4x4 matrix (f64: converged by 5)
+_JACOBI_PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+
+
+def _jacobi_sweep(c: dict, k: dict) -> dict:
+    """One cyclic Jacobi sweep on the symmetric 4x4 matrices ``c["A"]``
+    [L, 4, 4], the rotations accumulated in ``c["V"]``
+    (``A = V diag V^T`` at convergence)."""
+    A, V = c["A"], c["V"]
+    for p, q in _JACOBI_PAIRS:
+        apq, app, aqq = A[:, p, q], A[:, p, p], A[:, q, q]
+        zero = apq == 0
+        tau = (aqq - app) / (2.0 * torch.where(zero, 1.0, apq))
+        t = torch.where(tau >= 0, 1.0, -1.0) / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+        t = torch.where(zero, 0.0, t)
+        cs = 1.0 / torch.sqrt(1.0 + t * t)
+        sn = t * cs
+        G = (k["eye"] + (cs - 1.0)[:, None, None] * k["e_pp_qq"][(p, q)]
+             + sn[:, None, None] * k["e_pq"][(p, q)])
+        A = G.transpose(1, 2) @ A @ G
+        V = V @ G
+    return dict(A=A, V=V)
+
+
+def _horn_rotation(H: torch.Tensor) -> torch.Tensor:
+    """The rotation R [L, 3, 3] maximizing sum b^T R a for the cross-
+    covariances ``H`` [L, 3, 3] = sum a b^T (Horn's unit quaternion: the
+    eigenvector of the largest eigenvalue of his symmetric 4x4 matrix), in
+    float64. The same rotation as the SVD Kabsch with its reflection guard
+    (the JAX package's), with no library call that reads the host: the
+    eigenvectors come from a fixed number of Jacobi sweeps, one CUDA graph
+    a sweep on a card."""
+    f64 = torch.float64
+    S = H.to(f64)
+    sxx, sxy, sxz = S[:, 0, 0], S[:, 0, 1], S[:, 0, 2]
+    syx, syy, syz = S[:, 1, 0], S[:, 1, 1], S[:, 1, 2]
+    szx, szy, szz = S[:, 2, 0], S[:, 2, 1], S[:, 2, 2]
+    N = torch.stack([
+        torch.stack([sxx + syy + szz, syz - szy, szx - sxz, sxy - syx], -1),
+        torch.stack([syz - szy, sxx - syy - szz, sxy + syx, szx + sxz], -1),
+        torch.stack([szx - sxz, sxy + syx, -sxx + syy - szz, syz + szy], -1),
+        torch.stack([sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz], -1),
+    ], -2)
+    dev = H.device
+    eye = torch.eye(4, dtype=f64, device=dev)
+    e_pp_qq, e_pq = {}, {}
+    for p, q in _JACOBI_PAIRS:
+        e_pp_qq[(p, q)] = eye[p][:, None] * eye[p][None, :] + eye[q][:, None] * eye[q][None, :]
+        e_pq[(p, q)] = eye[p][:, None] * eye[q][None, :] - eye[q][:, None] * eye[p][None, :]
+    k = dict(eye=eye, e_pp_qq=[e_pp_qq[pq] for pq in _JACOBI_PAIRS],
+             e_pq=[e_pq[pq] for pq in _JACOBI_PAIRS])
+
+    def sweep(c_, k_):
+        return _jacobi_sweep(c_, dict(eye=k_["eye"],
+                                      e_pp_qq=dict(zip(_JACOBI_PAIRS, k_["e_pp_qq"])),
+                                      e_pq=dict(zip(_JACOBI_PAIRS, k_["e_pq"]))))
+
+    c = cuda_graphs.loop(sweep, dict(A=N, V=eye.expand_as(N).clone()), k, _JACOBI_SWEEPS,
+                         ("jacobi4",), True)
+    top = torch.argmax(torch.diagonal(c["A"], dim1=-2, dim2=-1), dim=-1)
+    qv = torch.gather(c["V"], 2, top[:, None, None].expand(-1, 4, 1))[..., 0]
+    w, x, y, z = qv.unbind(-1)
+    R = torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+    return R.to(H.dtype)
+
+
+def _kabsch_rotation(H: torch.Tensor) -> torch.Tensor:
+    """The rotation of :func:`_horn_rotation` by the JAX package's SVD
+    Kabsch with its reflection guard (one batched SVD)."""
+    U, _S, Vt = torch.linalg.svd(H)
+    d = torch.linalg.det(lanewise(lambda u, vt: vt.T @ u.T, U, Vt))
+    D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1))
+    return lanewise(lambda u, dd, vt: vt.T @ dd @ u.T, U, D, Vt)
+
+
 def _horn_seed(p_oth: torch.Tensor, p_cur: torch.Tensor, w0: torch.Tensor,
                fallback: torch.Tensor, min_pts: int = 8) -> torch.Tensor:
     """Robust 3D-3D alignment seed for the change-in-pose solve, per lane
-    of ``[L, K, 3]``: Kabsch of R p_oth + t ≈ p_cur over the masked
+    of ``[L, K, 3]``: the best rotation R p_oth + t ≈ p_cur over the masked
     correspondences, one median-residual trim pass; ``fallback`` [L, 6]
-    where the geometry is too thin. One batched SVD a fit; the matrix
-    products run per lane (``lanewise``)."""
+    where the geometry is too thin. The matrix products run per lane
+    (``lanewise``). The rotation: on the CPU the JAX package's SVD Kabsch
+    (:func:`_kabsch_rotation`); on a card, where the library SVD reads the
+    host, Horn's quaternion (:func:`_horn_rotation`), the same rotation to
+    float rounding, so nothing is read there."""
     finite = torch.isfinite(p_oth).all(-1) & torch.isfinite(p_cur).all(-1)
     no = torch.linalg.vector_norm(p_oth, dim=-1)
     nc = torch.linalg.vector_norm(p_cur, dim=-1)
@@ -98,13 +188,11 @@ def _horn_seed(p_oth: torch.Tensor, p_cur: torch.Tensor, w0: torch.Tensor,
         co = torch.sum(p_oth * wf, dim=-2) / nz
         cp = torch.sum(p_cur * wf, dim=-2) / nz
         H = lanewise(lambda a, b: a.T @ b, (p_oth - co[:, None]) * wf, p_cur - cp[:, None])
-        # LAPACK refuses non-finite input; JAX's SVD returns NaNs there,
-        # which end in the fallback below. Keep that outcome.
+        # JAX's SVD returns NaNs on non-finite input, which end in the
+        # fallback below. Keep that outcome.
         bad = ~torch.isfinite(H).all(-1).all(-1)[:, None, None]
-        U, _S, Vt = torch.linalg.svd(torch.where(bad, eye, H))
-        d = torch.linalg.det(lanewise(lambda u, vt: vt.T @ u.T, U, Vt))
-        D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1))
-        R = torch.where(bad, float("nan"), lanewise(lambda u, dd, vt: vt.T @ dd @ u.T, U, D, Vt))
+        rot = _kabsch_rotation if H.device.type == "cpu" else _horn_rotation
+        R = torch.where(bad, float("nan"), rot(torch.where(bad, eye, H)))
         t = cp - lanewise(torch.mv, R, co)
         return R, t, n[:, 0]
 
@@ -393,6 +481,132 @@ def query_and_associate(cur: FrameFeatures, store_arrays: KFArrays, db: torch.Te
                     use_fund_matrix=use_fund_matrix, use_change_pose=use_change_pose,
                     kernel_param=kernel_param, ransac_n_hyp=ransac_n_hyp)
     return _drop_leading((top_s, top_i, cand, da), seqs)
+
+
+def pack_check_outputs(top_s, top_i, da: DAResult, frame: FrameFeatures,
+                       debug: bool = False) -> tuple:
+    """A check's outputs as ONE int32 blob on the device (≙ the JAX
+    package's): the BoW ids, the cascade's statuses, matched indices and
+    tracked counts, the frame's stereo matches, then the floats (scores,
+    the frame's points) bitcast to int32. ``debug=True`` adds the cascade's
+    raw match indices, distances (integral) and filter-4 residuals, the
+    inputs of the reference's debug match files. Host side:
+    :func:`unpack_check_outputs`."""
+    i32 = torch.int32
+    ints = [top_i.to(i32), da.status.to(i32).reshape(-1), da.other_idx.to(i32).reshape(-1),
+            da.tracked_count.to(i32), frame.m_valid.to(i32), frame.xs_l.to(i32),
+            frame.ys_l.to(i32), frame.xs_r.to(i32), frame.m_r_idx.to(i32)]
+    floats = [top_s.to(torch.float32), frame.pts3d.reshape(-1)]
+    if debug:
+        ints += [da.raw_oidx.to(i32).reshape(-1), da.distance.to(i32).reshape(-1)]
+        floats += [da.residuals.reshape(-1)]
+    return (torch.cat(ints + [torch.cat(floats).view(i32)]),)
+
+
+def _blob_len(s: int, k: int, nq: int, debug: bool) -> int:
+    """The length of a :func:`pack_check_outputs` blob."""
+    return 2 * nq + 2 * s * k + s + 8 * k + (3 * s * k if debug else 0)
+
+
+def unpack_check_outputs(blob: np.ndarray, s: int, k: int, nq: int,
+                         debug: bool = False) -> tuple:
+    """Inverse of :func:`pack_check_outputs` on the host copy: (scores,
+    ids, status, other_idx, tracked, m_valid, xs_l, ys_l, xs_r, m_r_idx,
+    pts3d), with ``debug=True`` a 12th element, the dict {raw_oidx,
+    distance, residuals}."""
+    o = 0
+    top_i = blob[o:o + nq]; o += nq
+    status = blob[o:o + s * k].reshape(s, k).astype(np.int8); o += s * k
+    other_idx = blob[o:o + s * k].reshape(s, k); o += s * k
+    tracked = blob[o:o + s]; o += s
+    m_valid = blob[o:o + k].astype(bool); o += k
+    xs_l = blob[o:o + k]; o += k
+    ys_l = blob[o:o + k]; o += k
+    xs_r = blob[o:o + k]; o += k
+    m_r_idx = blob[o:o + k]; o += k
+    if debug:
+        raw_oidx = blob[o:o + s * k].reshape(s, k); o += s * k
+        distance = blob[o:o + s * k].reshape(s, k).astype(np.float32); o += s * k
+    floats = np.ascontiguousarray(blob[o:]).view(np.float32)
+    top_s = floats[:nq]
+    pts3d = floats[nq:nq + 3 * k].reshape(k, 3)
+    out = (top_s, top_i, status, other_idx, tracked, m_valid, xs_l, ys_l, xs_r, m_r_idx,
+           pts3d)
+    if debug:
+        residuals = floats[nq + 3 * k:nq + 3 * k + s * k].reshape(s, k)
+        out = out + (dict(raw_oidx=raw_oidx, distance=distance, residuals=residuals),)
+    return out
+
+
+def query_and_associate_packed(cur: FrameFeatures, store_arrays: KFArrays, db, leaf_bits,
+                               weights, n_kfs: int, cam: StereoCamera, seed: int,
+                               n_query: int = 4, debug: bool = False, **opts) -> tuple:
+    """:func:`query_and_associate` of one frame with the check's key built
+    from ``seed`` (the host's DA stream), its outputs packed
+    (:func:`pack_check_outputs`): the synchronous check."""
+    key = prng.PRNGKey(seed, device=db.device)
+    top_s, top_i, _cand, da = query_and_associate(cur, store_arrays, db, leaf_bits, weights,
+                                                  n_kfs, cam, key, n_query=n_query, **opts)
+    return pack_check_outputs(top_s, top_i, da, cur, debug=debug)
+
+
+def _check_one_slot(feats: FrameFeatures, store_arrays: KFArrays, db, leaf_bits, weights,
+                    j: int, row: int, cam: StereoCamera, seed: int, n_query: int = 4,
+                    debug: bool = False, **opts) -> torch.Tensor:
+    """One deferred check: frame ``j`` of the scanned batch ``feats``
+    written into the keyframe store and the BoW database at ``row`` (the
+    speculative row, in place), then the check against rows [0, row), its
+    blob returned."""
+    frame = FrameFeatures(*(a[j] for a in feats))
+    for name in _ROW_FIELDS:
+        getattr(store_arrays, name)[row] = getattr(frame, name)
+    db[row] = bow_vector(frame.desc_l, frame.m_valid, leaf_bits, weights)
+    (blob,) = query_and_associate_packed(frame, store_arrays, db, leaf_bits, weights, row, cam,
+                                         seed, n_query=n_query, debug=debug, **opts)
+    return blob
+
+
+def fused_check_write(feats: FrameFeatures, store_arrays: KFArrays, db, leaf_bits, weights,
+                      j: int, n_kfs: int, cam: StereoCamera, seed: int, n_query: int = 4,
+                      debug: bool = False, **opts):
+    """One deferred check (:func:`_check_one_slot` at row ``n_kfs``);
+    returns ``((blob,), store_arrays, db)``, the store and the database
+    written in place (≙ the JAX package's donated arrays)."""
+    blob = _check_one_slot(feats, store_arrays, db, leaf_bits, weights, j, n_kfs, cam, seed,
+                           n_query=n_query, debug=debug, **opts)
+    return (blob,), store_arrays, db
+
+
+# Slots of a fused check group (≙ the JAX package's): the batched walk
+# launches its planned checks once this many are planned, the rest at the
+# batch's end.
+CHECK_SLOTS = 8
+
+
+def fused_checks_batch(feats: FrameFeatures, store_arrays: KFArrays, db, leaf_bits, weights,
+                       js, rows, valids, cam: StereoCamera, seeds, n_query: int = 4,
+                       debug: bool = False, **opts):
+    """A batch's deferred checks as one group of ``len(js)`` slots
+    (CHECK_SLOTS): slot i checks frame ``js[i]`` of ``feats`` at row
+    ``rows[i]`` with seed ``seeds[i]`` (host ints), in slot order, each
+    seeing the rows the slots before it wrote (≙ the JAX package's
+    ``lax.scan`` threading the store). A padded slot (``valids[i]`` False)
+    launches nothing and gives a zero blob. Nothing is read on the host:
+    the GN solves run to their caps (``cuda_graphs.no_exit_reads``; the
+    bits are the read path's). Returns (the CHECK_SLOTS blobs,
+    store_arrays, db), the store and database written in place."""
+    s, k = 1 + n_query, feats.m_valid.shape[-1]
+    blobs = []
+    with cuda_graphs.no_exit_reads():
+        for j, row, valid, seed in zip(js, rows, valids, seeds):
+            if not valid:
+                blobs.append(torch.zeros(_blob_len(s, k, n_query, debug), dtype=torch.int32,
+                                         device=db.device))
+                continue
+            blobs.append(_check_one_slot(feats, store_arrays, db, leaf_bits, weights, int(j),
+                                         int(row), cam, int(seed), n_query=n_query,
+                                         debug=debug, **opts))
+    return tuple(blobs), store_arrays, db
 
 
 def recheck_candidate(store_arrays: KFArrays, row_new: int, row_old: int,

@@ -8,26 +8,44 @@ odometry-seeded recovery of a rejected one) → feature-ID propagation →
 SRBA insertion and window solve → pose bookkeeping; at the end the global
 pose graph and the output files.
 
-The parity reference is JAX's ``step()`` with ``solve_sync = True``: every
-window solve lands right after its insertion. This is the single copy of
-the per-frame host walk (``_walk_frame``: its head, pose accumulators and
-triggers; the check; its tail, the keyframe decision; the ID chain is the
-VO engine's ``commit_frame``). A keyframe check runs the BoW query and the
-DA cascade, its five candidates as one batch, on the estimator's device and
-copies their outputs to the host once; the fleet runs the heads of its
-sequences, one batched check for those that check, then their tails. The
-options around the loop run as in the JAX package: the rectification maps
-of an unrectified rig, the ``general.debug`` file family, the ``show3D``
-snapshots behind the live viewer, and the resumable checkpoint
-(``utils/checkpoint.py``).
+This is the single copy of the per-frame host walk (``_walk_frame``: its
+head, pose accumulators and triggers; the check; its tail, the keyframe
+decision; the ID chain is the VO engine's ``commit_frame``). A keyframe
+check runs the BoW query and the DA cascade, its five candidates as one
+batch, on the estimator's device and copies their outputs to the host
+once; the fleet runs the heads of its sequences, one batched check for
+those that check, then their tails. The options around the loop run as in
+the JAX package: the rectification maps of an unrectified rig, the
+``general.debug`` file family, the ``show3D`` snapshots behind the live
+viewer, and the resumable checkpoint (``utils/checkpoint.py``).
+
+Window solves follow the JAX package's schedules. The default
+(``solve_sync = False``) is pipelined: an insertion queues its window, the
+engine launches groups of them with no host read, and they land at the
+next read of the host (a check's, a batch's, the capacity guard's,
+``flush()``/``finalize``), never on timing. ``solve_flush_before_insert``
+lands them before the next insertion; ``solve_sync`` right after each.
 
 The batched loop (``perform_stereo_slam_batched``, the CLI's ``--batch N``)
-runs the VO of B frames as one ``vo_scan`` and walks the B frames through
-the same ``_walk_frame`` in ``step()``'s order, with the JAX package's
-adaptive-threshold protocol at batch granularity. It is synchronous: the
-JAX package's tunnel scheduling (speculative deferred checks, miss replay,
-the frame uploader, bulk pulls, queued solves) is not ported, since a
-keyframe inserted inside a batch changes no VO output.
+is the JAX package's default loop: a frame uploader thread stages the
+frames; each batch's VO is one ``vo_scan``, launched before the batch
+before it is walked; the walk goes through the same ``_walk_head``/
+``_walk_tail`` with its keyframe checks deferred: each is predicted,
+speculated on and planned, the batch's checks launch as one
+``fused_checks_batch`` group, and they resolve at the next batch's single
+read, which also carries the scan's summary and the launched window
+solves. A wrong prediction restores the snapshot taken at its check and
+replays the rest of its batch exactly (``_miss_recover``, or
+``_shrink_replay`` for a threshold shrink), so the decisions are per-frame
+stepping's. The adaptive-threshold protocol runs at batch granularity, as
+in the JAX package.
+
+Two differences from the JAX package's batched walk stay: at a skip frame
+(an invalid pose or under 8 matches) the JAX walk cuts the track chains,
+while the port's one ID walk carries them, as per-frame stepping does;
+and the port stops at the frame where ``max_num_kfs`` or ``to_step`` is
+reached, keeping the frames it took from the source but did not walk for
+the next call.
 """
 
 from __future__ import annotations
@@ -45,12 +63,13 @@ from srba_slam_tpu_torch.config import (
 )
 from srba_slam_tpu_torch.models.bow import BoWDatabase, Vocabulary
 from srba_slam_tpu_torch.models.data_association import (
-    S_TRACKED, query_and_associate, recheck_candidate,
+    CHECK_SLOTS, S_TRACKED, fused_checks_batch, query_and_associate_packed, recheck_candidate,
+    unpack_check_outputs,
 )
 from srba_slam_tpu_torch.models.keyframe import KeyframeStore
 from srba_slam_tpu_torch.models.srba import SRBAEngine, SRBAParams
 from srba_slam_tpu_torch.models.vo import StereoVOEngine, to_host, vo_scan
-from srba_slam_tpu_torch.ops import prng
+from srba_slam_tpu_torch.ops import cuda_graphs
 from srba_slam_tpu_torch.ops.posegraph import optimize_pose_graph
 from srba_slam_tpu_torch.ops.ransac import hypotheses_for_prob
 from srba_slam_tpu_torch.ops.rectify import build_maps
@@ -63,6 +82,171 @@ from srba_slam_tpu_torch.utils.thresholds import (
 )
 
 MAX_SIMILAR = 5  # prev KF + up to 4 BoW results (reference queries n=4)
+# Placeholder IDs of a speculative insert's frame start at or above this
+# (a slot's placeholder is base + slot): above every real match ID, so a
+# placeholder never equals one.
+_SPEC_ID_BASE = 1 << 40
+
+
+def _pack_scan_summary(outs, last_inc) -> list:
+    """What the host walk reads of a scan (``vo_scan``'s ``outs``), in the
+    order of the batch's one ``to_host``: the three track lanes the ID walk
+    chains (track_idx, track_valid, m_valid [B, K]), the poses, their
+    validity and mean residuals, and the chained last increment (≙ the JAX
+    package's ``_pack_scan_summary``; the JAX walk counts its tracks on
+    the device, the port's one ID walk on the host)."""
+    curs, track_idx, track_valid, poses, pose_valid, _n_inl, mean_res = outs
+    return [track_idx, track_valid, curs.m_valid, poses, pose_valid, mean_res, last_inc]
+
+
+def _unpack_scan_summary(host) -> dict:
+    """The host copies of :func:`_pack_scan_summary`'s tensors by name,
+    with each frame's stereo-match count ``nm``."""
+    ti, tv, mv, poses, pose_valid, mean_res, last_inc = host
+    return dict(track_idx=ti, track_valid=tv, m_valid=mv, nm=mv.sum(axis=1), poses=poses,
+                pose_valid=pose_valid, mean_res=mean_res, last_inc=last_inc)
+
+
+def _chain_slotmaps(ids: np.ndarray, base: int, k: int) -> np.ndarray:
+    """The keyframe slot each track of ``ids`` chains to, for the
+    placeholder IDs ``base + slot`` of a speculative insert's frame (-1:
+    not chained to it) (≙ the JAX package's slot maps)."""
+    ids = np.asarray(ids, np.int64)
+    return np.where((ids >= base) & (ids < base + k), ids - base, -1)
+
+
+class _FrameUploader:
+    """Stages the batched loop's frames to the device ahead of the walk.
+
+    A worker thread takes ``batch`` frames at a time from the source and
+    copies them into pinned host buffers; it makes no CUDA call, so it
+    never breaks a CUDA graph capture on the main thread (captures use the
+    global mode). The buffers, the device buffers and the copy stream are
+    made on the main thread before the worker starts, and ``next()``, on
+    the main thread, puts a batch's host-to-device copy on the copy stream
+    with an event that the scan waits on. ``release(item)`` hands a
+    batch's buffers back once its read has run (the copy is done then);
+    ``drain_and_stop()`` stops the worker and returns the batches staged
+    but not taken. On the CPU the buffers are plain memory and a batch is
+    a copy of them.
+    """
+
+    def __init__(self, frame_iter, batch: int, device, f0: int, depth: int = 2,
+                 stats: list | None = None):
+        import queue
+        import threading
+
+        self._batch = batch
+        self._dev = torch.device(device)
+        self._cuda = self._dev.type == "cuda"
+        self._q = queue.Queue(maxsize=depth)
+        self._free = queue.Queue()
+        self._stop = threading.Event()
+        self._stats = stats
+        self._next_f0 = f0
+        first = next(frame_iter, None)
+        self._bufs, self._dev_bufs = [], []
+        if first is not None:
+            shape = (2, batch) + np.asarray(first[0]).shape
+            dtype = torch.from_numpy(np.asarray(first[0])[:1].copy()).dtype
+            for i in range(depth + 3):
+                self._bufs.append(torch.empty(shape, dtype=dtype, pin_memory=self._cuda))
+                self._free.put(i)
+            if self._cuda:
+                self._copy = torch.cuda.Stream(device=self._dev)
+                self._dev_bufs = [(torch.empty(shape, dtype=dtype, device=self._dev), None)
+                                  for _ in range(depth + 2)]
+            frame_iter = itertools.chain([first], frame_iter)
+        self._it = frame_iter if first is not None else iter(())
+        self._t = threading.Thread(target=self._run, daemon=True, name="srba-frame-uploader")
+        self._t.start()
+
+    def _run(self):
+        import queue
+
+        try:
+            while self._bufs and not self._stop.is_set():
+                try:
+                    slot = self._free.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                t0 = time.perf_counter()
+                frames = list(itertools.islice(self._it, self._batch))
+                if not frames:
+                    break
+                host = self._bufs[slot].numpy()
+                for i, (left, right) in enumerate(frames):
+                    host[0, i] = left
+                    host[1, i] = right
+                if self._stats is not None:
+                    self._stats.append(dict(n=len(frames), bytes=int(host[:, :len(frames)].nbytes),
+                                            t0=t0, t1=time.perf_counter()))
+                # a staged batch is never dropped: drain_and_stop takes it
+                self._q.put(dict(slot=slot, frames=frames))
+            self._q.put(None)
+        except BaseException as e:  # raised again on the main thread
+            self._q.put(e)
+
+    def next(self) -> dict | None:
+        """The next staged batch as ``dict(lefts, rights, ready, frames,
+        f0)`` (device frames, the copy's event, the host frames, the first
+        frame's index), None at the end of the source."""
+        item = self._q.get()
+        if isinstance(item, BaseException):
+            raise item
+        if item is None:
+            self._q.put(None)  # the end stays the end
+            return None
+        n, src = len(item["frames"]), self._bufs[item["slot"]]
+        if self._cuda:
+            dst, released = self._dev_bufs.pop(0) if self._dev_bufs else (
+                torch.empty_like(src, device=self._dev), None)
+            with torch.cuda.stream(self._copy):
+                if released is not None:
+                    self._copy.wait_event(released)  # its last scan is done
+                dst[:, :n].copy_(src[:, :n], non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(self._copy)
+            item["dev"] = dst
+        else:
+            dst, ready = src[:, :n].clone(), None
+            self._free.put(item.pop("slot"))
+        item.update(lefts=dst[0, :n], rights=dst[1, :n], ready=ready, f0=self._next_f0)
+        self._next_f0 += n
+        return item
+
+    def release(self, item: dict):
+        """Hand a taken batch's buffers back once its read has run: the
+        host buffer to the worker, the device buffer to a later copy, which
+        waits for the scans queued on it so far."""
+        if "slot" in item:
+            self._free.put(item.pop("slot"))
+        if "dev" in item:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self._dev))
+            self._dev_bufs.append((item.pop("dev"), done))
+
+    def drain_and_stop(self) -> list:
+        """Stop the worker; return the staged batches not taken, in order
+        (their host frames under ``frames``)."""
+        import queue
+
+        self._stop.set()
+        leftovers = []
+        while self._t.is_alive() or not self._q.empty():
+            try:
+                item = self._q.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            if isinstance(item, BaseException):
+                raise item
+            if item is not None:
+                leftovers.append(item)
+        self._t.join()
+        if self._cuda:
+            # no buffer goes back to the allocator while a copy writes it
+            torch.cuda.current_stream(self._dev).wait_stream(self._copy)
+        return leftovers
 
 
 def _ypr_from_rotmat(R: np.ndarray) -> np.ndarray:
@@ -115,6 +299,20 @@ class SRBAStereoSLAMEstimator:
         self.max_kfs = max_kfs
         self.device = torch.device(device)
         self.profiler = Profiler()
+        # strict solve scheduling: every window solve lands right after its
+        # insertion (per-frame and batched runs then commit solves at the
+        # same points). The default, as in the JAX package, is pipelined:
+        # solves land at the next read of the host.
+        self.solve_sync = False
+        # the middle schedule: the launched solves land right before the
+        # next insertion, which then starts from its predecessor's optimized
+        # state (ignored under solve_sync)
+        self.solve_flush_before_insert = False
+        # latency log (appends only): per batch ("batches": first frame j0,
+        # size b, t_dispatch, t_pull), per keyframe decision ("checks":
+        # frame, the newest frame in when it resolved, time) and per staged
+        # upload ("uploads", from the frame uploader)
+        self.lat: dict[str, list] = {"batches": [], "checks": []}
         self._initialized = False
 
     # ------------------------------------------------------------------ init
@@ -156,8 +354,7 @@ class SRBAStereoSLAMEstimator:
         self.store = KeyframeStore(max_kfs=self.max_kfs, capacity=self.capacity,
                                    device=self.device)
         self.log = VerboseLogger(self.general.verbose_level)
-        # the engine queues each window; step() lands it right after the
-        # insertion (the JAX package's solve_sync scheduling)
+        # the engine queues each window; the estimator's schedule lands it
         self.rba = SRBAEngine(
             self.cam,
             SRBAParams(
@@ -222,6 +419,18 @@ class SRBAStereoSLAMEstimator:
         # frames a stop condition left unwalked inside a batch, for the next
         # perform_stereo_slam_batched call
         self._stashed_frames: list = []
+        # the batched walk's speculation: deferred checks (their snapshots
+        # and blobs), checks planned but not launched, walk-time trigger
+        # norms since the oldest unresolved check (for _demote_shrink_miss),
+        # the resolved speculative inserts' IDs by placeholder base
+        self._spec: list[dict] = []
+        self._check_plan: list[dict] = []
+        self._walk_log: list[tuple] = []
+        self._spec_ids: dict[int, np.ndarray] = {}
+        self._in_walk = False
+        self._virtual_bp = False
+        self._replay_flag = False
+        self._lat_resolved_at = None
         self._initialized = True
 
     def _skip_from_step(self, it):
@@ -266,12 +475,16 @@ class SRBAStereoSLAMEstimator:
     # ---------------------------------------------------------- batched loop
     def perform_stereo_slam_batched(self, frame_source, batch: int = 8) -> list[StepResult]:
         """The main loop with the VO of ``batch`` frames as one ``vo_scan``
-        (one K1 and one K2 launch for their 2B images) and the frames
-        walked through ``step()``'s host walk in order. The first frame (and
-        the first after a resume, whose checkpoint holds no frame features)
+        (one K1 and one K2 launch for their 2B images) and one blocking
+        read of the host a batch: keyframe checks are deferred and
+        speculated on (:meth:`_defer_check`), their outputs and the window
+        solves ride the next batch's read (:meth:`_process_scan`), which
+        also dispatches the batch after it. A frame uploader thread stages
+        the frames (:class:`_FrameUploader`). The first frame (and the
+        first after a resume, whose checkpoint holds no frame features)
         goes through ``step()``. Stops where ``perform_stereo_slam`` stops,
-        at the frame: frames of the batch left unwalked are kept for the
-        next call."""
+        at the frame: frames taken from the source but not walked are kept
+        for the next call."""
         assert self._initialized, "call initialize() first"
         stashed, self._stashed_frames = self._stashed_frames, []
         it = self._skip_from_step(itertools.chain(stashed, iter(frame_source)))
@@ -282,45 +495,181 @@ class SRBAStereoSLAMEstimator:
             self.step(*first)
             if self._stop_reached():
                 return self.step_log
-        while True:
-            chunk = list(itertools.islice(it, batch))
-            if not chunk:
+        self._sync_bp_from_engine()
+        up = _FrameUploader(it, batch, self.device, self.frame_idx + 1,
+                            stats=self.lat.setdefault("uploads", []))
+        held, disp, stop = [], None, False
+        try:
+            cur = up.next()
+            if cur is not None:
+                held.append(cur)
+                disp = self._dispatch_scan(cur)
+            nxt = up.next() if disp is not None else None
+            while disp is not None:
+                if nxt is not None:
+                    held.append(nxt)
+
+                def next_fn(chain_disp, nd=nxt):
+                    return self._dispatch_scan(nd, chain=chain_disp)
+
+                done = disp
+                disp = self._process_scan(disp, next_fn if nxt is not None else None)
+                up.release(done["item"])
+                g = self.general
+                if g.max_num_kfs and self.store.n_kfs + self._n_spec_inserts() >= g.max_num_kfs:
+                    # a predicted insert that resolves to no insert must not
+                    # stop the run early: resolve, decide on the committed count
+                    self._resolve_pending_checks()
+                if self._stop_reached():
+                    stop = True
+                    break
+                if disp is not None and nxt is not None:
+                    nxt = up.next()
+                held = held[-3:]
+            self._finish_batched()
+        finally:
+            leftovers = up.drain_and_stop()
+        if stop:
+            # the frames taken from the source after the stop frame, in
+            # order: the rest of the walked batches, the next ones staged
+            rest = [fr for item in held
+                    for k, fr in enumerate(item["frames"]) if item["f0"] + k > self.frame_idx]
+            self._stashed_frames = rest + [fr for item in leftovers for fr in item["frames"]]
+        return self.step_log
+
+    def perform_stereo_slam_device(self, chunks) -> list[StepResult]:
+        """The loop over frames already on the device (≙ the device-resident
+        loop the JAX package's ``bench.py`` times): ``chunks`` is a list of
+        (lefts, rights) [B, H, W] device tensors, each chunk one scan
+        chained from the chunk before it, with one read a chunk and no
+        uploader. The engine must hold a previous frame (the first frame
+        went through ``step()`` or a batched call)."""
+        assert self._initialized and self.vo._prev is not None
+        self._sync_bp_from_engine()
+        items = [self.device_batch(lefts, rights) for lefts, rights in chunks]
+        disp = self._dispatch_scan(items[0]) if items else None
+        for i in range(1, len(items) + 1):
+            if disp is None:
                 break
-            walked = self.step_batch(np.stack([f[0] for f in chunk]),
-                                     np.stack([f[1] for f in chunk]))
-            if walked < len(chunk) or self._stop_reached():
-                self._stashed_frames = chunk[walked:]
+            nxt = items[i] if i < len(items) else None
+            disp = self._process_scan(disp, None if nxt is None else (
+                lambda chain_disp, it=nxt: self._dispatch_scan(it, chain=chain_disp)))
+            if self._stop_reached():
                 break
+        self._finish_batched()
         return self.step_log
 
     def step_batch(self, lefts, rights) -> int:
         """Process the B frames ``lefts``/``rights`` [B, H, W] with one
-        ``vo_scan`` (and one more for each adaptive retry's tail), each frame
-        walked to its keyframe decision before this returns. Returns the
-        number of frames walked: B, or fewer where a stop condition fired."""
-        dev = self.device
-        return self._process_scan(torch.as_tensor(lefts, device=dev),
-                                  torch.as_tensor(rights, device=dev))
+        ``vo_scan`` (and one more for each adaptive retry's tail) and its
+        one read, every deferred check resolved before this returns.
+        Returns the number of frames walked: B, or fewer where a stop
+        condition fired."""
+        self._sync_bp_from_engine()
+        f0 = self.frame_idx + 1
+        self._process_scan(self._dispatch_scan(self.device_batch(lefts, rights)))
+        self._finish_batched()
+        return self.frame_idx + 1 - f0
 
-    def _process_scan(self, lefts: torch.Tensor, rights: torch.Tensor) -> int:
-        """One scan and its walk, with the adaptive-threshold protocol at
-        batch granularity (≙ JAX ``_process_scan``, reference .cpp:271-315):
-        if a frame's stereo matches fall under ``adaptive_th_min_matches``
-        while a threshold can still move, the frames before it are walked,
-        ``retry_step()`` moves a threshold, and the tail from that frame on
-        is scanned again, chained from the last walked frame (retries nest).
-        Otherwise the thresholds drift once, from the batch's fewest
-        matches. Returns the number of frames walked."""
+    def device_batch(self, lefts, rights) -> dict:
+        """A batch for :meth:`_dispatch_scan` from frames ``lefts``/
+        ``rights`` [B, H, W] (host arrays, or tensors already on the
+        device: the device-resident loop stages whole chunks so)."""
+        dev = self.device
+        return dict(lefts=torch.as_tensor(lefts, device=dev),
+                    rights=torch.as_tensor(rights, device=dev), ready=None,
+                    f0=self.frame_idx + 1, frames=list(zip(lefts, rights)))
+
+    def _dispatch_scan(self, item: dict, chain: dict | None = None) -> dict:
+        """Launch one ``vo_scan`` of a staged batch ``item`` (device frames,
+        the upload's event, the host frames, its first frame's index ``f0``)
+        with no host read (its GN solves run to their caps, a step past the
+        exit skipped on the device); its summary
+        (:func:`_pack_scan_summary`) rides the batch's read. ``chain``
+        continues from an earlier dispatch's last frame and increment (the
+        next batch, launched before this one is walked); otherwise the scan
+        chains from the engine's state."""
         eng = self.vo
+        if item.get("ready") is not None:
+            torch.cuda.current_stream(self.device).wait_event(item["ready"])
+        lefts, rights = item["lefts"], item["rights"]
+        prev_feat = chain["last_feat"] if chain else eng._prev
+        prev_inc = chain["last_inc"] if chain else torch.from_numpy(
+            np.asarray(eng._last_pose_inc, np.float32)).to(self.device, non_blocking=True)
         fast_th, orb_th = eng.thresholds()
-        _last, _inc, outs = vo_scan(
-            lefts, rights, eng._prev,
-            torch.as_tensor(eng._last_pose_inc, dtype=torch.float32, device=self.device),
-            self.cam, fast_th, orb_th, **eng.frontend_options(), **eng.solve_options())
-        curs = outs[0]
-        scan = to_host([outs[1], outs[2], curs.m_valid, outs[3], outs[4], outs[6]])
-        b = lefts.shape[0]
-        nm = scan[2].sum(axis=1)
+        with cuda_graphs.no_exit_reads():
+            last_feat, last_inc, outs = vo_scan(
+                lefts, rights, prev_feat, prev_inc, self.cam, fast_th, orb_th,
+                **eng.frontend_options(), **eng.solve_options())
+        disp = dict(outs=outs, last_feat=last_feat, last_inc=last_inc, b=lefts.shape[0],
+                    f0=chain["f0"] + chain["b"] if chain else item["f0"], item=item,
+                    lefts=lefts, rights=rights, pk=_pack_scan_summary(outs, last_inc),
+                    t_dispatch=time.perf_counter())
+        if chain is None:
+            # dispatched from the engine's state, which is current: attach
+            # now (a chained batch attaches once the batch before it is walked)
+            self._attach_summary(disp)
+        return disp
+
+    def _attach_summary(self, disp: dict):
+        """The point where the JAX package attaches a scan's summary, which
+        (re)enters its virtual-chain mode: a threshold-shrink miss of a
+        check deferred in that mode replays on the fast path
+        (:meth:`_shrink_replay`). The port's summary needs no walk state
+        (it is packed at dispatch), so only the mode follows JAX's, which
+        keeps the two replays, and the reads at which window solves land,
+        the JAX package's."""
+        self._virtual_bp = True
+
+    def _process_scan(self, disp: dict, next_fn=None):
+        """Read one dispatched batch and walk its frames.
+
+        ONE blocking read serves three purposes: this batch's VO summary,
+        the launched window solves (committed first), and the previous
+        batch's deferred keyframe checks, which resolve here
+        (:meth:`_resolve_spec`; a wrong prediction replays).
+
+        The adaptive-threshold protocol runs at batch granularity (≙ the
+        JAX package's, reference .cpp:271-315): if a frame's stereo matches
+        fall under ``adaptive_th_min_matches`` while a threshold can still
+        move, the frames before it are walked, ``retry_step()`` moves a
+        threshold, and the tail from that frame on is scanned again,
+        chained from the last walked frame (retries nest). Otherwise the
+        thresholds drift once, from the batch's fewest matches.
+
+        ``next_fn(disp)``, when given, launches the NEXT batch's scan; it
+        is called once, after this batch's drift (so the next scan launches
+        at its final thresholds) and before this batch's walk (so the
+        device scans while the host walks). Returns that dispatch (or
+        None)."""
+        b = disp["b"]
+        eng = self.vo
+        self._dispatch_planned_checks()  # a retry or guard may leave some
+        pend = self.rba.pending_device_arrays()
+        spec = self._spec
+        spec_handles = [h for c in spec for h in c["handles"]]
+        pk = disp["pk"]
+        pulled = to_host(list(pk) + list(pend) + spec_handles)
+        # latency log: the batch's frame poses are on the host now
+        self.lat["batches"].append(dict(j0=disp["f0"], b=b, t_dispatch=disp["t_dispatch"],
+                                        t_pull=time.perf_counter()))
+        summ = _unpack_scan_summary(pulled[:len(pk)])
+        if pend:
+            self.rba.commit_pending(pulled[len(pk):len(pk) + len(pend)])
+        self._replay_flag = False
+        if spec:
+            # decision-lag accounting: this batch's frames are in already
+            self._lat_resolved_at = disp["f0"] + b - 1
+            self._resolve_spec(pulled[len(pk) + len(pend):])
+            self._lat_resolved_at = None
+        self._reanchor_if_dirty()
+        if self._stop_reached():
+            return None  # a replay stopped the run at its frame
+        batch_rec = dict(feats=disp["outs"][0], b=b, f0=disp["f0"],
+                         # a miss replayed just now, or the mode was left: the
+                         # JAX package walks this batch from host lanes
+                         host_mode=self._replay_flag or not self._virtual_bp, **summ)
+        nm = summ["nm"]
         th = self.opts.adaptive_th_min_matches
         # the protocol runs only under orb_adaptive_fast_th (≙ .cpp:271)
         adaptive = self.opts.orb_adaptive_fast_th
@@ -330,35 +679,420 @@ class SRBAStereoSLAMEstimator:
             if len(below):
                 retry_j = int(below[0])
         if retry_j is not None:
-            walked = self._walk_scan(curs, scan, retry_j)
-            if walked < retry_j:
-                return walked
+            # the record ends at the head, so that a replay never walks
+            # into the tail scanned again below
+            batch_rec["b"] = retry_j
+            self._process_frames(batch_rec, 0, retry_j)
+            if self._stop_reached():
+                return None
             eng.retry_step()    # moves: gated above on a movable threshold
-            return retry_j + self._process_scan(lefts[retry_j:], rights[retry_j:])
+            item = disp["item"]
+            tail = self._dispatch_scan(dict(
+                lefts=disp["lefts"][retry_j:], rights=disp["rights"][retry_j:],
+                f0=disp["f0"] + retry_j, frames=item["frames"][retry_j:]))
+            tail["item"] = item
+            # the tail's walk launches the next batch (thresholds final there)
+            return self._process_scan(tail, next_fn)
         if adaptive:
             eng.drift_thresholds(int(nm.min()) if b else self.capacity, th)
-        return self._walk_scan(curs, scan, b)
+        nxt = next_fn(disp) if next_fn is not None else None
+        self._process_frames(batch_rec, 0, b)
+        if nxt is not None:
+            self._attach_summary(nxt)
+        # launch the batch's deferred checks now, so the device runs them
+        # while the host waits for the next batch
+        self._dispatch_planned_checks()
+        return nxt
 
-    def _walk_scan(self, curs, scan, upto: int) -> int:
-        """Walk frames [0, upto) of a scan in order: each through the VO
-        engine's ``commit_frame`` (IDs) and ``_walk_frame`` (pose, triggers,
-        check), as ``step()`` walks a frame. Returns the frames walked: fewer
-        than ``upto`` where a stop condition fired."""
-        track_idx, track_valid, m_valid, poses, pose_valid, mean_res = scan
-        for j in range(upto):
+    def _process_frames(self, batch_rec: dict, j0: int, j1: int, defer: bool = True):
+        """Walk frames [j0, j1) of a batch (:meth:`_walk_frames`), with
+        ``_in_walk`` set: a miss resolved inside the walk replays the
+        classic way."""
+        prev, self._in_walk = self._in_walk, True
+        try:
+            self._walk_frames(batch_rec, j0, j1, defer)
+        finally:
+            self._in_walk = prev
+
+    def _walk_frames(self, batch_rec: dict, j0: int, j1: int, defer: bool):
+        """Frames [j0, j1) of a scanned batch through the one host walk,
+        in order: the VO engine's ``commit_frame`` (IDs), ``_walk_head``
+        (pose, triggers) and, where a check fires, either a deferred check
+        (``defer``: :meth:`_defer_check`) or the synchronous one and its
+        decision (a replay). Returns at a stop condition: the keyframe
+        capacity (deferring no further), ``max_num_kfs`` on the committed
+        count (resolving first) or ``to_step``."""
+        feats = batch_rec["feats"]
+        ti, tv, mv = batch_rec["track_idx"], batch_rec["track_valid"], batch_rec["m_valid"]
+        poses, pose_valid, mean_res = (batch_rec["poses"], batch_rec["pose_valid"],
+                                       batch_rec["mean_res"])
+        g = self.general
+        for j in range(j0, j1):
             self.frame_idx += 1
             res = StepResult(self.frame_idx)
             self.step_log.append(res)
-            cur = type(curs)(*(a[j] for a in curs))
+            cur = type(feats)(*(a[j] for a in feats))
             # (the scan's outputs, as the JAX package's, hold no GN iteration count)
-            vo = self.vo.commit_frame(cur, track_idx[j], track_valid[j], m_valid[j],
-                                      poses[j].copy(), bool(pose_valid[j]),
-                                      float(mean_res[j]), 0)
+            vo = self.vo.commit_frame(cur, ti[j], tv[j], mv[j], poses[j].copy(),
+                                      bool(pose_valid[j]), float(mean_res[j]), 0)
             # a frame under 8 stereo matches is hopeless (≙ _vo_with_adaptive_retry)
-            self._walk_frame(res, None if vo.num_stereo_matches < 8 else vo)
-            if self._stop_reached():
-                return j + 1
-        return upto
+            force_new_kf = self._walk_head(res, None if vo.num_stereo_matches < 8 else vo)
+            if force_new_kf is not None:
+                if defer and self.store.n_kfs + self._n_spec_inserts() >= self.max_kfs:
+                    # at keyframe capacity a predicted insert would write out
+                    # of range: land what is in flight, check synchronously
+                    self._replay_flag = False
+                    self._resolve_pending_checks()
+                    if self._replay_flag:
+                        return  # the replay walked this batch's tail already
+                    defer = False
+                if defer:
+                    self._defer_check(res, force_new_kf, batch_rec, j)
+                    if len(self._check_plan) >= CHECK_SLOTS:
+                        # a full group: launch now, so it runs during the walk
+                        self._dispatch_planned_checks()
+                else:
+                    frame = self.vo.last_frame()
+                    self._walk_tail(res, frame, force_new_kf, self._kf_check(frame))
+                # max_num_kfs is a per-frame stop (≙ .cpp:930-932): when the
+                # predicted count reaches it, resolve and stop here iff the
+                # committed count confirms it
+                if g.max_num_kfs and self.store.n_kfs + self._n_spec_inserts() >= g.max_num_kfs:
+                    self._replay_flag = False
+                    self._resolve_pending_checks()
+                    if self._replay_flag or self.store.n_kfs >= g.max_num_kfs:
+                        return
+            if g.to_step and self.frame_idx >= g.to_step:
+                return
+
+    def _n_spec_inserts(self) -> int:
+        return sum(1 for c in self._spec if c["ins"])
+
+    # ----------------------------------------------- speculative KF checks
+    # A deferred check's outcome is predicted from its trigger (force / low
+    # tracking => insert) and the last resolved check's DA result (an
+    # appearance-blind VO chain can stay long while DA fails). Everything
+    # the walk needs to go on is then known: a predicted insert resets the
+    # accumulators and thresholds and re-references the track chains to
+    # its frame (placeholder IDs, one per valid slot, until its IDs are
+    # known), and its keyframe-store and BoW rows are written at the
+    # speculative row (inert until committed); a predicted no-insert
+    # changes nothing. The check resolves at the next read with exact host
+    # state, so its decision is the synchronous one; a wrong prediction
+    # restores the snapshot taken at the check and replays the rest of its
+    # batch (:meth:`_miss_recover`), so the decisions stay per-frame
+    # stepping's either way.
+
+    def _defer_check(self, res: StepResult, force_new_kf: bool, batch_rec: dict, j: int):
+        """Plan a keyframe check of frame ``j`` of the batch and speculate
+        on its predicted outcome; the check launches with its batch's
+        others (:meth:`_dispatch_planned_checks`)."""
+        predict_insert = (force_new_kf
+                          or res.tracked_from_last_kf < 1.2 * self.opts.updated_matches_th
+                          or self._da_dead)
+        snap = dict(log_len=len(self.step_log),      # keeps res (the check frame)
+                    frame_idx=self.frame_idx, incr_kf=self.incr_from_last_kf.copy(),
+                    tr_th=self.updated_translation_th, rot_th=self.updated_rotation_th,
+                    batch=batch_rec, j=j, host_mode=batch_rec["host_mode"],
+                    vo=self._vo_snapshot())
+        spec_row = self.store.n_kfs + self._n_spec_inserts()
+        sub = self._da_seed
+        self._da_seed += 1
+        snap["da_seed"] = self._da_seed  # post-consume: a replay re-counts in order
+        spec_entry = dict(handles=None, frame_ref=(batch_rec["feats"], j), res=res,
+                          force=force_new_kf, ins=predict_insert, incr_at_check=snap["incr_kf"],
+                          snap=snap, spec_row=spec_row, id_base=None)
+        self._spec.append(spec_entry)
+        self._check_plan.append(dict(spec=spec_entry, feats=batch_rec["feats"], j=j,
+                                     row=spec_row, seed=sub))
+        if predict_insert:
+            # reset the accumulators and thresholds; the track chains re-
+            # reference this frame through placeholder IDs (base + slot)
+            self.incr_from_last_kf = np.zeros(6)
+            self.updated_translation_th = float(self.opts.max_translation)
+            self.updated_rotation_th = float(self.opts.max_rotation)
+            base = max(self.vo._next_id, _SPEC_ID_BASE)
+            ids = np.where(batch_rec["m_valid"][j], base + np.arange(self.capacity), -1)
+            self.vo.set_frame_ids(ids, set(int(i) for i in ids if i >= 0))
+            spec_entry["id_base"] = base
+
+    def _vo_snapshot(self):
+        """The VO engine's walk state (its previous frame, IDs, increment,
+        ID counter and keyframe ID set), for a replay."""
+        return self.vo.get_state(), set(self.vo._kf_id_set)
+
+    def _vo_restore(self, snap):
+        state, kf_ids = snap
+        self.vo.set_state(state)
+        self.vo._kf_id_set = set(kf_ids)
+
+    def _dispatch_planned_checks(self):
+        """Launch every planned check, one ``fused_checks_batch`` per
+        CHECK_SLOTS of them from one scanned batch (a padded slot launches
+        nothing). Must run before any read of the checks' blobs."""
+        plan, self._check_plan = self._check_plan, []
+        if not plan:
+            return
+        if self.bow is None:
+            # the first check trains the fallback vocabulary, capped at its
+            # frame as per-frame stepping caps it
+            self.ensure_vocabulary(limit_fidx=plan[0]["spec"]["res"].frame_idx)
+        grps: list[list[dict]] = []
+        for p in plan:
+            if grps and grps[-1][0]["feats"] is p["feats"] and len(grps[-1]) < CHECK_SLOTS:
+                grps[-1].append(p)
+            else:
+                grps.append([p])
+        for grp in grps:
+            n = len(grp)
+            pad = CHECK_SLOTS - n
+            with self.profiler.section("queryDB"):
+                blobs, arrays, db = fused_checks_batch(
+                    grp[0]["feats"], self.store.arrays, self.bow._db, self.bow._leaf_bits,
+                    self.bow._weights, [p["j"] for p in grp] + [0] * pad,
+                    [p["row"] for p in grp] + [0] * pad, [True] * n + [False] * pad,
+                    self.cam, [p["seed"] for p in grp] + [grp[-1]["seed"]] * pad,
+                    debug=self.debug.enabled, **self.check_options())
+            self.store.arrays, self.bow._db = arrays, db
+            for p, blob in zip(grp, blobs[:n]):
+                p["spec"]["handles"] = (blob,)
+
+    def _spec_frame(self, c: dict):
+        """A deferred check's frame features (only a late insertion and
+        the debug dumps need them)."""
+        feats, j = c["frame_ref"]
+        return type(feats)(*(a[j] for a in feats))
+
+    def _resolve_spec(self, vals):
+        """Resolve the deferred checks in order from their host blobs
+        ``vals``. The host graph state (edges, topological distances,
+        thresholds) is exact here, so each decision is the synchronous
+        one; only the device inputs were speculative, and they are exact
+        unless a prediction missed."""
+        checks, self._spec = self._spec, []
+        if not checks:
+            self._walk_log = []
+        t_res = time.perf_counter()
+        newest = self.frame_idx if self._lat_resolved_at is None else self._lat_resolved_at
+        for idx, c in enumerate(checks):
+            d = self._kf_decide((vals[idx],), c["res"], c["force"])
+            # latency log: the keyframe decision of this frame commits now
+            self.lat["checks"].append(dict(frame=c["res"].frame_idx, resolved_at=newest,
+                                           t=t_res))
+            if not c["force"]:
+                # non-forced checks run at short range: if DA fails there,
+                # the appearance regime is bad and every check will insert
+                self._da_dead = c["res"].best_tracked < self.opts.updated_matches_th
+            hit = (d["insert"] == c["ins"]) and (d["insert"] or d["new_tr_th"] is None)
+            if not hit:
+                if self._demote_shrink_miss(c, d):
+                    # an immaterial shrink: the tail's walk is the same under
+                    # the shrunk thresholds; apply them and go on
+                    self._apply_no_insert(d)
+                    continue
+                self._miss_recover(c, d)
+                return
+            if d["insert"]:
+                ids = self._kf_apply(d, self._spec_frame(c) if self.debug.enabled else None,
+                                     c["res"], initial_rel=c["incr_at_check"], pre_written=True)
+                self._spec_ids[c["id_base"]] = ids
+        # every check resolved without a replay: the walk log is spent
+        self._walk_log = []
+        if any(c["ins"] for c in checks):
+            self.last_kf_pose = self.rba.kf_global[self.store.n_kfs - 1].copy()
+            self.current_pose = se3_np.compose(self.last_kf_pose, self.incr_from_last_kf)
+            self._pose_dirty = False
+
+    def _demote_shrink_miss(self, c: dict, d: dict) -> bool:
+        """Is this miss a pure threshold shrink whose tail is unaffected?
+
+        A check predicted and decided no insert but shrank the dynamic
+        thresholds (≙ reference .cpp:525-541). Shrinking only adds
+        triggers, and only for the frames between this check and the next
+        check of the walk: if none of them had walk-time norms above the
+        shrunk values, the triggered frames, and every later decision, are
+        the same, so the outcome applies without a replay (the next
+        check's resolution covers the frames after it, with the shrink
+        applied)."""
+        if d["insert"] or c["ins"] or d["new_tr_th"] is None:
+            return False  # a mispredicted outcome: the tail really diverges
+        f_c = c["res"].frame_idx
+        for (f, t_chk, r_chk, was_check) in self._walk_log:
+            if f <= f_c:
+                continue
+            if was_check:
+                break
+            if t_chk > d["new_tr_th"] or r_chk > d["new_rot_th"]:
+                return False  # material: this frame would now trigger
+        return True
+
+    def _dry_tracked(self, snap, b_rec: dict, j0: int) -> np.ndarray:
+        """The tracked-from-keyframe counts of frames [j0, b) of a batch
+        under the snapshot's keyframe reference, as ``commit_frame`` would
+        count them with no insertion on the way (host only)."""
+        (_prev, ids, _inc, _next), kf_ids = snap
+        kf = np.fromiter(kf_ids, np.int64) if kf_ids else np.zeros(0, np.int64)
+        ids = ids.copy()
+        out = []
+        for j in range(j0, b_rec["b"]):
+            tv, mv = b_rec["track_valid"][j], b_rec["m_valid"][j]
+            nxt = np.full(self.capacity, -1, np.int64)
+            nxt[tv] = ids[b_rec["track_idx"][j][tv]]
+            nxt[~mv] = -1
+            out.append(int(np.isin(nxt[nxt >= 0], kf).sum()))
+            ids = nxt
+        return np.asarray(out, np.int64)
+
+    def _shrink_tail_ok(self, c: dict, d: dict) -> bool:
+        """Can the fast replay handle this shrink miss? Dry-runs the tail's
+        triggers under the shrunk thresholds on the batch's host summary:
+        every newly triggered check must predict no insert (force off,
+        tracking well above the threshold, DA alive), since a predicted
+        no-insert changes no reference state."""
+        snap = c["snap"]
+        b_rec = snap["batch"]
+        nm, poses, pose_valid = b_rec["nm"], b_rec["poses"], b_rec["pose_valid"]
+        tracked_all = self._dry_tracked(snap["vo"], b_rec, snap["j"] + 1)
+        incr_kf = snap["incr_kf"].copy()
+        incr_chk = np.zeros(6)
+        o = self.opts
+        for n, j in enumerate(range(snap["j"] + 1, b_rec["b"])):
+            if not bool(pose_valid[j]) or int(nm[j]) < 8:
+                continue  # skip frame: no motion integrated (≙ .cpp:318-323)
+            tracked = int(tracked_all[n])
+            motion = se3_np.inverse(poses[j].astype(np.float64))
+            incr_kf = se3_np.compose(incr_kf, motion)
+            incr_chk = se3_np.compose(incr_chk, motion)
+            force = (np.linalg.norm(incr_kf[3:]) > 2.0 * o.max_translation
+                     or np.rad2deg(np.linalg.norm(incr_kf[:3])) > 2.0 * o.max_rotation)
+            check = (force or tracked < o.vo_id_tracking_th
+                     or np.linalg.norm(incr_chk[3:]) > d["new_tr_th"]
+                     or np.rad2deg(np.linalg.norm(incr_chk[:3])) > d["new_rot_th"])
+            if not check:
+                continue
+            if force or tracked < 1.2 * o.updated_matches_th or self._da_dead:
+                return False  # would predict an insert: the reference moves
+            incr_chk = np.zeros(6)
+        return True
+
+    def _shrink_replay(self, c: dict, d: dict):
+        """The fast replay of a pure threshold-shrink miss (gated by
+        :meth:`_shrink_tail_ok`): no insertion happened at the check and
+        none is predicted in the tail, so restore the walk state at the
+        check, apply the shrink and walk the tail again with deferred
+        checks, which ride the next read. No read here."""
+        snap = c["snap"]
+        self.frame_idx = snap["frame_idx"]
+        del self.step_log[snap["log_len"]:]
+        self.incr_from_last_kf = snap["incr_kf"].copy()
+        self.incr_from_last_check = np.zeros(6)
+        self._apply_no_insert(d)  # the true outcome: shrunk thresholds
+        b_rec = snap["batch"]
+        self._vo_restore(snap["vo"])
+        self._da_seed = snap["da_seed"]
+        self._walk_log = []  # the walk reuses the rewound frame indices
+        if self.store.n_kfs:
+            self.last_kf_pose = self.rba.kf_global[self.store.n_kfs - 1].copy()
+        self.current_pose = se3_np.compose(self.last_kf_pose, self.incr_from_last_kf)
+        self._pose_dirty = False
+        self._process_frames(b_rec, snap["j"] + 1, b_rec["b"], defer=True)
+        self._dispatch_planned_checks()
+
+    def _miss_recover(self, c: dict, d: dict):
+        """A wrong prediction at check ``c``: restore the snapshot taken at
+        the check, apply the true outcome, and walk the rest of its batch
+        again with synchronous checks (the later deferred checks were
+        dropped by the caller; their speculative rows are inert and the
+        next real insertions overwrite them)."""
+        if (not self._in_walk and self._virtual_bp and not c["snap"]["host_mode"]
+                and not d["insert"] and not c["ins"] and d["new_tr_th"] is not None
+                and self._shrink_tail_ok(c, d)):
+            self._shrink_replay(c, d)
+            return
+        self._replay_flag = True
+        self._walk_log = []
+        snap = c["snap"]
+        self.frame_idx = snap["frame_idx"]
+        del self.step_log[snap["log_len"]:]
+        self.incr_from_last_kf = snap["incr_kf"].copy()
+        self.incr_from_last_check = np.zeros(6)
+        self.updated_translation_th = snap["tr_th"]
+        self.updated_rotation_th = snap["rot_th"]
+        b_rec = snap["batch"]
+        self._vo_restore(snap["vo"])
+        self._virtual_bp = False
+        self._da_seed = snap["da_seed"]
+        if d["insert"]:
+            # a late insertion: written at the real row now
+            ids = self._kf_apply(d, self._spec_frame(c), c["res"], initial_rel=snap["incr_kf"])
+            self.incr_from_last_kf = np.zeros(6)
+            self.current_pose = self.last_kf_pose.copy()
+            self.vo.set_frame_ids(ids, set(int(i) for i in ids if i >= 0))
+        else:
+            self._apply_no_insert(d)
+            if self.store.n_kfs:
+                self.last_kf_pose = self.rba.kf_global[self.store.n_kfs - 1].copy()
+            self.current_pose = se3_np.compose(self.last_kf_pose, self.incr_from_last_kf)
+        self._pose_dirty = False
+        self._process_frames(b_rec, snap["j"] + 1, b_rec["b"], defer=False)
+
+    def _resolve_pending_checks(self):
+        """Land the deferred checks and the launched window solves (one
+        read a round; a fast shrink replay defers again, and another round
+        resolves those)."""
+        self._dispatch_planned_checks()
+        first_round = True
+        while True:
+            if not self._spec:
+                if first_round:
+                    self.rba.flush()
+                self._reanchor_if_dirty()
+                return
+            pend = self.rba.pending_device_arrays()
+            spec_handles = [h for c in self._spec for h in c["handles"]]
+            pulled = to_host(list(pend) + spec_handles)
+            if pend:
+                self.rba.commit_pending(pulled[:len(pend)])
+            self._replay_flag = False
+            self._resolve_spec(pulled[len(pend):])
+            self._reanchor_if_dirty()
+            if self._replay_flag or not self._spec:
+                return
+            self._dispatch_planned_checks()
+            first_round = False
+
+    def _materialize_engine_ids(self):
+        """Give the VO engine its keyframe's real IDs where its tracks
+        still chain to a speculative insert's placeholders (the insert
+        resolved since), so per-frame stepping, a checkpoint or the fleet
+        continue from the batched state."""
+        eng = self.vo
+        spec = [i for i in eng._kf_id_set if i >= _SPEC_ID_BASE]
+        if spec:
+            # the resolved insert whose placeholder range holds the set
+            base = next(b for b in self._spec_ids if b <= min(spec) < b + self.capacity)
+            real = self._spec_ids[base]
+            for name in ("_prev_ids", "_cur_ids"):
+                ids = getattr(eng, name)
+                if ids is None:
+                    continue
+                slot = _chain_slotmaps(ids, base, self.capacity)
+                setattr(eng, name, np.where(slot >= 0, real[np.maximum(slot, 0)], ids))
+            eng._kf_id_set = set(int(i) for i in real if i >= 0)
+        self._spec_ids = {}
+
+    def _sync_bp_from_engine(self):
+        """(Re)enter the batched walk from the engine's state: the walk's
+        chains are the VO engine's IDs already, so only the speculation
+        state starts afresh."""
+        self._virtual_bp = False
+        self._walk_log = []
+        self._spec_ids = {}
+
+    def _finish_batched(self):
+        """Resolve all speculative state; batched results become final."""
+        self._resolve_pending_checks()
+        self._materialize_engine_ids()
 
     # ------------------------------------------------------------------ step
     def step(self, left: np.ndarray, right: np.ndarray) -> StepResult:
@@ -403,7 +1137,10 @@ class SRBAStereoSLAMEstimator:
         self.incr_from_last_kf = se3_np.compose(self.incr_from_last_kf, motion)
         self.incr_from_last_check = se3_np.compose(self.incr_from_last_check, motion)
 
-        force_new_kf, check = self._kf_triggers(vo.tracked_from_last_kf)
+        force_new_kf, check, t_chk, r_chk = self._kf_triggers(vo.tracked_from_last_kf)
+        if self._in_walk:
+            # the batched walk's trigger norms, read by _demote_shrink_miss
+            self._walk_log.append((self.frame_idx, t_chk, r_chk, check))
         if not check:
             return None
         res.kf_check = True
@@ -417,11 +1154,12 @@ class SRBAStereoSLAMEstimator:
         if ids is not None:
             self.vo.set_frame_ids(ids, set(int(i) for i in ids if i >= 0))
 
-    def _kf_triggers(self, tracked_from_last_kf: int) -> tuple[bool, bool]:
+    def _kf_triggers(self, tracked_from_last_kf: int) -> tuple[bool, bool, float, float]:
         """KF-check triggers (≙ reference .cpp:366-394): hard force limit at
         2x the configured translation/rotation, tracking-count trigger, and
         the dynamic since-last-check distance trigger. Returns
-        (force_new_kf, check)."""
+        (force_new_kf, check, t_chk, r_chk), the last two the norms since
+        the last check."""
         t_kf = np.linalg.norm(self.incr_from_last_kf[3:])
         r_kf = np.rad2deg(np.linalg.norm(self.incr_from_last_kf[:3]))
         t_chk = float(np.linalg.norm(self.incr_from_last_check[3:]))
@@ -432,7 +1170,7 @@ class SRBAStereoSLAMEstimator:
                  or tracked_from_last_kf < self.opts.vo_id_tracking_th
                  or t_chk > self.updated_translation_th
                  or r_chk > self.updated_rotation_th)
-        return force_new_kf, check
+        return force_new_kf, check, t_chk, r_chk
 
     # ------------------------------------------------------- adaptive VO
     def _vo_with_adaptive_retry(self, left, right, res: StepResult):
@@ -568,18 +1306,23 @@ class SRBAStereoSLAMEstimator:
                 + ([da.raw_oidx, da.distance, da.residuals] if self.debug.enabled else []))
 
     def _kf_check(self, frame) -> list:
-        """BoW query and DA cascade of ``frame`` on the device, outputs
-        copied to the host in one copy (the decision is
+        """BoW query and DA cascade of ``frame`` on the device, its packed
+        outputs and the launched window solves copied to the host in one
+        copy, the solves committed (the decision is
         :meth:`_kf_check_host`)."""
-        key = prng.PRNGKey(self.next_check_key(), device=self.device)
+        sub = self.next_check_key()
         with self.profiler.section("queryDB"):
-            top_s, top_i, _cand, da = query_and_associate(
+            handles = query_and_associate_packed(
                 frame, self.store.arrays, self.bow._db, self.bow._leaf_bits,
-                self.bow._weights, self.store.n_kfs, self.cam, key, **self.check_options())
+                self.bow._weights, self.store.n_kfs, self.cam, sub,
+                debug=self.debug.enabled, **self.check_options())
         with self.profiler.section("performDA"):
-            pulled = to_host(self.check_outputs(top_s, top_i, da, frame))
+            pend = self.rba.pending_device_arrays()
+            pulled = to_host(list(handles) + list(pend))
+            if pend:
+                self.rba.commit_pending(pulled[len(handles):])
             self._reanchor_if_dirty()
-        return pulled
+        return pulled[:len(handles)]
 
     def _kf_check_host(self, pulled, frame, res: StepResult, force_new_kf: bool):
         """Host half of the keyframe check: similar-KF selection, LC
@@ -597,13 +1340,19 @@ class SRBAStereoSLAMEstimator:
         return ids
 
     def _kf_decide(self, pulled, res: StepResult, force_new_kf: bool) -> dict:
-        """The insertion decision from the check's host outputs: similar-KF
-        selection + LC confirmation (≙ .cpp:483-545). Mutates only logs;
-        threshold changes are returned for the caller to apply."""
+        """The insertion decision from the check's host outputs (one packed
+        blob, or the fleet's arrays): similar-KF selection + LC confirmation
+        (≙ .cpp:483-545). Mutates only logs; threshold changes are returned
+        for the caller to apply, so a deferred check decides late exactly."""
+        if len(pulled) == 1:
+            pulled = unpack_check_outputs(pulled[0], s=MAX_SIMILAR, k=self.capacity, nq=4,
+                                          debug=self.debug.enabled)
+            extras = pulled[11] if len(pulled) > 11 else None
+        else:
+            extras = (dict(zip(("raw_oidx", "distance", "residuals"), pulled[11:]))
+                      if len(pulled) > 11 else None)
         (scores, ids, da_status_all, da_oidx_all, tracked_all, f_m_valid,
          f_xs_l, f_ys_l, f_xs_r, f_m_r, f_pts) = pulled[:11]
-        extras = (dict(zip(("raw_oidx", "distance", "residuals"), pulled[11:]))
-                  if len(pulled) > 11 else None)
         self.query_log.append((res.frame_idx, np.asarray(scores).copy(),
                                np.asarray(ids).copy()))
         if len(scores) and scores[0] < self.opts.query_score_th:
@@ -700,10 +1449,14 @@ class SRBAStereoSLAMEstimator:
             self.updated_translation_th = d["new_tr_th"]
             self.updated_rotation_th = d["new_rot_th"]
 
-    def _kf_apply(self, d: dict, frame, res: StepResult, initial_rel: np.ndarray):
+    def _kf_apply(self, d: dict, frame, res: StepResult, initial_rel: np.ndarray,
+                  pre_written: bool = False):
         """INSERT NEW KF (≙ .cpp:563-924) from a positive decision.
         ``initial_rel`` is the pose increment since the previous keyframe
-        (for ``use_initial_pose``). Returns the keyframe's match IDs."""
+        at the check (for ``use_initial_pose``). ``pre_written``: a
+        deferred check wrote the keyframe's store and BoW rows already, so
+        only the counts and host fields commit (``frame`` may be None).
+        Returns the keyframe's match IDs."""
         t0 = time.perf_counter()
         ids, n_new, n_common = self._propagate_ids(
             d["f_m_valid"], d["da_status"], d["da_oidx"], d["similar"], d["order"],
@@ -718,6 +1471,11 @@ class SRBAStereoSLAMEstimator:
                                          int(d["tracked"][d["order"][0]]))
         if self.opts.use_initial_pose:
             self.rba.set_initial_kf_pose(initial_rel)
+        if self.solve_flush_before_insert and not self.solve_sync:
+            # the middle schedule: the launched solves land before this
+            # insertion builds its window
+            with self.profiler.section("solve_flush"):
+                self.rba.flush()
         with self.profiler.section("define_kf"):
             try:
                 info = self.rba.define_new_keyframe(obs, run_opt=True)
@@ -733,8 +1491,9 @@ class SRBAStereoSLAMEstimator:
                                                  frame):
                             res.lc_rejected_with = d["lc_confirmed"]
                             res.loop_closure_with = None
-                # land the insertion's window solves now (strict scheduling)
-                self.rba.flush()
+                if self.solve_sync:
+                    # strict schedule: the insertion's solves land now
+                    self.rba.flush()
             except Exception as exc:
                 # ≙ the reference's exception epilogue around
                 # define_new_keyframe (.cpp:792-839)
@@ -742,9 +1501,15 @@ class SRBAStereoSLAMEstimator:
                 raise
         kf_id = info.kf_id
         new_global = self.rba.kf_global[kf_id].copy()
-        self.store.append(frame, ids, new_global)
-        self.bow.insert(frame.desc_l, frame.m_valid)
-        self.debug.dump_kf(kf_id, frame, ids)
+        if pre_written:
+            committed = self.store.commit_row(ids, new_global)
+            assert committed == kf_id
+            self.bow.commit_row()
+        else:
+            self.store.append(frame, ids, new_global)
+            self.bow.insert(frame.desc_l, frame.m_valid)
+        if frame is not None:
+            self.debug.dump_kf(kf_id, frame, ids)
         # restore thresholds (≙ .cpp:662-663)
         self.updated_translation_th = float(self.opts.max_translation)
         self.updated_rotation_th = float(self.opts.max_rotation)
@@ -845,7 +1610,8 @@ class SRBAStereoSLAMEstimator:
         # stage (≙ the ST2M_CHANGEPOSE / ST2M_BOTH gate, .cpp:1372-1380)
         if self.opts.da_stage2_method not in (2, 3) or not self.opts.da_filter_by_pose_change:
             return False
-        self.store._write_row(frame, kf_id)  # the new KF's row is not in the store yet
+        if frame is not None:
+            self.store.write_row(frame, kf_id)  # the new KF's row is not in the store yet
         init = se3_np.relative(self.rba.kf_global[lc_kf], self.rba.kf_global[kf_id])
         sub = self._da_seed
         self._da_seed += 1
@@ -914,8 +1680,10 @@ class SRBAStereoSLAMEstimator:
 
     def _reanchor_if_dirty(self):
         """Re-derive the pose bookkeeping from the committed graph, using
-        the invariant current_pose = last_kf_global ∘ incr_from_last_kf."""
-        if not self._pose_dirty:
+        the invariant current_pose = last_kf_global ∘ incr_from_last_kf:
+        valid once the accumulated increment is measured from the last
+        committed keyframe, that is with no deferred check unresolved."""
+        if not self._pose_dirty or self._spec:
             return
         self._pose_dirty = False
         if self.store.n_kfs:
@@ -1038,7 +1806,10 @@ class SRBAStereoSLAMEstimator:
         except Exception:
             return
         try:
-            self.rba._queued = []  # failed solves are not committable
+            # failed or in-flight solves are not committable, nor are
+            # unresolved speculative checks
+            self.rba._queued, self.rba._pending = [], []
+            self._spec, self._check_plan, self._walk_log = [], [], []
             self.finalize(out_dir=out_dir)
         except Exception:
             # minimal fallback: raw graph + unoptimized trajectory
@@ -1062,6 +1833,7 @@ class SRBAStereoSLAMEstimator:
         time_new_kf.txt, profiler.csv, final_graph.dot, final_global_path.ply
         and map_viewer.html in ``out_dir``, and final_global_path.png under
         ``show3D``."""
+        self._finish_batched()
         n = self.store.n_kfs
         self.rba.flush()
         if n >= 2 and self.rba.n_edges:
@@ -1155,9 +1927,10 @@ class SRBAStereoSLAMEstimator:
                         f"{s.number_feats_common}\n")
 
 
-def bench_estimator(device="cuda") -> SRBAStereoSLAMEstimator:
+def bench_estimator(device="cuda", solve_sync: bool = False) -> SRBAStereoSLAMEstimator:
     """The estimator of the bench workload (``utils/bench_workload.py``),
-    initialized on ``device``."""
+    initialized on ``device``; ``solve_sync`` for the strict schedule (the
+    fingerprint's)."""
     from srba_slam_tpu_torch.utils import bench_workload as bw
     from srba_slam_tpu_torch.utils.camera import StereoCamera
 
@@ -1167,4 +1940,5 @@ def bench_estimator(device="cuda") -> SRBAStereoSLAMEstimator:
         VOOptions(**bw.VO_OPTIONS), capacity=bw.CAPACITY, max_kfs=bw.MAX_KFS,
         device=device)
     est.initialize()
+    est.solve_sync = solve_sync
     return est

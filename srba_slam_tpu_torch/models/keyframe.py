@@ -90,23 +90,30 @@ class KeyframeStore:
         store.poses = np.array(poses, np.float32)
         return store
 
-    def _write_row(self, frame: FrameFeatures, row: int):
+    def write_row(self, frame: FrameFeatures, row: int):
         """Write ``frame`` into device row ``row`` without committing the
-        count. Rows at or past ``n_kfs`` are inert (every reader masks by
-        the count); the loop-closure re-check reads the new keyframe's row
-        before it is committed."""
+        count (≙ the JAX store's ``write_row``). Rows at or past ``n_kfs``
+        are inert: every reader masks by the count, so a speculative row
+        that is never committed needs no cleanup (the next write at that
+        row replaces it). The loop-closure re-check reads the new
+        keyframe's row before it is committed."""
         assert row < self.max_kfs, "keyframe capacity exhausted"
         for name in _ROW_FIELDS:
             getattr(self.arrays, name)[row] = getattr(frame, name)
 
-    def append(self, frame: FrameFeatures, ids: np.ndarray, pose: np.ndarray) -> int:
-        """Store a frame as keyframe; returns its KF id."""
+    def commit_row(self, ids: np.ndarray, pose: np.ndarray) -> int:
+        """Commit the next row (written by :meth:`write_row`) with its host
+        match IDs and pose; returns its KF id."""
         i = self.n_kfs
-        self._write_row(frame, i)
         self.match_ids[i] = ids
         self.poses[i] = pose
         self.n_kfs += 1
         return i
+
+    def append(self, frame: FrameFeatures, ids: np.ndarray, pose: np.ndarray) -> int:
+        """Store a frame as keyframe; returns its KF id."""
+        self.write_row(frame, self.n_kfs)
+        return self.commit_row(ids, pose)
 
     def drop_last(self):
         """Un-insert the most recent KF (≙ the candidate-KF rollback at

@@ -22,22 +22,23 @@ windowed LM + Schur + Cholesky solve runs on the engine's device
 (``ops/window_ba.py``), each window padded to one of the JAX engine's
 capacity buckets (``window_buckets``).
 
-Solve scheduling is the JAX package's strict one (its ``solve_sync``): an
-insertion builds its window from the host state and queues it; ``flush()``
-solves every queued window in order, writes each back through
-``_commit_one``, recomputes the spanning tree once and calls ``on_commit``.
-The estimator flushes right after each insertion, so a window solved in
-the same insertion as a loop-closure recovery is built from the same
-pre-solve state as in the JAX package. With ``lazy=False``,
-``define_new_keyframe`` flushes before it returns. The JAX package's
-tunnel scheduling (queued solve groups, packed blobs, bulk pulls) is not
-ported.
+Solve scheduling is the JAX package's two-stage queue. An insertion builds
+its window from the host state and queues it (``_queued``); once half a
+group (``WINDOW_SLOTS // 2``) is queued, ``_dispatch_queued`` launches the
+queued windows, grouped by bucket, as ``optimize_windows_batch_blob``
+calls (``_pending``), with no host read. The results land when the owner
+reads the host next: ``pending_device_arrays()`` gives the groups' result
+blobs to merge into that read, ``commit_pending()`` writes each solve
+back through ``_commit_one``, recomputes the spanning tree once and calls
+``on_commit``. ``flush()`` lands both stages. The estimator decides when
+(its ``solve_sync`` and ``solve_flush_before_insert`` schedules); with
+``lazy=False``, ``define_new_keyframe`` flushes before it returns.
 
 With a device mesh (``mesh=``, ``parallel/batch.py``), each window solve
 runs observation-sharded over the mesh (``ops/window_ba.py``
 ``shard_window_obs``; ≙ the JAX engine's mesh branch): one sequence's
 bundle adjustment spread over the mesh's devices, its result on the lead
-device.
+device. It launches at the insertion, a group of one.
 """
 
 from __future__ import annotations
@@ -47,8 +48,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from srba_slam_tpu_torch.models.vo import to_host
 from srba_slam_tpu_torch.ops.window_ba import (
-    BAWindow, assembly_plan, optimize_window, shard_window_obs,
+    WINDOW_SLOTS, BAWindow, _packed_plan, assembly_plan, optimize_window,
+    optimize_windows_batch_blob, pack_window, result_blob, shard_window_obs,
 )
 from srba_slam_tpu_torch.utils import se3_np
 from srba_slam_tpu_torch.utils.camera import StereoCamera
@@ -190,7 +193,10 @@ class SRBAEngine:
         # lazy=True leaves built windows queued until the owner's flush();
         # lazy=False lands them before define_new_keyframe returns
         self.lazy = lazy
-        self._queued: list[dict] = []   # built windows awaiting flush()
+        self._queued: list[dict] = []   # built windows, not yet launched
+        # launched groups: dict(blob=[WINDOW_SLOTS, row] on the device,
+        # entries=the group's windows in slot order), oldest first
+        self._pending: list[dict] = []
 
     # ------------------------------------------------------------------ hooks
     def loop_closure_detected(self, flag: bool = True):
@@ -980,9 +986,9 @@ class SRBAEngine:
             pending=True,
             truncated_obs=n_dropped,
         )
-        self._queued.append(dict(
+        entry = dict(
             root=root,
-            C=C, L=L,
+            C=C, L=L, O=O,
             win_arr=win_arr,
             win_map=win_map,
             lms=lms,
@@ -992,14 +998,29 @@ class SRBAEngine:
             lc_snap=lc_snap,
             lm_base_loc=lm_base_loc.copy() if lc_checks else None,
             window=(cam_pose, cam_valid, lm_pos, lm_base_loc, lm_valid, oc, ol, opx, ov),
-        ))
+        )
+        if self.mesh is not None:
+            # the mesh branch launches the sharded solve now, a group of one
+            self._pending.append(dict(blob=self._solve_window(entry)[None], entries=[entry]))
+            return info
+        ints, floats = pack_window(*entry["window"])
+        self._queued.append(dict(ints=ints, floats=floats, entry=entry))
+        # eager half-group launch: the device solves while the host walks on
+        if len(self._queued) >= WINDOW_SLOTS // 2:
+            self._dispatch_queued()
         return info
 
-    def _solve(self, entry: dict) -> np.ndarray:
-        """Run one queued window on the device; returns the host blob
-        ``[cam_pose (C*6) | lm_pos (L*3) | cost_init cost_final rmse
-        rmse_stg1]`` (one copy back)."""
+    def _solve_kw(self) -> dict:
         p = self.p
+        return dict(kernel_param=p.kernel_param, max_iters=p.opt_iters,
+                    use_kernel=p.use_robust_kernel, w_prior_rot=p.anchor_prior_w_rot,
+                    w_prior_trans=p.anchor_prior_w_trans, stage1_iters=p.stage1_iters,
+                    use_kernel_stage1=p.use_robust_kernel_stage1)
+
+    def _solve_window(self, entry: dict) -> torch.Tensor:
+        """One queued window solved alone on the device: its result row
+        (``window_ba.result_blob``), not read. Sharded over the mesh when
+        the engine has one."""
         _pose, _cv, _lp, lm_base_loc, _lv, oc, ol, _px, ov = entry["window"]
         if self.mesh is not None:
             # built from the host arrays, then laid out over the mesh
@@ -1010,32 +1031,78 @@ class SRBAEngine:
             dev = self.device
             win = BAWindow(*(torch.as_tensor(a, device=dev) for a in entry["window"]))
             plan = assembly_plan(oc, ol, lm_base_loc, ov, entry["C"], entry["L"], dev)
-        r = optimize_window(
-            win, self.cam, kernel_param=p.kernel_param, max_iters=p.opt_iters,
-            use_kernel=p.use_robust_kernel, w_prior_rot=p.anchor_prior_w_rot,
-            w_prior_trans=p.anchor_prior_w_trans, stage1_iters=p.stage1_iters,
-            use_kernel_stage1=p.use_robust_kernel_stage1, plan=plan)
-        blob = torch.cat([r.cam_pose.reshape(-1), r.lm_pos.reshape(-1),
-                          torch.stack([r.cost_init, r.cost_final, r.obs_rmse,
-                                       r.obs_rmse_stg1])])
-        return blob.cpu().numpy()
+        return result_blob(optimize_window(win, self.cam, plan=plan, **self._solve_kw()))
+
+    def _solve(self, entry: dict) -> np.ndarray:
+        """One queued window solved alone, its host blob ``[cam_pose (C*6)
+        | lm_pos (L*3) | cost_init cost_final rmse rmse_stg1]`` (one copy
+        back). The groups' solves give each window these bits."""
+        return self._solve_window(entry).cpu().numpy()
+
+    def _dispatch_queued(self):
+        """Launch every queued window, grouped by (C, L, O) bucket in
+        queue order into groups of up to WINDOW_SLOTS, one
+        ``optimize_windows_batch_blob`` a group on two stacked uploads (a
+        padded slot holds a copy of the group's first window and launches
+        nothing). No host read."""
+        q, self._queued = self._queued, []
+        dev = self.device
+        i = 0
+        while i < len(q):
+            key = _bucket(q[i])
+            grp = [q[i]]
+            i += 1
+            while i < len(q) and len(grp) < WINDOW_SLOTS and _bucket(q[i]) == key:
+                grp.append(q[i])
+                i += 1
+            pad = WINDOW_SLOTS - len(grp)
+            ints, floats = (torch.from_numpy(np.stack([x[name] for x in grp]
+                                                      + [grp[0][name]] * pad)).to(
+                dev, non_blocking=True) for name in ("ints", "floats"))
+            plans = [_packed_plan(x["ints"], *key, dev) for x in grp]
+            blob = optimize_windows_batch_blob(
+                ints, floats, [True] * len(grp) + [False] * pad, *key, self.cam,
+                plans=plans + plans[:1] * pad, solve=optimize_window, **self._solve_kw())
+            self._pending.append(dict(blob=blob, entries=[x["entry"] for x in grp]))
+
+    def pending_device_arrays(self) -> tuple:
+        """The result blobs of every launched group, oldest first, for the
+        owner's next read (empty when nothing is in flight). Launches the
+        queued windows first."""
+        self._dispatch_queued()
+        return tuple(p["blob"] for p in self._pending)
+
+    def commit_pending(self, host_vals=None):
+        """Write back every launched window solve in launch order: each
+        through ``_commit_one``, then one spanning-tree recompute, then
+        ``on_commit`` per solve. ``host_vals`` are the host copies of
+        ``pending_device_arrays()`` from the owner's read; without them
+        this reads the blobs itself (one copy)."""
+        self._dispatch_queued()
+        groups, self._pending = self._pending, []
+        if not groups:
+            return
+        if host_vals is None:
+            host_vals = to_host([g["blob"] for g in groups])
+        assert len(host_vals) == len(groups)
+        committed = []
+        for grp, rows in zip(groups, host_vals):
+            for r, entry in enumerate(grp["entries"]):
+                self._commit_one(entry, np.asarray(rows[r]))
+                committed.append(entry)
+        # edges are the source of truth; only the final state is read
+        for k, (_h, rel) in self.spanning_tree(0, allow_stale=True).items():
+            self.kf_global[k] = rel
+        if self.on_commit is not None:
+            for entry in committed:
+                self.on_commit(entry["root"], entry["old_root_global"],
+                               self.kf_global[entry["root"]].copy())
 
     def flush(self):
-        """Solve and write back every queued window, in order. A burst
-        commits each solve (``_commit_one``), then recomputes the spanning
-        tree once and calls ``on_commit`` per solve. Loops, because a
+        """Land every queued and launched window solve. Loops, because a
         loop-closure rollback queues its window again."""
-        while self._queued:
-            burst, self._queued = self._queued, []
-            for entry in burst:
-                self._commit_one(entry, self._solve(entry))
-            # edges are the source of truth; only the final state is read
-            for k, (_h, rel) in self.spanning_tree(0, allow_stale=True).items():
-                self.kf_global[k] = rel
-            if self.on_commit is not None:
-                for entry in burst:
-                    self.on_commit(entry["root"], entry["old_root_global"],
-                                   self.kf_global[entry["root"]].copy())
+        while self._pending or self._queued:
+            self.commit_pending()
 
     def _commit_one(self, p: dict, blob: np.ndarray):
         """Write one window solve back into the edges and landmarks (the
@@ -1248,3 +1315,9 @@ def _obs_as_arrays(observations):
         if rel_pos is not None:
             rel[i] = rel_pos
     return lm_ids, px, rel
+
+
+def _bucket(q: dict) -> tuple[int, int, int]:
+    """The (C, L, O) bucket of a queued window."""
+    e = q["entry"]
+    return e["C"], e["L"], e["O"]

@@ -141,7 +141,7 @@ def _gn_block(c: dict, k: dict, n: int, cam: StereoCamera, use_kernel: bool,
         # cholesky_ex reports it in `info` instead of raising. One matrix a
         # call: the batched factorization synchronizes the host on the card
         L, info = lanewise(torch.linalg.cholesky_ex, H)
-        delta = -lanewise(lambda l_, g_: torch.cholesky_solve(g_[:, None], l_)[:, 0], L, g)
+        delta = -lanewise(cuda_graphs.cholesky_solve, L, g)
         ok = torch.all(torch.isfinite(delta), dim=-1) & (info == 0)
         delta = torch.where(ok[:, None], delta, 0.0)
         step_mod = torch.linalg.vector_norm(delta, dim=-1)

@@ -185,7 +185,9 @@ def assembly_plan(obs_cam, obs_lm, lm_base, obs_valid, C: int, L: int,
         return np.where(x >= 0, x * n + y, -1)
 
     def up(seg, n_seg):
-        return [torch.as_tensor(t, device=device) for t in segment_tables(seg, n_seg, fixed=True)]
+        # staged copies: a blocking copy to a card synchronizes the host
+        return [torch.from_numpy(t).to(device, non_blocking=True)
+                for t in segment_tables(seg, n_seg, fixed=True)]
 
     return AssemblyPlan(
         g_c=up(np.concatenate([a, b]), C),
@@ -391,7 +393,7 @@ def _lm_step(k: dict, cam_pose, lm_pos, lam, cam: StereoCamera, kern: bool, free
     S = S + torch.diag(torch.where(free6, 0.0, 1.0))
     rhs_f = torch.where(free6, rhs_f, 0.0)
     Lchol, info = torch.linalg.cholesky_ex(S)
-    dc = -torch.cholesky_solve(rhs_f[:, None], Lchol)[:, 0]
+    dc = -cuda_graphs.cholesky_solve(Lchol, rhs_f)
     ok = torch.all(torch.isfinite(dc)) & (info == 0)
     dc = torch.where(ok, dc, 0.0).reshape(C, 6)
     # predicted decrease of the local quadratic model (~0 at convergence)
@@ -508,23 +510,10 @@ def _obs_keys(win: BAWindow, plan: AssemblyPlan, kernel_param: float) -> dict:
                 **plan._asdict())
 
 
-def optimize_window(
-    win: BAWindow | ShardedWindow,
-    cam: StereoCamera,
-    kernel_param: float = 1.5,
-    max_iters: int = 12,
-    use_kernel: bool = True,
-    init_lambda: float = 1e-4,
-    w_prior_rot: float = 1000.0,
-    w_prior_trans: float = 100.0,
-    stage1_iters: int = 0,
-    use_kernel_stage1: bool = True,
-    plan: AssemblyPlan | None = None,
-) -> BAResult:
-    """Optimize one window. ``plan`` (``assembly_plan`` of the window's
-    index arrays) saves a device-to-host copy when the caller has them. A
-    :class:`ShardedWindow` solves over its mesh, the result on the lead
-    device (``plan`` unused: each shard has its own)."""
+def _window_keys(win: BAWindow | ShardedWindow, cam: StereoCamera, kernel_param: float,
+                 w_prior_rot: float, w_prior_trans: float, plan: AssemblyPlan | None):
+    """The fixed inputs ``k`` of a window's LM steps and the window (the
+    lead device's replica of a sharded one's state)."""
     f32 = torch.float32
     if isinstance(win, ShardedWindow):
         obs = dict(shards=[_obs_keys(w, p, kernel_param) for w, p in zip(win.shards, win.plans)])
@@ -553,7 +542,27 @@ def optimize_window(
              free6=torch.repeat_interleave(free_cam, 6), prior_w6=prior_w6,
              prior_blocks=prior_blocks, init_R=init_R, init_t=init_t,
              eye6C=torch.eye(C * 6, dtype=f32, device=dev), **obs)
+    return k, win
 
+
+def optimize_window(
+    win: BAWindow | ShardedWindow,
+    cam: StereoCamera,
+    kernel_param: float = 1.5,
+    max_iters: int = 12,
+    use_kernel: bool = True,
+    init_lambda: float = 1e-4,
+    w_prior_rot: float = 1000.0,
+    w_prior_trans: float = 100.0,
+    stage1_iters: int = 0,
+    use_kernel_stage1: bool = True,
+    plan: AssemblyPlan | None = None,
+) -> BAResult:
+    """Optimize one window. ``plan`` (``assembly_plan`` of the window's
+    index arrays) saves a device-to-host copy when the caller has them. A
+    :class:`ShardedWindow` solves over its mesh, the result on the lead
+    device (``plan`` unused: each shard has its own)."""
+    k, win = _window_keys(win, cam, kernel_param, w_prior_rot, w_prior_trans, plan)
     cost0 = _cost(k, win.cam_pose, win.lm_pos, cam, use_kernel)
     cam_pose, lm_pos = win.cam_pose, win.lm_pos
     if stage1_iters > 0:
@@ -567,3 +576,111 @@ def optimize_window(
     cost = _cost(k, cam_pose, lm_pos, cam, use_kernel)
     rmse = _rmse(k, cam_pose, lm_pos, cam)
     return BAResult(cam_pose, lm_pos, cost0, cost, rmse, iters, rmse_stg1)
+
+
+# ---------------------------------------------------------------- groups
+def pack_window(cam_pose, cam_valid, lm_pos, lm_base, lm_valid, obs_cam, obs_lm, obs_px,
+                obs_valid):
+    """Host packing of a window's nine arrays into two, one int32 and one
+    float32 (≙ the JAX package's ``pack_window``): a group of windows goes
+    to the device as two stacked uploads."""
+    ints = np.concatenate([
+        np.asarray(lm_base, np.int32), np.asarray(obs_cam, np.int32),
+        np.asarray(obs_lm, np.int32), np.asarray(cam_valid, np.int32),
+        np.asarray(lm_valid, np.int32), np.asarray(obs_valid, np.int32)])
+    floats = np.concatenate([
+        np.asarray(cam_pose, np.float32).ravel(), np.asarray(lm_pos, np.float32).ravel(),
+        np.asarray(obs_px, np.float32).ravel()])
+    return ints, floats
+
+
+def unpack_window(ints: torch.Tensor, floats: torch.Tensor, C: int, L: int, O: int
+                  ) -> BAWindow:
+    """The inverse of :func:`pack_window` on the device: views of the two
+    tensors (the validity masks as bool)."""
+    o = 0
+    lm_base = ints[o:o + L]; o += L
+    obs_cam = ints[o:o + O]; o += O
+    obs_lm = ints[o:o + O]; o += O
+    cam_valid = ints[o:o + C] != 0; o += C
+    lm_valid = ints[o:o + L] != 0; o += L
+    obs_valid = ints[o:o + O] != 0
+    f = 0
+    cam_pose = floats[f:f + C * 6].reshape(C, 6); f += C * 6
+    lm_pos = floats[f:f + L * 3].reshape(L, 3); f += L * 3
+    obs_px = floats[f:f + O * 3].reshape(O, 3)
+    return BAWindow(cam_pose, cam_valid, lm_pos, lm_base, lm_valid, obs_cam, obs_lm, obs_px,
+                    obs_valid)
+
+
+def _packed_plan(ints: np.ndarray, C: int, L: int, O: int, device) -> AssemblyPlan:
+    """``assembly_plan`` of a window from its host ``pack_window`` ints."""
+    lm_base, obs_cam, obs_lm = ints[:L], ints[L:L + O], ints[L + O:L + 2 * O]
+    obs_valid = ints[L + 2 * O + C + L:] != 0
+    return assembly_plan(obs_cam, obs_lm, lm_base, obs_valid, C, L, device)
+
+
+def result_blob(r: BAResult) -> torch.Tensor:
+    """A solve's result as one f32 row ``[cam_pose (C*6) | lm_pos (L*3) |
+    cost_init cost_final rmse rmse_stg1]`` (the JAX blob layout)."""
+    return torch.cat([r.cam_pose.reshape(-1), r.lm_pos.reshape(-1),
+                      torch.stack([r.cost_init, r.cost_final, r.obs_rmse, r.obs_rmse_stg1])])
+
+
+def optimize_window_packed(ints: torch.Tensor, floats: torch.Tensor, C: int, L: int, O: int,
+                           cam: StereoCamera, plan: AssemblyPlan | None = None,
+                           **kw) -> BAResult:
+    """:func:`optimize_window` of the window packed in ``ints``/``floats``
+    (on the device; ``plan`` from the host ints, else read back)."""
+    return optimize_window(unpack_window(ints, floats, C, L, O), cam, plan=plan, **kw)
+
+
+def optimize_window_packed_blob(ints: torch.Tensor, floats: torch.Tensor, C: int, L: int,
+                                O: int, cam: StereoCamera, plan: AssemblyPlan | None = None,
+                                **kw) -> torch.Tensor:
+    """:func:`optimize_window_packed` as one f32 row (:func:`result_blob`)."""
+    return result_blob(optimize_window_packed(ints, floats, C, L, O, cam, plan=plan, **kw))
+
+
+# Windows in a group of the batched window solve: a queued solve waits for
+# at most WINDOW_SLOTS - 1 others of its bucket (≙ the JAX package's).
+WINDOW_SLOTS = 8
+
+
+def optimize_windows_batch_blob(ints: torch.Tensor, floats: torch.Tensor, valids,
+                                C: int, L: int, O: int, cam: StereoCamera, plans=None,
+                                kernel_param: float = 1.5, max_iters: int = 12,
+                                use_kernel: bool = True, w_prior_rot: float = 1000.0,
+                                w_prior_trans: float = 100.0, stage1_iters: int = 0,
+                                use_kernel_stage1: bool = True, solve=None) -> torch.Tensor:
+    """Up to WINDOW_SLOTS window solves of one (C, L, O) bucket as one
+    group, on the device of ``ints``/``floats`` ([WINDOW_SLOTS, n]
+    stacked ``pack_window`` blobs; a padded slot holds a copy of a valid
+    window, as the JAX package pads). ``valids`` is the host's list of the
+    valid slots; ``plans`` the slots' ``assembly_plan`` from the host ints
+    (read back when omitted). Returns [WINDOW_SLOTS, C*6 + L*3 + 4] rows
+    (:func:`result_blob`), zero for a padded slot; nothing is read on the
+    host.
+
+    The valid slots solve in turn, each its one-window solve (a padded
+    slot launches nothing), so each row holds its one-window solve's bits;
+    on a card each solve replays its bucket's CUDA-graph blocks (≙ the
+    JAX package's default route, ``_VMAP_LO_LIMIT = 0``; its vmapped lanes
+    are not ported). ``solve`` is the one-window solve (``optimize_window``
+    when omitted)."""
+    kw = dict(kernel_param=kernel_param, max_iters=max_iters, use_kernel=use_kernel,
+              w_prior_rot=w_prior_rot, w_prior_trans=w_prior_trans,
+              stage1_iters=stage1_iters, use_kernel_stage1=use_kernel_stage1)
+    valids = [bool(v) for v in valids]
+    n_slots = len(valids)
+    dev = floats.device
+    if plans is None:
+        host = ints.cpu().numpy()
+        plans = [_packed_plan(host[i], C, L, O, dev) for i in range(n_slots)]
+    blob_len = C * 6 + L * 3 + 4
+    solve = optimize_window if solve is None else solve
+    zero = torch.zeros(blob_len, dtype=torch.float32, device=dev)
+    return torch.stack([
+        result_blob(solve(unpack_window(ints[i], floats[i], C, L, O), cam, plan=plans[i], **kw))
+        if v else zero for i, v in enumerate(valids)])
+

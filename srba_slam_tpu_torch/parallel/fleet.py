@@ -32,7 +32,12 @@ it).
   methods, the single copy that per-frame stepping uses: the retry protocol
   ``adaptive_vo``, the VO engine's ``commit_frame`` (IDs), and the walk's
   head (pose, triggers) and tail (the keyframe decision). So a fleet run
-  makes each sequence's solo decisions, on any mesh.
+  makes each sequence's solo decisions, on any mesh;
+* each estimator schedules its window solves as it does alone (pipelined
+  by default): its launched solves ride its check's read and commit
+  there. (The JAX fleet commits every sequence's solves at any check of
+  the step; a sequence that does not check keeps its solves in flight
+  here, so its poses stay its solo run's.)
 """
 
 from __future__ import annotations
@@ -211,12 +216,20 @@ class FleetSLAM:
 
     @staticmethod
     def _pull_group(group: list, outs: list) -> list:
-        """The outputs ``outs`` of ``_check_group`` copied to the host once."""
+        """The outputs ``outs`` of ``_check_group`` copied to the host once,
+        with the launched window solves of the group's estimators, which
+        commit there: each estimator's solves land at its own checks, as
+        in its solo run."""
         ests = [e for e, *_ in group]
         with contextlib.ExitStack() as sections:
             for e in ests:
                 sections.enter_context(e.profiler.section("performDA"))
-            pulled = to_host(outs)
-            for e in ests:
+            pends = [e.rba.pending_device_arrays() for e in ests]
+            pulled = to_host(list(outs) + [a for p in pends for a in p])
+            off = len(outs)
+            for e, p in zip(ests, pends):
+                if p:
+                    e.rba.commit_pending(pulled[off:off + len(p)])
+                    off += len(p)
                 e._reanchor_if_dirty()
-        return pulled
+        return pulled[:len(outs)]

@@ -38,6 +38,7 @@ def save_state(est, path: str):
     """Serialize a SRBAStereoSLAMEstimator to ``path`` (.npz)."""
     store = est.store
     rba = est.rba
+    est._finish_batched()  # resolve speculative checks before snapshotting
     rba.flush()  # land any queued window solve before snapshotting
     if est.bow is None:
         # the fallback vocabulary has not been trained yet (no keyframe
@@ -118,7 +119,7 @@ def load_state(est, path: str):
     store.n_kfs = scalars["n_kfs"]
 
     rba = est.rba
-    rba._queued = []
+    rba._queued, rba._pending = [], []
     rba.n_kfs = scalars["rba_n_kfs"]
     n_edges = len(data["rba_edge_u"])
     rba._edge_cap = max(64, 1 << max(n_edges - 1, 1).bit_length())

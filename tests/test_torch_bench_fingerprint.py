@@ -17,7 +17,22 @@ not in tier-1:
   ``chip_smoke.py``'s batched phase holds the port's batched run to the
   same file; the port's batched CPU run makes them too.
 
-Regenerate the file with ``python tests/test_torch_bench_fingerprint.py --write``.
+``srba_slam_tpu_torch/data/jax_bench_pipeline.json`` holds the JAX
+package's runs of the same workload with its default schedule, as its
+``bench.py`` drives it (``bw.SCHEDULES``: 21 frames, then 60 in a second
+call, at batch 20 and 8, with ``solve_flush_before_insert``, and the
+device-resident loop), so ``chip_smoke.py``'s phase 15 holds the port's
+run of each to the JAX run of the same schedule, and not only to the
+strict one. Slow tests:
+
+* the JAX runs, made again, still give the committed file (decisions
+  exactly, poses and ATE within 1e-5);
+* the port's CPU run of each schedule makes the JAX run's decisions, its
+  keyframe poses within 1e-3 of JAX's (the pipelined tolerance of
+  tests/test_torch_pipeline.py), its ATE inside the gate.
+
+Regenerate the files with ``python tests/test_torch_bench_fingerprint.py
+--write`` (the strict one) or ``--write-pipeline``.
 """
 
 from __future__ import annotations
@@ -77,16 +92,8 @@ def _frames():
 def jax_fingerprint(batch: int = 1) -> dict:
     """The JAX package's run of the bench workload: per frame, or through
     its batched loop at ``batch`` frames a scan."""
-    from srba_slam_tpu.config import GeneralOptions, SRBAStereoSLAMOptions, VOOptions
-    from srba_slam_tpu.models.estimator import SRBAStereoSLAMEstimator
-    from srba_slam_tpu.utils.camera import StereoCamera
-
     frames, sha, gt = _frames()
-    cam = StereoCamera.kitti()
-    est = SRBAStereoSLAMEstimator(
-        GeneralOptions(), SRBAStereoSLAMOptions(camera=cam, **bw.OPTIONS),
-        VOOptions(**bw.VO_OPTIONS), capacity=bw.CAPACITY, max_kfs=bw.MAX_KFS)
-    est.initialize()
+    est = _jax_estimator()
     est.solve_sync = True
     if batch > 1:
         est.perform_stereo_slam_batched(frames, batch=batch)
@@ -96,13 +103,86 @@ def jax_fingerprint(batch: int = 1) -> dict:
     return _fingerprint(est, sha, gt)
 
 
+def _jax_estimator():
+    from srba_slam_tpu.config import GeneralOptions, SRBAStereoSLAMOptions, VOOptions
+    from srba_slam_tpu.models.estimator import SRBAStereoSLAMEstimator
+    from srba_slam_tpu.utils.camera import StereoCamera
+
+    est = SRBAStereoSLAMEstimator(
+        GeneralOptions(), SRBAStereoSLAMOptions(camera=StereoCamera.kitti(), **bw.OPTIONS),
+        VOOptions(**bw.VO_OPTIONS), capacity=bw.CAPACITY, max_kfs=bw.MAX_KFS)
+    est.initialize()
+    return est
+
+
+def _run_schedule(est, name: str, frames, device_loop):
+    """``name`` of ``bw.SCHEDULES`` on ``est`` over ``frames``: the
+    warm-up call, then the rest (``device_loop(est, rest)`` for the
+    device-resident loop); the solves in flight land at the end."""
+    batch, mid = bw.SCHEDULES[name]
+    est.solve_flush_before_insert = mid
+    w = bw.WARMUP_FRAMES
+    est.perform_stereo_slam_batched(frames[:w], batch=batch)
+    est.rba.flush()
+    if name == "device-resident":
+        device_loop(est, frames[w:])
+    else:
+        est.perform_stereo_slam_batched(frames[w:], batch=batch)
+    est.rba.flush()
+
+
+def _chunks(rest, to_device):
+    c = bw.DEV_CHUNK
+    return [(to_device(np.stack([f[0] for f in rest[i:i + c]])),
+             to_device(np.stack([f[1] for f in rest[i:i + c]])))
+            for i in range(0, len(rest), c)]
+
+
+def _jax_device_loop(est, rest):
+    """The device-resident loop of the JAX package's ``bench.py`` over the
+    frames ``rest``, in chunks of ``bw.DEV_CHUNK``."""
+    import jax.numpy as jnp
+
+    from test_torch_pipeline import jax_device_loop
+
+    jax_device_loop(est, _chunks(rest, jnp.asarray))
+
+
+def jax_pipeline_fingerprint() -> dict:
+    """The JAX package's run of each of ``bw.SCHEDULES`` (its default
+    pipelined solves and deferred checks)."""
+    frames, sha, gt = _frames()
+    runs = {}
+    for name in bw.SCHEDULES:
+        est = _jax_estimator()
+        _run_schedule(est, name, frames, _jax_device_loop)
+        runs[name] = _fingerprint(est, sha, gt)
+    return {"workload": runs[name]["workload"], "warmup_frames": bw.WARMUP_FRAMES,
+            "dev_chunk": bw.DEV_CHUNK, "schedules": {k: list(v) for k, v in bw.SCHEDULES.items()},
+            "runs": {k: {f: v for f, v in r.items() if f != "workload"}
+                     for k, r in runs.items()}}
+
+
+def port_schedule_fingerprint(name: str, device: str = "cpu") -> dict:
+    """The port's run of ``name`` of ``bw.SCHEDULES`` on ``device``."""
+    import torch
+
+    from srba_slam_tpu_torch.models.estimator import bench_estimator
+
+    frames, sha, gt = _frames()
+    est = bench_estimator(device)
+    _run_schedule(est, name, frames, lambda e, rest: e.perform_stereo_slam_device(
+        _chunks(rest, lambda a: torch.from_numpy(a).to(device))))
+    return _fingerprint(est, sha, gt)
+
+
 def port_fingerprint(device: str = "cpu", batch: int = 1) -> dict:
     """The port's run of the same workload on ``device``, per frame or at
     ``batch`` frames a scan."""
     from srba_slam_tpu_torch.models.estimator import bench_estimator
 
     frames, sha, gt = _frames()
-    est = bench_estimator(device)
+    est = bench_estimator(device, solve_sync=True)
     if batch > 1:
         est.perform_stereo_slam_batched(frames, batch=batch)
     else:
@@ -150,12 +230,50 @@ def test_port_cpu_batched_matches_fingerprint():
     assert got["ate_m"] < ATE_GATE_M
 
 
+@pytest.mark.slow
+def test_committed_pipeline_fingerprint_matches_jax():
+    got = jax_pipeline_fingerprint()
+    ref = bw.load_fingerprint(bw.PIPELINE_FINGERPRINT)
+    assert got["workload"] == ref["workload"]
+    assert got["schedules"] == ref["schedules"]
+    for name, run in ref["runs"].items():
+        assert got["runs"][name]["decisions"] == run["decisions"], name
+        for key in ("kf_global", "final_poses_cam"):
+            np.testing.assert_allclose(got["runs"][name][key], run[key], atol=POSE_TOL)
+        assert abs(got["runs"][name]["ate_m"] - run["ate_m"]) <= POSE_TOL
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", list(bw.SCHEDULES))
+def test_port_cpu_schedule_matches_jax(name):
+    ref = bw.load_fingerprint(bw.PIPELINE_FINGERPRINT)["runs"][name]
+    got = port_schedule_fingerprint(name)
+    strict = np.asarray(bw.load_fingerprint()["kf_global"])[:, 3:]
+    d_port = np.max(np.linalg.norm(np.asarray(got["kf_global"])[:, 3:] - strict, axis=1))
+    d_jax = np.max(np.linalg.norm(np.asarray(ref["kf_global"])[:, 3:] - strict, axis=1))
+    print(f"{name}: keyframe positions from the strict run: port {d_port:.6f} m, "
+          f"JAX {d_jax:.6f} m; port against JAX max "
+          f"{np.abs(np.asarray(got['kf_global']) - np.asarray(ref['kf_global'])).max():.3e}; "
+          f"ATE port {got['ate_m']:.6f} m, JAX {ref['ate_m']:.6f} m")
+    assert got["decisions"] == ref["decisions"]
+    np.testing.assert_allclose(got["kf_global"], ref["kf_global"], atol=1e-3)
+    assert got["ate_m"] < ATE_GATE_M
+
+
 if __name__ == "__main__":
-    if "--write" not in sys.argv:
-        sys.exit("usage: python tests/test_torch_bench_fingerprint.py --write")
+    if not {"--write", "--write-pipeline"} & set(sys.argv):
+        sys.exit("usage: python tests/test_torch_bench_fingerprint.py --write|--write-pipeline")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if "--write-pipeline" in sys.argv:
+        fp = jax_pipeline_fingerprint()
+        with open(bw.PIPELINE_FINGERPRINT, "w") as f:
+            json.dump(fp, f, indent=1)
+            f.write("\n")
+        print(f"wrote {bw.PIPELINE_FINGERPRINT}: " + ", ".join(
+            f"{k} {r['n_kfs']} keyframes, ATE {r['ate_m']:.4f} m" for k, r in fp["runs"].items()))
+        sys.exit(0)
     fp = jax_fingerprint()
     os.makedirs(os.path.dirname(bw.FINGERPRINT), exist_ok=True)
     with open(bw.FINGERPRINT, "w") as f:

@@ -1,5 +1,5 @@
 """Port parity of the whole per-frame path: ``SRBAStereoSLAMEstimator.step()``
-of the port (on the CPU) against the JAX package's ``step()`` with
+of the port (on the CPU) against the JAX package's ``step()``, both with
 ``solve_sync = True`` (every window solve lands right after its insertion).
 
 Two sequences:
@@ -77,8 +77,7 @@ def _run(cfg, frames, port: bool):
             JGeneral(), JOptions(camera=JCam(**cfg["cam"]), **cfg["options"]),
             JVO(**cfg["vo"]), capacity=cfg["capacity"], max_kfs=cfg["max_kfs"])
     est.initialize()
-    if not port:
-        est.solve_sync = True
+    est.solve_sync = True
     recoveries = []
     recover = est._lc_recovery
 
@@ -170,6 +169,38 @@ def test_circuit_loop_closures_match_jax(circuit_pair):
     t.finalize()
     j.finalize()
     np.testing.assert_allclose(t.final_poses_cam, j.final_poses_cam, atol=1e-3)
+
+
+@pytest.mark.slow
+def test_circuit_on_the_card_rotation_route(circuit_pair, monkeypatch):
+    """The circuit with the card's Horn seed rotation (Jacobi sweeps) forced
+    on the CPU against JAX's SVD Kabsch run: the same decisions, queries,
+    edges and poses; one match ID of the keyframe store differs (keyframe
+    34, frame 203, feature 116: ID 226 in place of JAX's 335). Its cause:
+    the seeds differ by f32 rounding (~1e-5), and the change-in-pose solve
+    of one aliased candidate of frame 203's check ends 0.08 apart from
+    them, which moves two features across its residual threshold; the ID
+    walk then takes feature 116's ID from that candidate. A known
+    difference of the card's route (ROADMAP)."""
+    from srba_slam_tpu_torch.models import data_association as da
+
+    (j, rec_j), _port = circuit_pair
+    monkeypatch.setattr(da, "_kabsch_rotation", da._horn_rotation)
+    frames = list(SyntheticSource(StereoCamera(**CIRCUIT_CAM), n_frames=220, seed=5, step=0.12,
+                                  loop=True, scene="ground", laps=2.25))
+    t, rec_t = _run(CIRCUIT, frames, port=True)
+    assert rec_t == rec_j
+    assert decisions(t.step_log) == decisions(j.step_log)
+    n = j.store.n_kfs
+    assert t.store.n_kfs == n
+    moved = np.argwhere(t.store.match_ids[:n] != j.store.match_ids[:n])
+    print(f"match IDs that differ from JAX's: {moved.tolist()} of "
+          f"{int((j.store.match_ids[:n] >= 0).sum())}")
+    assert moved.tolist() == [[34, 116]]
+    assert (int(t.store.match_ids[34, 116]), int(j.store.match_ids[34, 116])) == (226, 335)
+    np.testing.assert_allclose(t.rba.kf_global[:n], j.rba.kf_global[:n], atol=1e-3)
+    assert t.rba.lc_blacklist == j.rba.lc_blacklist
+    np.testing.assert_array_equal(t.rba.edge_valid, j.rba.edge_valid)
 
 
 def _port_small(**general):

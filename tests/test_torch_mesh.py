@@ -242,6 +242,7 @@ def test_fleet_on_a_mesh_makes_the_solo_decisions(fleets):
             n = other.store.n_kfs
             assert m.store.n_kfs == n >= 2
             np.testing.assert_array_equal(m.store.match_ids[:n], other.store.match_ids[:n])
+            m.rba.flush(), other.rba.flush()   # the same solves in flight land
             np.testing.assert_allclose(m.rba.kf_global[:n], other.rba.kf_global[:n], atol=1e-5)
             assert (m.vo.fast_th, m.vo.orb_th, m._da_seed) == (other.vo.fast_th,
                                                               other.vo.orb_th, other._da_seed)
@@ -256,6 +257,7 @@ def test_fleet_on_a_mesh_matches_jax_fleet(fleets):
     for j, t in zip(jests, meshed):
         assert t.store.n_kfs == j.store.n_kfs >= 2
         j.rba.flush()
+        t.rba.flush()   # both schedules are pipelined: land the solves in flight
         n = t.store.n_kfs
         np.testing.assert_allclose(t.rba.kf_global[:n], j.rba.kf_global[:n], atol=5e-3)
         assert (t.rba.n_lms, t.rba.n_edges) == (j.rba.n_lms, j.rba.n_edges)

@@ -188,6 +188,7 @@ def test_fleet_matches_jax_fleet(fleets):
     for j, t in zip(jests, tests):
         assert t.store.n_kfs == j.store.n_kfs >= 2
         j.rba.flush()
+        t.rba.flush()   # both schedules are pipelined: land the solves in flight
         n = t.store.n_kfs
         np.testing.assert_allclose(t.rba.kf_global[:n], j.rba.kf_global[:n], atol=5e-3)
         assert t.rba.n_lms == j.rba.n_lms
@@ -202,6 +203,7 @@ def test_fleet_matches_solo_runs(fleets):
                                                             for r in s.step_log]
         n = s.store.n_kfs
         np.testing.assert_array_equal(t.store.match_ids[:n], s.store.match_ids[:n])
+        t.rba.flush(), s.rba.flush()   # the same solves in flight land
         np.testing.assert_allclose(t.rba.kf_global[:n], s.rba.kf_global[:n], atol=1e-5)
         assert (t.vo.fast_th, t.vo.orb_th, t._da_seed) == (s.vo.fast_th, s.vo.orb_th,
                                                           s._da_seed)

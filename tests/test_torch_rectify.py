@@ -81,6 +81,7 @@ def test_euroc_demo_config_initialises_and_steps():
     estimator's device, and the first frames' decisions as the JAX package's."""
     est = SRBAStereoSLAMEstimator.from_config(EUROC_INI, device="cpu")
     est.initialize()
+    est.solve_sync = True
     jest = JEstimator.from_config(EUROC_INI)
     jest.initialize()
     jest.solve_sync = True
