@@ -159,19 +159,23 @@ not 0 (there is no CPU fallback):
                window solves pipelined in groups, keyframe checks deferred
                and fused per batch, one read of the host a batch. (a)
                ``perform_stereo_slam_batched`` at batch 20 (the JAX bench's)
-               and at 8: 21 warm-up frames, then the 60 timed: decisions
+               and at 8: 21 warm-up frames, then the 60 timed, each run
+               on the harness's ``bench._warmed`` and ``bench._Timed``
+               (``srba_slam_tpu_torch/bench.py``): decisions
                equal the fingerprint, ATE under 0.5 m, keyframe positions
                within 1e-3 m of the JAX package's run of the same schedule
                (``utils/bench_workload.py`` ``PIPELINE_FINGERPRINT``) and
                within 0.15 m of phase 10's strict run (the JAX package's
-               scheduling gate); reads (``to_host``) and host syncs a batch,
-               predictions, misses, demotions and replays, window groups
-               and their sizes, fused check groups, total s and frames/s
+               scheduling gate); over the timed part: reads (``to_host``)
+               and host syncs a batch, predictions, misses, demotions and
+               replays, window groups and their sizes, fused check groups;
+               total s and frames/s
                beside phase 10's; (b) ``solve_flush_before_insert`` at
                batch 8: the same checks, no farther from strict than
-               pipelined; (c) the device-resident loop (the 60 frames on
-               the card in one chunk, one scan): the same checks but the
-               distance to strict, which is printed beside the JAX run's;
+               pipelined; (c) the device-resident loops (the 60 frames on
+               the card in one chunk of 60, one scan, and in chunks of 8):
+               the same checks but the distance to strict, which is
+               printed beside the JAX run's;
                (d) phase 13's windows in groups by bucket through
                ``optimize_windows_batch_blob``: each slot equal to its
                one-window solve, graph blocks equal to eager ones, ms a
@@ -179,13 +183,26 @@ not 0 (there is no CPU fallback):
                of (a) again under ``set_sync_debug_mode("error")`` (no host
                sync), each slot equal to the one-check path on the same
                rows; the solves' exit reads on and off at batch 8, strict
-               and pipelined, in turns: s and syncs, the same bits.
+               and pipelined, in turns: s and syncs, the same bits;
+16. bench    - the port's bench harness, ``srba_slam_tpu_torch/bench.py``
+               ``run(repeats=1, dev_repeats=1, bounded_repeats=2)`` on the
+               frames rendered above (the protocol of the JAX package's
+               bench.py, every timed repeat gated on the JAX run of its
+               schedule), its line printed as ``[bench] {...}``: K1 and K2
+               launched in its timed parts, the card line, a busy share
+               and a CPU anchor (measured in its subprocess, since a
+               fresh checkout has no cached anchor); then
+               ``parallel/multichip.py``
+               ``entry()`` once. ``entry``'s outputs and its example
+               frontend equal the same call with ``device="cpu"`` (the
+               features' integer fields, m_valid and num_inliers exact, the
+               pose within 1e-4), and so does its step on street frames 0-1.
 
 Then one JSON line with, per kernel: its launches over the driven paths
 (``launches_by_path``: the estimator run, the margin-3 frontend, the
 two-octave engine, the CLI run, the batched run, the fleet run, the
-mesh runs of phase 14 (a) and (b) and the runs of phase 15 (a)-(c), each
-counted from 0;
+mesh runs of phase 14 (a) and (b), the runs of phase 15 (a)-(c) and
+phase 16's bench run and ``entry()`` call, each counted from 0;
 ``on_main_path`` says whether one of the paths a user of the entry points
 can reach, all but the margin-3 frontend, launched it); its
 largest error against the plain version; ``ms`` and ``plain_ms``, the time
@@ -226,7 +243,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from srba_slam_tpu_torch import (  # noqa: E402
-    SRBAStereoSLAMEstimator, StereoCamera, StereoVOEngine, VOOptions, load_config,
+    SRBAStereoSLAMEstimator, StereoCamera, StereoVOEngine, VOOptions, bench, load_config,
 )
 from srba_slam_tpu_torch.__main__ import main as cli_main  # noqa: E402
 from srba_slam_tpu_torch.models import data_association as da_mod  # noqa: E402
@@ -248,7 +265,7 @@ from srba_slam_tpu_torch.parallel import fleet as fleet_mod  # noqa: E402
 from srba_slam_tpu_torch.parallel.batch import (  # noqa: E402
     batched_vo_step, empty_features, make_mesh,
 )
-from srba_slam_tpu_torch.parallel.multichip import dryrun_multichip  # noqa: E402
+from srba_slam_tpu_torch.parallel.multichip import dryrun_multichip, entry  # noqa: E402
 from srba_slam_tpu_torch.utils import bench_workload as bw  # noqa: E402
 from srba_slam_tpu_torch.utils import kernel_timing as kt  # noqa: E402
 from srba_slam_tpu_torch.utils import se3_np  # noqa: E402
@@ -262,7 +279,7 @@ N_SLICE_FRAMES = 30
 N_CPU_FRAMES = 5
 POSE_TOL_RAD = 1e-4
 POSE_TOL_M = 1e-3
-ATE_GATE_M = 0.5
+ATE_GATE_M = bench.ATE_GATE_M
 TIMING_REPS = 20
 FRONTEND_PROFILE_REPS = 5
 FRONTEND_KERNELS = ("fast_nms_kernel", "orb_describe_kernel")
@@ -274,7 +291,8 @@ N_CLI_FRAMES = 60
 N_RESUME_AT = 30
 # the paths a user of the entry points can reach (phase_options' margin-3
 # frontend is reached through the library's extract_and_match only)
-USER_PATHS = ("estimator", "two_octave_engine", "cli", "batched", "fleet", "mesh", "pipeline")
+USER_PATHS = ("estimator", "two_octave_engine", "cli", "batched", "fleet", "mesh", "pipeline",
+              "bench")
 BATCH = 8
 FLEET_SEEDS = (11, 48, 85, 122)
 N_FLEET_FRAMES = 30
@@ -290,16 +308,14 @@ MESH_SIZE = 4
 LC_BUCKET = dict(C=32, L=8192, O=16384, n_cams=30, n_lms=5000, pose_noise=0.03, px_noise=0.3)
 SHARDED_TOL = 1e-3
 # phase 15: the JAX package's bench loop (bench.py: 21 warm-up frames at
-# batch 20, the device-resident loop in chunks of 60) and its scheduling
-# gate (tests/test_batch_mode.py: pipelined keyframe poses within 0.15 m of
-# the strict schedule's)
+# batch 20, the device-resident loop in chunks of 60 and of 8) and its
+# scheduling gate (tests/test_batch_mode.py: pipelined keyframe poses within
+# 0.15 m of the strict schedule's)
 PIPE_WARMUP = bw.WARMUP_FRAMES
-PIPE_BATCH = bw.SCHEDULES["pipelined b20"][0]
-DEV_CHUNK = bw.DEV_CHUNK
 PIPE_POSE_GATE_M = 0.15
 # keyframe positions against the JAX package's run of the same schedule:
 # the CPU's tolerance for pipelined runs (tests/test_torch_pipeline.py)
-PIPE_JAX_GATE_M = 1e-3
+PIPE_JAX_GATE_M = bench.PIPE_JAX_GATE_M
 PALLAS = "srba_slam_tpu/ops/pallas_fast.py"
 # f32 operations per pixel that the FAST score needs on given inputs (see
 # _fast_work): none within the margin, where the output is 0; 21 for an
@@ -892,7 +908,7 @@ def phase_estimator(frames, gt_poses, profile: bool) -> dict:
     picked = _pick_check(steps, records)
     del records
     if profile:
-        _profile_estimator(frames)
+        _profile_estimator(frames, sum(ms))
     return counts, sum(ms) / 1e3, picked, pg_calls[0]
 
 
@@ -942,9 +958,11 @@ def _count_blur_calls():
     return calls, restore
 
 
-def _profile_estimator(frames):
+def _profile_estimator(frames, untraced_ms: float):
     """The estimator run again under torch.profiler: device kernel time
-    against wall time, and the kernels that take most of it."""
+    against the untraced run's wall time (``untraced_ms``; the traced run's
+    own, which the tracer lengthens at every launch, beside it), and the
+    kernels that take most of it."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -961,9 +979,11 @@ def _profile_estimator(frames):
     launches = sum(e.count for e in evs if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
     syncs = sum(e.count for e in evs if e.key == "cudaStreamSynchronize")
     copies = sum(e.count for e in evs if e.key == "cudaMemcpyAsync")
+    dev_ms = dev_us / 1e3
     print(f"[profile] estimator {len(frames)} frames under torch.profiler: wall {wall_ms:.1f} ms, "
-          f"device kernel time {dev_us / 1e3:.1f} ms, busy share {dev_us / 1e3 / wall_ms:.4f} "
-          f"(reading the trace took {time.perf_counter() - t0:.1f} s) | "
+          f"device kernel time {dev_ms:.1f} ms, busy share {dev_ms / untraced_ms:.4f} of the "
+          f"untraced run's {untraced_ms:.1f} ms ({dev_ms / wall_ms:.4f} of the traced wall; reading "
+          f"the trace took {time.perf_counter() - t0:.1f} s) | "
           f"cudaLaunchKernel {launches}, cudaMemcpyAsync {copies}, "
           f"cudaStreamSynchronize {syncs} | top kernels: "
           + "; ".join(f"{e.key[:60]} {e.count}x {e.self_device_time_total / 1e3:.2f} ms"
@@ -2033,75 +2053,70 @@ def _pipeline_counters(est):
     return n, restore
 
 
-def _pipelined_run(frames, batch: int, mid: bool = False) -> dict:
-    """The bench estimator with the JAX package's default schedule over
-    ``frames``: ``PIPE_WARMUP`` frames at ``batch``, then the rest in a
-    second call (timed), as the JAX package's bench loop runs; the window
-    solves in flight land (``flush``) inside each timed part."""
-    est = bench_estimator(DEV)
-    est.solve_flush_before_insert = mid
+def _pipelined_run(frames, name: str) -> dict:
+    """A batched schedule ``name`` of ``bw.SCHEDULES`` on the bench
+    estimator as the harness runs it: ``bench._warmed`` (``PIPE_WARMUP``
+    frames at the schedule's batch, the solves landed), then the rest in a
+    second call timed by ``bench._Timed`` (the solves in flight land inside
+    it), with ``_pipeline_counters`` and the host syncs over the timed
+    part."""
+    t0 = time.perf_counter()
+    est = bench._warmed(DEV, frames, name)
+    warm_s = time.perf_counter() - t0
+    n_b0 = len(est.lat["batches"])
     n, restore = _pipeline_counters(est)
     try:
-        t0 = time.perf_counter()
-        est.perform_stereo_slam_batched(frames[:PIPE_WARMUP], batch=batch)
-        est.rba.flush()
-        sync()
-        warm_s = time.perf_counter() - t0
-        n_b0, reads0 = len(est.lat["batches"]), n["reads"]
-        n_groups0 = len(n["window_groups"])
-        with SyncCount() as syncs:
-            t0 = time.perf_counter()
-            est.perform_stereo_slam_batched(frames[PIPE_WARMUP:], batch=batch)
-            est.rba.flush()
-            sync()
-            timed_s = time.perf_counter() - t0
+        with SyncCount() as syncs, bench._Timed(est) as t:
+            est.perform_stereo_slam_batched(frames[PIPE_WARMUP:], batch=bw.SCHEDULES[name][0])
     finally:
         restore()
-    n_timed = len(frames) - PIPE_WARMUP
-    n_batches = len(est.lat["batches"]) - n_b0
-    return dict(est=est, n=n, warm_s=warm_s, timed_s=timed_s, fps=n_timed / timed_s,
-                batches=n_batches, reads=n["reads"] - reads0, syncs=syncs.n,
-                timed_groups=n["window_groups"][n_groups0:])
+    return dict(est=est, n=n, warm_s=warm_s, timed_s=t.s, fps=(len(frames) - PIPE_WARMUP) / t.s,
+                batches=len(est.lat["batches"]) - n_b0, syncs=syncs.n)
+
+
+def _device_resident_run(frames, name: str) -> dict:
+    """The device-resident loop of schedule ``name`` of ``bw.SCHEDULES`` as
+    the harness runs it: ``bench._warmed``, the rest staged on the card in
+    chunks of the schedule's size (``bench.stage_chunks``), each chunk one
+    scan chained from the one before, timed by ``bench._Timed``."""
+    chunk = bw.SCHEDULES[name][2]
+    est = bench._warmed(DEV, frames, name)
+    chunks, _bytes = bench.stage_chunks(frames[PIPE_WARMUP:], chunk, DEV)
+    with SyncCount() as syncs, bench._Timed(est) as t:
+        est.perform_stereo_slam_device(chunks)
+    return dict(est=est, timed_s=t.s, fps=(len(frames) - PIPE_WARMUP) / t.s, syncs=syncs.n,
+                batches=len(chunks), chunk=chunk)
 
 
 def _gate_run(name: str, run: dict, fp: dict, jax_run: dict, gt_poses, strict_kf) -> dict:
-    """Phase 15's checks of one run: the fingerprint's decisions, the ATE
-    gate, the keyframe positions within ``PIPE_JAX_GATE_M`` of the JAX
-    package's run of the same schedule (``bw.PIPELINE_FINGERPRINT``), and
-    for the batched runs the JAX package's scheduling gate, within 0.15 m
-    of the strict batched run. The device-resident loop is held to the JAX
-    run of its schedule only: its one 60-frame chunk builds each
-    insertion's window before the solves before it have landed, which
-    moves the JAX package's own run of it farther than 0.15 m from strict
-    (the committed file; tests/test_torch_bench_fingerprint.py); its
-    distance to strict is printed."""
+    """Phase 15's checks of one run: the fingerprint's decisions, the
+    harness's gate (``bench.gate_estimator``: the decisions, the keyframe
+    positions within ``PIPE_JAX_GATE_M`` of the JAX package's run of the
+    same schedule, ``bw.PIPELINE_FINGERPRINT``, and the ATE gate), and for
+    the batched runs the JAX package's scheduling gate, within 0.15 m of
+    the strict batched run. The device-resident loops are held to the JAX
+    run of their schedule only: a chunk builds each insertion's window
+    before the solves before it have landed, which moves the JAX package's
+    own run of the 60-frame chunk farther than 0.15 m from strict (the
+    committed file; tests/test_torch_bench_fingerprint.py); their distance
+    to strict is printed."""
     est = run["est"]
     got = bw.decisions(est.step_log)
     diff = [(a, b) for a, b in zip(fp["decisions"], got) if a != b]
     check(len(got) == len(fp["decisions"]) and not diff,
           f"{name}: decisions differ from the JAX fingerprint at {len(diff)} frames: "
           f"{diff[:5]}")
-    kf_frames = [r.frame_idx for r in est.step_log if r.inserted_kf is not None]
-    n = est.store.n_kfs
-    kf = est.rba.kf_global[:n].copy()
+    g = bench.gate_estimator(name, est, gt_poses, jax_run)
+    kf = g["kf_global"]
     check(kf.shape == strict_kf.shape, f"{name}: {kf.shape} keyframes, strict {strict_kf.shape}")
     d_strict = float(np.max(np.linalg.norm(kf[:, 3:] - strict_kf[:, 3:], axis=1)))
-    check(name == "device-resident" or d_strict < PIPE_POSE_GATE_M,
+    check(bw.SCHEDULES[name][2] or d_strict < PIPE_POSE_GATE_M,
           f"{name}: keyframe positions {d_strict} m from the strict run (gate "
           f"{PIPE_POSE_GATE_M} m)")
     jax_kf = np.asarray(jax_run["kf_global"])
-    check(kf.shape == jax_kf.shape, f"{name}: {kf.shape} keyframes, JAX {jax_kf.shape}")
-    d_jax = float(np.max(np.linalg.norm(kf[:, 3:] - jax_kf[:, 3:], axis=1)))
-    check(d_jax < PIPE_JAX_GATE_M,
-          f"{name}: keyframe positions {d_jax} m from the JAX package's run of the same "
-          f"schedule (gate {PIPE_JAX_GATE_M} m)")
-    est.finalize()
-    ate = ate_rmse(est.final_poses_cam[:, 3:], gt_poses[kf_frames][:, 3:], align=True)
-    check(np.isfinite(est.final_poses_cam).all() and ate < ATE_GATE_M,
-          f"{name}: aligned ATE {ate} m")
-    return dict(d_strict=d_strict, d_jax=d_jax, jax_d_strict=float(np.max(np.linalg.norm(
-        jax_kf[:, 3:] - strict_kf[:, 3:], axis=1))), ate=ate, jax_ate=jax_run["ate_m"], n_kfs=n,
-        checks=sum(r.kf_check for r in est.step_log))
+    return dict(d_strict=d_strict, d_jax=g["d_jax_m"], jax_d_strict=float(np.max(np.linalg.norm(
+        jax_kf[:, 3:] - strict_kf[:, 3:], axis=1))), ate=g["ate_m"], jax_ate=jax_run["ate_m"],
+        n_kfs=g["n_kfs"], checks=g["checks"])
 
 
 def _window_groups(entries) -> str:
@@ -2234,32 +2249,15 @@ def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
     """Phase 15: the JAX package's default schedule on the bench workload
     (pipelined window solves, deferred checks, one read a batch): (a) at
     batch 20 and 8, (b) with solve_flush_before_insert, (c) the device-
-    resident loop, (d) phase 13's windows in groups, (e) one fused check
-    group under the sync debug mode's "error"."""
+    resident loop in chunks of 60 and of 8, (d) phase 13's windows in
+    groups, (e) one fused check group under the sync debug mode's
+    "error"."""
     fp = bw.load_fingerprint()
     _reset_launches()
-    runs = {}
-    for name, (batch, mid) in bw.SCHEDULES.items():
-        if name != "device-resident":
-            runs[name] = _pipelined_run(frames, batch, mid)
-    # (c) the device-resident loop: 21 frames at batch 20, then chunks of 60
-    # frames already on the card, each one scan chained from the one before
-    est = bench_estimator(DEV)
-    est.perform_stereo_slam_batched(frames[:PIPE_WARMUP], batch=PIPE_BATCH)
-    est.rba.flush()
-    rest = frames[PIPE_WARMUP:]
-    chunks = [(torch.from_numpy(np.stack([f[0] for f in rest[c:c + DEV_CHUNK]])).to(DEV),
-               torch.from_numpy(np.stack([f[1] for f in rest[c:c + DEV_CHUNK]])).to(DEV))
-              for c in range(0, len(rest), DEV_CHUNK)]
-    sync()
-    with SyncCount() as dsyncs:
-        t0 = time.perf_counter()
-        est.perform_stereo_slam_device(chunks)
-        est.rba.flush()
-        sync()
-        dev_s = time.perf_counter() - t0
-    runs["device-resident"] = dict(est=est, timed_s=dev_s, fps=len(rest) / dev_s,
-                                   syncs=dsyncs.n, batches=len(chunks))
+    # (a)-(c): each schedule of bw.SCHEDULES, the device-resident loops
+    # (chunk > 0) through one function
+    runs = {name: (_device_resident_run if chunk else _pipelined_run)(frames, name)
+            for name, (_batch, _mid, chunk) in bw.SCHEDULES.items()}
     counts = _launches()
     jax_runs = bw.load_fingerprint(bw.PIPELINE_FINGERPRINT)["runs"]
     check(set(jax_runs) == set(runs), f"{bw.PIPELINE_FINGERPRINT}: runs {sorted(jax_runs)}")
@@ -2275,20 +2273,19 @@ def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
         extra = ""
         if "n" in r:
             c = r["n"]
-            wg = r["timed_groups"]
-            extra = (f" | reads {r['reads']} over {r['batches']} batches "
-                     f"({r['reads'] / max(r['batches'], 1):.2f} a batch; synchronous checks of "
+            extra = (f" | reads {c['reads']} over {r['batches']} batches "
+                     f"({c['reads'] / max(r['batches'], 1):.2f} a batch; synchronous checks of "
                      f"the replays {c['sync_checks']}) | host syncs {r['syncs']} "
                      f"({r['syncs'] / max(r['batches'], 1):.2f} a batch) | predictions "
                      f"{c['predictions']}, misses {c['fast_replays'] + c['classic_replays']} "
                      f"(fast replays {c['fast_replays']}, classic {c['classic_replays']}), "
                      f"demotions {c['demotions']} | window groups {len(c['window_groups'])}, "
-                     f"windows a group {c['window_groups']} (timed part {wg}) | fused check "
+                     f"windows a group {c['window_groups']} | fused check "
                      f"groups {len(c['check_groups'])}, checks a group {c['check_groups']} | "
                      f"warm-up {r['warm_s']:.3f} s")
         else:
             extra = (f" | host syncs {r['syncs']} ({r['syncs'] / r['batches']:.2f} a chunk of "
-                     f"{DEV_CHUNK})")
+                     f"{r['chunk']})")
         print(f"[pipeline] {name}: {len(frames) - PIPE_WARMUP} timed frames after "
               f"{PIPE_WARMUP}: {r['timed_s']:.3f} s, {r['fps']:.2f} fps (phase 10 strict b8: "
               f"{strict['wall']:.3f} s for all {len(frames)}, {len(frames) / strict['wall']:.2f} "
@@ -2296,7 +2293,7 @@ def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
               f"decisions equal the JAX fingerprint; {g['n_kfs']} KFs, {g['checks']} checks | "
               f"KF positions within {g['d_jax']:.2e} m of the JAX run of this schedule (gate "
               f"{PIPE_JAX_GATE_M} m), {g['d_strict']:.2e} m of phase 10's strict run ("
-              + (f"gate {PIPE_POSE_GATE_M} m" if name != "device-resident" else "not gated")
+              + ("not gated" if bw.SCHEDULES[name][2] else f"gate {PIPE_POSE_GATE_M} m")
               + f"; JAX's run {g['jax_d_strict']:.2e} m) | ATE {g['ate']:.6f} m (gate "
               f"{ATE_GATE_M} m; JAX's run {g['jax_ate']:.6f} m)" + extra)
     print(f"[pipeline kernels] launches over (a)-(c) {counts}: K1 and K2 once per scan and per "
@@ -2308,6 +2305,61 @@ def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
     print(f"[pipeline checks] (e) " + _fused_group_check(b20["first_group"]))
     print(f"[pipeline exit reads] the solves' exit reads, {len(frames)} frames at batch "
           f"{BATCH}, in turns: " + _exit_read_ab(frames))
+    return counts
+
+
+def _same_step(a, b, what: str) -> float:
+    """The VO step's outputs ``(pose, num_inliers, m_valid)`` on the card
+    (``a``) against the CPU path's (``b``): m_valid and num_inliers exact,
+    the pose within POSE_TOL_RAD; returns the pose's largest difference."""
+    check(torch.equal(a[2].cpu(), b[2]), f"{what}: m_valid differs from the CPU path")
+    check(int(a[1]) == int(b[1]), f"{what}: num_inliers {int(a[1])} on the card, "
+                                  f"{int(b[1])} on the CPU")
+    d = float((a[0].cpu() - b[0]).abs().max())
+    check(d <= POSE_TOL_RAD, f"{what}: pose {d} from the CPU path's")
+    return d
+
+
+def phase_bench(frames, gt_poses) -> dict:
+    """Phase 16: the port's bench harness (``srba_slam_tpu_torch/bench.py``)
+    at one repeat of each part on the frames rendered above, and
+    ``entry()`` once; then ``entry``'s outputs and example frontend against
+    the CPU path's, and the step on two street frames on both devices."""
+    _reset_launches()
+    t0 = time.perf_counter()
+    line = bench.run(DEV, repeats=1, dev_repeats=1, bounded_repeats=2,
+                     frames=(frames, gt_poses))
+    run_s = time.perf_counter() - t0
+    fn, args = entry(DEV)
+    out = fn(*args)
+    sync()
+    counts = _launches()
+    check(line["launches"]["fast_nms"] > 0 and line["launches"]["orb_descriptors"] > 0,
+          f"bench: K1/K2 not launched in the timed parts: {line['launches']}")
+    check(counts["fast_nms"] > 0 and counts["orb_descriptors"] > 0
+          and counts["fast_score_map"] == 0, f"bench path launches {counts}")
+    check(line["busy_share"] is not None and line["card"], "bench: no busy share or card line")
+    check(line["cpu_fps"] is not None and line["cpu_fps"] > 0,
+          f"bench: no CPU anchor ({line['cpu_fps']})")
+    print(f"[bench] {json.dumps(line)}")
+    # the comparisons below launch kernels outside the counted path
+    fn_cpu, args_cpu = entry("cpu")
+    diff = _int_fields_differing(args[2], args_cpu[2])
+    check(not diff, f"entry: the example frontend differs from the CPU path in {diff}")
+    d_example = _same_step(out, fn_cpu(*args_cpu), "entry")
+    street = []
+    for dev, step in ((DEV, fn), ("cpu", fn_cpu)):
+        prev = extract_and_match(*frames[0], StereoCamera.kitti(), 20.0, 60, device=dev)
+        street.append(step(*(torch.from_numpy(a).to(dev) for a in frames[1]), prev,
+                           torch.zeros(6, device=dev)))
+    d_street = _same_step(*street, "entry on street frames 0-1")
+    print(f"[entry] entry(): pose {out[0].cpu().numpy().round(6).tolist()}, num_inliers "
+          f"{int(out[1])}, {int(out[2].sum())} stereo matches of {out[2].numel()} (independent "
+          f"random frames, as the JAX entry's) | the example frontend equal to the CPU path's | "
+          f"outputs equal to the CPU path's (pose within {d_example:.1e}) | the step on street "
+          f"frames 0-1: {int(street[0][1])} inliers, {int(street[0][2].sum())} stereo matches, "
+          f"equal to the CPU path's (pose within {d_street:.1e}) | bench.run {run_s:.3f} s | "
+          f"launches on the path (bench timed and untimed parts, entry) {counts}")
     return counts
 
 
@@ -2480,6 +2532,7 @@ def main():
     entries, rba = timed("insertion", phase_insertion, frames, pg_call)
     paths["mesh"] = timed("mesh", phase_mesh, frames, cam, fleet_ref, entries, rba)
     paths["pipeline"] = timed("pipeline", phase_pipeline, frames, src.gt_poses, strict, entries)
+    paths["bench"] = timed("bench", phase_bench, frames, src.gt_poses)
     print(f"[phases] seconds {seconds}")
     for k in (k1, k2, k3):
         k["launches_by_path"] = {path: c[k["name"]] for path, c in paths.items()}

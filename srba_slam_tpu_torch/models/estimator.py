@@ -597,6 +597,9 @@ class SRBAStereoSLAMEstimator:
         prev_inc = chain["last_inc"] if chain else torch.from_numpy(
             np.asarray(eng._last_pose_inc, np.float32)).to(self.device, non_blocking=True)
         fast_th, orb_th = eng.thresholds()
+        # the batch's dispatch, stamped before the host issues the scan's
+        # launches (the latency log's arrival where no frame stamp is given)
+        t_dispatch = time.perf_counter()
         with cuda_graphs.no_exit_reads():
             last_feat, last_inc, outs = vo_scan(
                 lefts, rights, prev_feat, prev_inc, self.cam, fast_th, orb_th,
@@ -604,7 +607,7 @@ class SRBAStereoSLAMEstimator:
         disp = dict(outs=outs, last_feat=last_feat, last_inc=last_inc, b=lefts.shape[0],
                     f0=chain["f0"] + chain["b"] if chain else item["f0"], item=item,
                     lefts=lefts, rights=rights, pk=_pack_scan_summary(outs, last_inc),
-                    t_dispatch=time.perf_counter())
+                    t_dispatch=t_dispatch)
         if chain is None:
             # dispatched from the engine's state, which is current: attach
             # now (a chained batch attaches once the batch before it is walked)

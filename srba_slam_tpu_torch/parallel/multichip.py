@@ -1,5 +1,15 @@
-"""The multi-device dry run of the port (≙ ``__graft_entry__.py``
-``dryrun_multichip`` of the JAX package).
+"""The port's counterparts of the JAX package's ``__graft_entry__.py``:
+the single-card VO step and the multi-device dry run.
+
+``entry(device)`` returns ``(fn, example_args)``: ``fn(left, right, prev,
+init_pose)`` is the stereo-VO step of the flagship pipeline (detect,
+describe, stereo match, track, robust pose: ``extract_and_match`` then
+``track_and_solve`` at FAST threshold 20 and ORB threshold 60) at KITTI
+resolution with k = 512 features, returning ``(pose, num_inliers,
+m_valid)``; the example frames are ``default_rng(0)`` uniform f32
+370x1226 images on ``device``, ``prev`` their frontend and ``init_pose``
+zeros(6). On a card it launches K1 (on its f32 route) and K2.
+``vo_step(h, w, k, device)`` builds the same at another size.
 
 ``dryrun_multichip(n)`` drives every sharded path of the port over a mesh
 of n devices, with the JAX dry run's small camera, asserts and bounds:
@@ -24,6 +34,38 @@ import time
 
 import numpy as np
 import torch
+
+
+ENTRY_FAST_TH = 20.0
+ENTRY_ORB_TH = 60
+
+
+def vo_step(h: int, w: int, k: int, device="cuda", cam=None):
+    """``(fn, example_args)`` of the stereo-VO step on [h, w] frames with
+    ``k`` features on ``device``, with ``cam`` (KITTI's by default)."""
+    from srba_slam_tpu_torch.models.vo import extract_and_match, track_and_solve
+    from srba_slam_tpu_torch.utils.camera import StereoCamera
+
+    cam = cam or StereoCamera.kitti()
+
+    def fn(left, right, prev, init_pose):
+        cur = extract_and_match(left, right, cam, ENTRY_FAST_TH, ENTRY_ORB_TH, k=k,
+                                device=device)
+        out = track_and_solve(prev, cur, cam, init_pose, ENTRY_ORB_TH)
+        return out.pose.pose, out.pose.num_inliers, cur.m_valid
+
+    rng = np.random.default_rng(0)
+    left = torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32)).to(device)
+    right = torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32)).to(device)
+    prev = extract_and_match(left, right, cam, ENTRY_FAST_TH, ENTRY_ORB_TH, k=k, device=device)
+    init = torch.zeros(6, dtype=torch.float32, device=device)
+    return fn, (left, right, prev, init)
+
+
+def entry(device="cuda"):
+    """``(fn, example_args)``: the VO step at KITTI resolution (370x1226,
+    k = 512) on ``device`` (≙ ``__graft_entry__.py`` ``entry``)."""
+    return vo_step(370, 1226, 512, device)
 
 
 def _tiny_window(cam, rng, device):

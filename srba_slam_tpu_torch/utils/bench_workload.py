@@ -41,14 +41,17 @@ FINGERPRINT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 
 # The JAX package's default schedule on the same workload, as its bench.py
 # runs it: WARMUP_FRAMES frames in a first call, then the rest in a second;
-# name -> (batch, solve_flush_before_insert). The device-resident loop's
-# second part is chunks of DEV_CHUNK frames already on the device, each one
-# scan chained from the one before. PIPELINE_FINGERPRINT holds the JAX
-# package's run of each (decisions, keyframe poses, ATE).
+# name -> (batch, solve_flush_before_insert, chunk). With chunk 0 the second
+# call is the batched loop at ``batch``; otherwise it is the device-resident
+# loop over chunks of ``chunk`` frames already on the device, each one scan
+# chained from the one before (bench.py's at DEV_CHUNK, and its bounded-lag
+# point at 8). PIPELINE_FINGERPRINT holds the JAX package's run of each
+# (decisions, keyframe poses, ATE).
 WARMUP_FRAMES = 21
 DEV_CHUNK = 60
-SCHEDULES = {"pipelined b20": (20, False), "pipelined b8": (8, False),
-             "flush-before-insert b8": (8, True), "device-resident": (20, False)}
+SCHEDULES = {"pipelined b20": (20, False, 0), "pipelined b8": (8, False, 0),
+             "flush-before-insert b8": (8, True, 0), "device-resident": (20, False, DEV_CHUNK),
+             "device-resident b8": (20, False, 8)}
 PIPELINE_FINGERPRINT = os.path.join(os.path.dirname(FINGERPRINT), "jax_bench_pipeline.json")
 
 DECISION_FIELDS = ("kf_check", "inserted_kf", "loop_closure_with", "lc_rejected_with")

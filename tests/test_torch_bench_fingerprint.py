@@ -21,9 +21,10 @@ not in tier-1:
 package's runs of the same workload with its default schedule, as its
 ``bench.py`` drives it (``bw.SCHEDULES``: 21 frames, then 60 in a second
 call, at batch 20 and 8, with ``solve_flush_before_insert``, and the
-device-resident loop), so ``chip_smoke.py``'s phase 15 holds the port's
-run of each to the JAX run of the same schedule, and not only to the
-strict one. Slow tests:
+device-resident loop in chunks of 60 and of 8), so ``chip_smoke.py``'s
+phase 15 and ``srba_slam_tpu_torch/bench.py`` hold the port's run of each
+to the JAX run of the same schedule, and not only to the strict one.
+Slow tests:
 
 * the JAX runs, made again, still give the committed file (decisions
   exactly, poses and ATE within 1e-5);
@@ -119,33 +120,32 @@ def _run_schedule(est, name: str, frames, device_loop):
     """``name`` of ``bw.SCHEDULES`` on ``est`` over ``frames``: the
     warm-up call, then the rest (``device_loop(est, rest)`` for the
     device-resident loop); the solves in flight land at the end."""
-    batch, mid = bw.SCHEDULES[name]
+    batch, mid, chunk = bw.SCHEDULES[name]
     est.solve_flush_before_insert = mid
     w = bw.WARMUP_FRAMES
     est.perform_stereo_slam_batched(frames[:w], batch=batch)
     est.rba.flush()
-    if name == "device-resident":
-        device_loop(est, frames[w:])
+    if chunk:
+        device_loop(est, frames[w:], chunk)
     else:
         est.perform_stereo_slam_batched(frames[w:], batch=batch)
     est.rba.flush()
 
 
-def _chunks(rest, to_device):
-    c = bw.DEV_CHUNK
+def _chunks(rest, to_device, c):
     return [(to_device(np.stack([f[0] for f in rest[i:i + c]])),
              to_device(np.stack([f[1] for f in rest[i:i + c]])))
             for i in range(0, len(rest), c)]
 
 
-def _jax_device_loop(est, rest):
+def _jax_device_loop(est, rest, chunk):
     """The device-resident loop of the JAX package's ``bench.py`` over the
-    frames ``rest``, in chunks of ``bw.DEV_CHUNK``."""
+    frames ``rest``, in chunks of ``chunk``."""
     import jax.numpy as jnp
 
     from test_torch_pipeline import jax_device_loop
 
-    jax_device_loop(est, _chunks(rest, jnp.asarray))
+    jax_device_loop(est, _chunks(rest, jnp.asarray, chunk))
 
 
 def jax_pipeline_fingerprint() -> dict:
@@ -171,8 +171,8 @@ def port_schedule_fingerprint(name: str, device: str = "cpu") -> dict:
 
     frames, sha, gt = _frames()
     est = bench_estimator(device)
-    _run_schedule(est, name, frames, lambda e, rest: e.perform_stereo_slam_device(
-        _chunks(rest, lambda a: torch.from_numpy(a).to(device))))
+    _run_schedule(est, name, frames, lambda e, rest, chunk: e.perform_stereo_slam_device(
+        _chunks(rest, lambda a: torch.from_numpy(a).to(device), chunk)))
     return _fingerprint(est, sha, gt)
 
 

@@ -445,6 +445,25 @@ def test_pose_graph_replays_match_eager(cuda, monkeypatch):
     assert sum(e.count for e in evs if e.key == "cudaGraphLaunch") == 25
 
 
+def test_entry_runs_on_the_card(cuda):
+    """``entry()`` (the single-card VO step at 370x1226, k = 512)
+    launches K1 (f32 route) and K2 on the card, and its outputs equal the
+    CPU path's: m_valid and num_inliers exact, the pose within 1e-4."""
+    from srba_slam_tpu_torch.parallel.multichip import entry
+
+    before = hopper_fast.fast_nms.launches, hopper_fast.orb_descriptors.launches
+    fn, args = entry()
+    pose, n_inliers, m_valid = fn(*args)
+    torch.cuda.synchronize()
+    assert hopper_fast.fast_nms.launches >= before[0] + 2
+    assert hopper_fast.orb_descriptors.launches >= before[1] + 2
+    assert pose.is_cuda and m_valid.is_cuda and pose.shape == (6,) and m_valid.shape == (512,)
+    fn_cpu, args_cpu = entry("cpu")
+    ref = fn_cpu(*args_cpu)
+    assert torch.equal(m_valid.cpu(), ref[2]) and int(n_inliers) == int(ref[1])
+    assert float((pose.cpu() - ref[0]).abs().max()) <= 1e-4
+
+
 def test_vo_engine_cuda_matches_cpu(cuda):
     cam = StereoCamera(**SMALL_CAM)
     scene = PlaneScene(np.random.default_rng(11))

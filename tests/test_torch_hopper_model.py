@@ -22,10 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from srba_slam_tpu_torch import bench
 from srba_slam_tpu_torch.models import bow, estimator, keyframe, srba, vo
 from srba_slam_tpu_torch.ops import cuda_build, hopper_fast
 from srba_slam_tpu_torch.ops.fast import CIRCLE, fast_score_map
 from srba_slam_tpu_torch.ops.orb import PATTERN_OFFSETS, gauss_blur7, upright_descriptors
+from srba_slam_tpu_torch.parallel import multichip
 
 torch.set_num_threads(1)
 
@@ -165,6 +167,8 @@ ENTRY_POINTS = {
     "KeyframeStore.from_jax_numpy": keyframe.KeyframeStore.from_jax_numpy,
     "BoWDatabase": bow.BoWDatabase.__init__,
     "BoWDatabase.from_jax_numpy": bow.BoWDatabase.from_jax_numpy,
+    "entry": multichip.entry,
+    "bench.run": bench.run,
 }
 
 

@@ -25,7 +25,8 @@ def test_port_imports_without_jax():
         "assert 'srba_slam_tpu_torch.ops.prng' in names, names\n"
         "for new in ('__main__', 'ops.rectify', 'utils.checkpoint', 'utils.compare',\n"
         "            'utils.debug_dumps', 'utils.viz', 'utils.html_viewer', 'utils.live_server',\n"
-        "            'native.loader', 'parallel.batch', 'parallel.sweep', 'parallel.fleet'):\n"
+        "            'native.loader', 'parallel.batch', 'parallel.sweep', 'parallel.fleet',\n"
+        "            'parallel.multichip', 'bench'):\n"
         "    assert 'srba_slam_tpu_torch.' + new in names, (new, names)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'srba_slam_tpu' or m.startswith('srba_slam_tpu.')]\n"
