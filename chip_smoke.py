@@ -97,11 +97,18 @@ not 0 (there is no CPU fallback):
                schedule (its keyframe checks deferred): decisions equal the
                committed JAX fingerprint (the JAX package's batch-8 run makes
                its per-frame run's decisions), ATE under 0.5 m, K1 and K2 once
-               per scan dispatch (retry tails included) and for the bootstrap
+               per scan dispatch (retry tails included: each scan is one
+               replay of its batch length's CUDA graph), once for each
+               graph's capture (its eager warm-up) and for the bootstrap
                frame; total s and fps beside phase 7's; host syncs per frame
                and per check; K1 and K2 device-only
                at one scan's ``[16,370,1226]`` uint8 beside the bytes bound
-               and the launch floor;
+               and the launch floor; the scan graphs captured (host s, pool
+               MB, K1/K2 launches a replay); one scan of 8 and one of a
+               retry tail's length as the graph against the eager scan
+               (``vo.SCAN_GRAPHS`` off): every output equal bit for bit,
+               host ms to dispatch and to finish (launches a frame:
+               after phase 15);
 11. fleet    - ``FleetSLAM`` over four bench-workload street sequences
                (seeds 11, 48, 85, 122; 30 frames each; one vocabulary) on the
                card against each sequence's solo ``step()`` run on the card:
@@ -175,15 +182,18 @@ not 0 (there is no CPU fallback):
                pipelined; (c) the device-resident loops (the 60 frames on
                the card in one chunk of 60, one scan, and in chunks of 8):
                the same checks but the distance to strict, which is
-               printed beside the JAX run's;
+               printed beside the JAX run's; (a)-(c) again with the eager
+               scan: the same decisions and keyframe poses bit for bit,
+               frames/s beside the graph's, and the scan graphs captured
+               inside each timed part; a b20 scan as the graph against the
+               eager scan (bits, dispatch ms);
                (d) phase 13's windows in groups by bucket through
                ``optimize_windows_batch_blob``: each slot equal to its
                one-window solve, graph blocks equal to eager ones, ms a
                group beside the one-window solves; (e) one fused check group
                of (a) again under ``set_sync_debug_mode("error")`` (no host
                sync), each slot equal to the one-check path on the same
-               rows; the solves' exit reads on and off at batch 8, strict
-               and pipelined, in turns: s and syncs, the same bits;
+               rows;
 16. bench    - the port's bench harness, ``srba_slam_tpu_torch/bench.py``
                ``run(repeats=1, dev_repeats=1, bounded_repeats=2)`` on the
                frames rendered above (the protocol of the JAX package's
@@ -191,14 +201,20 @@ not 0 (there is no CPU fallback):
                schedule), its line printed as ``[bench] {...}``: K1 and K2
                launched in its timed parts, the card line, a busy share
                and a CPU anchor (measured in its subprocess, since a
-               fresh checkout has no cached anchor); then
-               ``parallel/multichip.py``
+               fresh checkout has no cached anchor), the scan graphs it
+               captured (none inside a timed part); a scan of 60 (the
+               device-resident chunk) as the graph against the eager scan;
+               then ``parallel/multichip.py``
                ``entry()`` once. ``entry``'s outputs and its example
                frontend equal the same call with ``device="cpu"`` (the
                features' integer fields, m_valid and num_inliers exact, the
                pose within 1e-4), and so does its step on street frames 0-1.
 
-Then one JSON line with, per kernel: its launches over the driven paths
+Between phases 15 and 16, the scan's launches a frame at B = 8, 20 and
+60, eager against graph, under torch.profiler in a process of its own
+(``phase_scan_launches``): this process traces a graph scan only in
+phase 16's busy share, its last profiler session (ROADMAP Queue 3). Then
+one JSON line with, per kernel: its launches over the driven paths
 (``launches_by_path``: the estimator run, the margin-3 frontend, the
 two-octave engine, the CLI run, the batched run, the fleet run, the
 mesh runs of phase 14 (a) and (b), the runs of phase 15 (a)-(c) and
@@ -241,6 +257,7 @@ import warnings  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils import _pytree as pytree  # noqa: E402
 
 from srba_slam_tpu_torch import (  # noqa: E402
     SRBAStereoSLAMEstimator, StereoCamera, StereoVOEngine, VOOptions, bench, load_config,
@@ -651,6 +668,133 @@ def _reset_launches():
 
 def _launches() -> dict:
     return {fn.__name__: fn.launches for fn in (fast_nms, orb_descriptors, fast_score_map)}
+
+
+def _captures() -> int:
+    """The CUDA graphs captured so far (``ops/cuda_graphs.py`` ``program``:
+    each batch length's scan once; a capture's warm-up launches K1 and K2
+    once more)."""
+    return cuda_graphs.PROGRAM_STATS["captures"]
+
+
+def _graph_programs(b_list=None) -> str:
+    """The captured scan graphs (of batch lengths ``b_list``, else all):
+    batch, host seconds of warm-up and capture, MB of the graph's pool and
+    of its GN steps' pools, K1/K2 launches a replay."""
+    rows = []
+    for p in cuda_graphs.programs():
+        b = p["key"][1]
+        if b_list is None or b in b_list:
+            rows.append(f"B={b} {p['capture_s']:.3f} s, pool {p['pool_bytes'] / 2**20:.1f} MB "
+                        f"(steps {p['body_bytes'] / 2**20:.1f} MB), launches a replay "
+                        f"{p['launches']}")
+    return "; ".join(rows) or "none"
+
+
+def _scan_fns(frames, b: int):
+    """The scan of street frames 1..b chained from frame 0's features at
+    FAST 20 / ORB 60 (tensors, as the estimator passes them), as a call of
+    the CUDA-graph replay (the default) and one of the eager scan
+    (``vo.SCAN_GRAPHS`` off)."""
+    cam = StereoCamera.kitti()
+    prev = extract_and_match(*frames[0], cam, 20.0, 60, device=DEV)
+    lefts = torch.from_numpy(np.stack([f[0] for f in frames[1:1 + b]])).to(DEV)
+    rights = torch.from_numpy(np.stack([f[1] for f in frames[1:1 + b]])).to(DEV)
+    init = torch.zeros(6, device=DEV)
+    fast, orb_t = torch.full((b,), 20.0, device=DEV), torch.full((), 60.0, device=DEV)
+
+    def graph():
+        with cuda_graphs.no_exit_reads():
+            return vo_mod.vo_scan(lefts, rights, prev, init, cam, fast, orb_t, device=DEV)
+
+    return graph, _flag_off(vo_mod, "SCAN_GRAPHS", graph)
+
+
+def _scan_ab(frames, b: int) -> str:
+    """One scan of B frames (:func:`_scan_fns`) as the graph replay
+    against the eager scan: every output equal bit for bit; then, the
+    graph captured, in turns (eager, graph, graph, eager, 5 calls each),
+    the host ms until ``vo_scan`` returns (the dispatch) and until the card
+    is done, medians."""
+    graph, eager = _scan_fns(frames, b)
+    caps = _captures()
+    t0 = time.perf_counter()
+    out_g = graph()
+    sync()
+    first_s = time.perf_counter() - t0
+    out_e = eager()
+    leaves_g, leaves_e = (pytree.tree_leaves(o) for o in (out_g, out_e))
+    check(len(leaves_g) == len(leaves_e) and all(
+        torch.equal(x, y) for x, y in zip(leaves_g, leaves_e)),
+        f"scan of {b}: the graph replay differs from the eager scan")
+    times = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        fn = graph if name == "graph" else eager
+        for _ in range(5):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            sync()
+            times[name].append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+    med = {n: (statistics.median(t[0] for t in v), statistics.median(t[1] for t in v))
+           for n, v in times.items()}
+    return (f"B={b}: graph = eager bit for bit on all {len(leaves_g)} outputs | first graph "
+            f"call {first_s:.3f} s ({_captures() - caps} captured) | dispatch / done ms, "
+            f"medians in turns: eager {med['eager'][0]:.3f} / {med['eager'][1]:.3f}, graph "
+            f"{med['graph'][0]:.3f} / {med['graph'][1]:.3f}")
+
+
+def _scan_launch_counts(fn) -> tuple[int, int, int]:
+    """The kernel launches, graph launches and copies that the host issues
+    in one call of ``fn`` (after a warm-up call), from torch.profiler."""
+    evs = kt.profile_calls(fn)
+    return (kt.launch_count(evs), sum(e.count for e in evs if "GraphLaunch" in e.key),
+            sum(e.count for e in evs if e.key == "cudaMemcpyAsync"))
+
+
+def scan_launches_child(path: str) -> None:
+    """:func:`phase_scan_launches`'s process: the street frames saved at
+    ``path``; every eager scan traced before the first graph scan, and
+    nothing traced after the graph scans. Prints one JSON object."""
+    data = np.load(path)
+    frames = [(f[0], f[1]) for f in data]
+    batches = (BATCH, bw.SCHEDULES[bench.HEADLINE][0], bw.DEV_CHUNK)
+    fns = {b: _scan_fns(frames, b) for b in batches}
+    eager = {b: _scan_launch_counts(fns[b][1]) for b in batches}
+    graph = {b: _scan_launch_counts(fns[b][0]) for b in batches}
+    print(json.dumps({"eager": eager, "graph": graph, "captures": _captures()}))
+
+
+def phase_scan_launches(frames) -> None:
+    """The scan's launches a frame at the batches of phases 10, 15 and 16,
+    eager against graph: the kernel launches, graph launches and copies
+    that the host issues in one call, under torch.profiler with CPU and
+    CUDA activity, in a process of its own (:func:`scan_launches_child`).
+    In this process a trace of a graph scan with CPU activity was followed
+    by later sessions that lost kernel records and, five times, by an
+    illegal memory access (ROADMAP Queue 3, cause not shown), so this
+    process traces graph scans only in phase 16's busy share, its last
+    profiler session. A graph call must launch no kernel and one graph."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frames.npy")
+        np.save(path, np.stack([np.stack(f[:2]) for f in frames[:1 + bw.DEV_CHUNK]]))
+        code = f"import chip_smoke; chip_smoke.scan_launches_child({path!r})"
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    check(proc.returncode == 0, f"the scan-launches process exited with {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    rows = []
+    for b in got["eager"]:
+        e, g = got["eager"][b], got["graph"][b]
+        check(g[0] == 0 and g[1] == 1, f"a graph scan of {b} launched {g[0]} kernels and "
+              f"{g[1]} graphs")
+        rows.append(f"B={b}: eager {'/'.join(f'{c / int(b):.2f}' for c in e)} {tuple(e)}, "
+                    f"graph {'/'.join(f'{c / int(b):.2f}' for c in g)} {tuple(g)}")
+    print("[scan launches] a frame, torch.profiler in a process of its own (kernel launches / "
+          "graph launches / copies; a call in brackets): " + "; ".join(rows)
+          + f" | {got['captures']} graphs captured there")
 
 
 def phase_slice(cam, frames, gt_poses):
@@ -1191,6 +1335,7 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> tuple[dict, dict]:
     est = bench_estimator(DEV, solve_sync=True)
     estimator_mod.vo_scan = counted_scan
     _reset_launches()
+    caps, caps_s = _captures(), cuda_graphs.PROGRAM_STATS["capture_s"]
     try:
         with SyncCount() as syncs:
             check_syncs = _count_calls_syncs(est, "_kf_check", syncs)
@@ -1201,12 +1346,15 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> tuple[dict, dict]:
     finally:
         estimator_mod.vo_scan = scan
     counts = _launches()
+    caps, caps_s = _captures() - caps, cuda_graphs.PROGRAM_STATS["capture_s"] - caps_s
     torch.use_deterministic_algorithms(False)
     n_batches = len(est.lat["batches"])
-    # frame 0 bootstraps through step(): one VO pass; then K1 and K2 once a scan
-    check(counts == {"fast_nms": len(scans) + 1, "orb_descriptors": len(scans) + 1,
-                     "fast_score_map": 0},
-          f"batched run: launches {counts} over {len(scans)} scans and the bootstrap frame")
+    # frame 0 bootstraps through step(): one VO pass; then K1 and K2 once a
+    # scan's replay, and once more for each graph's capture (its warm-up)
+    n = len(scans) + 1 + caps
+    check(counts == {"fast_nms": n, "orb_descriptors": n, "fast_score_map": 0},
+          f"batched run: launches {counts} over {len(scans)} scans, the bootstrap frame and "
+          f"{caps} scan graph captures")
     got = bw.decisions(est.step_log)
     diff = [(a, b) for a, b in zip(fp["decisions"], got) if a != b]
     check(len(got) == len(frames) and not diff,
@@ -1226,7 +1374,8 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> tuple[dict, dict]:
           f"{per_frame_s:.3f} s, {len(frames) / per_frame_s:.2f} fps; ratio "
           f"{per_frame_s / wall:.3f}) | {n_batches} batches, {len(scans)} scan dispatches "
           f"(tails {[b for b in scans if b != BATCH]}), launches {counts}: K1 and K2 once per "
-          f"scan + the bootstrap frame | decisions equal the JAX fingerprint (the JAX "
+          f"scan replay + the bootstrap frame + {caps} captures' warm-ups | decisions equal "
+          f"the JAX fingerprint (the JAX "
           f"package's batch-8 run makes the per-frame run's decisions, "
           f"tests/test_torch_bench_fingerprint.py) | {est.store.n_kfs} KFs, "
           f"{sum(r.kf_check for r in est.step_log)} checks | ATE {ate:.6f} m, final poses vs "
@@ -1237,6 +1386,11 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> tuple[dict, dict]:
           f"{len(check_syncs)}, syncs inside each median {_med(check_syncs)}")
     print(f"[batched kernels] one scan's images [{2 * BATCH},370,1226] u8 at threshold 20: "
           + _kernel_line(imgs, 20.0))
+    tails = sorted({b for b in scans if b != BATCH})
+    print(f"[batched scan graphs] {caps} captured in the run ({caps_s:.3f} s of warm-up and "
+          f"capture): {_graph_programs()} | "
+          + _scan_ab(frames, BATCH) + " | a retry tail's length: "
+          + _scan_ab(frames, tails[0] if tails else BATCH - 3))
     return counts, dict(kf_global=strict_kf, wall=wall, syncs=syncs.n, batches=n_batches)
 
 
@@ -2071,21 +2225,27 @@ def _pipelined_run(frames, name: str) -> dict:
     finally:
         restore()
     return dict(est=est, n=n, warm_s=warm_s, timed_s=t.s, fps=(len(frames) - PIPE_WARMUP) / t.s,
-                batches=len(est.lat["batches"]) - n_b0, syncs=syncs.n)
+                batches=len(est.lat["batches"]) - n_b0, syncs=syncs.n, captures=t.captures)
 
 
 def _device_resident_run(frames, name: str) -> dict:
     """The device-resident loop of schedule ``name`` of ``bw.SCHEDULES`` as
     the harness runs it: ``bench._warmed``, the rest staged on the card in
     chunks of the schedule's size (``bench.stage_chunks``), each chunk one
-    scan chained from the one before, timed by ``bench._Timed``."""
+    scan chained from the one before, timed by ``bench._Timed``, after one
+    scan at the chunk's shape on a throwaway estimator (as the harness)."""
     chunk = bw.SCHEDULES[name][2]
     est = bench._warmed(DEV, frames, name)
     chunks, _bytes = bench.stage_chunks(frames[PIPE_WARMUP:], chunk, DEV)
+    # one scan at the chunk's shape outside the timed part, on a throwaway
+    # estimator, as the harness warms it (on the card: its graph's capture)
+    spare = bench_estimator(DEV)
+    spare.step(*frames[0])
+    vo_mod.to_host([spare._dispatch_scan(spare.device_batch(*chunks[0]))["last_inc"]])
     with SyncCount() as syncs, bench._Timed(est) as t:
         est.perform_stereo_slam_device(chunks)
     return dict(est=est, timed_s=t.s, fps=(len(frames) - PIPE_WARMUP) / t.s, syncs=syncs.n,
-                batches=len(chunks), chunk=chunk)
+                batches=len(chunks), chunk=chunk, captures=t.captures)
 
 
 def _gate_run(name: str, run: dict, fp: dict, jax_run: dict, gt_poses, strict_kf) -> dict:
@@ -2208,43 +2368,6 @@ def _fused_group_check(g: dict) -> str:
             f"points within {worst:.1e})")
 
 
-def _exit_read_ab(frames) -> str:
-    """The GN and LM solves' exit reads on (``cuda_graphs.no_exit_reads``
-    made a no-op) and off (the default: the steps past an exit skipped by
-    the graphs' conditional nodes), in turns (on, off, off, on), over the
-    81 frames at batch 8, under the strict and the pipelined schedule:
-    total s and host syncs, medians of two; the decisions and keyframe
-    poses the same bits either way."""
-    rows = []
-    for label, strict_ in (("strict", True), ("pipelined", False)):
-        res = {True: [], False: []}
-        for reads in (True, False, False, True):
-            est = bench_estimator(DEV, solve_sync=strict_)
-            keep = cuda_graphs.no_exit_reads
-            if reads:
-                cuda_graphs.no_exit_reads = contextlib.nullcontext
-            try:
-                with SyncCount() as syncs:
-                    t0 = time.perf_counter()
-                    est.perform_stereo_slam_batched(frames, batch=BATCH)
-                    est.rba.flush()
-                    sync()
-                    wall = time.perf_counter() - t0
-            finally:
-                cuda_graphs.no_exit_reads = keep
-            res[reads].append((wall, syncs.n, bw.decisions(est.step_log),
-                               est.rba.kf_global[:est.store.n_kfs].copy()))
-        ref = res[True][0]
-        for wall, n, dec, kf in res[True] + res[False]:
-            check(dec == ref[2] and np.array_equal(kf, ref[3]),
-                  f"exit reads ({label}): the runs with and without them differ")
-        med = {r: (statistics.median(x[0] for x in v), statistics.median(x[1] for x in v))
-               for r, v in res.items()}
-        rows.append(f"{label}: with exit reads {med[True][0]:.3f} s ({med[True][1]:.0f} syncs), "
-                    f"without (the default) {med[False][0]:.3f} s ({med[False][1]:.0f} syncs)")
-    return "; ".join(rows)
-
-
 def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
     """Phase 15: the JAX package's default schedule on the bench workload
     (pipelined window solves, deferred checks, one read a batch): (a) at
@@ -2259,6 +2382,16 @@ def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
     runs = {name: (_device_resident_run if chunk else _pipelined_run)(frames, name)
             for name, (_batch, _mid, chunk) in bw.SCHEDULES.items()}
     counts = _launches()
+    # the same schedules with the eager scan (vo.SCAN_GRAPHS off): the same
+    # bits, for the frames/s of each beside the graph's
+    eager = {name: _flag_off(vo_mod, "SCAN_GRAPHS", lambda n=name, c=chunk: (
+        _device_resident_run if c else _pipelined_run)(frames, n))()
+        for name, (_batch, _mid, chunk) in bw.SCHEDULES.items()}
+    for name, r in eager.items():
+        g = runs[name]["est"]
+        check(bw.decisions(r["est"].step_log) == bw.decisions(g.step_log) and np.array_equal(
+            r["est"].rba.kf_global[:r["est"].store.n_kfs], g.rba.kf_global[:g.store.n_kfs]),
+            f"{name}: the eager scan's run differs from the graph scan's")
     jax_runs = bw.load_fingerprint(bw.PIPELINE_FINGERPRINT)["runs"]
     check(set(jax_runs) == set(runs), f"{bw.PIPELINE_FINGERPRINT}: runs {sorted(jax_runs)}")
     gates = {name: _gate_run(name, r, fp, jax_runs[name], gt_poses, strict["kf_global"])
@@ -2286,6 +2419,9 @@ def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
         else:
             extra = (f" | host syncs {r['syncs']} ({r['syncs'] / r['batches']:.2f} a chunk of "
                      f"{r['chunk']})")
+        extra += (f" | eager scan (SCAN_GRAPHS off, the same bits): {eager[name]['timed_s']:.3f} "
+                  f"s, {eager[name]['fps']:.2f} fps; scan graphs captured in the timed part "
+                  f"{r['captures']}")
         print(f"[pipeline] {name}: {len(frames) - PIPE_WARMUP} timed frames after "
               f"{PIPE_WARMUP}: {r['timed_s']:.3f} s, {r['fps']:.2f} fps (phase 10 strict b8: "
               f"{strict['wall']:.3f} s for all {len(frames)}, {len(frames) / strict['wall']:.2f} "
@@ -2296,15 +2432,15 @@ def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
               + ("not gated" if bw.SCHEDULES[name][2] else f"gate {PIPE_POSE_GATE_M} m")
               + f"; JAX's run {g['jax_d_strict']:.2e} m) | ATE {g['ate']:.6f} m (gate "
               f"{ATE_GATE_M} m; JAX's run {g['jax_ate']:.6f} m)" + extra)
-    print(f"[pipeline kernels] launches over (a)-(c) {counts}: K1 and K2 once per scan and per "
-          f"bootstrap frame ({n_scans} batch reads)")
+    print(f"[pipeline kernels] launches over (a)-(c) {counts}: K1 and K2 once per scan replay, "
+          f"per bootstrap frame and per capture's warm-up ({n_scans} batch reads)")
+    print(f"[pipeline scan graphs] {_graph_programs()} | " + _scan_ab(frames, bw.SCHEDULES[
+        bench.HEADLINE][0]))
     b20 = runs["pipelined b20"]["n"]
     check(b20["first_group"] is not None, "no fused check group of two checks or more")
     print(f"[pipeline windows] (d) phase 13's {len(entries)} windows by bucket: "
           + _window_groups(entries))
     print(f"[pipeline checks] (e) " + _fused_group_check(b20["first_group"]))
-    print(f"[pipeline exit reads] the solves' exit reads, {len(frames)} frames at batch "
-          f"{BATCH}, in turns: " + _exit_read_ab(frames))
     return counts
 
 
@@ -2342,6 +2478,10 @@ def phase_bench(frames, gt_poses) -> dict:
     check(line["cpu_fps"] is not None and line["cpu_fps"] > 0,
           f"bench: no CPU anchor ({line['cpu_fps']})")
     print(f"[bench] {json.dumps(line)}")
+    print(f"[bench scan graphs] one repeat a part, {line['card']}: K1/K2 launches in the timed "
+          f"parts (a replay adds its graph's) {line['launches']['fast_nms']}/"
+          f"{line['launches']['orb_descriptors']}, scan graphs {line['scan_graphs']} | "
+          + _scan_ab(frames, bw.DEV_CHUNK))
     # the comparisons below launch kernels outside the counted path
     fn_cpu, args_cpu = entry("cpu")
     diff = _int_fields_differing(args[2], args_cpu[2])
@@ -2394,6 +2534,7 @@ def phase_cli() -> dict:
         estimator_mod.vo_scan = lambda lefts, *a, **k: (scans.append(len(lefts)),
                                                         scan(lefts, *a, **k))[1]
         _reset_launches()
+        caps = _captures()
         try:
             t0 = time.perf_counter()
             rc, said = _cli([ini, "--synthetic", str(N_CLI_FRAMES)])    # default: --batch 8
@@ -2402,6 +2543,7 @@ def phase_cli() -> dict:
         finally:
             estimator_mod.vo_scan = scan
         counts = _launches()
+        caps = _captures() - caps
         check(rc == 0, f"the CLI exited with {rc}: {said}")
         m = re.search(r"(\d+) frames, (\d+) keyframes, ([0-9.]+) fps", said)
         check(m is not None and int(m.group(1)) == N_CLI_FRAMES, f"the CLI said: {said}")
@@ -2417,8 +2559,9 @@ def phase_cli() -> dict:
         check(np.isfinite(np.loadtxt(os.path.join(out, "out_kf_poses.txt"))).all(),
               "out_kf_poses.txt holds a non-finite pose")
         check(len(scans) >= (N_CLI_FRAMES - 1) // BATCH
-              and counts["fast_nms"] == counts["orb_descriptors"] == len(scans) + 1,
-              f"the CLI run launched {counts} over {len(scans)} scans and the bootstrap frame")
+              and counts["fast_nms"] == counts["orb_descriptors"] == len(scans) + 1 + caps,
+              f"the CLI run launched {counts} over {len(scans)} scans, the bootstrap frame "
+              f"and {caps} scan graph captures")
         # the default (batch 8 on the card) keeps the keyframes of per-frame stepping
         ini1, out1 = _ini_copy(tmp, "per_frame")
         t0 = time.perf_counter()
@@ -2485,7 +2628,8 @@ def phase_cli() -> dict:
     print(f"[cli] main() on CUDA, {os.path.basename(EUROC_INI)} (752x480, unrectified) over "
           f"--synthetic {N_CLI_FRAMES} at the default --batch ({BATCH} on the card): exit 0, "
           f"{N_CLI_FRAMES} frames, {n_kfs} keyframes, {fps:.2f} fps (its own clock; {wall:.3f} s "
-          f"with set-up and the output files) | {len(scans)} scans, launches {counts} | "
+          f"with set-up and the output files) | {len(scans)} scans ({caps} graphs captured, "
+          f"each a warm-up launch), launches {counts} | "
           f"--batch 1: the same kf_frames.txt, {m1.group(1)} fps ({wall1:.3f} s) | files "
           f"{sizes} | --synthetic {N_FLEET_CLI_FRAMES} --fleet 2: exit 0, seq0/ and seq1/ "
           f"written, on a {mf.group(1)}-device mesh, {mf.group(2)} frames/s aggregate "
@@ -2532,6 +2676,7 @@ def main():
     entries, rba = timed("insertion", phase_insertion, frames, pg_call)
     paths["mesh"] = timed("mesh", phase_mesh, frames, cam, fleet_ref, entries, rba)
     paths["pipeline"] = timed("pipeline", phase_pipeline, frames, src.gt_poses, strict, entries)
+    timed("scan launches", phase_scan_launches, frames)
     paths["bench"] = timed("bench", phase_bench, frames, src.gt_poses)
     print(f"[phases] seconds {seconds}")
     for k in (k1, k2, k3):

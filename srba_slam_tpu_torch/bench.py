@@ -50,7 +50,11 @@ beside the card's, never a fallback. ``vs_baseline`` divides by an ASSUMED
 Beside those keys: ``card`` (``nvidia-smi`` name and power limit),
 ``toolchain``, ``gates`` (per schedule the worst repeat's distance to the
 JAX run and ATE), ``launches`` (K1/K2/K3 over the timed parts, from the
-wrappers' counters), ``sections`` (the median headline repeat's profiler
+wrappers' counters: a scan's graph replay adds the launches it holds),
+``scan_graphs`` (the CUDA graphs captured during the run, those captured
+inside a timed part, and their host seconds: on the card each batch's scan
+is a replay of a graph captured once per batch length,
+``models/vo.py`` ``vo_scan``), ``sections`` (the median headline repeat's profiler
 sections over its timed part, ms; under the pipelined schedule
 ``queryDB`` times a check's launch) and ``busy_share``.
 
@@ -77,7 +81,7 @@ import torch
 
 from srba_slam_tpu_torch.models.estimator import bench_estimator
 from srba_slam_tpu_torch.models.vo import to_host
-from srba_slam_tpu_torch.ops import cuda_build, hopper_fast
+from srba_slam_tpu_torch.ops import cuda_build, cuda_graphs, hopper_fast
 from srba_slam_tpu_torch.utils import bench_workload as bw
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 from srba_slam_tpu_torch.utils.evaluation import ate_rmse
@@ -245,13 +249,14 @@ def stage_chunks(frames, chunk: int, device) -> tuple[list, int]:
 
 
 class _Timed:
-    """The launches and profiler sections of one timed part."""
+    """The launches, graph captures and profiler sections of one timed part."""
 
     def __init__(self, est):
         self.est = est
 
     def __enter__(self):
         self._launches, self._sections = _launch_counts(), _sections(self.est)
+        self._captures = cuda_graphs.PROGRAM_STATS["captures"]
         _sync(self.est.device)
         self._t0 = time.perf_counter()
         return self
@@ -263,6 +268,7 @@ class _Timed:
             self.s = time.perf_counter() - self._t0
             now = _launch_counts()
             self.launches = {k: now[k] - self._launches[k] for k in now}
+            self.captures = cuda_graphs.PROGRAM_STATS["captures"] - self._captures
             self.sections = _sections_since(self.est, self._sections)
 
 
@@ -372,7 +378,7 @@ def _headline(device, frames, gt_poses, jax_run, repeats: int) -> dict:
         with _Timed(est) as t:
             est.perform_stereo_slam_batched(
                 timed_src(frames[WARMUP_FRAMES:], WARMUP_FRAMES), batch=BATCH)
-        rows.append(dict(s=t.s, launches=t.launches, sections=t.sections,
+        rows.append(dict(s=t.s, launches=t.launches, captures=t.captures, sections=t.sections,
                          latency=_latency_stats(est, WARMUP_FRAMES, t_consumed),
                          gate=gate_estimator(HEADLINE, est, gt_poses, jax_run)))
         _log(f"{HEADLINE} repeat {rep}: {timed / t.s:.3f} fps, launches {t.launches}, "
@@ -435,6 +441,7 @@ def _device_resident(device, frames, gt_poses, name: str, jax_run, passes: int,
         _log(f"{name} pass {rep}: {timed / t.s:.3f} fps, staged at {mbps:.1f} MB/s")
         if warm_scan or rep == passes - 1:
             rows.append(dict(s=t.s, fps=timed / t.s, mbps=mbps, launches=t.launches,
+                             captures=t.captures,
                              latency=_latency_stats(est, WARMUP_FRAMES, None),
                              gate=gate_estimator(name, est, gt_poses, jax_run)))
     return rows
@@ -458,6 +465,7 @@ def run(device="cuda", repeats: int = REPEATS, dev_repeats: int = DEV_REPEATS,
     frames, gt_poses = frames if frames is not None else render_frames()
     timed = len(frames) - WARMUP_FRAMES
     cpu = _get_cpu_anchor()
+    graphs0 = dict(cuda_graphs.PROGRAM_STATS)
 
     head = _headline(device, frames, gt_poses, jax_runs[HEADLINE], repeats)
     dts = [r["s"] for r in head]
@@ -504,6 +512,10 @@ def run(device="cuda", repeats: int = REPEATS, dev_repeats: int = DEV_REPEATS,
                              jax_ate_m=jax_runs[name]["ate_m"])
                   for name, rows in gates.items()},
         "launches": launches,
+        "scan_graphs": dict(
+            captures=cuda_graphs.PROGRAM_STATS["captures"] - graphs0["captures"],
+            captures_timed=sum(r["captures"] for r in head + dev_rows + bounded_rows),
+            capture_s=cuda_graphs.PROGRAM_STATS["capture_s"] - graphs0["capture_s"]),
         "sections": head[med_i]["sections"],
         "busy_share": busy,
     }

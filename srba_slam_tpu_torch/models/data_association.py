@@ -22,9 +22,10 @@ package vmaps them), and a fleet's checks add a sequence dimension in front
 Each candidate draws its RANSAC hypotheses from its own ``ops/prng.py``
 key, split from the check's key as JAX splits it, so the draws are JAX's.
 On a card the Horn seed's rotation comes from Jacobi sweeps, not the
-library SVD (which reads the host there), so a check reads the host only
-for the GN solves' exit tests (``ops/robust_lm.py``), and not at all
-inside ``cuda_graphs.no_exit_reads``. Statuses use the reference's enum values.
+library SVD (which reads the host there), and the GN solves test their
+exits on the device (``ops/cuda_graphs.py``), so a check reads nothing on
+the host there; on the CPU it reads the GN exit tests, except inside
+``cuda_graphs.no_exit_reads``. Statuses use the reference's enum values.
 
 A check's outputs travel as one int32 blob (``pack_check_outputs``; the
 floats bitcast), unpacked on the host (``unpack_check_outputs``). The

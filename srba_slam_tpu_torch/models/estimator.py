@@ -584,7 +584,9 @@ class SRBAStereoSLAMEstimator:
         """Launch one ``vo_scan`` of a staged batch ``item`` (device frames,
         the upload's event, the host frames, its first frame's index ``f0``)
         with no host read (its GN solves run to their caps, a step past the
-        exit skipped on the device); its summary
+        exit skipped on the device; on a card one graph replay per batch, a
+        new batch length, such as an adaptive retry's tail, capturing its
+        graph first, as a new shape compiles in JAX); its summary
         (:func:`_pack_scan_summary`) rides the batch's read. ``chain``
         continues from an earlier dispatch's last frame and increment (the
         next batch, launched before this one is walked); otherwise the scan
@@ -600,9 +602,14 @@ class SRBAStereoSLAMEstimator:
         # the batch's dispatch, stamped before the host issues the scan's
         # launches (the latency log's arrival where no frame stamp is given)
         t_dispatch = time.perf_counter()
+        # the thresholds as device inputs: on a card the scan is a replay of
+        # a graph captured once per shape, at whatever thresholds they hold
+        f32 = torch.float32
+        fast_t = torch.full((lefts.shape[0],), fast_th, dtype=f32, device=self.device)
+        orb_t = torch.full((), float(orb_th), dtype=f32, device=self.device)
         with cuda_graphs.no_exit_reads():
             last_feat, last_inc, outs = vo_scan(
-                lefts, rights, prev_feat, prev_inc, self.cam, fast_th, orb_th,
+                lefts, rights, prev_feat, prev_inc, self.cam, fast_t, orb_t,
                 **eng.frontend_options(), **eng.solve_options())
         disp = dict(outs=outs, last_feat=last_feat, last_inc=last_inc, b=lefts.shape[0],
                     f0=chain["f0"] + chain["b"] if chain else item["f0"], item=item,

@@ -25,6 +25,10 @@ fundamental-matrix filter of the tracked matches.
 ``vo_scan`` is the batched form behind the estimator's batched loop (the
 CLI's ``--batch N``): the frontend of B frames as one batch over their 2B
 images (K1 and K2 launch once), then the B frame-to-frame solves in order.
+On a card it is one replay of a CUDA graph per shape and options
+(``scan_key``), its GN loops conditional nodes inside it and its FAST and
+ORB thresholds device inputs, as the JAX package's ``vo_scan`` is one
+jitted dispatch per shape.
 The host half of a frame, ID propagation and the tracked-from-keyframe
 count, is :meth:`StereoVOEngine.commit_frame`, the one copy that per-frame
 stepping, the scan's walk and the fleet's lockstep step all call.
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 from srba_slam_tpu_torch.config import VOOptions
-from srba_slam_tpu_torch.ops import prng
+from srba_slam_tpu_torch.ops import cuda_graphs, prng, robust_lm
 from srba_slam_tpu_torch.ops.hopper_fast import (
     fast_nms, fast_score_map, orb_descriptors,
 )
@@ -50,6 +54,13 @@ from srba_slam_tpu_torch.ops.ransac import ransac_fundamental
 from srba_slam_tpu_torch.ops.rectify import remap_bilinear
 from srba_slam_tpu_torch.ops.robust_lm import PoseSolveResult, solve_pose
 from srba_slam_tpu_torch.utils.camera import StereoCamera, project_match_to_3d
+
+# On a CUDA device, vo_scan is one replay of a CUDA graph per scan_key; eager
+# launches otherwise (the CPU path, and the card's reference in the tests)
+SCAN_GRAPHS = True
+# the fundamental-matrix filter's PRNG key 0 on each device, copied there
+# once (a capture cannot copy it from the host)
+_FUND_KEYS: dict = {}
 
 
 class FrameFeatures(NamedTuple):
@@ -199,20 +210,26 @@ def extract_and_match_batch(
     or tensors, uint8 or float32) on ``device`` as one batch over their 2B
     images: the remap with the rig's maps, then detect and describe (K1 and
     K2 launch once), then the stereo match of each pair. ``fast_th`` is a
-    float or f32 [B] on ``device``, ``orb_th`` an int or B ints: one per
-    pair. Returns the B frames' FrameFeatures (see :func:`extract_and_match`
-    for the options)."""
+    float, or an f32 tensor on ``device`` (one value, or [B]: one per pair);
+    ``orb_th`` an int or B ints, or a tensor on ``device`` (one value, or
+    [B]), which the matcher compares on the device without a host read.
+    Returns the B frames' FrameFeatures (see :func:`extract_and_match` for
+    the options)."""
     lefts, rights = _frames_on(lefts, device), _frames_on(rights, device)
     b = lefts.shape[0]
     if rect_maps is not None:
         lefts = remap_bilinear(lefts, rect_maps[0])
         rights = remap_bilinear(rights, rect_maps[1])
     if isinstance(fast_th, torch.Tensor):
+        fast_th = fast_th.reshape(-1).expand(b)
         fast_th = torch.cat([fast_th, fast_th])
     det = _detect_describe_batch(torch.cat([lefts, rights]), fast_th, k=k, cell=cell,
                                  nms_radius=nms_radius, margin=margin,
                                  oriented=oriented, n_levels=n_levels)
-    orb_ths = [int(orb_th)] * b if np.ndim(orb_th) == 0 else [int(t) for t in orb_th]
+    if isinstance(orb_th, torch.Tensor):
+        orb_ths = [orb_th[j] if orb_th.dim() else orb_th for j in range(b)]
+    else:
+        orb_ths = [int(orb_th)] * b if np.ndim(orb_th) == 0 else [int(t) for t in orb_th]
     return [_build_frame(tuple(a[j] for a in det), tuple(a[b + j] for a in det), cam,
                          orb_ths[j], max_y_diff, min_disparity, max_disparity, robust_1to1)
             for j in range(b)]
@@ -309,7 +326,9 @@ def track_and_solve(
         # ≙ the stereo-vo IF-MATCH filter_fund_matrix option: gate the
         # tracked matches by fundamental-matrix RANSAC over the left pixels
         # before the pose solve (applied only when enough matches survive)
-        key = prng.PRNGKey(0, device=valid.device).expand(valid.shape[0], 2)
+        if valid.device not in _FUND_KEYS:
+            _FUND_KEYS[valid.device] = prng.PRNGKey(0, device=valid.device)
+        key = _FUND_KEYS[valid.device].expand(valid.shape[0], 2)
         inl, _cnt, _F = ransac_fundamental(
             cur.xs_l.to(f32), cur.ys_l.to(f32),
             prev.xs_l[seq, prev_idx].to(f32), prev.ys_l[seq, prev_idx].to(f32),
@@ -394,8 +413,8 @@ def vo_scan(
     prev: FrameFeatures,
     init_pose: torch.Tensor,
     cam: StereoCamera,
-    fast_th: float,
-    orb_th: int,
+    fast_th,
+    orb_th,
     k: int = 512,
     cell: int = 5,
     nms_radius: int = 2,
@@ -420,7 +439,9 @@ def vo_scan(
     """VO of B frames ``lefts``/``rights`` [B, H, W] (numpy or tensors,
     uint8 or float32) on ``device``, chained from ``prev`` (the features of
     the frame before them) and ``init_pose`` [6] (the initial increment
-    guess).
+    guess), at the FAST threshold ``fast_th`` (a float, or an f32 tensor on
+    ``device``: one value or one per frame) and the ORB matching threshold
+    ``orb_th`` (an int, or a one-value tensor on ``device``).
 
     Two phases, as the JAX package's ``vo_scan``: (1) the frontend of all
     2B images as one batch (remap, detect and describe with one K1 and one
@@ -429,11 +450,65 @@ def vo_scan(
     predecessor's features and warm-started from the last valid increment.
     Each frame's math is that of per-frame stepping.
 
+    On a CUDA device (``SCAN_GRAPHS``) the whole scan is one replay of a
+    CUDA graph (``ops/cuda_graphs.py`` ``program``), captured at the first
+    call of its :func:`scan_key` and of the inputs' shapes: the frames,
+    ``prev``, ``init_pose``, ``rect_maps`` and the thresholds, as tensors,
+    are its inputs, copied in at each call; its GN loops run to their caps
+    as conditional nodes, with no host read; the outputs are fresh tensors.
+    The same kernels as the eager scan, so the same bits.
+
     Returns ``(last_feat, last_inc, outs)`` in the JAX layout: the last
     frame's features, the last valid increment, and ``outs = (curs,
     track_idx [B, K], track_valid [B, K], poses [B, 6], pose_valid [B],
     num_inliers [B], mean_residual [B])``, ``curs`` the frames'
     FrameFeatures stacked along a leading B."""
+    opts = dict(k=k, cell=cell, nms_radius=nms_radius, margin=margin, max_y_diff=max_y_diff,
+                min_disparity=min_disparity, max_disparity=max_disparity, oriented=oriented,
+                n_levels=n_levels, kernel_param=kernel_param,
+                residual_threshold=residual_threshold, min_mod=min_mod,
+                max_iters_initial=max_iters_initial, max_iters=max_iters,
+                min_inliers=min_inliers, max_incr_cost=max_incr_cost, robust_1to1=robust_1to1,
+                filter_fund_matrix=filter_fund_matrix)
+    dev = torch.device(device)
+    if not (SCAN_GRAPHS and dev.type == "cuda"):
+        return _scan(lefts, rights, prev, init_pose, cam, fast_th, orb_th, rect_maps, dev, **opts)
+    lefts, rights = _frames_on(lefts, dev), _frames_on(rights, dev)
+    inputs = dict(lefts=lefts, rights=rights, prev=prev, rect_maps=rect_maps,
+                  init_pose=torch.as_tensor(init_pose, dtype=torch.float32, device=dev),
+                  fast_th=_threshold_on(fast_th, (lefts.shape[0],), dev),
+                  orb_th=_threshold_on(orb_th, (), dev))
+    return cuda_graphs.program(
+        lambda x: _scan(cam=cam, device=dev, **x, **opts), inputs,
+        scan_key(lefts, cam, rect_maps, **opts), counted=(fast_nms, orb_descriptors, fast_score_map))
+
+
+def scan_key(lefts: torch.Tensor, cam: StereoCamera, rect_maps, **opts) -> tuple:
+    """The key of :func:`vo_scan`'s CUDA graph: everything the scan bakes
+    into its kernels. The frames' batch, height, width and dtype, whether
+    ``rect_maps`` is given, the camera, every frontend and solve option of
+    ``vo_scan`` (``opts``), and the GN solve's block length and route
+    (``robust_lm.GN_EXIT_EVERY``, ``GN_GRAPHS``). A key's first call
+    captures a graph, as a new shape compiles a new program in JAX."""
+    b, h, w = lefts.shape
+    return ("vo_scan", b, h, w, lefts.dtype, rect_maps is not None, cam,
+            tuple(sorted(opts.items())), robust_lm.GN_EXIT_EVERY, robust_lm.GN_GRAPHS)
+
+
+def _threshold_on(th, shape: tuple, device) -> torch.Tensor:
+    """A threshold as an f32 tensor of ``shape`` on ``device``: a graph's
+    input, where a Python number would be baked into the graph."""
+    if not isinstance(th, torch.Tensor):
+        return torch.full(shape, float(th), dtype=torch.float32, device=device)
+    th = th.to(device=device, dtype=torch.float32)
+    return th.reshape(()).expand(shape) if th.numel() == 1 else th
+
+
+def _scan(lefts, rights, prev, init_pose, cam, fast_th, orb_th, rect_maps, device, k, cell,
+          nms_radius, margin, max_y_diff, min_disparity, max_disparity, oriented, n_levels,
+          robust_1to1, **solve):
+    """The eager scan of :func:`vo_scan`: the frontend of the batch, then
+    the B solves in order, with no host read."""
     curs = extract_and_match_batch(
         lefts, rights, cam, fast_th, orb_th, k=k, cell=cell, nms_radius=nms_radius,
         margin=margin, max_y_diff=max_y_diff, min_disparity=min_disparity,
@@ -442,12 +517,7 @@ def vo_scan(
     prev_feat, last_inc = prev, init_pose
     outs = []
     for cur in curs:
-        out = track_and_solve(
-            prev_feat, cur, cam, last_inc, orb_th,
-            kernel_param=kernel_param, residual_threshold=residual_threshold,
-            min_mod=min_mod, max_iters_initial=max_iters_initial, max_iters=max_iters,
-            min_inliers=min_inliers, max_incr_cost=max_incr_cost,
-            filter_fund_matrix=filter_fund_matrix)
+        out = track_and_solve(prev_feat, cur, cam, last_inc, orb_th, **solve)
         last_inc = torch.where(out.pose.valid, out.pose.pose, last_inc)
         outs.append(out)
         prev_feat = cur

@@ -102,9 +102,13 @@ def load() -> ctypes.CDLL:
         lib.srba_fast_score.restype = ci
         lib.srba_empty_launch.argtypes = [ci, ci, ci, ci, ci, ci, vp]
         lib.srba_empty_launch.restype = ci
-        lib.srba_cond_graph_create.argtypes = [vp, vp, ctypes.POINTER(vp)]
+        lib.srba_cond_graph_create.argtypes = [vp, vp, vp, ci, ctypes.POINTER(vp)]
         lib.srba_cond_graph_create.restype = ci
-        lib.srba_cond_graph_launch.argtypes = [vp, vp]
-        lib.srba_cond_graph_launch.restype = ci
+        lib.srba_cond_append.argtypes = [vp, vp, vp, vp, ci]
+        lib.srba_cond_append.restype = ci
+        lib.srba_graph_instantiate.argtypes = [vp, ctypes.POINTER(vp)]
+        lib.srba_graph_instantiate.restype = ci
+        lib.srba_graph_launch.argtypes = [vp, vp]
+        lib.srba_graph_launch.restype = ci
         _lib = lib
     return _lib

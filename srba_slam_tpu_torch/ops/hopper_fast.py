@@ -23,6 +23,10 @@ decides the route: a CUDA tensor launches the kernel
 other. Each wrapper counts its kernel launches in a plain integer
 attribute, ``fast_nms.launches``, ``orb_descriptors.launches`` and
 ``fast_score_map.launches``, so a run can show that it went through them.
+A call inside a CUDA-graph capture launches nothing: a captured program
+(``ops/cuda_graphs.py`` ``program``) takes the capture's count back and
+adds the launches its graph holds at each replay. Inside a program the
+thresholds must be tensors (a float would stay in the graph).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import ctypes
 
 import torch
 
-from srba_slam_tpu_torch.ops import cuda_build
+from srba_slam_tpu_torch.ops import cuda_build, cuda_graphs
 from srba_slam_tpu_torch.ops.fast import fast_score_map as fast_score_map_plain
 from srba_slam_tpu_torch.ops.nms import local_max_suppress, nms_eps
 from srba_slam_tpu_torch.ops.orb import _G7_F32, PATTERN_OFFSETS, gauss_blur7, upright_descriptors
@@ -57,8 +61,15 @@ def _raise_on_error(code: int, kernel: str):
 
 def _thresholds(threshold, n: int, device) -> tuple[float, int]:
     """The kernels' two threshold arguments: (the batch's float, 0) or
-    (0, the address of the f32 [n] per-image tensor on ``device``)."""
+    (0, the address of the f32 [n] per-image tensor on ``device``). A float
+    captured into a CUDA graph stays in it, so inside a captured program
+    (``ops/cuda_graphs.py`` ``program``, its warm-up included), which is
+    replayed at other thresholds, a float raises: the program passes the
+    tensor (``models/vo.py`` ``vo_scan``)."""
     if not isinstance(threshold, torch.Tensor):
+        if cuda_graphs.in_program():
+            raise TypeError("a float threshold inside a captured program would stay in its "
+                            "graph: pass an f32 tensor")
         return float(threshold), 0
     _check(threshold, "threshold", (torch.float32,), 1, device)
     if threshold.shape[0] != n:

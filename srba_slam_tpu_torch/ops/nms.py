@@ -34,7 +34,7 @@ def local_max_suppress(score: torch.Tensor, radius: int = 2) -> torch.Tensor:
     k = 2 * radius + 1
     ridx = torch.arange(h * w, dtype=torch.int32, device=score.device)
     ridx = ridx.reshape(h, w).to(torch.float32)
-    eps = torch.tensor(nms_eps(h, w), dtype=torch.float32, device=score.device)
+    eps = torch.full((), nms_eps(h, w), dtype=torch.float32, device=score.device)
     keyed = score - eps * ridx
     flat = keyed.reshape(-1, 1, h, w)
     pooled = F.max_pool2d(flat, k, stride=1, padding=radius).reshape(keyed.shape)

@@ -76,6 +76,17 @@ PATTERN_OFFSETS = np.rint(PATTERN_OPENCV).astype(np.int32).reshape(N_BITS, 4)
 _G7 = np.exp(-((np.arange(7) - 3.0) ** 2) / (2.0 * 2.0**2))
 _G7 = _G7 / _G7.sum()
 _G7_F32 = [float(v) for v in _G7.astype(np.float32)]
+# host constants copied to a device once: a copy from the host cannot be
+# captured into a CUDA graph (``models/vo.py`` ``vo_scan``), so a capture
+# finds them there from its warm-up
+_CONSTS: dict = {}
+
+
+def _const(name: str, arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    key = (name, dtype, torch.device(device))
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.as_tensor(arr, dtype=dtype, device=device)
+    return _CONSTS[key]
 
 
 def gauss_blur7(img: torch.Tensor) -> torch.Tensor:
@@ -177,8 +188,8 @@ def orientations(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch
     """Intensity-centroid orientation (radians) of K keypoints of ``img``
     [..., H, W] f32: ``ys``/``xs`` int32 [..., K] -> f32 [..., K]."""
     dev = img.device
-    dy = torch.as_tensor(_DISC[:, 0], dtype=torch.int64, device=dev)
-    dx = torch.as_tensor(_DISC[:, 1], dtype=torch.int64, device=dev)
+    dy = _const("disc_dy", _DISC[:, 0], torch.int64, dev)
+    dx = _const("disc_dx", _DISC[:, 1], torch.int64, dev)
     vals = _gather(img, ys[..., None].to(torch.int64) + dy, xs[..., None].to(torch.int64) + dx)
     m01 = torch.sum(vals * dy.to(torch.float32), dim=-1)
     m10 = torch.sum(vals * dx.to(torch.float32), dim=-1)
@@ -217,7 +228,7 @@ def describe(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
         theta = torch.zeros(ys.shape, dtype=torch.float32, device=ys.device)
     c, s = torch.cos(theta)[..., None, None], torch.sin(theta)[..., None, None]   # [..., K, 1, 1]
     pat_np = PATTERN_OPENCV if pattern == "opencv" else PATTERN_GAUSSIAN
-    pat = torch.as_tensor(pat_np, device=img.device).to(torch.float32)  # [256, 2, (dy,dx)]
+    pat = _const(pattern, pat_np, torch.float32, img.device)          # [256, 2, (dy,dx)]
     pdy, pdx = pat[..., 0], pat[..., 1]
     # image coordinates (y down, x right): rotate each offset by theta_k
     rdx = c * pdx - s * pdy                                            # [..., K, 256, 2]

@@ -13,8 +13,9 @@ candidates and the sequences of a batched VO step are lanes of one solve,
 as the JAX package vmaps ``solve_pose``. The JAX ``while_loop`` becomes a
 loop whose lanes freeze, each on its own exit test (JAX's ``cond`` under
 ``vmap``): a frozen lane keeps its whole carry, so iterations past its
-exit change nothing. The host reads "any lane still active" once every
-``GN_EXIT_EVERY`` iterations, never more often.
+exit change nothing. "Any lane still active" is tested once every
+``GN_EXIT_EVERY`` iterations: by a host read in the eager loop, on the
+device in a card's graph launch (``ops/cuda_graphs.py``).
 """
 
 from __future__ import annotations
@@ -27,9 +28,9 @@ from srba_slam_tpu_torch.ops import cuda_graphs
 from srba_slam_tpu_torch.utils import se3
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
-# Iterations between two host reads of a stage's exit test. The result
-# does not depend on it (frozen lanes); it trades host reads against
-# iterations run past the last lane's exit.
+# Iterations between two tests of a stage's exit. The result does not
+# depend on it (frozen lanes); it trades tests against iterations run past
+# the last lane's exit.
 GN_EXIT_EVERY = 4
 # On a CUDA device, each block of GN_EXIT_EVERY iterations replays as one
 # CUDA graph (one launch in place of ~150 an iteration); eager otherwise.

@@ -26,8 +26,10 @@ GPU changes from run to run.
 JAX's LM ``while_loop`` becomes blocks of ``WBA_EXIT_EVERY`` iterations
 whose updates are masked by the loop's ``cond``, so an iteration past the
 exit changes nothing and the result does not depend on the period; the
-host reads the exit test between blocks only. On a card each block
-replays as one CUDA graph, captured at a shape's first solve.
+eager loop reads the exit test on the host between blocks only. On a card
+each block is one CUDA graph, captured at a shape's first solve, and a
+stage's blocks are one launch that tests the exit on the device
+(``ops/cuda_graphs.py``).
 
 ``shard_window_obs`` lays one window out over a device mesh (≙ the JAX
 package's SPMD solve over sharded observations): each device holds a
@@ -52,9 +54,10 @@ from srba_slam_tpu_torch.utils import se3
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
 _SEG_WIDTH = 32  # items summed per gather row of a segment-sum level
-# LM iterations between two host reads of a stage's exit test. The result
-# does not depend on it (an iteration past the exit changes nothing); it
-# trades host reads against iterations run past the exit. 8 = the engine's
+# LM iterations between two tests of a stage's exit (host reads in the
+# eager loop, device tests on a card). The result does not depend on it
+# (an iteration past the exit changes nothing); it trades tests against
+# iterations run past the exit. 8 = the engine's
 # opt_iters: a stage is one block, with no read (chip_smoke.py phase 13
 # times 1, 2, 4 and 8).
 WBA_EXIT_EVERY = 8

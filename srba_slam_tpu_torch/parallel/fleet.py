@@ -25,9 +25,7 @@ it).
   BoW databases, lanes = (sequence, candidate) (≙ JAX's
   ``_build_qa_prog``); only the checking sequences advance their DA seeds;
 * every shard's frontends, and every shard's checks, are enqueued before
-  the host reads any of their outputs, so distinct cards overlap (a pose
-  solve reads its exit test between GN blocks, so the shards' solves take
-  turns on the host);
+  the host reads any of their outputs, so distinct cards overlap;
 * every sequence's host bookkeeping goes through its own estimator's
   methods, the single copy that per-frame stepping uses: the retry protocol
   ``adaptive_vo``, the VO engine's ``commit_frame`` (IDs), and the walk's

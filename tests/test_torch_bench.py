@@ -131,8 +131,8 @@ def _stub_rows(monkeypatch):
     launches = {fn.__name__: 3 for fn in bench.KERNELS}
 
     def row(s, **kw):
-        return dict(s=s, launches=launches, latency=lat, gate=dict(d_jax_m=1e-5, ate_m=0.25),
-                    **kw)
+        return dict(s=s, launches=launches, captures=1, latency=lat,
+                    gate=dict(d_jax_m=1e-5, ate_m=0.25), **kw)
 
     monkeypatch.setattr(bench, "_headline", lambda *a: [
         row(s, sections={"queryDB": dict(count=1, mean_ms=1.0, total_ms=1.0)})
@@ -150,14 +150,15 @@ def test_line_holds_every_key_of_the_jax_bench_line(monkeypatch):
     top, lat = _jax_line_keys()
     assert "vs_baseline_provenance" in top and "device_resident_batch60" in lat
     assert top <= set(line) and lat == set(line["latency"])
-    assert set(line) - top == {"card", "toolchain", "gates", "launches", "sections",
-                               "busy_share", "cpu_fps_provenance"}
+    assert set(line) - top == {"card", "toolchain", "gates", "launches", "scan_graphs",
+                               "sections", "busy_share", "cpu_fps_provenance"}
     json.dumps(line)                                  # one JSON line
     assert line["metric"] == "kitti_synth_e2e_fps_per_chip[cpu]"
     assert line["value"] == 60 / 3.0 and line["best"] == 60 / 2.0   # median, best repeat
     assert line["device_resident_fps"] == 60 / 2.0
     assert line["latency"]["bounded_lag"]["batch"] == 8
     assert line["launches"] == {fn.__name__: 3 * 7 for fn in bench.KERNELS}
+    assert line["scan_graphs"] == dict(captures=0, captures_timed=7, capture_s=0.0)
     assert line["vs_cpu_anchor"] == line["value"] / 0.5 and line["card"] is None
     assert set(line["gates"]) == {bench.HEADLINE, bench.DEVICE_RESIDENT, bench.BOUNDED}
 

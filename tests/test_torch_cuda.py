@@ -262,8 +262,9 @@ def test_fast_score_kernel_per_image_thresholds(cuda, street_pair, dtype, kind, 
 def test_vo_scan_cuda_matches_cpu(cuda):
     """The batched scan over 4 bench frames on the card against the CPU
     path: integer fields equal, poses within 1e-4 rad / 1e-3 m, one K1 and
-    one K2 launch for the 8 images."""
+    one K2 launch for the 8 images (and one more for a capture's warm-up)."""
     from srba_slam_tpu_torch.models.vo import vo_scan
+    from srba_slam_tpu_torch.ops import cuda_graphs
 
     frames = list(SyntheticSource(StereoCamera.kitti(), **{**bench_workload.SOURCE,
                                                           "n_frames": 5}))
@@ -274,11 +275,13 @@ def test_vo_scan_cuda_matches_cpu(cuda):
     for dev in (cuda, "cpu"):
         prev = extract_and_match(*frames[0], cam, 20.0, 60, k=512, device=dev)
         before = (hopper_fast.fast_nms.launches, hopper_fast.orb_descriptors.launches)
+        captures = cuda_graphs.PROGRAM_STATS["captures"]
         outs[str(dev)] = vo_scan(lefts, rights, prev, torch.zeros(6, device=dev), cam, 20.0, 60,
                                  k=512, device=dev)
         after = (hopper_fast.fast_nms.launches, hopper_fast.orb_descriptors.launches)
         if dev is cuda:
-            assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+            n = 1 + cuda_graphs.PROGRAM_STATS["captures"] - captures
+            assert (after[0] - before[0], after[1] - before[1]) == (n, n)
     (_l, inc_c, oc), (_m, inc_h, oh) = outs["cuda"], outs["cpu"]
     for name in ("ys_l", "xs_l", "valid_l", "desc_l", "ys_r", "xs_r", "valid_r", "desc_r",
                  "m_r_idx", "m_valid"):
@@ -288,13 +291,221 @@ def test_vo_scan_cuda_matches_cpu(cuda):
     assert float(d[:, :3].max()) <= 1e-4 and float(d[:, 3:].max()) <= 1e-3
 
 
+@pytest.fixture(scope="module")
+def street_frames():
+    """Frames 0-20 of the bench workload's street sequence (host uint8)."""
+    return list(SyntheticSource(StereoCamera.kitti(), **{**bench_workload.SOURCE,
+                                                          "n_frames": 21}))
+
+
+def _scan(frames, j0: int, b: int, prev, init, fast_th, orb_th, graphs: bool, monkeypatch,
+          **kw):
+    """``vo_scan`` of street frames ``j0 .. j0 + b - 1`` on the card, as a
+    graph replay or eagerly; returns its outputs' tensors."""
+    from srba_slam_tpu_torch.models import vo
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    monkeypatch.setattr(vo, "SCAN_GRAPHS", graphs)
+    dev = torch.device("cuda")
+    lefts = torch.from_numpy(np.stack([f[0] for f in frames[j0:j0 + b]])).to(dev)
+    rights = torch.from_numpy(np.stack([f[1] for f in frames[j0:j0 + b]])).to(dev)
+    with cuda_graphs.no_exit_reads():
+        out = vo.vo_scan(lefts, rights, prev, init, StereoCamera.kitti(), fast_th, orb_th,
+                         device=dev, **kw)
+    return out
+
+
+def _leaves(out):
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_leaves(out)
+
+
+def _assert_same_bits(a, b):
+    la, lb = _leaves(a), _leaves(b)
+    assert len(la) == len(lb) == 13 + 1 + 13 + 6
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and torch.equal(x, y), i
+
+
+def _prev(frames, cuda, **kw):
+    return extract_and_match(*frames[0], StereoCamera.kitti(), 20.0, 60, k=512, device=cuda,
+                             **kw)
+
+
+@pytest.mark.parametrize("b", [8, 20, 13], ids=["b8", "b20", "tail13"])
+def test_scan_graph_equals_eager(cuda, street_frames, monkeypatch, b):
+    """The scan as one CUDA-graph replay (its GN loops conditional WHILE
+    nodes, its thresholds device inputs) equals the eager scan bit for bit
+    on every output, at the bench's batches and at a retry tail's length;
+    its capture counts the warm-up's K1/K2 launches and none of its own,
+    each replay one of each; a second call replays without a capture."""
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    monkeypatch.setattr(cuda_graphs, "_PROGRAMS", {})
+    prev, init = _prev(street_frames, cuda), torch.zeros(6, device=cuda)
+    eager = _scan(street_frames, 1, b, prev, init, 20.0, 60, False, monkeypatch)
+    before = hopper_fast.fast_nms.launches, hopper_fast.orb_descriptors.launches
+    captures = cuda_graphs.PROGRAM_STATS["captures"]
+    fast = torch.full((b,), 20.0, device=cuda)
+    orb = torch.full((), 60.0, device=cuda)
+    for rep in range(2):
+        graph = _scan(street_frames, 1, b, prev, init, fast, orb, True, monkeypatch)
+        torch.cuda.synchronize()
+        _assert_same_bits(graph, eager)
+    assert cuda_graphs.PROGRAM_STATS["captures"] == captures + 1
+    assert (hopper_fast.fast_nms.launches - before[0],
+            hopper_fast.orb_descriptors.launches - before[1]) == (3, 3)
+    (prog,) = cuda_graphs.programs()
+    assert prog["launches"] == {"fast_nms": 1, "orb_descriptors": 1, "fast_score_map": 0}
+    assert prog["steps"] == 1 and prog["pool_bytes"] > 0
+    assert bool(eager[2][4].all()) and int(eager[2][0].m_valid.sum()) > 200 * b
+
+
+def test_scan_graph_replays_at_new_thresholds(cuda, street_frames, monkeypatch):
+    """Captured at FAST 20 / ORB 60 and replayed at 15 / 70, the graph
+    gives the eager scan at 15 / 70 (a threshold baked into the graph
+    would give the 20 / 60 scan: the ORB threshold changes the matches);
+    and at FAST 250 / ORB 60 the eager scan at 250 / 60 (the FAST threshold
+    changes the keypoints)."""
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    monkeypatch.setattr(cuda_graphs, "_PROGRAMS", {})
+    b = 8
+    prev, init = _prev(street_frames, cuda), torch.zeros(6, device=cuda)
+    first = _scan(street_frames, 1, b, prev, init, torch.full((b,), 20.0, device=cuda),
+                  torch.full((), 60.0, device=cuda), True, monkeypatch)
+    captures = cuda_graphs.PROGRAM_STATS["captures"]
+    for fast, orb, field in ((15.0, 70, "m_valid"), (250.0, 60, "valid_l")):
+        graph = _scan(street_frames, 1, b, prev, init, torch.full((b,), fast, device=cuda),
+                      torch.full((), float(orb), device=cuda), True, monkeypatch)
+        eager = _scan(street_frames, 1, b, prev, init, fast, orb, False, monkeypatch)
+        _assert_same_bits(graph, eager)
+        assert not torch.equal(getattr(graph[2][0], field), getattr(first[2][0], field))
+    assert cuda_graphs.PROGRAM_STATS["captures"] == captures
+
+
+def test_scan_graph_replay_syncs_nothing(cuda, street_frames, monkeypatch):
+    """A replay of a captured scan, its inputs on the card, under
+    ``torch.cuda.set_sync_debug_mode("error")``: the input copies, the
+    graph launch and the output clones make no host sync."""
+    b = 8
+    prev, init = _prev(street_frames, cuda), torch.zeros(6, device=cuda)
+    fast, orb = torch.full((b,), 20.0, device=cuda), torch.full((), 60.0, device=cuda)
+    ref = _scan(street_frames, 1, b, prev, init, fast, orb, True, monkeypatch)
+    lefts = torch.from_numpy(np.stack([f[0] for f in street_frames[1:1 + b]])).to(cuda)
+    rights = torch.from_numpy(np.stack([f[1] for f in street_frames[1:1 + b]])).to(cuda)
+    from srba_slam_tpu_torch.models import vo
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with cuda_graphs.no_exit_reads():
+            out = vo.vo_scan(lefts, rights, prev, init, StereoCamera.kitti(), fast, orb,
+                             device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    _assert_same_bits(out, ref)
+
+
+def test_chained_scans_back_to_back(cuda, street_frames, monkeypatch):
+    """Two graph scans of 8, the second chained from the first's last frame
+    and increment and dispatched before anything is read (the pipelined
+    loop's order), equal two scans each read before the next is dispatched:
+    the first scan's outputs are not the graph's buffers, which the second
+    replay overwrites."""
+    b = 8
+    prev, init = _prev(street_frames, cuda), torch.zeros(6, device=cuda)
+    fast, orb = torch.full((b,), 20.0, device=cuda), torch.full((), 60.0, device=cuda)
+    runs = []
+    for read_between in (True, False):
+        first = _scan(street_frames, 1, b, prev, init, fast, orb, True, monkeypatch)
+        host = [t.cpu() for t in _leaves(first)] if read_between else []
+        second = _scan(street_frames, 1 + b, b, first[0], first[1], fast, orb, True,
+                       monkeypatch)
+        host = host or [t.cpu() for t in _leaves(first)]
+        runs.append(host + [t.cpu() for t in _leaves(second)])
+    assert len(runs[0]) == len(runs[1]) == 2 * (13 + 1 + 13 + 6)
+    for i, (x, y) in enumerate(zip(*runs)):
+        assert torch.equal(x, y), i
+
+
+@pytest.mark.parametrize("option", ["levels2", "rect_maps", "margin3", "oriented",
+                                    "fund_matrix"])
+def test_scan_graph_options_equal_eager(cuda, street_frames, monkeypatch, option):
+    """Each frontend and solve option that the scan's key holds, through
+    the graph and eagerly at B = 4: the same bits."""
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    monkeypatch.setattr(cuda_graphs, "_PROGRAMS", {})
+    cam = StereoCamera.kitti()
+    front = dict(levels2=dict(n_levels=2), margin3=dict(margin=3),
+                 oriented=dict(oriented=True)).get(option, {})
+    if option == "rect_maps":
+        front = dict(rect_maps=tuple(build_maps(cam.width, cam.height, cam.fx_l, cam.fy_l,
+                                                cam.cx_l, cam.cy_l,
+                                                dist=[-0.2, 0.05, 1e-4, 1e-5, 0.0],
+                                                device=cuda) for _ in range(2)))
+    solve = dict(filter_fund_matrix=True) if option == "fund_matrix" else {}
+    prev, init = _prev(street_frames, cuda, **front), torch.zeros(6, device=cuda)
+    kw = dict(front, **solve)
+    eager = _scan(street_frames, 1, 4, prev, init, 20.0, 60, False, monkeypatch, **kw)
+    for _ in range(2):
+        graph = _scan(street_frames, 1, 4, prev, init, torch.full((4,), 20.0, device=cuda),
+                      torch.full((), 60.0, device=cuda), True, monkeypatch, **kw)
+        _assert_same_bits(graph, eager)
+    assert int(eager[2][0].m_valid.sum()) > 100
+
+
+def test_cond_append_outside_a_capture_raises(cuda, monkeypatch):
+    """Appending a loop's steps where no capture is active fails in
+    ``srba_cond_append`` and raises; nothing runs the steps instead."""
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    monkeypatch.setattr(cuda_graphs, "_GRAPHS", {})
+    monkeypatch.setattr(cuda_graphs, "_KEEP", [])
+
+    def step(c, k):
+        runs = c["runs"] + 1
+        return dict(runs=runs, more=runs < k["stop"])
+
+    c = dict(runs=torch.zeros((), dtype=torch.int32, device=cuda),
+             more=torch.ones((), dtype=torch.bool, device=cuda))
+    k = dict(stop=torch.full((), 3, dtype=torch.int32, device=cuda))
+    cuda_graphs.loop(step, c, k, 5, ("append",), True)
+    ((graph, _launch, sc, _sk),) = cuda_graphs._GRAPHS.values()
+    with pytest.raises(RuntimeError, match="srba_cond_append failed"):
+        cuda_graphs._append(graph, sc, 5, cuda)
+
+
+def test_float_threshold_inside_a_program_raises(cuda, street_frames, monkeypatch):
+    """K1 given a float threshold inside a captured program's warm-up
+    raises (the float would stay in the graph, and a replay at another
+    threshold would use it); nothing is cached, and the program state is
+    left as it was."""
+    from srba_slam_tpu_torch.ops import cuda_graphs, hopper_fast
+
+    monkeypatch.setattr(cuda_graphs, "_PROGRAMS", {})
+    imgs = torch.from_numpy(np.stack(street_frames[0])).to(cuda)
+    with pytest.raises(TypeError, match="float threshold"):
+        cuda_graphs.program(lambda x: hopper_fast.fast_nms(x["imgs"], 20.0), dict(imgs=imgs),
+                            ("float",), counted=(hopper_fast.fast_nms,))
+    assert not cuda_graphs._PROGRAMS and not cuda_graphs.in_program()
+    th = torch.full((2,), 20.0, device=cuda)
+    got = cuda_graphs.program(lambda x: hopper_fast.fast_nms(x["imgs"], x["th"]),
+                              dict(imgs=imgs, th=th), ("tensor",))
+    assert torch.equal(got, hopper_fast.fast_nms(imgs, 20.0))
+
+
 @pytest.mark.parametrize("reads", [True, False])
 def test_graph_loop_skips_steps_past_the_exit(cuda, reads):
     """``cuda_graphs.loop`` on a card puts the captured step in a
-    conditional node on the carry's ``more``: a step that counts its runs
-    (not masked, unlike the solves' steps) stops counting at the exit,
-    whether the host reads the exit test between steps or not
-    (``no_exit_reads``), and a second call replays the same graph."""
+    conditional WHILE node on the carry's ``more``: a step that counts its
+    runs (not masked, unlike the solves' steps) stops counting at the exit,
+    inside ``no_exit_reads`` or not, and a second call replays the same
+    graph in one launch that synchronizes nothing."""
     import contextlib
 
     from srba_slam_tpu_torch.ops import cuda_graphs
@@ -307,8 +518,14 @@ def test_graph_loop_skips_steps_past_the_exit(cuda, reads):
         c = dict(runs=torch.zeros((), dtype=torch.int32, device=cuda),
                  more=torch.ones((), dtype=torch.bool, device=cuda))
         k = dict(stop=torch.full((), stop, dtype=torch.int32, device=cuda))
-        with contextlib.nullcontext() if reads else cuda_graphs.no_exit_reads():
-            out = cuda_graphs.loop(step, c, k, 10, ("count", reads), True)
+        # the second call replays: its steps are one WHILE launch, no host read
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if stop == 5 else "default")
+        try:
+            with contextlib.nullcontext() if reads else cuda_graphs.no_exit_reads():
+                out = cuda_graphs.loop(step, c, k, 10, ("count", reads), True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         assert int(out["runs"]) == stop and not bool(out["more"])
 
 

@@ -13,8 +13,17 @@ Small camera (160x96, tests/test_parallel.py's), frames rendered with seed
   descriptor words, matches and masks; track indices and masks; pose
   validity and inlier counts); poses within 1e-4, mean residuals within
   1e-3 px.
+  The port's thresholds once as Python numbers and once as tensors (the
+  estimator's scan passes them so: on a card they are its graph's inputs).
 * The port's ``vo_scan`` against the port's own per-frame
   ``extract_and_match`` + ``track_and_solve``: every output ``torch.equal``.
+* The scan with ``Tensor.item``, ``tolist``, ``cpu``, ``numpy``,
+  ``__bool__``, ``__int__`` and ``__float__`` made to raise, under
+  ``no_exit_reads`` as the estimator runs it, plain and with every frontend
+  option: the same outputs, so it reads nothing on the host (a capture on
+  the card would refuse a read; tests/test_torch_cuda.py holds the graph to
+  the eager scan there). ``scan_key``: another shape, dtype, camera or
+  option, or another GN block route, gives another key.
 * K1 (``fast_nms``, NMS radii 0-5) and K3 (``fast_score_map``) with one
   threshold per image against the JAX package's per-image ``vmap``: equal
   score maps (the plain versions run here; tests/test_torch_cuda.py holds
@@ -23,11 +32,14 @@ Small camera (160x96, tests/test_parallel.py's), frames rendered with seed
   interpret mode.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from srba_slam_tpu.models import vo as jvo
 from srba_slam_tpu.ops import rectify as jrectify
@@ -38,7 +50,7 @@ from srba_slam_tpu.ops.pallas_fast import fast_nms_pallas
 from srba_slam_tpu.utils.camera import StereoCamera as JCam
 from srba_slam_tpu_torch.models import vo
 from srba_slam_tpu_torch.models.vo import frame_features_from_numpy
-from srba_slam_tpu_torch.ops import hopper_fast, orb, rectify
+from srba_slam_tpu_torch.ops import cuda_graphs, hopper_fast, orb, rectify, robust_lm
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 from srba_slam_tpu_torch.utils.framesource import SyntheticSource
 
@@ -80,8 +92,10 @@ def _maps(mod, **kw):
                                 c[f"cx_{e}"], c[f"cy_{e}"], dist=DIST, **kw) for e in "lr")
 
 
-def _scans(frames, with_maps: bool):
-    """(port outputs, JAX outputs on the host) of one scan over frames 1..B."""
+def _scans(frames, with_maps: bool, tensors: bool = False):
+    """(port outputs, JAX outputs on the host) of one scan over frames 1..B;
+    the port's thresholds as tensors with ``tensors`` (FAST one per frame,
+    ORB one value)."""
     lefts = np.stack([f[0] for f in frames[1:]])
     rights = np.stack([f[1] for f in frames[1:]])
     jkw = dict(rect_maps=_maps(jrectify)) if with_maps else {}
@@ -91,7 +105,8 @@ def _scans(frames, with_maps: bool):
     jout = jax.device_get(jvo.vo_scan(jnp.asarray(lefts), jnp.asarray(rights), jprev,
                                       jnp.asarray(INIT), JCam(**CAM), 12.0, 60, k=K, **jkw))
     prev = frame_features_from_numpy(jax.device_get(jprev), "cpu")
-    tout = vo.vo_scan(lefts, rights, prev, torch.from_numpy(INIT), StereoCamera(**CAM), 12.0, 60,
+    ths = (torch.full((B,), 12.0), torch.tensor(60.0)) if tensors else (12.0, 60)
+    tout = vo.vo_scan(lefts, rights, prev, torch.from_numpy(INIT), StereoCamera(**CAM), *ths,
                       k=K, device="cpu", **tkw)
     return tout, jout
 
@@ -107,9 +122,11 @@ def shared_ops():
     mp.undo()
 
 
+@pytest.mark.parametrize("thresholds", ["numbers", "tensors"])
 @pytest.mark.parametrize("with_maps", [False, True], ids=["plain", "rect_maps"])
-def test_vo_scan_matches_jax(frames, shared_ops, with_maps):
-    (t_last, t_inc, t_outs), (j_last, j_inc, j_outs) = _scans(frames, with_maps)
+def test_vo_scan_matches_jax(frames, shared_ops, with_maps, thresholds):
+    (t_last, t_inc, t_outs), (j_last, j_inc, j_outs) = _scans(frames, with_maps,
+                                                              thresholds == "tensors")
     t_curs, j_curs = t_outs[0], j_outs[0]
     for name in INT_FIELDS:
         a, b = getattr(t_curs, name).numpy(), np.asarray(getattr(j_curs, name))
@@ -148,6 +165,80 @@ def test_vo_scan_equals_per_frame_stepping(frames):
         feat = cur
     assert torch.equal(inc, last_inc)
     assert all(torch.equal(a, b) for a, b in zip(last, feat))
+
+
+_READS = ("item", "tolist", "cpu", "numpy", "__bool__", "__int__", "__float__")
+# the port's own blur and remap (the module's shared_ops fixture, once set
+# up, stays for the module)
+_PORT_OPS = ((orb, "gauss_blur7", orb.gauss_blur7), (hopper_fast, "gauss_blur7", orb.gauss_blur7),
+             (vo, "remap_bilinear", vo.remap_bilinear))
+
+
+@pytest.mark.parametrize("options", ["plain", "every_option"])
+def test_vo_scan_reads_nothing_on_the_host(frames, monkeypatch, options):
+    for mod, name, fn in _PORT_OPS:
+        monkeypatch.setattr(mod, name, fn)
+    cam = StereoCamera(**CAM)
+    kw, solve = dict(k=K, device="cpu"), {}
+    if options == "every_option":
+        kw.update(n_levels=2, oriented=True, margin=3, robust_1to1=True,
+                  rect_maps=_maps(rectify, device="cpu"))
+        solve = dict(filter_fund_matrix=True)
+    prev = vo.extract_and_match(*frames[0], cam, 12.0, 60, **kw)
+    kw.update(solve)
+    args = (torch.from_numpy(np.stack([f[0] for f in frames[1:]])),
+            torch.from_numpy(np.stack([f[1] for f in frames[1:]])), prev,
+            torch.from_numpy(INIT), cam, torch.full((B,), 12.0), torch.tensor(60.0))
+    with cuda_graphs.no_exit_reads():
+        ref = vo.vo_scan(*args, **kw)
+
+    def refuse(name):
+        def read(*a, **k):
+            raise AssertionError(f"the scan read a tensor on the host: Tensor.{name}")
+        return read
+
+    for name in _READS:
+        monkeypatch.setattr(torch.Tensor, name, refuse(name))
+    with cuda_graphs.no_exit_reads():
+        got = vo.vo_scan(*args, **kw)
+    monkeypatch.undo()
+    ref_leaves, ref_spec = pytree.tree_flatten(ref)
+    got_leaves, got_spec = pytree.tree_flatten(got)
+    assert got_spec == ref_spec and len(got_leaves) == 13 + 1 + 13 + 6
+    assert all(torch.equal(a, b) for a, b in zip(got_leaves, ref_leaves))
+    assert int(got[2][0].m_valid.sum()) > 50 * B
+
+
+def test_scan_key_separates_shapes_and_options(monkeypatch):
+    """Every option of ``vo_scan`` but the inputs reaches ``scan_key``: one
+    changed (or the frames' batch, height, width or dtype, the camera, the
+    maps' presence, the GN block length or route) gives another key, and
+    the same call the same key."""
+    cam = StereoCamera(**CAM)
+    inputs = {"lefts", "rights", "prev", "init_pose", "cam", "fast_th", "orb_th", "rect_maps",
+              "device"}
+    opts = {name: p.default for name, p in inspect.signature(vo.vo_scan).parameters.items()
+            if name not in inputs}
+    assert {"k", "margin", "oriented", "n_levels", "max_iters", "filter_fund_matrix"} <= set(opts)
+    frames = torch.zeros((B, 96, 160), dtype=torch.uint8)
+    base = vo.scan_key(frames, cam, None, **opts)
+    assert vo.scan_key(frames.clone(), StereoCamera(**CAM), None, **dict(opts)) == base
+    keys = [base]
+    for name, v in opts.items():
+        changed = (not v) if isinstance(v, bool) else v + 1
+        keys.append(vo.scan_key(frames, cam, None, **{**opts, name: changed}))
+    for other in (torch.zeros((B + 1, 96, 160), dtype=torch.uint8),
+                  torch.zeros((B, 97, 160), dtype=torch.uint8),
+                  torch.zeros((B, 96, 161), dtype=torch.uint8),
+                  torch.zeros((B, 96, 160), dtype=torch.float32)):
+        keys.append(vo.scan_key(other, cam, None, **opts))
+    keys.append(vo.scan_key(frames, cam, _maps(rectify, device="cpu"), **opts))
+    keys.append(vo.scan_key(frames, StereoCamera(**{**CAM, "baseline": 0.6}), None, **opts))
+    monkeypatch.setattr(robust_lm, "GN_EXIT_EVERY", robust_lm.GN_EXIT_EVERY + 1)
+    keys.append(vo.scan_key(frames, cam, None, **opts))
+    monkeypatch.setattr(robust_lm, "GN_GRAPHS", not robust_lm.GN_GRAPHS)
+    keys.append(vo.scan_key(frames, cam, None, **opts))
+    assert len(set(keys)) == len(keys)
 
 
 def _images(seed: int):
@@ -241,3 +332,18 @@ def test_radius_beyond_k1_takes_the_score_map_route(frames, monkeypatch):
         assert calls == [want], (radius, margin, calls)
     with pytest.raises(ValueError, match="NMS radius 6"):
         vo.extract_and_match(*frames[0], cam, 12.0, 60, k=K, nms_radius=6, device="cpu")
+
+
+def test_float_threshold_inside_a_program_raises(monkeypatch):
+    """The kernels' threshold argument: a float outside a captured program
+    (passed on as the batch's value), a tensor anywhere (its address), and
+    a float inside a program's warm-up or capture raises: it would stay in
+    the graph, and a replay at another threshold would use it."""
+    cpu = torch.device("cpu")
+    th = torch.full((2,), 20.0)
+    assert hopper_fast._thresholds(20.0, 2, cpu) == (20.0, 0)
+    monkeypatch.setattr(cuda_graphs, "_BODIES", {})
+    assert cuda_graphs.in_program()
+    assert hopper_fast._thresholds(th, 2, cpu) == (0.0, th.data_ptr())
+    with pytest.raises(TypeError, match="float threshold"):
+        hopper_fast._thresholds(20.0, 2, cpu)
