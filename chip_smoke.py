@@ -4,7 +4,7 @@
 Run from the root of the repository, on a machine with one CUDA card and
 the CUDA toolkit (``nvcc``):
 
-    python3 chip_smoke.py            # add --profile for the device busy share
+    python3 chip_smoke.py            # add --profile for the estimator's kernel time
 
 Phases, each printing one line; any failure raises and the exit code is
 not 0 (there is no CPU fallback):
@@ -58,8 +58,10 @@ not 0 (there is no CPU fallback):
                tests/test_kitti_geometry_ate.py); the four output files exist;
                ``gauss_blur7`` never runs on a CUDA tensor (K2 blurs inside);
                the host syncs torch reports (``set_sync_debug_mode("warn")``)
-               per frame and per keyframe check; the inputs of every check
-               are kept for phase 12;
+               per frame and per keyframe check; each check one replay of
+               the one-check program (``CHECK_GRAPHS``): section ``queryDB``
+               ms per check, with and without its capture; the inputs of
+               every check are kept for phase 12;
 8. options   - the frontend's options at KITTI geometry: (a) K1, K2 and K3
                (margins 3, 2 and 0: under 3 the circle wraps at the borders)
                ``torch.equal`` to their plain versions on the f32
@@ -127,6 +129,15 @@ not 0 (there is no CPU fallback):
                of the batch alone (BoW query, RANSAC, Horn seed, GN solve);
                ``solve_pose`` at L = 5 against five L = 1 calls, and at exit-
                test periods 1, 2, 4, 8 and 12, beside a VO solve (L = 1);
+               then the check as CUDA-graph programs against
+               ``CHECK_GRAPHS`` off: the one-check program and a fused
+               group of three slot programs, every output bit for bit,
+               host ms to dispatch and until done in turns, capture s,
+               pool MB, the bytes a replay copies and holds, and the
+               launches a check (kernels, graphs, copies) under
+               torch.profiler in a process of its own (a program call: 0
+               kernels, 1 graph); the launch counts above from sessions
+               with CUDA activity only;
 13. insertion - where an insertion's and the epilogue's time goes: the
                bench estimator of phase 7 again over the 81 frames (strict
                schedule, each window a group of one; its decisions equal the
@@ -183,8 +194,10 @@ not 0 (there is no CPU fallback):
                the card in one chunk of 60, one scan, and in chunks of 8):
                the same checks but the distance to strict, which is
                printed beside the JAX run's; (a)-(c) again with the eager
-               scan: the same decisions and keyframe poses bit for bit,
-               frames/s beside the graph's, and the scan graphs captured
+               scan, and again with the eager check (``CHECK_GRAPHS`` off,
+               each run gated on the JAX run of its schedule): the same
+               decisions and keyframe poses bit for bit, frames/s beside
+               the graph's, and the scan graphs and check programs captured
                inside each timed part; a b20 scan as the graph against the
                eager scan (bits, dispatch ms);
                (d) phase 13's windows in groups by bucket through
@@ -192,17 +205,19 @@ not 0 (there is no CPU fallback):
                one-window solve, graph blocks equal to eager ones, ms a
                group beside the one-window solves; (e) one fused check group
                of (a) again under ``set_sync_debug_mode("error")`` (no host
-               sync), each slot equal to the one-check path on the same
-               rows;
+               sync; its slot programs captured first), equal bit for bit
+               to the eager group, each slot equal to the one-check path on
+               the same rows;
 16. bench    - the port's bench harness, ``srba_slam_tpu_torch/bench.py``
                ``run(repeats=1, dev_repeats=1, bounded_repeats=2)`` on the
                frames rendered above (the protocol of the JAX package's
                bench.py, every timed repeat gated on the JAX run of its
                schedule), its line printed as ``[bench] {...}``: K1 and K2
                launched in its timed parts, the card line, a busy share
-               and a CPU anchor (measured in its subprocess, since a
-               fresh checkout has no cached anchor), the scan graphs it
-               captured (none inside a timed part); a scan of 60 (the
+               (spans of CUDA events, no CUPTI) and a CPU anchor (measured
+               in its subprocess, since a fresh checkout has no cached
+               anchor), the scan graphs and the check programs it captured
+               (none inside a timed part); a scan of 60 (the
                device-resident chunk) as the graph against the eager scan;
                then ``parallel/multichip.py``
                ``entry()`` once. ``entry``'s outputs and its example
@@ -212,8 +227,10 @@ not 0 (there is no CPU fallback):
 
 Between phases 15 and 16, the scan's launches a frame at B = 8, 20 and
 60, eager against graph, under torch.profiler in a process of its own
-(``phase_scan_launches``): this process traces a graph scan only in
-phase 16's busy share, its last profiler session (ROADMAP Queue 3). Then
+(``phase_scan_launches``), as phase 12's check launches: this process
+traces no captured program (a scan's or a check's) and no conditional
+node with CPU activity (ROADMAP Queue 3: a trace of a program has been
+followed by an illegal memory access). Then
 one JSON line with, per kernel: its launches over the driven paths
 (``launches_by_path``: the estimator run, the margin-3 frontend, the
 two-octave engine, the CLI run, the batched run, the fleet run, the
@@ -670,11 +687,11 @@ def _launches() -> dict:
     return {fn.__name__: fn.launches for fn in (fast_nms, orb_descriptors, fast_score_map)}
 
 
-def _captures() -> int:
-    """The CUDA graphs captured so far (``ops/cuda_graphs.py`` ``program``:
-    each batch length's scan once; a capture's warm-up launches K1 and K2
-    once more)."""
-    return cuda_graphs.PROGRAM_STATS["captures"]
+def _captures(kind: str = "vo_scan") -> int:
+    """The CUDA graphs of ``kind`` captured so far (``ops/cuda_graphs.py``
+    ``program``: each batch length's scan once, a capture's warm-up
+    launching K1 and K2 once more; ``"check"``: each check program once)."""
+    return cuda_graphs.capture_stats(kind)["captures"]
 
 
 def _graph_programs(b_list=None) -> str:
@@ -684,10 +701,25 @@ def _graph_programs(b_list=None) -> str:
     rows = []
     for p in cuda_graphs.programs():
         b = p["key"][1]
-        if b_list is None or b in b_list:
+        if p["key"][0] == "vo_scan" and (b_list is None or b in b_list):
             rows.append(f"B={b} {p['capture_s']:.3f} s, pool {p['pool_bytes'] / 2**20:.1f} MB "
                         f"(steps {p['body_bytes'] / 2**20:.1f} MB), launches a replay "
                         f"{p['launches']}")
+    return "; ".join(rows) or "none"
+
+
+def _check_programs() -> str:
+    """The captured check programs (``models/data_association.py``: the
+    fused group's slot program and the strict path's one-check program, one
+    per key): which, K, M, debug, host seconds of warm-up and capture, MB of
+    the graph's pool and of its loops' steps, the bytes a replay copies (its
+    inputs in, its blob out) and the bytes it holds in place (the store, the
+    database, the vocabulary)."""
+    rows = [f"{p['key'][1]} (K {p['key'][2][0]}, M {p['key'][3][0]}, debug {p['key'][7]}) "
+            f"{p['capture_s']:.3f} s, pool {p['pool_bytes'] / 2**20:.1f} MB (steps "
+            f"{p['body_bytes'] / 2**20:.1f} MB, {p['steps']} captured), copies "
+            f"{p['copy_bytes'] / 1e3:.1f} kB a replay, holds {p['held_bytes'] / 1e6:.3f} MB"
+            for p in cuda_graphs.programs() if p["key"][0] == "check"]
     return "; ".join(rows) or "none"
 
 
@@ -770,12 +802,11 @@ def phase_scan_launches(frames) -> None:
     """The scan's launches a frame at the batches of phases 10, 15 and 16,
     eager against graph: the kernel launches, graph launches and copies
     that the host issues in one call, under torch.profiler with CPU and
-    CUDA activity, in a process of its own (:func:`scan_launches_child`).
-    In this process a trace of a graph scan with CPU activity was followed
-    by later sessions that lost kernel records and, five times, by an
-    illegal memory access (ROADMAP Queue 3, cause not shown), so this
-    process traces graph scans only in phase 16's busy share, its last
-    profiler session. A graph call must launch no kernel and one graph."""
+    CUDA activity, in a process of its own (:func:`scan_launches_child`):
+    a trace of a captured program has been followed by sessions that lost
+    kernel records and by an illegal memory access (ROADMAP Queue 3), so
+    this process traces none. A graph call must launch no kernel and one
+    graph."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "frames.npy")
         np.save(path, np.stack([np.stack(f[:2]) for f in frames[:1 + bw.DEV_CHUNK]]))
@@ -927,7 +958,7 @@ def _capture_checks():
         records.append(dict(frame=frame, arrays=type(arrays)(*(a.clone() for a in arrays)),
                             db=db.clone(), leaf_bits=leaf_bits, weights=weights,
                             n_kfs=n_kfs, cam=cam, key=prng.PRNGKey(seed, device=db.device),
-                            kw=kw))
+                            seed=seed, kw=kw))
         return run(frame, arrays, db, leaf_bits, weights, n_kfs, cam, seed, debug=debug, **kw)
 
     estimator_mod.query_and_associate_packed = capturing
@@ -973,6 +1004,7 @@ def phase_estimator(frames, gt_poses, profile: bool) -> dict:
     blur_calls, unguard = _count_blur_calls()
     records, uncapture = _capture_checks()
     _reset_launches()
+    check_caps = cuda_graphs.capture_stats("check")
     with SyncCount() as syncs:
         est, n_passes, ms, snap, frame_syncs, check_syncs = _run_estimator(
             DEV, frames, snapshot_at=n_cpu - 1, syncs=syncs)
@@ -1042,6 +1074,13 @@ def phase_estimator(frames, gt_poses, profile: bool) -> dict:
           f"(JAX {fp['ate_m']:.6f} m), final poses vs JAX max {d_jax[:, :3].max():.2e} rad / "
           f"{d_jax[:, 3:].max():.2e} m | files {sizes}")
     print(f"[estimator] profiler sections: {sections}")
+    q = est.profiler.sections["queryDB"]
+    caps = {k: v - check_caps[k] for k, v in cuda_graphs.capture_stats("check").items()}
+    print(f"[estimator checks] each keyframe check one replay of the one-check program "
+          f"(CHECK_GRAPHS): section queryDB {q.count} checks, mean {q.mean * 1e3:.3f} ms, "
+          f"{(q.total - caps['capture_s']) / max(q.count, 1) * 1e3:.3f} ms without the "
+          f"{caps['captures']} capture(s) ({caps['capture_s']:.3f} s of warm-up and capture) "
+          f"| {_check_programs()}")
     quiet_syncs = [n for n, r in zip(frame_syncs, steps) if not r.kf_check and r.frame_idx > 0]
     chk_syncs = [n for n, r in zip(frame_syncs, steps) if r.kf_check]
     print(f"[estimator syncs] host syncs (torch sync debug warnings) over the {len(frames)} "
@@ -1106,13 +1145,17 @@ def _profile_estimator(frames, untraced_ms: float):
     """The estimator run again under torch.profiler: device kernel time
     against the untraced run's wall time (``untraced_ms``; the traced run's
     own, which the tracer lengthens at every launch, beside it), and the
-    kernels that take most of it."""
+    kernels that take most of it. CUDA activity only, and the checks eager
+    (``CHECK_GRAPHS`` off): a trace of a captured program has been followed
+    by an illegal memory access (ROADMAP Queue 3). The kernels inside the
+    conditional nodes of loops made before the session are not recorded
+    (the same), so the device time is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _run_estimator(DEV, frames)
+        _flag_off(da_mod, "CHECK_GRAPHS", lambda: _run_estimator(DEV, frames))()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
@@ -1335,7 +1378,7 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> tuple[dict, dict]:
     est = bench_estimator(DEV, solve_sync=True)
     estimator_mod.vo_scan = counted_scan
     _reset_launches()
-    caps, caps_s = _captures(), cuda_graphs.PROGRAM_STATS["capture_s"]
+    caps, caps_s = _captures(), cuda_graphs.capture_stats("vo_scan")["capture_s"]
     try:
         with SyncCount() as syncs:
             check_syncs = _count_calls_syncs(est, "_kf_check", syncs)
@@ -1346,7 +1389,7 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> tuple[dict, dict]:
     finally:
         estimator_mod.vo_scan = scan
     counts = _launches()
-    caps, caps_s = _captures() - caps, cuda_graphs.PROGRAM_STATS["capture_s"] - caps_s
+    caps, caps_s = _captures() - caps, cuda_graphs.capture_stats("vo_scan")["capture_s"] - caps_s
     torch.use_deterministic_algorithms(False)
     n_batches = len(est.lat["batches"])
     # frame 0 bootstraps through step(): one VO pass; then K1 and K2 once a
@@ -1391,6 +1434,7 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> tuple[dict, dict]:
           f"capture): {_graph_programs()} | "
           + _scan_ab(frames, BATCH) + " | a retry tail's length: "
           + _scan_ab(frames, tails[0] if tails else BATCH - 3))
+    print(f"[batched check graphs] {_check_programs()}")
     return counts, dict(kf_global=strict_kf, wall=wall, syncs=syncs.n, batches=n_batches)
 
 
@@ -1506,8 +1550,10 @@ def _host_ms(fn, reps: int = CHECK_REPS) -> tuple[float, float]:
 
 def _schedule_counts(fn) -> dict:
     """One call of ``fn``: kernel launches and cudaStreamSynchronize calls
-    under torch.profiler, and the host syncs torch reports."""
-    evs = kt.profile_calls(fn)
+    under torch.profiler with CUDA activity only (``fn`` may launch loops
+    with conditional nodes: no CPU activity over those, ROADMAP Queue 3),
+    and the host syncs torch reports."""
+    evs = kt.profile_calls(fn, cuda_only=True)
     with SyncCount() as syncs:
         fn()
     sync()
@@ -1604,6 +1650,143 @@ def _in_turns(fn_a, fn_b, reps: int = CHECK_REPS) -> tuple[float, float]:
     return statistics.median([a1, a2]), statistics.median([b1, b2])
 
 
+_CHECK_REC = ("frame", "arrays", "db", "leaf_bits", "weights", "n_kfs", "cam", "seed", "kw")
+
+
+def _group_fns(g: dict, restore: bool = True):
+    """A fused check group ``g`` (``fused_checks_batch``'s arguments by
+    name, the options as ``kw``) as slot programs (the default) and eagerly
+    (``da_mod.CHECK_GRAPHS`` off), each route on a copy of its store and
+    database of its own, with ``restore`` set back in place before each
+    call (the same tensors: the same program key). Returns ((graph,
+    eager), the routes' copies, the snapshot)."""
+    snap = [t.clone() for t in list(g["arrays"]) + [g["db"]]]
+    parts = {route: [t.clone() for t in snap] for route in ("graph", "eager")}
+
+    def on(route):
+        def call():
+            held = parts[route]
+            for a, b in zip(held, snap if restore else ()):
+                a.copy_(b)
+            return da_mod.fused_checks_batch(
+                g["feats"], type(g["arrays"])(*held[:-1]), held[-1], g["leaf_bits"],
+                g["weights"], g["js"], g["rows"], g["valids"], g["cam"], g["seeds"], **g["kw"])[0]
+        return call
+
+    return (on("graph"), _flag_off(da_mod, "CHECK_GRAPHS", on("eager"))), parts, snap
+
+
+def _check_fns(rec, restore: bool = True):
+    """Phase 12's check as programs and eagerly: the one-check path on the
+    check's inputs, and a fused group of three slots (the check's frame
+    written at rows n_kfs .. n_kfs + 2, seeds seed .. seed + 2, five padded
+    slots, :func:`_group_fns`). Returns ((one_graph, one_eager),
+    (group_graph, group_eager), the group routes' stores and databases)."""
+    kw, n = dict(rec["kw"]), rec["n_kfs"]
+    check(n + 3 <= rec["arrays"].desc_l.shape[0], f"no room for 3 rows after {n}")
+    one_args = (rec["frame"], rec["arrays"], rec["db"], rec["leaf_bits"], rec["weights"], n,
+                rec["cam"], rec["seed"])
+
+    def one():
+        return da_mod.query_and_associate_packed(*one_args, **kw)[0]
+
+    pad = da_mod.CHECK_SLOTS - 3
+    group, parts, _snap = _group_fns(dict(
+        feats=vo_mod.stack_features([rec["frame"]] * 3), arrays=rec["arrays"], db=rec["db"],
+        leaf_bits=rec["leaf_bits"], weights=rec["weights"], js=[0, 1, 2] + [0] * pad,
+        rows=[n, n + 1, n + 2] + [0] * pad, valids=[True] * 3 + [False] * pad, cam=rec["cam"],
+        seeds=[rec["seed"] + i for i in range(3)] + [rec["seed"]] * pad, kw=kw), restore)
+    return (one, _flag_off(da_mod, "CHECK_GRAPHS", one)), group, parts
+
+
+def check_launches_child(path: str) -> None:
+    """:func:`_check_launches`' process: phase 12's check inputs saved at
+    ``path``; the eager check and group traced before the programs. Prints
+    one JSON object: per call, kernel launches, graph launches and copies."""
+    rec = torch.load(path, weights_only=False)
+    (one_g, one_e), (grp_g, grp_e), _parts = _check_fns(rec, restore=False)
+    got = {name: _scan_launch_counts(fn) for name, fn in (("one eager", one_e),
+                                                          ("group eager", grp_e),
+                                                          ("one graph", one_g),
+                                                          ("group graph", grp_g))}
+    print(json.dumps(dict(got, captures=_captures("check"))))
+
+
+def _check_launches(rec) -> str:
+    """The launches of one check, eager against its program: the kernel
+    launches, graph launches and copies the host issues in one call under
+    torch.profiler (CPU and CUDA activity), in a process of its own, as
+    :func:`phase_scan_launches` (this process traces no conditional-node
+    graph: ROADMAP Queue 3). A program call must launch no kernel and one
+    graph; the group of three, three graphs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "check.pt")
+        torch.save({k: rec[k] for k in _CHECK_REC}, path)
+        code = f"import chip_smoke; chip_smoke.check_launches_child({path!r})"
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    check(proc.returncode == 0, f"the check-launches process exited with {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(got["one graph"][:2] == [0, 1], f"a one-check program call launched "
+          f"{got['one graph'][0]} kernels and {got['one graph'][1]} graphs")
+    check(got["group graph"][:2] == [0, 3], f"a group of three slot programs launched "
+          f"{got['group graph'][0]} kernels and {got['group graph'][1]} graphs")
+    per = {k: [c / (3 if k.startswith("group") else 1) for c in v] for k, v in got.items()
+           if k != "captures"}
+    return ("launches a check (kernel launches / graph launches / copies; a call in "
+            "brackets), torch.profiler in a process of its own: " + "; ".join(
+                f"{k} {'/'.join(f'{c:.2f}' for c in per[k])} {tuple(got[k])}" for k in per)
+            + f" | {got['captures']} check programs captured there")
+
+
+def _check_ab(rec) -> None:
+    """Phase 12's check as CUDA-graph programs against the eager check
+    (:func:`_check_fns`): every output equal bit for bit (the blobs, and
+    for the group the written store and database); the first program call
+    (its capture); in turns (eager, graph, graph, eager; 5 calls each) the
+    host ms until the call returns (the dispatch) and until the card is
+    done, medians; the programs' capture s, pool MB and the bytes they copy
+    and hold; the launches a check (:func:`_check_launches`)."""
+    (one_g, one_e), (grp_g, grp_e), parts = _check_fns(rec)
+    rows = []
+    for name, graph, eager in (("one-check", one_g, one_e), ("group of 3", grp_g, grp_e)):
+        caps = _captures("check")
+        t0 = time.perf_counter()
+        out_g = graph()
+        sync()
+        first_s = time.perf_counter() - t0
+        out_e = eager()
+        leaves_g, leaves_e = pytree.tree_leaves(out_g), pytree.tree_leaves(out_e)
+        same = len(leaves_g) == len(leaves_e) and all(torch.equal(x, y)
+                                                      for x, y in zip(leaves_g, leaves_e))
+        if name != "one-check":
+            same = same and all(torch.equal(x, y) for x, y in zip(parts["graph"],
+                                                                   parts["eager"]))
+        check(same, f"phase 12's {name}: the program differs from the eager check")
+        times = {"eager": [], "graph": []}
+        for route in ("eager", "graph", "graph", "eager"):
+            fn = graph if route == "graph" else eager
+            for _ in range(5):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                t1 = time.perf_counter()
+                sync()
+                times[route].append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+        med = {r: (statistics.median(t[0] for t in v), statistics.median(t[1] for t in v))
+               for r, v in times.items()}
+        rows.append(f"{name}: program = eager bit for bit ({len(leaves_g)} blobs"
+                    + (", the store and the database" if name != "one-check" else "")
+                    + f") | first program call {first_s:.3f} s ({_captures('check') - caps} "
+                    f"captured) | dispatch / done ms, medians in turns: eager "
+                    f"{med['eager'][0]:.3f} / {med['eager'][1]:.3f}, program "
+                    f"{med['graph'][0]:.3f} / {med['graph'][1]:.3f}")
+    print(f"[check program] the check of frame {rec['frame_idx']} as CUDA-graph programs "
+          f"against CHECK_GRAPHS off: " + " || ".join(rows) + f" | programs: "
+          f"{_check_programs()} | " + _check_launches(rec))
+
+
 def phase_check(cam, frames, rec) -> None:
     """Phase 12: one keyframe check of phase 7's run with five valid
     candidates, as one batch of five lanes against the schedule before it
@@ -1698,6 +1881,9 @@ def phase_check(cam, frames, rec) -> None:
                       for name, (ms_e, ms_g) in turns.items())
           + f" | the check eagerly: {c_e['launches']} launches, {c_e['syncs']} host syncs "
           f"({c_e['stream_syncs']} cudaStreamSynchronize) | outputs equal bit for bit")
+    torch.use_deterministic_algorithms(True)
+    _check_ab(rec)
+    torch.use_deterministic_algorithms(False)
 
 
 
@@ -2165,8 +2351,10 @@ def _pipeline_counters(est):
             # they were, for (e)
             n["first_group"] = dict(
                 feats=feats, arrays=type(arrays)(*(a.clone() for a in arrays)), db=db.clone(),
-                leaf_bits=leaf_bits, weights=weights, js=list(js), rows=list(rows),
-                valids=list(valids), cam=cam, seeds=list(seeds), kw=k)
+                leaf_bits=leaf_bits, weights=weights, js=list(js),
+                rows=rows.clone() if torch.is_tensor(rows) else list(rows),
+                valids=list(valids), cam=cam,
+                seeds=seeds.clone() if torch.is_tensor(seeds) else list(seeds), kw=k)
         return run_fused(feats, arrays, db, leaf_bits, weights, js, rows, valids, cam, seeds,
                          **k)
 
@@ -2324,21 +2512,33 @@ def _window_groups(entries) -> str:
 
 def _fused_group_check(g: dict) -> str:
     """(e): one fused check group of the run again, on copies of its
-    inputs, under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
-    raises), then each slot against the one-check path on the same rows."""
-    arrays = type(g["arrays"])(*(a.clone() for a in g["arrays"]))
-    db = g["db"].clone()
-    call = (lambda: da_mod.fused_checks_batch(
-        g["feats"], arrays, db, g["leaf_bits"], g["weights"], g["js"], g["rows"], g["valids"],
-        g["cam"], g["seeds"], **g["kw"]))
+    inputs (:func:`_group_fns`): its slot programs captured first, then the
+    group, its copies set back in place, under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises); the
+    same group with the eager check
+    (``CHECK_GRAPHS`` off) on copies of its own: the blobs, the store and
+    the database equal bit for bit; then each slot against the one-check
+    path on the same rows."""
+    (graph, eager_fn), parts, _snap = _group_fns(g)
+    caps = _captures("check")
+    graph()                                         # the capture (its key's first call)
+    caps = _captures("check") - caps
+    sync()
     torch.cuda.set_sync_debug_mode("error")
     try:
         t0 = time.perf_counter()
-        blobs, _a, _d = call()
+        blobs = graph()                             # the copies set back first, on the card
         host_ms = (time.perf_counter() - t0) * 1e3
     finally:
         torch.cuda.set_sync_debug_mode("default")
     sync()
+    graph_held = [t.clone() for t in parts["graph"]]
+    eager = eager_fn()
+    check(all(torch.equal(x, y) for x, y in zip(blobs, eager))
+          and all(torch.equal(x, y) for x, y in zip(graph_held, parts["eager"])),
+          "the fused group's slot programs differ from the eager group")
+    rows = [int(r) for r in g["rows"]]
+    seeds = [int(sd) for sd in g["seeds"]]
     arrays1 = type(g["arrays"])(*(a.clone() for a in g["arrays"]))
     db1 = g["db"].clone()
     kw = dict(g["kw"])
@@ -2348,12 +2548,12 @@ def _fused_group_check(g: dict) -> str:
     worst = 0.0
     for i in range(n_valid):
         frame = vo_mod.FrameFeatures(*(a[g["js"][i]] for a in g["feats"]))
-        row = g["rows"][i]
+        row = rows[i]
         for name in da_mod._ROW_FIELDS:
             getattr(arrays1, name)[row] = getattr(frame, name)
         db1[row] = da_mod.bow_vector(frame.desc_l, frame.m_valid, g["leaf_bits"], g["weights"])
         (one,) = da_mod.query_and_associate_packed(frame, arrays1, db1, g["leaf_bits"],
-                                                   g["weights"], row, g["cam"], g["seeds"][i],
+                                                   g["weights"], row, g["cam"], seeds[i],
                                                    debug=debug, **kw)
         a = da_mod.unpack_check_outputs(blobs[i].cpu().numpy(), 5, k, 4, debug)
         b = da_mod.unpack_check_outputs(one.cpu().numpy(), 5, k, 4, debug)
@@ -2362,8 +2562,10 @@ def _fused_group_check(g: dict) -> str:
             check(np.array_equal(x, y), f"fused slot {i}: {name} differs from the one-check path")
         worst = max(worst, float(np.abs(a[0] - b[0]).max()), float(np.abs(a[10] - b[10]).max()))
         check(worst <= 1e-6, f"fused slot {i}: scores or points differ by {worst}")
-    return (f"one fused_checks_batch of {n_valid} checks in {len(g['valids'])} slots under "
-            f"set_sync_debug_mode('error'): no host sync, {host_ms:.3f} ms host | every slot "
+    return (f"one fused_checks_batch of {n_valid} checks in {len(g['valids'])} slots "
+            f"({caps} slot program captured for its copies first) under "
+            f"set_sync_debug_mode('error'): no host sync, {host_ms:.3f} ms host | equal bit for "
+            f"bit to the eager group (CHECK_GRAPHS off: blobs, store, database) | every slot "
             f"equal to the one-check path on the same rows (integer fields exact, scores and "
             f"points within {worst:.1e})")
 
@@ -2387,15 +2589,24 @@ def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
     eager = {name: _flag_off(vo_mod, "SCAN_GRAPHS", lambda n=name, c=chunk: (
         _device_resident_run if c else _pipelined_run)(frames, n))()
         for name, (_batch, _mid, chunk) in bw.SCHEDULES.items()}
-    for name, r in eager.items():
-        g = runs[name]["est"]
-        check(bw.decisions(r["est"].step_log) == bw.decisions(g.step_log) and np.array_equal(
-            r["est"].rba.kf_global[:r["est"].store.n_kfs], g.rba.kf_global[:g.store.n_kfs]),
-            f"{name}: the eager scan's run differs from the graph scan's")
+    # and with the eager check (da_mod.CHECK_GRAPHS off): the same bits, and
+    # the JAX run's decisions and keyframe positions (gated below)
+    eager_check = {name: _flag_off(da_mod, "CHECK_GRAPHS", lambda n=name, c=chunk: (
+        _device_resident_run if c else _pipelined_run)(frames, n))()
+        for name, (_batch, _mid, chunk) in bw.SCHEDULES.items()}
+    for what, other in (("scan", eager), ("check", eager_check)):
+        for name, r in other.items():
+            g = runs[name]["est"]
+            check(bw.decisions(r["est"].step_log) == bw.decisions(g.step_log)
+                  and np.array_equal(r["est"].rba.kf_global[:r["est"].store.n_kfs],
+                                     g.rba.kf_global[:g.store.n_kfs]),
+                  f"{name}: the eager {what}'s run differs from the graph {what}'s")
     jax_runs = bw.load_fingerprint(bw.PIPELINE_FINGERPRINT)["runs"]
     check(set(jax_runs) == set(runs), f"{bw.PIPELINE_FINGERPRINT}: runs {sorted(jax_runs)}")
     gates = {name: _gate_run(name, r, fp, jax_runs[name], gt_poses, strict["kf_global"])
              for name, r in runs.items()}
+    gates_ec = {name: _gate_run(name, r, fp, jax_runs[name], gt_poses, strict["kf_global"])
+                for name, r in eager_check.items()}
     check(gates["flush-before-insert b8"]["d_strict"]
           <= gates["pipelined b8"]["d_strict"] + 1e-9,
           f"flush-before-insert lands farther from strict ({gates['flush-before-insert b8']}) "
@@ -2419,9 +2630,13 @@ def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
         else:
             extra = (f" | host syncs {r['syncs']} ({r['syncs'] / r['batches']:.2f} a chunk of "
                      f"{r['chunk']})")
+        ec = eager_check[name]
         extra += (f" | eager scan (SCAN_GRAPHS off, the same bits): {eager[name]['timed_s']:.3f} "
-                  f"s, {eager[name]['fps']:.2f} fps; scan graphs captured in the timed part "
-                  f"{r['captures']}")
+                  f"s, {eager[name]['fps']:.2f} fps; eager check (CHECK_GRAPHS off, the same "
+                  f"bits): {ec['timed_s']:.3f} s, {ec['fps']:.2f} fps, decisions equal the JAX "
+                  f"run's, KF positions within {gates_ec[name]['d_jax']:.2e} m of it | graphs "
+                  f"captured in the timed part: scans {r['captures']['vo_scan']}, check programs "
+                  f"{r['captures']['check']}")
         print(f"[pipeline] {name}: {len(frames) - PIPE_WARMUP} timed frames after "
               f"{PIPE_WARMUP}: {r['timed_s']:.3f} s, {r['fps']:.2f} fps (phase 10 strict b8: "
               f"{strict['wall']:.3f} s for all {len(frames)}, {len(frames) / strict['wall']:.2f} "
@@ -2436,6 +2651,7 @@ def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
           f"per bootstrap frame and per capture's warm-up ({n_scans} batch reads)")
     print(f"[pipeline scan graphs] {_graph_programs()} | " + _scan_ab(frames, bw.SCHEDULES[
         bench.HEADLINE][0]))
+    print(f"[pipeline check graphs] {_check_programs()}")
     b20 = runs["pipelined b20"]["n"]
     check(b20["first_group"] is not None, "no fused check group of two checks or more")
     print(f"[pipeline windows] (d) phase 13's {len(entries)} windows by bucket: "
@@ -2480,7 +2696,8 @@ def phase_bench(frames, gt_poses) -> dict:
     print(f"[bench] {json.dumps(line)}")
     print(f"[bench scan graphs] one repeat a part, {line['card']}: K1/K2 launches in the timed "
           f"parts (a replay adds its graph's) {line['launches']['fast_nms']}/"
-          f"{line['launches']['orb_descriptors']}, scan graphs {line['scan_graphs']} | "
+          f"{line['launches']['orb_descriptors']}, scan graphs {line['scan_graphs']}, check "
+          f"programs {line['check_graphs']} | "
           + _scan_ab(frames, bw.DEV_CHUNK))
     # the comparisons below launch kernels outside the counted path
     fn_cpu, args_cpu = entry("cpu")

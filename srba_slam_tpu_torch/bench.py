@@ -12,11 +12,10 @@ the 21 warm-up frames at batch 20 and lands its solves:
 1. headline: the 60 timed frames through ``perform_stereo_slam_batched``
    at batch 20 (the default, pipelined schedule), then ``rba.flush()`` and
    a synchronize; ``REPEATS`` repeats, ``value`` the median fps, ``best``
-   the best repeat. One more repeat, untimed, runs under
-   ``torch.profiler``: ``busy_share`` = the card's summed kernel time in
-   its trace over the median timed repeat's wall time (the traced
-   repeat's own wall time carries the tracer's cost on each of its
-   launches; it is logged beside);
+   the best repeat. One more repeat, untimed, records its device work in
+   spans of CUDA events (:func:`_busy_share`; no CUPTI): ``busy_share`` =
+   the spans' summed device time over the median timed repeat's wall time
+   (the spanned repeat's own wall time is logged beside);
 2. device-resident: the 60 frames staged on the card in chunks of
    ``DEV_CHUNK`` (``link_MBps`` and ``upload_bound_fps`` from the staging
    copy), then ``perform_stereo_slam_device``; the max over
@@ -54,7 +53,9 @@ wrappers' counters: a scan's graph replay adds the launches it holds),
 ``scan_graphs`` (the CUDA graphs captured during the run, those captured
 inside a timed part, and their host seconds: on the card each batch's scan
 is a replay of a graph captured once per batch length,
-``models/vo.py`` ``vo_scan``), ``sections`` (the median headline repeat's profiler
+``models/vo.py`` ``vo_scan``), ``check_graphs`` (the same for the keyframe
+checks' programs, ``models/data_association.py``: one per program, shape
+and options), ``sections`` (the median headline repeat's profiler
 sections over its timed part, ms; under the pipelined schedule
 ``queryDB`` times a check's launch) and ``busy_share``.
 
@@ -110,6 +111,8 @@ CPU_ANCHOR_PROVENANCE = (f"measured: the port's per-frame path on the CPU (devic
 VS_BASELINE_PROVENANCE = ("median fps / ASSUMED 15 fps reference-CPU throughput (the "
                           "reference publishes no numbers; BASELINE.md)")
 KERNELS = (hopper_fast.fast_nms, hopper_fast.orb_descriptors, hopper_fast.fast_score_map)
+# the kinds of captured program the line counts (``ops/cuda_graphs.py``)
+GRAPH_KINDS = ("vo_scan", "check")
 
 
 class GateError(RuntimeError):
@@ -226,12 +229,14 @@ def _sections_since(est, before: dict) -> dict:
 def _warmed(device, frames, name: str):
     """A fresh bench estimator with the schedule ``name`` of
     ``bw.SCHEDULES`` after the warm-up frames at its batch, its solves
-    landed."""
+    landed and its one-check program captured (on the card; the warm-up's
+    checks captured its slot program)."""
     batch, mid, _chunk = bw.SCHEDULES[name]
     est = bench_estimator(device)
     est.solve_flush_before_insert = mid
     est.perform_stereo_slam_batched(frames[:WARMUP_FRAMES], batch=batch)
     est.rba.flush()
+    est.capture_check_program()
     _sync(est.device)
     return est
 
@@ -256,7 +261,7 @@ class _Timed:
 
     def __enter__(self):
         self._launches, self._sections = _launch_counts(), _sections(self.est)
-        self._captures = cuda_graphs.PROGRAM_STATS["captures"]
+        self._captures = {k: cuda_graphs.capture_stats(k)["captures"] for k in GRAPH_KINDS}
         _sync(self.est.device)
         self._t0 = time.perf_counter()
         return self
@@ -268,18 +273,9 @@ class _Timed:
             self.s = time.perf_counter() - self._t0
             now = _launch_counts()
             self.launches = {k: now[k] - self._launches[k] for k in now}
-            self.captures = cuda_graphs.PROGRAM_STATS["captures"] - self._captures
+            self.captures = {k: cuda_graphs.capture_stats(k)["captures"] - n
+                             for k, n in self._captures.items()}
             self.sections = _sections_since(self.est, self._sections)
-
-
-def _device_kernel_ms(prof) -> float:
-    """The card's summed kernel time in a ``torch.profiler`` trace (copies
-    and memsets left out), read from the raw events."""
-    from torch.autograd import DeviceType
-
-    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-               if e.device_type() == DeviceType.CUDA
-               and not e.name().startswith(("Memcpy", "Memset"))) / 1e6
 
 
 def _card(device) -> str | None:
@@ -387,30 +383,33 @@ def _headline(device, frames, gt_poses, jax_run, repeats: int) -> dict:
 
 
 def _busy_share(device, frames, wall_s: float) -> float | None:
-    """One more batch-20 repeat, untimed, its timed part under
-    ``torch.profiler``: the card's summed kernel time in the trace over
-    ``wall_s``, the median timed repeat's wall time. The traced repeat's
-    own wall time, which the tracer lengthens at every launch, is logged
-    beside it."""
+    """One more batch-20 repeat, untimed, its device work in spans of CUDA
+    events (``ops/cuda_graphs.py`` ``record_spans``: each graph launch with
+    its copies, the scan's and each check's; each eager group, a window
+    group's launch, the scan summary, a read of the host): the spans' summed
+    device time over ``wall_s``, the median timed repeat's wall time. No
+    CUPTI: a torch.profiler trace loses the kernels inside conditional
+    nodes of graphs made before its session (ROADMAP Queue 3). An eager
+    group's span holds the card's waits for the host's next launch, so that
+    part is an upper bound; the graph and eager parts, and the repeat's own
+    wall time, are logged beside it."""
     if device.type != "cuda":
         return None
-    from torch.profiler import ProfilerActivity, profile
-
     est = _warmed(device, frames, HEADLINE)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with cuda_graphs.record_spans() as spans:
         t0 = time.perf_counter()
         est.perform_stereo_slam_batched(frames[WARMUP_FRAMES:], batch=BATCH)
         est.rba.flush()
         _sync(device)
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    kernel_ms = _device_kernel_ms(prof)
-    wall_ms = wall_s * 1e3
-    _log(f"busy share: {kernel_ms:.3f} ms of kernels over the median timed repeat's "
-         f"{wall_ms:.3f} ms = {kernel_ms / wall_ms:.4f}; the traced repeat took {traced_ms:.3f} "
-         f"ms ({kernel_ms / traced_ms:.4f} of it; reading the trace took "
-         f"{time.perf_counter() - t0:.3f} s)")
-    return kernel_ms / wall_ms
+        run_ms = (time.perf_counter() - t0) * 1e3
+    ms = {kind: sum(a.elapsed_time(b) for k, a, b in spans if k == kind)
+          for kind in ("graph", "eager")}
+    busy_ms, wall_ms = ms["graph"] + ms["eager"], wall_s * 1e3
+    _log(f"busy share: {busy_ms:.3f} ms of device spans (graphs {ms['graph']:.3f}, eager "
+         f"groups {ms['eager']:.3f}; {len(spans)} spans) over the median timed repeat's "
+         f"{wall_ms:.3f} ms = {busy_ms / wall_ms:.4f}; the spanned repeat took {run_ms:.3f} ms "
+         f"({busy_ms / run_ms:.4f} of it)")
+    return busy_ms / wall_ms
 
 
 def _device_resident(device, frames, gt_poses, name: str, jax_run, passes: int,
@@ -465,7 +464,7 @@ def run(device="cuda", repeats: int = REPEATS, dev_repeats: int = DEV_REPEATS,
     frames, gt_poses = frames if frames is not None else render_frames()
     timed = len(frames) - WARMUP_FRAMES
     cpu = _get_cpu_anchor()
-    graphs0 = dict(cuda_graphs.PROGRAM_STATS)
+    graphs0 = {k: cuda_graphs.capture_stats(k) for k in GRAPH_KINDS}
 
     head = _headline(device, frames, gt_poses, jax_runs[HEADLINE], repeats)
     dts = [r["s"] for r in head]
@@ -512,10 +511,11 @@ def run(device="cuda", repeats: int = REPEATS, dev_repeats: int = DEV_REPEATS,
                              jax_ate_m=jax_runs[name]["ate_m"])
                   for name, rows in gates.items()},
         "launches": launches,
-        "scan_graphs": dict(
-            captures=cuda_graphs.PROGRAM_STATS["captures"] - graphs0["captures"],
-            captures_timed=sum(r["captures"] for r in head + dev_rows + bounded_rows),
-            capture_s=cuda_graphs.PROGRAM_STATS["capture_s"] - graphs0["capture_s"]),
+        **{f"{name}_graphs": dict(
+            captures=cuda_graphs.capture_stats(kind)["captures"] - graphs0[kind]["captures"],
+            captures_timed=sum(r["captures"][kind] for r in head + dev_rows + bounded_rows),
+            capture_s=cuda_graphs.capture_stats(kind)["capture_s"] - graphs0[kind]["capture_s"])
+           for name, kind in (("scan", "vo_scan"), ("check", "check"))},
         "sections": head[med_i]["sections"],
         "busy_share": busy,
     }

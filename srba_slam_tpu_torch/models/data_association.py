@@ -34,11 +34,18 @@ batched loop's deferred checks run as ``fused_checks_batch``: up to
 keyframe-store and BoW rows at its speculative row (inert until the
 estimator commits it) and checking against the rows before it, so a slot
 sees the rows of the slots before it (≙ the JAX package's ``lax.scan``
-over slots); nothing is read on the host.
+over slots); nothing is read on the host. On a card (``CHECK_GRAPHS``) a
+check is one CUDA-graph replay (``ops/cuda_graphs.py`` ``program``, one
+per ``check_key``): a fused group's slot program, one launch a valid slot,
+and the synchronous check's one-check program, their rows, counts and
+seeds device inputs (one pinned upload a group, ``slot_table``), the
+keyframe store and the BoW database held and written in place, their
+Horn and GN loops conditional nodes inside the graph.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import NamedTuple
 
 import numpy as np
@@ -47,7 +54,7 @@ import torch
 from srba_slam_tpu_torch.models.bow import bow_vector, rank_scores
 from srba_slam_tpu_torch.models.keyframe import _ROW_FIELDS, KFArrays
 from srba_slam_tpu_torch.models.vo import FrameFeatures
-from srba_slam_tpu_torch.ops import cuda_graphs, prng
+from srba_slam_tpu_torch.ops import cuda_graphs, prng, robust_lm
 from srba_slam_tpu_torch.ops.hamming import hamming_matrix
 from srba_slam_tpu_torch.ops.ransac import ransac_fundamental
 from srba_slam_tpu_torch.ops.robust_lm import lanewise, solve_pose
@@ -412,8 +419,13 @@ def da_cascade(cur: FrameFeatures, store_arrays: KFArrays, similar_idx: torch.Te
 
 
 def _counts(n_kfs, q: int, device) -> torch.Tensor:
-    """Stored-keyframe counts (an int, or a list of Q) as an int32 [Q]
-    tensor on ``device``, without a blocking copy."""
+    """Stored-keyframe counts as an int32 [Q] tensor on ``device`` without
+    a blocking copy: from an int, a list of Q ints (the fleet's), or an
+    integer tensor on ``device``, one count or Q (a captured check's input:
+    an int would be baked into the graph)."""
+    if isinstance(n_kfs, torch.Tensor):
+        n = n_kfs.to(device=device, dtype=torch.int32)
+        return n.reshape(()).expand(q) if n.numel() == 1 else n
     if isinstance(n_kfs, int):
         return torch.full((q,), n_kfs, dtype=torch.int32, device=device)
     return torch.tensor(list(n_kfs), dtype=torch.int32).to(device, non_blocking=True)
@@ -453,8 +465,9 @@ def query_and_associate(cur: FrameFeatures, store_arrays: KFArrays, db: torch.Te
                         ransac_n_hyp: int = 128):
     """The whole keyframe check: BoW query (quantize, score, rank), then
     the DA cascade against {previous KF} ∪ the top ``n_query`` BoW results
-    (``n_kfs`` stored KFs; the new one is not in yet). ``init_poses[i]``
-    seeds the change-in-pose solve against KF i (zeros when omitted).
+    (``n_kfs`` stored KFs, an int or a device scalar; the new one is not in
+    yet). ``init_poses[i]`` seeds the change-in-pose solve against KF i
+    (zeros when omitted).
 
     Several sequences' checks run as one batch (≙ the JAX fleet's vmapped
     ``query_and_associate``) when every argument leads with a sequence
@@ -539,32 +552,157 @@ def unpack_check_outputs(blob: np.ndarray, s: int, k: int, nq: int,
     return out
 
 
-def query_and_associate_packed(cur: FrameFeatures, store_arrays: KFArrays, db, leaf_bits,
-                               weights, n_kfs: int, cam: StereoCamera, seed: int,
-                               n_query: int = 4, debug: bool = False, **opts) -> tuple:
-    """:func:`query_and_associate` of one frame with the check's key built
-    from ``seed`` (the host's DA stream), its outputs packed
-    (:func:`pack_check_outputs`): the synchronous check."""
+# On a CUDA device, a keyframe check is one replay of a CUDA graph per
+# check_key (the slot program of fused_checks_batch, the one-check program
+# of query_and_associate_packed); eager launches otherwise (the CPU path,
+# and the card's reference in the tests)
+CHECK_GRAPHS = True
+# the check's options, by name, as query_and_associate takes them
+_CHECK_OPTS = ("max_orb_distance_da", "residual_th", "max_y_diff_epipolar",
+               "filter_by_direction", "filter_by_orb_distance", "use_fund_matrix",
+               "use_change_pose", "kernel_param", "ransac_n_hyp")
+_CHECK_DEFAULTS = {name: p.default for name, p in
+                   inspect.signature(query_and_associate).parameters.items()
+                   if name in _CHECK_OPTS}
+
+
+def _graphs(db: torch.Tensor) -> bool:
+    """Whether a check on ``db``'s device runs as a program: on a card,
+    with CHECK_GRAPHS, and not inside another program's capture."""
+    return CHECK_GRAPHS and db.device.type == "cuda" and not cuda_graphs.in_program()
+
+
+def check_key(cur: FrameFeatures, store_arrays: KFArrays, db: torch.Tensor,
+              cam: StereoCamera, n_query: int, debug: bool, slot: bool, **opts) -> tuple:
+    """The key of a check's CUDA graph: everything the check bakes into its
+    kernels. The program (a fused group's slot, which writes its row first,
+    or the one-check program), the frame's capacity K, the store's rows M,
+    the database's shape, the camera, ``n_query``, ``debug``, every option
+    of the cascade (``opts``, the defaults of :func:`query_and_associate`
+    filled in), the change-in-pose solve's caps, the GN solve's block length
+    and route (``robust_lm.GN_EXIT_EVERY``, ``GN_GRAPHS``) and the Horn
+    seed's sweeps. The row and the seed are inputs, never in the key; the
+    program adds the held tensors' addresses (:func:`cuda_graphs.program`)."""
+    full = {name: _CHECK_DEFAULTS[name] for name in _CHECK_OPTS}
+    full.update(opts)
+    return ("check", "slot" if slot else "one", tuple(cur.desc_l.shape),
+            tuple(store_arrays.desc_l.shape), tuple(db.shape), cam, n_query, debug,
+            tuple(sorted(full.items())), DA_SOLVE_ITERS_STAGE1, DA_SOLVE_ITERS_STAGE2,
+            robust_lm.GN_EXIT_EVERY, robust_lm.GN_GRAPHS, _JACOBI_SWEEPS)
+
+
+def slot_table(rows, seeds, device) -> torch.Tensor:
+    """The rows (or stored-keyframe counts) and seeds of a group's checks,
+    host ints (each seed checked to lie in [0, 2^32), ``prng.check_seed``),
+    as one int64 [n, 2] tensor on ``device``: one upload, pinned and
+    ``non_blocking`` on a card (a pageable copy would synchronize the
+    host)."""
+    device = torch.device(device)
+    host = torch.tensor([[int(r), prng.check_seed(sd)] for r, sd in zip(rows, seeds)],
+                        dtype=torch.int64, pin_memory=device.type == "cuda")
+    return host.to(device, non_blocking=True)
+
+
+def _on_device(rows, seeds, device) -> tuple:
+    """Rows (or counts) and seeds as integer tensors on ``device``: as given
+    where they are tensors (no launch), else the columns of one
+    :func:`slot_table` upload (a list each, or one int each)."""
+    if isinstance(rows, torch.Tensor):
+        return rows, seeds
+    one = not isinstance(rows, list)
+    table = slot_table([rows] if one else rows, [seeds] if one else seeds, device)
+    return (table[0, 0], table[0, 1]) if one else (table[:, 0], table[:, 1])
+
+
+_ZERO_BLOBS: dict = {}
+
+
+def _zero_blob(n: int, device) -> torch.Tensor:
+    """A padded slot's blob: zeros, made once per length and device (a
+    padded slot launches nothing; callers only read blobs)."""
+    key = (n, torch.device(device))
+    if key not in _ZERO_BLOBS:
+        _ZERO_BLOBS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return _ZERO_BLOBS[key]
+
+
+def _held(store_arrays: KFArrays, db, leaf_bits, weights) -> dict:
+    return dict(store=store_arrays, db=db, leaf_bits=leaf_bits, weights=weights)
+
+
+def _packed(cur, store_arrays, db, leaf_bits, weights, n_kfs, cam, seed, n_query, debug,
+            **opts) -> tuple:
+    """The eager one-check: the key from ``seed``, the check, its blob."""
     key = prng.PRNGKey(seed, device=db.device)
     top_s, top_i, _cand, da = query_and_associate(cur, store_arrays, db, leaf_bits, weights,
                                                   n_kfs, cam, key, n_query=n_query, **opts)
     return pack_check_outputs(top_s, top_i, da, cur, debug=debug)
 
 
-def _check_one_slot(feats: FrameFeatures, store_arrays: KFArrays, db, leaf_bits, weights,
-                    j: int, row: int, cam: StereoCamera, seed: int, n_query: int = 4,
-                    debug: bool = False, **opts) -> torch.Tensor:
-    """One deferred check: frame ``j`` of the scanned batch ``feats``
-    written into the keyframe store and the BoW database at ``row`` (the
-    speculative row, in place), then the check against rows [0, row), its
-    blob returned."""
-    frame = FrameFeatures(*(a[j] for a in feats))
+def query_and_associate_packed(cur: FrameFeatures, store_arrays: KFArrays, db, leaf_bits,
+                               weights, n_kfs, cam: StereoCamera, seed, n_query: int = 4,
+                               debug: bool = False, **opts) -> tuple:
+    """:func:`query_and_associate` of one frame with the check's key built
+    from ``seed`` (the host's DA stream), its outputs packed
+    (:func:`pack_check_outputs`): the synchronous check. ``n_kfs`` and
+    ``seed`` are host ints or integer scalar tensors on ``db``'s device.
+
+    On a card (``CHECK_GRAPHS``) the check is one replay of the one-check
+    program per :func:`check_key` (``cuda_graphs.program``), its key built
+    in the program, as the JAX package's jitted check builds it: the frame,
+    ``n_kfs`` and the seed are its inputs (host ints in one pinned upload,
+    :func:`slot_table`), the store, the database and the vocabulary are
+    held where they are; its loops run unread as conditional nodes. The
+    same kernels as the eager check, so the same bits."""
+    if not _graphs(db):
+        return _packed(cur, store_arrays, db, leaf_bits, weights, n_kfs, cam, seed, n_query,
+                       debug, **opts)
+    n_kfs, seed = _on_device(n_kfs, seed, db.device)
+    return cuda_graphs.program(
+        lambda x: _packed(x["cur"], x["store"], x["db"], x["leaf_bits"], x["weights"],
+                          x["n_kfs"], cam, x["seed"], n_query, debug, **opts),
+        dict(cur=cur, n_kfs=n_kfs, seed=seed),
+        check_key(cur, store_arrays, db, cam, n_query, debug, False, **opts),
+        held=_held(store_arrays, db, leaf_bits, weights))
+
+
+def _write_and_check(frame, store_arrays, db, leaf_bits, weights, row, cam, seed, n_query,
+                     debug, **opts) -> torch.Tensor:
+    """A slot's work: ``frame`` written into the store and the database at
+    ``row`` (a device scalar, ``index_copy_``, in place), then the check
+    against rows [0, row) with ``seed``'s key; its blob."""
+    idx = row.reshape(1).to(torch.int64)
     for name in _ROW_FIELDS:
-        getattr(store_arrays, name)[row] = getattr(frame, name)
-    db[row] = bow_vector(frame.desc_l, frame.m_valid, leaf_bits, weights)
-    (blob,) = query_and_associate_packed(frame, store_arrays, db, leaf_bits, weights, row, cam,
-                                         seed, n_query=n_query, debug=debug, **opts)
+        dst = getattr(store_arrays, name)
+        dst.index_copy_(0, idx, getattr(frame, name).to(dst.dtype)[None])
+    db.index_copy_(0, idx, bow_vector(frame.desc_l, frame.m_valid, leaf_bits, weights)[None])
+    (blob,) = _packed(frame, store_arrays, db, leaf_bits, weights, row, cam, seed, n_query,
+                      debug, **opts)
     return blob
+
+
+def _check_one_slot(feats: FrameFeatures, store_arrays: KFArrays, db, leaf_bits, weights,
+                    j: int, row: torch.Tensor, cam: StereoCamera, seed: torch.Tensor,
+                    n_query: int = 4, debug: bool = False, **opts) -> torch.Tensor:
+    """One deferred check: frame ``j`` of the scanned batch ``feats`` (a
+    view: ``j`` stays a host int) written into the keyframe store and the
+    BoW database at the speculative row ``row``, in place, then the check
+    against rows [0, row) with ``seed``'s key (``row`` and ``seed`` integer
+    scalar tensors on ``db``'s device); its blob. On a card
+    (``CHECK_GRAPHS``) one replay of the slot program per
+    :func:`check_key`: the frame, ``row`` and ``seed`` copied in, the store,
+    the database and the vocabulary held."""
+    frame = FrameFeatures(*(a[j] for a in feats))
+    if not _graphs(db):
+        return _write_and_check(frame, store_arrays, db, leaf_bits, weights, row, cam, seed,
+                                n_query, debug, **opts)
+    return cuda_graphs.program(
+        lambda x: _write_and_check(x["frame"], x["store"], x["db"], x["leaf_bits"],
+                                   x["weights"], x["row"], cam, x["seed"], n_query, debug,
+                                   **opts),
+        dict(frame=frame, row=row, seed=seed),
+        check_key(frame, store_arrays, db, cam, n_query, debug, True, **opts),
+        held=_held(store_arrays, db, leaf_bits, weights))
 
 
 def fused_check_write(feats: FrameFeatures, store_arrays: KFArrays, db, leaf_bits, weights,
@@ -573,7 +711,8 @@ def fused_check_write(feats: FrameFeatures, store_arrays: KFArrays, db, leaf_bit
     """One deferred check (:func:`_check_one_slot` at row ``n_kfs``);
     returns ``((blob,), store_arrays, db)``, the store and the database
     written in place (≙ the JAX package's donated arrays)."""
-    blob = _check_one_slot(feats, store_arrays, db, leaf_bits, weights, j, n_kfs, cam, seed,
+    row, seed = _on_device(n_kfs, seed, db.device)
+    blob = _check_one_slot(feats, store_arrays, db, leaf_bits, weights, j, row, cam, seed,
                            n_query=n_query, debug=debug, **opts)
     return (blob,), store_arrays, db
 
@@ -589,24 +728,35 @@ def fused_checks_batch(feats: FrameFeatures, store_arrays: KFArrays, db, leaf_bi
                        debug: bool = False, **opts):
     """A batch's deferred checks as one group of ``len(js)`` slots
     (CHECK_SLOTS): slot i checks frame ``js[i]`` of ``feats`` at row
-    ``rows[i]`` with seed ``seeds[i]`` (host ints), in slot order, each
-    seeing the rows the slots before it wrote (≙ the JAX package's
-    ``lax.scan`` threading the store). A padded slot (``valids[i]`` False)
-    launches nothing and gives a zero blob. Nothing is read on the host:
-    the GN solves run to their caps (``cuda_graphs.no_exit_reads``; the
-    bits are the read path's). Returns (the CHECK_SLOTS blobs,
-    store_arrays, db), the store and database written in place."""
+    ``rows[i]`` with seed ``seeds[i]``, in slot order, each seeing the rows
+    the slots before it wrote (≙ the JAX package's ``lax.scan`` threading
+    the store). ``js`` and ``valids`` are host ints and bools; ``rows`` and
+    ``seeds`` host ints or integer tensors [len(js)] on ``db``'s device (the
+    estimator's slot table, one upload a group). A padded slot
+    (``valids[i]`` False) launches nothing and gives a zero blob (one
+    tensor a length and device, made once: read it, never write it).
+    Nothing is read on the host: the
+    GN solves run to their caps (``cuda_graphs.no_exit_reads``; the bits
+    are the read path's). On a card (``CHECK_GRAPHS``) a valid slot is one
+    replay of the slot program (:func:`_check_one_slot`), and slot i + 1
+    reads the rows slot i wrote, the store being held in place: one graph
+    launch a check, where the JAX package fuses the group into one jitted
+    dispatch (to save its runtime's ~5 ms a call). Returns (the
+    CHECK_SLOTS blobs, store_arrays, db), the store and database written in
+    place."""
     s, k = 1 + n_query, feats.m_valid.shape[-1]
+    if not isinstance(rows, torch.Tensor):
+        rows, seeds = list(rows), list(seeds)
+    rows, seeds = _on_device(rows, seeds, db.device)
     blobs = []
     with cuda_graphs.no_exit_reads():
-        for j, row, valid, seed in zip(js, rows, valids, seeds):
+        for i, (j, valid) in enumerate(zip(js, valids)):
             if not valid:
-                blobs.append(torch.zeros(_blob_len(s, k, n_query, debug), dtype=torch.int32,
-                                         device=db.device))
+                blobs.append(_zero_blob(_blob_len(s, k, n_query, debug), db.device))
                 continue
             blobs.append(_check_one_slot(feats, store_arrays, db, leaf_bits, weights, int(j),
-                                         int(row), cam, int(seed), n_query=n_query,
-                                         debug=debug, **opts))
+                                         rows[i], cam, seeds[i], n_query=n_query, debug=debug,
+                                         **opts))
     return tuple(blobs), store_arrays, db
 
 

@@ -32,8 +32,9 @@ frames; each batch's VO is one ``vo_scan``, launched before the batch
 before it is walked; the walk goes through the same ``_walk_head``/
 ``_walk_tail`` with its keyframe checks deferred: each is predicted,
 speculated on and planned, the batch's checks launch as one
-``fused_checks_batch`` group, and they resolve at the next batch's single
-read, which also carries the scan's summary and the launched window
+``fused_checks_batch`` group (on a card one CUDA-graph replay a check, its
+row and seed from one upload of the group's slot table), and they resolve
+at the next batch's single read, which also carries the scan's summary and the launched window
 solves. A wrong prediction restores the snapshot taken at its check and
 replays the rest of its batch exactly (``_miss_recover``, or
 ``_shrink_replay`` for a threshold shrink), so the decisions are per-frame
@@ -64,12 +65,12 @@ from srba_slam_tpu_torch.config import (
 from srba_slam_tpu_torch.models.bow import BoWDatabase, Vocabulary
 from srba_slam_tpu_torch.models.data_association import (
     CHECK_SLOTS, S_TRACKED, fused_checks_batch, query_and_associate_packed, recheck_candidate,
-    unpack_check_outputs,
+    slot_table, unpack_check_outputs,
 )
 from srba_slam_tpu_torch.models.keyframe import KeyframeStore
 from srba_slam_tpu_torch.models.srba import SRBAEngine, SRBAParams
 from srba_slam_tpu_torch.models.vo import StereoVOEngine, to_host, vo_scan
-from srba_slam_tpu_torch.ops import cuda_graphs
+from srba_slam_tpu_torch.ops import cuda_graphs, prng
 from srba_slam_tpu_torch.ops.posegraph import optimize_pose_graph
 from srba_slam_tpu_torch.ops.ransac import hypotheses_for_prob
 from srba_slam_tpu_torch.ops.rectify import build_maps
@@ -611,10 +612,11 @@ class SRBAStereoSLAMEstimator:
             last_feat, last_inc, outs = vo_scan(
                 lefts, rights, prev_feat, prev_inc, self.cam, fast_t, orb_t,
                 **eng.frontend_options(), **eng.solve_options())
+        with cuda_graphs.span("eager", self.device):
+            pk = _pack_scan_summary(outs, last_inc)
         disp = dict(outs=outs, last_feat=last_feat, last_inc=last_inc, b=lefts.shape[0],
                     f0=chain["f0"] + chain["b"] if chain else item["f0"], item=item,
-                    lefts=lefts, rights=rights, pk=_pack_scan_summary(outs, last_inc),
-                    t_dispatch=t_dispatch)
+                    lefts=lefts, rights=rights, pk=pk, t_dispatch=t_dispatch)
         if chain is None:
             # dispatched from the engine's state, which is current: attach
             # now (a chained batch attaches once the batch before it is walked)
@@ -806,7 +808,7 @@ class SRBAStereoSLAMEstimator:
                     batch=batch_rec, j=j, host_mode=batch_rec["host_mode"],
                     vo=self._vo_snapshot())
         spec_row = self.store.n_kfs + self._n_spec_inserts()
-        sub = self._da_seed
+        sub = prng.check_seed(self._da_seed)
         self._da_seed += 1
         snap["da_seed"] = self._da_seed  # post-consume: a replay re-counts in order
         spec_entry = dict(handles=None, frame_ref=(batch_rec["feats"], j), res=res,
@@ -857,11 +859,14 @@ class SRBAStereoSLAMEstimator:
             n = len(grp)
             pad = CHECK_SLOTS - n
             with self.profiler.section("queryDB"):
+                # the group's rows and seeds: one upload (a captured slot's inputs)
+                table = slot_table([p["row"] for p in grp] + [0] * pad,
+                                   [p["seed"] for p in grp] + [grp[-1]["seed"]] * pad,
+                                   self.device)
                 blobs, arrays, db = fused_checks_batch(
                     grp[0]["feats"], self.store.arrays, self.bow._db, self.bow._leaf_bits,
-                    self.bow._weights, [p["j"] for p in grp] + [0] * pad,
-                    [p["row"] for p in grp] + [0] * pad, [True] * n + [False] * pad,
-                    self.cam, [p["seed"] for p in grp] + [grp[-1]["seed"]] * pad,
+                    self.bow._weights, [p["j"] for p in grp] + [0] * pad, table[:, 0],
+                    [True] * n + [False] * pad, self.cam, table[:, 1],
                     debug=self.debug.enabled, **self.check_options())
             self.store.arrays, self.bow._db = arrays, db
             for p, blob in zip(grp, blobs[:n]):
@@ -1302,7 +1307,7 @@ class SRBAStereoSLAMEstimator:
         """The vocabulary for a keyframe check (trained at the first one),
         and the check's seed of the DA RNG stream."""
         self.ensure_vocabulary(limit_fidx=self.frame_idx)
-        sub = self._da_seed
+        sub = prng.check_seed(self._da_seed)
         self._da_seed += 1
         return sub
 
@@ -1315,10 +1320,26 @@ class SRBAStereoSLAMEstimator:
                  frame.xs_l, frame.ys_l, frame.xs_r, frame.m_r_idx, frame.pts3d]
                 + ([da.raw_oidx, da.distance, da.residuals] if self.debug.enabled else []))
 
+    def capture_check_program(self):
+        """On a card, capture the one-check program of this estimator's
+        store and database now (a program is keyed by the tensors it
+        holds, so each estimator has its own): one read-only check of the
+        VO engine's last frame, its outputs dropped and the DA stream
+        untouched. The bench harness calls it after its warm-up, whose
+        first fused group captured the slot program, so that a replay of a
+        wrong prediction in a timed part captures nothing. Nothing on the
+        CPU, or before the first check."""
+        if self.device.type != "cuda" or self.bow is None or self.vo._prev is None:
+            return
+        query_and_associate_packed(self.vo._prev, self.store.arrays, self.bow._db,
+                                   self.bow._leaf_bits, self.bow._weights, self.store.n_kfs,
+                                   self.cam, 0, debug=self.debug.enabled, **self.check_options())
+
     def _kf_check(self, frame) -> list:
-        """BoW query and DA cascade of ``frame`` on the device, its packed
-        outputs and the launched window solves copied to the host in one
-        copy, the solves committed (the decision is
+        """BoW query and DA cascade of ``frame`` on the device (on a card
+        one replay of the one-check program, its count and seed device
+        inputs), its packed outputs and the launched window solves copied to
+        the host in one copy, the solves committed (the decision is
         :meth:`_kf_check_host`)."""
         sub = self.next_check_key()
         with self.profiler.section("queryDB"):

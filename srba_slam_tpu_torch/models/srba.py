@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from srba_slam_tpu_torch.models.vo import to_host
+from srba_slam_tpu_torch.ops import cuda_graphs
 from srba_slam_tpu_torch.ops.window_ba import (
     WINDOW_SLOTS, BAWindow, _packed_plan, assembly_plan, optimize_window,
     optimize_windows_batch_blob, pack_window, result_blob, shard_window_obs,
@@ -1056,13 +1057,14 @@ class SRBAEngine:
                 grp.append(q[i])
                 i += 1
             pad = WINDOW_SLOTS - len(grp)
-            ints, floats = (torch.from_numpy(np.stack([x[name] for x in grp]
-                                                      + [grp[0][name]] * pad)).to(
-                dev, non_blocking=True) for name in ("ints", "floats"))
-            plans = [_packed_plan(x["ints"], *key, dev) for x in grp]
-            blob = optimize_windows_batch_blob(
-                ints, floats, [True] * len(grp) + [False] * pad, *key, self.cam,
-                plans=plans + plans[:1] * pad, solve=optimize_window, **self._solve_kw())
+            with cuda_graphs.span("eager", dev):
+                ints, floats = (torch.from_numpy(np.stack([x[name] for x in grp]
+                                                          + [grp[0][name]] * pad)).to(
+                    dev, non_blocking=True) for name in ("ints", "floats"))
+                plans = [_packed_plan(x["ints"], *key, dev) for x in grp]
+                blob = optimize_windows_batch_blob(
+                    ints, floats, [True] * len(grp) + [False] * pad, *key, self.cam,
+                    plans=plans + plans[:1] * pad, solve=optimize_window, **self._solve_kw())
             self._pending.append(dict(blob=blob, entries=[x["entry"] for x in grp]))
 
     def pending_device_arrays(self) -> tuple:

@@ -357,8 +357,9 @@ def to_host(tensors) -> list[np.ndarray]:
     """Copy several device tensors (int8/int32/int64-small/bool/f32) to the
     host in ONE transfer: all as 32-bit words in one buffer."""
     flat = [t.reshape(-1) for t in tensors]
-    words = torch.cat([f.view(torch.int32) if f.dtype == torch.float32 else f.to(torch.int32)
-                       for f in flat]).cpu().numpy()
+    with cuda_graphs.span("eager", flat[0].device):
+        words = torch.cat([f.view(torch.int32) if f.dtype == torch.float32
+                           else f.to(torch.int32) for f in flat]).cpu().numpy()
     out, o = [], 0
     for t, f in zip(tensors, flat):
         w = words[o:o + f.numel()]

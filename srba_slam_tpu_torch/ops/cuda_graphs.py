@@ -19,15 +19,21 @@ step in a conditional WHILE node (``csrc/graph_cond.cu``): it runs while
 so a step past the exit runs no kernel.
 
 :func:`program` captures a whole computation whose loops run unread (a
-batch's VO scan, ``models/vo.py`` ``vo_scan``) as one CUDA graph per key,
-as the JAX package jits it once per shape: its inputs are copied into fixed
-buffers, the graph replays, and its outputs are cloned out. Inside that
-capture ``loop`` appends its steps to the graph as the same WHILE node
-(``csrc/graph_cond.cu`` ``srba_cond_append``): the steps that the eager
-launches run, the same bits. A program keeps its own captured steps
-(captured in its warm-up), so no other caller of a step's key shares its
-buffers. A capture or an append that fails raises; nothing falls back to
-the eager launches.
+batch's VO scan, ``models/vo.py`` ``vo_scan``; a keyframe check,
+``models/data_association.py``) as one CUDA graph per key, as the JAX
+package jits it once per shape: its inputs are copied into fixed buffers,
+the tensors it holds (a check's keyframe store and BoW database, written
+in place, and its vocabulary) are read and written where they are, the
+graph replays, and its outputs are cloned out. Inside that capture
+``loop`` appends its steps to the graph as the same WHILE node
+(``csrc/graph_cond.cu`` ``srba_cond_append``; a carry without ``more``
+runs its n steps): the steps that the eager launches run, the same bits.
+A program keeps its own captured steps (captured in its warm-up), so no
+other caller of a step's key shares its buffers. A capture or an append
+that fails raises; nothing falls back to the eager launches.
+
+:func:`record_spans` and :func:`span` time device work with CUDA events
+(the bench harness's busy share), with no CUPTI.
 """
 
 from __future__ import annotations
@@ -55,8 +61,58 @@ _KEEP: list | None = None
 # The captured programs, by key and the shapes of their inputs
 _PROGRAMS: dict = {}
 # Over the process: programs captured, and the host seconds of their
-# warm-ups and captures
+# warm-ups and captures; the same by kind (a key's first element: "vo_scan",
+# "check")
 PROGRAM_STATS = dict(captures=0, capture_s=0.0)
+KIND_STATS: dict = {}
+
+
+# The device spans being recorded (record_spans), or None; whether one is
+# open (an inner span is part of the outer one)
+_SPANS: list | None = None
+_SPAN_OPEN = False
+
+
+@contextlib.contextmanager
+def record_spans():
+    """Within the block each :func:`span` on a card records a pair of CUDA
+    events on the current stream. Yields the list of ``(kind, start,
+    end)``; their elapsed times (``start.elapsed_time(end)``) are readable
+    once the card is synchronized. A device-time measure that needs no
+    CUPTI (the bench harness's ``busy_share``)."""
+    global _SPANS
+    prev, _SPANS = _SPANS, []
+    try:
+        yield _SPANS
+    finally:
+        _SPANS = prev
+
+
+@contextlib.contextmanager
+def span(kind: str, device):
+    """A span of device work on ``device``'s current stream, recorded
+    inside :func:`record_spans` (and not inside another span, a program's
+    warm-up or a capture): a graph launch with its input copies and output
+    clones (``kind="graph"``: the card's time for it, copies included), or
+    a group of eager launches (``"eager"``: from the card reaching its first
+    launch to its last kernel's end, so it holds any wait for the host's
+    next launch; an upper bound of the group's kernel time)."""
+    global _SPAN_OPEN
+    device = torch.device(device)
+    if (_SPANS is None or _SPAN_OPEN or device.type != "cuda" or in_program()
+            or torch.cuda.is_current_stream_capturing()):
+        yield
+        return
+    stream = torch.cuda.current_stream(device)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record(stream)
+    _SPAN_OPEN = True
+    try:
+        yield
+    finally:
+        _SPAN_OPEN = False
+        end.record(stream)
+        _SPANS.append((kind, start, end))
 
 
 @contextlib.contextmanager
@@ -173,13 +229,19 @@ def _replay(step, c: dict, k: dict, n: int, static: tuple) -> dict:
 def _append(graph, sc: dict, n: int, dev):
     """The ``n`` launches of a captured step, appended to the program being
     captured on the current stream: one WHILE node on the carry's ``more``
-    (at most ``n`` steps, counted in a buffer of the program)."""
-    if "more" not in sc:
-        raise RuntimeError("a loop inside a captured program needs a carry with 'more'")
+    (at most ``n`` steps, counted in a buffer of the program). A carry
+    without ``more`` (the Horn seed's fixed Jacobi sweeps) runs its ``n``
+    steps: the node's flag is a buffer of the program that the graph sets
+    True before the node, so it counts to ``n``."""
+    if "more" in sc:
+        pred = sc["more"]
+    else:
+        pred = torch.ones((), dtype=torch.bool, device=dev)   # a fill kernel in the graph
+        _KEEP.append(pred)
     count = torch.empty((), dtype=torch.int32, device=dev)
     _KEEP.append(count)
     code = cuda_build.load().srba_cond_append(torch.cuda.current_stream(dev).cuda_stream,
-                                              graph.raw_cuda_graph(), sc["more"].data_ptr(),
+                                              graph.raw_cuda_graph(), pred.data_ptr(),
                                               count.data_ptr(), n)
     if code != 0:
         raise RuntimeError(f"srba_cond_append failed: cudaError {code}")
@@ -218,7 +280,30 @@ def _is_tensor(x) -> bool:
     return isinstance(x, torch.Tensor)
 
 
-def program(fn, inputs: dict, key: tuple, counted=()):
+def _kind(key: tuple):
+    return key[0] if isinstance(key, tuple) and key else None
+
+
+def capture_stats(kind: str) -> dict:
+    """Programs of one kind (``"vo_scan"``, ``"check"``) captured so far
+    and the host seconds of their warm-ups and captures."""
+    stats = KIND_STATS.get(kind, {})
+    return dict(captures=stats.get("captures", 0), capture_s=stats.get("capture_s", 0.0))
+
+
+def _nbytes(leaves) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves if _is_tensor(t))
+
+
+def _storage(x):
+    """A held leaf in a program's key: a tensor by its address, shape,
+    strides and dtype (a tensor put in its place captures anew)."""
+    if not _is_tensor(x):
+        return x
+    return (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
+
+
+def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None):
     """``fn(inputs)`` on a card as one replay of a CUDA graph captured at
     the first call of ``key`` and of the inputs' shapes and dtypes.
 
@@ -233,33 +318,49 @@ def program(fn, inputs: dict, key: tuple, counted=()):
     a ``launches`` count (``ops/hopper_fast.py``): a capture does not add
     to them, each replay adds the launches that the graph holds.
 
+    ``held`` (a dict, flattened as ``inputs``) are tensors the graph reads
+    and writes where they are, never copied: ``fn`` gets them beside the
+    inputs (``fn({**inputs, **held})``, the names distinct). Their
+    addresses, shapes, strides and dtypes join the key, so a held tensor
+    that another takes the place of captures anew; the program keeps no
+    reference to them. A key's first call runs ``fn`` on them twice (the
+    warm-up, then the replay), so what ``fn`` writes there must not depend
+    on what it wrote before. A keyframe check holds the keyframe store and
+    the BoW database (its row written in place, as JAX donates them, before
+    it reads the rows under it) and the vocabulary.
+
     A key's first call runs ``fn`` once eagerly on the buffers (the warm-up:
     it captures its loops' steps, each once, into the program's own cache,
     and sets up library handles), then captures ``fn`` with its loops as
     conditional nodes (:func:`loop`), without reading an exit test on the
     host. A capture that fails raises."""
+    held = held or {}
     leaves, spec = pytree.tree_flatten(inputs)
-    dev = next(t for t in leaves if _is_tensor(t)).device
+    h_leaves, h_spec = pytree.tree_flatten(held)
+    dev = next(t for t in leaves + h_leaves if _is_tensor(t)).device
     full_key = (key, repr(spec), dev, tuple((tuple(t.shape), t.dtype) if _is_tensor(t) else t
-                                            for t in leaves))
+                                            for t in leaves),
+                repr(h_spec), tuple(_storage(t) for t in h_leaves))
     lib = cuda_build.load()
     with torch.cuda.device(dev):
         prog = _PROGRAMS.get(full_key)
         if prog is None:
-            prog = _PROGRAMS[full_key] = _capture(fn, leaves, spec, dev, tuple(counted), key)
-        for d, s_ in zip(prog.static, leaves):
-            if _is_tensor(d):
-                d.copy_(s_)
-        code = lib.srba_graph_launch(prog.exec_, torch.cuda.current_stream(dev).cuda_stream)
-        if code != 0:
-            raise RuntimeError(f"srba_graph_launch failed: cudaError {code}")
+            prog = _PROGRAMS[full_key] = _capture(fn, leaves, spec, held, dev, tuple(counted),
+                                                  key)
+        with span("graph", dev):
+            for d, s_ in zip(prog.static, leaves):
+                if _is_tensor(d):
+                    d.copy_(s_)
+            code = lib.srba_graph_launch(prog.exec_, torch.cuda.current_stream(dev).cuda_stream)
+            if code != 0:
+                raise RuntimeError(f"srba_graph_launch failed: cudaError {code}")
+            outs = [t.clone() if _is_tensor(t) else t for t in prog.outs]
         for wrapper, n in zip(prog.counted, prog.launches):
             wrapper.launches += n
-        return pytree.tree_unflatten([t.clone() if _is_tensor(t) else t for t in prog.outs],
-                                     prog.out_spec)
+        return pytree.tree_unflatten(outs, prog.out_spec)
 
 
-def _capture(fn, leaves, spec, dev, counted: tuple, key: tuple) -> SimpleNamespace:
+def _capture(fn, leaves, spec, held: dict, dev, counted: tuple, key: tuple) -> SimpleNamespace:
     """A key's warm-up and capture for :func:`program`: the executable
     graph, its input buffers, its outputs in the graph's pool, the launches
     of the ``counted`` wrappers it holds, and what the capture cost."""
@@ -277,7 +378,7 @@ def _capture(fn, leaves, spec, dev, counted: tuple, key: tuple) -> SimpleNamespa
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            fn(pytree.tree_unflatten(static, spec))
+            fn({**pytree.tree_unflatten(static, spec), **held})
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -285,7 +386,7 @@ def _capture(fn, leaves, spec, dev, counted: tuple, key: tuple) -> SimpleNamespa
         base = [w.launches for w in counted]     # the warm-up's launches ran
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, stream=side):
-            out = fn(pytree.tree_unflatten(static, spec))
+            out = fn({**pytree.tree_unflatten(static, spec), **held})
         launches = tuple(w.launches - b for w, b in zip(counted, base))
     finally:
         _BODIES, _KEEP, _READ_EXITS = saved
@@ -297,19 +398,25 @@ def _capture(fn, leaves, spec, dev, counted: tuple, key: tuple) -> SimpleNamespa
         raise RuntimeError(f"srba_graph_instantiate failed: cudaError {code}")
     outs, out_spec = pytree.tree_flatten(out)
     capture_s = time.perf_counter() - t0
-    PROGRAM_STATS["captures"] += 1
-    PROGRAM_STATS["capture_s"] += capture_s
+    for stats in (PROGRAM_STATS, KIND_STATS.setdefault(_kind(key), dict(captures=0,
+                                                                         capture_s=0.0))):
+        stats["captures"] += 1
+        stats["capture_s"] += capture_s
     return SimpleNamespace(key=key, graph=graph, exec_=exec_, static=static, outs=outs,
                     out_spec=out_spec, counted=counted, launches=launches, bodies=bodies,
                     keep=keep, capture_s=capture_s, body_bytes=r1 - r0,
-                    pool_bytes=torch.cuda.memory_reserved(dev) - r1)
+                    pool_bytes=torch.cuda.memory_reserved(dev) - r1,
+                    copy_bytes=_nbytes(static) + _nbytes(outs),
+                    held_bytes=_nbytes(pytree.tree_leaves(held)))
 
 
 def programs() -> list[dict]:
     """What each captured program holds and cost: its key, the launches of
     its counted wrappers, its captured steps, the host seconds of its
-    warm-up and capture, and the device bytes its graph's pool and its
-    steps' pools reserved."""
+    warm-up and capture, the device bytes its graph's pool and its steps'
+    pools reserved, the bytes a replay copies (its inputs in, its outputs
+    cloned out) and the bytes of the tensors it holds in place."""
     return [dict(key=p.key, launches={w.__name__: n for w, n in zip(p.counted, p.launches)},
                  steps=len(p.bodies), capture_s=p.capture_s, pool_bytes=p.pool_bytes,
-                 body_bytes=p.body_bytes) for p in _PROGRAMS.values()]
+                 body_bytes=p.body_bytes, copy_bytes=p.copy_bytes, held_bytes=p.held_bytes)
+            for p in _PROGRAMS.values()]

@@ -1,7 +1,8 @@
 """JAX's default PRNG (threefry2x32, partitionable layout) in torch.
 
 Counterpart of the ``jax.random`` calls on the estimator's path:
-``PRNGKey(seed)`` per keyframe check and per loop-closure re-check
+``PRNGKey(seed)`` per keyframe check (from a host int, or from a seed
+already on the device) and per loop-closure re-check
 (``models/data_association.py``), ``split(key, S)`` over the DA
 candidates, and ``uniform(key, (n_hyp, K))`` for the RANSAC draws
 (``ops/ransac.py``). The bits are JAX's for its default ``threefry2x32``
@@ -47,12 +48,27 @@ def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
     return x0, x1
 
 
-def PRNGKey(seed: int, device=None) -> torch.Tensor:
-    """≙ ``jax.random.PRNGKey(seed)`` for a seed in [0, 2^32): the words
-    ``(0, seed)``, as JAX's threefry seeding of a 32-bit integer."""
+def check_seed(seed: int) -> int:
+    """``seed`` as an int, refused outside [0, 2^32): the range JAX's
+    PRNGKey seeds a key from. A seed drawn on the host is checked here,
+    where it is drawn, before it goes to the device."""
     seed = int(seed)
     if not 0 <= seed <= _M32:
         raise ValueError(f"seed {seed} outside [0, 2^32)")
+    return seed
+
+
+def PRNGKey(seed, device=None) -> torch.Tensor:
+    """≙ ``jax.random.PRNGKey(seed)`` for a seed in [0, 2^32): the words
+    ``(0, seed)``, as JAX's threefry seeding of a 32-bit integer. ``seed``
+    is a Python int (checked by :func:`check_seed`, built on the host) or
+    an integer scalar tensor (the key built on its device, no copy: the
+    seed of a captured program is one of its inputs; its range was checked
+    where it was drawn, and it is taken as uint32, as JAX takes it)."""
+    if isinstance(seed, torch.Tensor):
+        s = seed.to(device=device or seed.device, dtype=torch.int64).reshape(()) & _M32
+        return torch.stack([torch.zeros_like(s), s])
+    seed = check_seed(seed)
     # built on the host and sent without waiting: a blocking copy would
     # synchronize the host with the card once a keyframe check
     return torch.tensor([0, seed], dtype=torch.int64).to(device, non_blocking=True)

@@ -87,14 +87,17 @@ def launch_floor_ms(grid: tuple[int, int, int], block: tuple[int, int, int],
     return graph_ms(launch, device=dev)
 
 
-def profile_calls(fn, reps: int = 1):
+def profile_calls(fn, reps: int = 1, cuda_only: bool = False):
     """``torch.profiler`` key averages over ``reps`` calls of ``fn`` (after
-    one warm-up call), CPU and CUDA activity."""
+    one warm-up call), CPU and CUDA activity (CUDA only with ``cuda_only``:
+    the runtime API's launches and the device's records, no operator
+    events)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] if cuda_only else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()

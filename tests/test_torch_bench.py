@@ -131,7 +131,7 @@ def _stub_rows(monkeypatch):
     launches = {fn.__name__: 3 for fn in bench.KERNELS}
 
     def row(s, **kw):
-        return dict(s=s, launches=launches, captures=1, latency=lat,
+        return dict(s=s, launches=launches, captures=dict(vo_scan=1, check=2), latency=lat,
                     gate=dict(d_jax_m=1e-5, ate_m=0.25), **kw)
 
     monkeypatch.setattr(bench, "_headline", lambda *a: [
@@ -151,7 +151,7 @@ def test_line_holds_every_key_of_the_jax_bench_line(monkeypatch):
     assert "vs_baseline_provenance" in top and "device_resident_batch60" in lat
     assert top <= set(line) and lat == set(line["latency"])
     assert set(line) - top == {"card", "toolchain", "gates", "launches", "scan_graphs",
-                               "sections", "busy_share", "cpu_fps_provenance"}
+                               "check_graphs", "sections", "busy_share", "cpu_fps_provenance"}
     json.dumps(line)                                  # one JSON line
     assert line["metric"] == "kitti_synth_e2e_fps_per_chip[cpu]"
     assert line["value"] == 60 / 3.0 and line["best"] == 60 / 2.0   # median, best repeat
@@ -159,6 +159,7 @@ def test_line_holds_every_key_of_the_jax_bench_line(monkeypatch):
     assert line["latency"]["bounded_lag"]["batch"] == 8
     assert line["launches"] == {fn.__name__: 3 * 7 for fn in bench.KERNELS}
     assert line["scan_graphs"] == dict(captures=0, captures_timed=7, capture_s=0.0)
+    assert line["check_graphs"] == dict(captures=0, captures_timed=14, capture_s=0.0)
     assert line["vs_cpu_anchor"] == line["value"] / 0.5 and line["card"] is None
     assert set(line["gates"]) == {bench.HEADLINE, bench.DEVICE_RESIDENT, bench.BOUNDED}
 

@@ -1051,72 +1051,251 @@ def test_window_group_graphs_match_eager_and_one_window(cuda, monkeypatch, slots
         assert torch.equal(graph[i], one), i
 
 
-def test_fused_checks_batch_syncs_nothing(cuda):
-    """Three deferred checks of one batch on the card as one fused group:
-    once its graphs are captured, the group makes no host sync (the Horn
-    seed's Jacobi rotation, the GN blocks run to their caps), and each slot
-    equals the one-check path on the same rows bit for bit."""
-    from srba_slam_tpu_torch.models import data_association as da
-    from srba_slam_tpu_torch.models.bow import BoWDatabase, Vocabulary
-    from srba_slam_tpu_torch.models.keyframe import KeyframeStore
-    from srba_slam_tpu_torch.models.vo import FrameFeatures, stack_features
+CHECK_KW = dict(max_orb_distance_da=60.0, residual_th=10.0, max_y_diff_epipolar=1.5,
+                filter_by_direction=False, ransac_n_hyp=64)
+
+
+@pytest.fixture(scope="module")
+def check_feats():
+    """The small sequence's frames 0, 3, ..., 33 through the VO engine on
+    the card (12 frames' features) and a vocabulary trained on them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from srba_slam_tpu_torch.models.bow import Vocabulary
 
     cam = StereoCamera(**SMALL_CAM)
-    frames = list(SyntheticSource(cam, n_frames=16, seed=11, step=0.12))
-    eng = StereoVOEngine(cam, VOOptions(fast_th=12, n_feats=256), capacity=256, device=cuda)
+    frames = list(SyntheticSource(cam, n_frames=34, seed=11, step=0.12))
+    eng = StereoVOEngine(cam, VOOptions(fast_th=12, n_feats=256), capacity=256, device="cuda")
     feats = []
     for left, right in frames[::3]:
         eng.process_stereo_pair(left, right)
         feats.append(eng.last_frame())
     desc = np.concatenate([f.desc_l[f.m_valid].cpu().numpy() for f in feats])
-    voc = Vocabulary.train(desc, k=8, L=3, seed=0)
+    return cam, feats, Vocabulary.train(desc, k=8, L=3, seed=0)
 
-    def parts():
-        store = KeyframeStore(max_kfs=8, capacity=256, device=cuda)
-        bow = BoWDatabase(voc, max_kfs=8, device=cuda)
-        for i, f in enumerate(feats[:3]):
-            ids = np.where(f.m_valid.cpu().numpy(), 1000 * i + np.arange(256), -1)
-            store.append(f, ids, np.zeros(6, np.float32))
-            bow.insert(f.desc_l, f.m_valid)
-        return store, bow
 
+def _check_parts(check_feats, max_kfs: int = 16):
+    """A keyframe store and a BoW database on the card holding the first
+    three frames as keyframes."""
+    from srba_slam_tpu_torch.models.bow import BoWDatabase
+    from srba_slam_tpu_torch.models.keyframe import KeyframeStore
+
+    _cam, feats, voc = check_feats
+    cuda = torch.device("cuda")
+    store = KeyframeStore(max_kfs=max_kfs, capacity=256, device=cuda)
+    bow = BoWDatabase(voc, max_kfs=max_kfs, device=cuda)
+    for i, f in enumerate(feats[:3]):
+        ids = np.where(f.m_valid.cpu().numpy(), 1000 * i + np.arange(256), -1)
+        store.append(f, ids, np.zeros(6, np.float32))
+        bow.insert(f.desc_l, f.m_valid)
+    return store, bow
+
+
+def _restore(store, bow, snap):
+    """The store's and the database's contents set back in place (their
+    tensors, and so a program's key, unchanged)."""
+    for a, b in zip(list(store.arrays) + [bow._db], snap):
+        a.copy_(b)
+
+
+def _check_groups(check_feats, store, bow, n_valid: int, groups: int, row0: int, seed0: int):
+    """``groups`` fused check groups of ``n_valid`` valid slots, dispatched
+    back to back (group g checks frames g * n_valid, ... of the batch of
+    frames 3-10 at rows row0 + g * n_valid, ...), their rows and seeds one
+    slot table a group; returns every blob."""
+    from srba_slam_tpu_torch.models import data_association as da
+    from srba_slam_tpu_torch.models.vo import stack_features
+
+    cam, feats, _voc = check_feats
+    batch = stack_features(feats[3:11])
+    pad = da.CHECK_SLOTS - n_valid
+    blobs = []
+    for g in range(groups):
+        first = g * n_valid
+        table = da.slot_table([row0 + first + i for i in range(n_valid)] + [0] * pad,
+                              [seed0 + first + i for i in range(n_valid)] + [seed0] * pad,
+                              store.arrays.desc_l.device)
+        blobs += da.fused_checks_batch(batch, store.arrays, bow._db, bow._leaf_bits,
+                                       bow._weights, [first + i for i in range(n_valid)] +
+                                       [0] * pad, table[:, 0], [True] * n_valid + [False] * pad,
+                                       cam, table[:, 1], **CHECK_KW)[0]
+    return blobs
+
+
+def _check_programs() -> list:
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    return [p for p in cuda_graphs.programs() if p["key"][0] == "check"]
+
+
+def _assert_same_check(a_blobs, a_parts, b_blobs, b_parts):
+    assert len(a_blobs) == len(b_blobs)
+    for i, (x, y) in enumerate(zip(a_blobs, b_blobs)):
+        assert x.dtype == y.dtype and torch.equal(x, y), f"blob {i}"
+    (sa, ba), (sb, bb) = a_parts, b_parts
+    for name, x, y in zip(sa.arrays._fields, sa.arrays, sb.arrays):
+        assert torch.equal(x, y), name
+    assert torch.equal(ba._db, bb._db)
+
+
+@pytest.mark.parametrize("n_valid,groups", [(1, 1), (3, 1), (8, 1), (3, 2)],
+                         ids=["slots1", "slots3", "slots8", "chained"])
+def test_check_group_graphs_equal_eager(cuda, check_feats, monkeypatch, n_valid, groups):
+    """Fused check groups as slot programs (one CUDA-graph replay a valid
+    slot, the store and the database held and written in place) equal the
+    eager groups (``CHECK_GRAPHS`` off) bit for bit on every blob and on
+    the written store and database: 1, 3 and 8 valid slots, and two groups
+    of 3 back to back (the second reads the rows the first wrote). Replayed
+    at other rows and seeds, on the same store set back in place, the
+    program gives the eager group's bits there and captures nothing: one
+    program for the key."""
+    from srba_slam_tpu_torch.models import data_association as da
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    monkeypatch.setattr(cuda_graphs, "_PROGRAMS", {})
+    eager_parts, graph_parts = _check_parts(check_feats), _check_parts(check_feats)
+    snaps = [[t.clone() for t in list(s.arrays) + [b._db]] for s, b in (eager_parts,
+                                                                          graph_parts)]
+    for row0, seed0 in ((3, 7), (4, 50)):
+        for parts, snap in zip((eager_parts, graph_parts), snaps):
+            _restore(*parts, snap)
+        monkeypatch.setattr(da, "CHECK_GRAPHS", False)
+        eager = _check_groups(check_feats, *eager_parts, n_valid, groups, row0, seed0)
+        monkeypatch.setattr(da, "CHECK_GRAPHS", True)
+        captures = cuda_graphs.PROGRAM_STATS["captures"]
+        graph = _check_groups(check_feats, *graph_parts, n_valid, groups, row0, seed0)
+        torch.cuda.synchronize()
+        _assert_same_check(eager, eager_parts, graph, graph_parts)
+        assert cuda_graphs.PROGRAM_STATS["captures"] == captures + (row0 == 3)
+        (prog,) = _check_programs()
+        assert prog["key"][1] == "slot" and prog["steps"] >= 2 and prog["pool_bytes"] > 0
+        assert prog["held_bytes"] > prog["copy_bytes"] > 0
+        if row0 == 3:           # rows 0-2 hold keyframes: each slot tracks its previous row
+            valid = [b for i, b in enumerate(eager) if i % da.CHECK_SLOTS < n_valid]
+            tracked = [int(da.unpack_check_outputs(b.cpu().numpy(), s=5, k=256, nq=4)[4][0])
+                       for b in valid]
+            assert min(tracked) >= 15, tracked
+
+
+@pytest.mark.parametrize("debug", [False, True])
+def test_one_check_program_equals_eager(cuda, check_feats, monkeypatch, debug):
+    """The strict path's check (``query_and_associate_packed``) as the
+    one-check program equals the eager check bit for bit, with and without
+    the debug section, at two counts and seeds of one program (one
+    capture), and writes nothing."""
+    from srba_slam_tpu_torch.models import data_association as da
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    monkeypatch.setattr(cuda_graphs, "_PROGRAMS", {})
+    cam, feats, _voc = check_feats
+    store, bow = _check_parts(check_feats)
+    before = [t.clone() for t in list(store.arrays) + [bow._db]]
+    kw = dict(CHECK_KW, filter_by_direction=True, debug=debug)
+    captures = cuda_graphs.PROGRAM_STATS["captures"]
+    for n_kfs, seed, j in ((3, 7, 4), (2, 9, 5)):
+        args = (feats[j], store.arrays, bow._db, bow._leaf_bits, bow._weights, n_kfs, cam, seed)
+        monkeypatch.setattr(da, "CHECK_GRAPHS", False)
+        (eager,) = da.query_and_associate_packed(*args, **kw)
+        monkeypatch.setattr(da, "CHECK_GRAPHS", True)
+        (graph,) = da.query_and_associate_packed(*args, **kw)
+        assert torch.equal(eager, graph), (n_kfs, seed)
+    assert cuda_graphs.PROGRAM_STATS["captures"] == captures + 1
+    (prog,) = _check_programs()
+    assert prog["key"][1] == "one" and prog["key"][7] is debug
+    for a, b in zip(list(store.arrays) + [bow._db], before):
+        assert torch.equal(a, b)
+
+
+def test_check_program_captures_anew_for_a_replaced_store(cuda, check_feats, monkeypatch):
+    """A store and a database put in place of the ones a slot program holds
+    (other tensors, the same contents) capture a program of their own, and
+    give the same bits."""
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    monkeypatch.setattr(cuda_graphs, "_PROGRAMS", {})
+    first, second = _check_parts(check_feats), _check_parts(check_feats)
+    captures = cuda_graphs.PROGRAM_STATS["captures"]
+    a = _check_groups(check_feats, *first, 3, 1, 3, 7)
+    b = _check_groups(check_feats, *second, 3, 1, 3, 7)
+    _assert_same_check(a, first, b, second)
+    assert cuda_graphs.PROGRAM_STATS["captures"] == captures + 2
+    assert len(_check_programs()) == 2
+
+
+def test_fused_checks_batch_syncs_nothing(cuda, check_feats):
+    """Three deferred checks of one batch on the card as one fused group:
+    once its slot program is captured, the group (its slot table's pinned
+    upload, three replays, the padded slots' zero blob) makes no host sync,
+    and each slot equals the one-check path on the same rows bit for bit."""
+    from srba_slam_tpu_torch.models import data_association as da
+    from srba_slam_tpu_torch.models.vo import FrameFeatures, stack_features
+
+    cam, feats, _voc = check_feats
     batch = stack_features(feats[3:6])
-    kw = dict(max_orb_distance_da=60.0, residual_th=10.0, max_y_diff_epipolar=1.5,
-              filter_by_direction=False, ransac_n_hyp=64)
     js, rows, valids, seeds = [0, 1, 2] + [0] * 5, [3, 4, 5] + [0] * 5, [True] * 3 + [False] * 5, \
         [7, 8, 9] + [9] * 5
-
-    def fused():
-        store, bow = parts()
-        return da.fused_checks_batch(batch, store.arrays, bow._db, bow._leaf_bits, bow._weights,
-                                     js, rows, valids, cam, seeds, **kw)[0]
-
-    fused()                                 # captures the graphs
-    store, bow = parts()
+    store, bow = _check_parts(check_feats, max_kfs=8)
+    snap = [t.clone() for t in list(store.arrays) + [bow._db]]
+    da.fused_checks_batch(batch, store.arrays, bow._db, bow._leaf_bits, bow._weights, js, rows,
+                          valids, cam, seeds, **CHECK_KW)          # captures the program
+    _restore(store, bow, snap)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         blobs = da.fused_checks_batch(batch, store.arrays, bow._db, bow._leaf_bits,
-                                      bow._weights, js, rows, valids, cam, seeds, **kw)[0]
+                                      bow._weights, js, rows, valids, cam, seeds, **CHECK_KW)[0]
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    one_store, one_bow = parts()
+    one_store, one_bow = _check_parts(check_feats, max_kfs=8)
     for i in range(3):
         frame = FrameFeatures(*(a[i] for a in batch))
         one_store.write_row(frame, rows[i])
         one_bow.write_row(frame.desc_l, frame.m_valid, rows[i])
         (one,) = da.query_and_associate_packed(frame, one_store.arrays, one_bow._db,
                                                one_bow._leaf_bits, one_bow._weights, rows[i],
-                                               cam, seeds[i], **kw)
+                                               cam, seeds[i], **CHECK_KW)
         assert torch.equal(one, blobs[i]), i
     assert not blobs[3].any()
 
 
+def test_estimator_captures_its_check_program_after_warm_up(cuda, monkeypatch):
+    """After a batched run on the card, ``capture_check_program`` leaves
+    the estimator's one-check program captured (the bench harness calls it
+    after its warm-up): a synchronous check of its store then captures
+    nothing, and equals the eager check."""
+    from srba_slam_tpu_torch.models import data_association as da
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    cam = StereoCamera(**SMALL_CAM)
+    frames = list(SyntheticSource(cam, n_frames=16, seed=11, step=0.12))
+    opts = SRBAStereoSLAMOptions(
+        orb_adaptive_fast_th=True, camera=cam, n_feats=256, detect_fast_th=12,
+        adaptive_th_min_matches=40, max_translation=0.5, max_rotation=10.0,
+        updated_matches_th=40, vo_id_tracking_th=30, srba_submap_size=5,
+        srba_max_optimize_depth=3, da_filter_by_direction=False, residual_th=10.0)
+    est = SRBAStereoSLAMEstimator(GeneralOptions(), opts, VOOptions(fast_th=12, n_feats=256),
+                                  capacity=256, max_kfs=64, device=cuda)
+    est.initialize()
+    est.perform_stereo_slam_batched(frames, batch=4)
+    assert est.store.n_kfs >= 2
+    est.capture_check_program()
+    captures = cuda_graphs.capture_stats("check")["captures"]
+    args = (est.vo._prev, est.store.arrays, est.bow._db, est.bow._leaf_bits, est.bow._weights,
+            est.store.n_kfs, cam, 5)
+    (graph,) = da.query_and_associate_packed(*args, **est.check_options())
+    assert cuda_graphs.capture_stats("check")["captures"] == captures
+    monkeypatch.setattr(da, "CHECK_GRAPHS", False)
+    (eager,) = da.query_and_associate_packed(*args, **est.check_options())
+    assert torch.equal(graph, eager)
+
+
 def test_uploader_runs_while_graphs_capture(cuda, monkeypatch):
-    """The batched loop on the card from an empty graph cache, its frame
+    """The batched loop on the card from empty graph caches, its frame
     source slow enough that the uploader thread stages frames while the
-    main thread captures the first GN, Jacobi and LM graphs: the captures
-    succeed, and the run makes the card's per-frame decisions."""
+    main thread captures the first GN, Jacobi and LM graphs (the LM steps
+    in the loops' cache, the GN and Jacobi steps of the scans and the
+    checks in their programs' own caches): the captures succeed, and the
+    run makes the card's per-frame decisions."""
     import time
 
     from srba_slam_tpu_torch.ops import cuda_graphs
@@ -1141,9 +1320,12 @@ def test_uploader_runs_while_graphs_capture(cuda, monkeypatch):
             yield f
 
     monkeypatch.setattr(cuda_graphs, "_GRAPHS", {})
+    monkeypatch.setattr(cuda_graphs, "_PROGRAMS", {})
     batched = make()
     batched.perform_stereo_slam_batched(slow(frames), batch=4)
-    assert len(cuda_graphs._GRAPHS) >= 3
+    kinds = {p["key"][0] for p in cuda_graphs.programs()}
+    assert kinds == {"vo_scan", "check"}
+    assert len(cuda_graphs._GRAPHS) + sum(p["steps"] for p in cuda_graphs.programs()) >= 3
     assert [u["n"] for u in batched.lat["uploads"]] == [4, 4, 4, 4, 3]
     per_frame = make()
     for left, right in frames:

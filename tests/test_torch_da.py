@@ -98,6 +98,42 @@ def test_query_and_associate_matches_jax():
     _assert_da_equal(rj, rt, valid)
 
 
+def test_query_and_associate_packed_with_device_scalars_matches_jax():
+    """The one-check path with ``n_kfs`` and the seed as int64 scalar
+    tensors (the one-check program's inputs on a card) against the JAX
+    package's jitted ``query_and_associate_packed`` (its key built in the
+    program from the seed): statuses, indices, tracked counts and the
+    frame's fields identical, BoW scores within 1e-6; and equal bit for
+    bit to the same call with host ints."""
+    feats = jax_features(KF_FRAMES + (CUR_FRAME,))
+    js = jax_store(feats[:-1])
+    desc = np.concatenate([np.asarray(f.desc_l)[np.asarray(f.m_valid)] for f in feats[:-1]])
+    jvoc = JVoc.train(desc, k=8, L=3, seed=0)
+    jdb = JBoW(jvoc, max_kfs=js.max_kfs)
+    jdb.rebuild_from_store(js.arrays, js.n_kfs)
+    kw = dict(max_orb_distance_da=60.0, residual_th=10.0, max_y_diff_epipolar=1.5,
+              filter_by_direction=False, ransac_n_hyp=64)
+    s, k, nq = 5, port_features(feats[-1]).m_valid.shape[0], 4
+    (jblob,) = jda.query_and_associate_packed(
+        _jf(feats[-1]), js.arrays, jdb._db, jdb._leaf_bits, jdb._weights, jnp.int32(js.n_kfs),
+        JCam(**SMALL_CAM), 9, **kw)
+    tdb = BoWDatabase.from_jax_numpy(jvoc, jax.device_get(jdb._db), jdb.n_kfs, device="cpu")
+    args = (port_features(feats[-1]), port_store(js).arrays, tdb._db, tdb._leaf_bits,
+            tdb._weights)
+    (got,) = tda.query_and_associate_packed(*args, torch.tensor(js.n_kfs, dtype=torch.int64),
+                                            StereoCamera(**SMALL_CAM),
+                                            torch.tensor(9, dtype=torch.int64), **kw)
+    (ints,) = tda.query_and_associate_packed(*args, js.n_kfs, StereoCamera(**SMALL_CAM), 9,
+                                             **kw)
+    assert torch.equal(got, ints)
+    oj = jda.unpack_check_outputs(np.asarray(jblob), s=s, k=k, nq=nq)
+    ot = tda.unpack_check_outputs(got.numpy(), s=s, k=k, nq=nq)
+    np.testing.assert_allclose(ot[0], oj[0], atol=1e-6)                # scores
+    for a, b in zip(ot[1:11], oj[1:11]):                             # ints and the points
+        np.testing.assert_array_equal(a, b)
+    assert int(oj[4][0]) >= 15                                       # the cascade ran
+
+
 @pytest.mark.parametrize("budget", [0.0, 0.5])
 def test_recheck_candidate_matches_jax(budget):
     feats = jax_features(KF_FRAMES + (CUR_FRAME,))

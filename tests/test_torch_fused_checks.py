@@ -3,11 +3,15 @@
 * ``fused_checks_batch``: three deferred checks of one scanned batch (the
   small-geometry sequence's frames 9, 12 and 15 against keyframes 0, 3 and
   6) in eight slots, five padded, each slot writing its speculative row
-  before the next checks: the packed outputs against the JAX package's
-  (statuses, indices, tracked counts and the frame's fields identical, BoW
-  scores within 1e-6), the written store and BoW rows too; each slot equal
-  bit for bit to the one-check path (``query_and_associate_packed``) on
-  the same rows; no host read inside the group.
+  before the next checks, the rows and seeds given as host ints or as
+  device tensors (a captured slot's inputs on a card): the packed outputs
+  against the JAX package's (statuses, indices, tracked counts and the
+  frame's fields identical, BoW scores within 1e-6), the written store and
+  BoW rows too; each slot equal bit for bit to the one-check path
+  (``query_and_associate_packed``) on the same rows; no host read inside
+  the group, nor in the one-check path with device scalars, with every
+  cascade option on and off (every Tensor host read patched to raise);
+  ``check_key`` holds every option and shape.
 * ``optimize_windows_batch_blob``: two buckets, three windows each in
   eight slots, valid at the front or scattered among padded slots: each
   row against the JAX package's group (the tolerances of
@@ -15,9 +19,12 @@
   solve, padded rows zero; no host read.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +38,7 @@ from srba_slam_tpu.utils.synthworld import make_ba_window_problem
 from srba_slam_tpu_torch.models import data_association as tda
 from srba_slam_tpu_torch.models.bow import BoWDatabase
 from srba_slam_tpu_torch.models.vo import FrameFeatures, stack_features
+from srba_slam_tpu_torch.ops import cuda_graphs, robust_lm
 from srba_slam_tpu_torch.ops import window_ba as twb
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
@@ -77,14 +85,25 @@ def _port_parts(jvoc, db0, js):
     return port_store(js), BoWDatabase.from_jax_numpy(jvoc, db0, js.n_kfs, device="cpu")
 
 
-def test_fused_checks_batch_matches_jax(checks, monkeypatch):
+def _slot_inputs(args, given: str):
+    """The group's rows and seeds as host ints, or as int64 tensors on the
+    database's device (the estimator's slot table)."""
+    if given == "ints":
+        return args["rows"], args["seeds"]
+    return (torch.tensor(args["rows"], dtype=torch.int64),
+            torch.tensor(args["seeds"], dtype=torch.int64))
+
+
+@pytest.mark.parametrize("given", ["ints", "tensors"])
+def test_fused_checks_batch_matches_jax(checks, monkeypatch, given):
     jvoc, db0, js, cur, args, (jblobs, jarrays, jdb) = checks
     store, bow = _port_parts(jvoc, db0, js)
     batch = stack_features([port_features(f) for f in cur])
+    rows, seeds = _slot_inputs(args, given)
     reads = _count_host_reads(monkeypatch)
     blobs, arrays, db = tda.fused_checks_batch(
-        batch, store.arrays, bow._db, bow._leaf_bits, bow._weights, args["js"], args["rows"],
-        args["valids"], StereoCamera(**SMALL_CAM), args["seeds"], **DA_KW)
+        batch, store.arrays, bow._db, bow._leaf_bits, bow._weights, args["js"], rows,
+        args["valids"], StereoCamera(**SMALL_CAM), seeds, **DA_KW)
     monkeypatch.undo()
     assert reads[0] == 0
     assert len(blobs) == tda.CHECK_SLOTS
@@ -130,6 +149,106 @@ def test_fused_slots_equal_the_one_check_path(checks):
                                             bow2._weights, 0, 3, cam, args["seeds"][0],
                                             **DA_KW)
     assert torch.equal(blob, blobs[0])
+
+
+_READS = ("item", "tolist", "cpu", "numpy", "__bool__", "__int__", "__float__", "__index__")
+# every option of the cascade on, with the debug section; every one off
+OPTION_SETS = {
+    "every_option_debug": dict(DA_KW, filter_by_direction=True, filter_by_orb_distance=True,
+                               use_fund_matrix=True, use_change_pose=True, debug=True),
+    "no_option": dict(DA_KW, filter_by_direction=False, filter_by_orb_distance=False,
+                      use_fund_matrix=False, use_change_pose=False),
+}
+
+
+@pytest.mark.parametrize("options", list(OPTION_SETS))
+def test_check_slot_reads_nothing_on_the_host(checks, monkeypatch, options):
+    """A fused group (three slots, rows and seeds as device tensors) and
+    the one-check path (count and seed as device scalars, its loops unread,
+    as in its program's capture) on the card's route (the Horn rotation)
+    with every Tensor host read patched to raise: the same outputs as the
+    unpatched calls, leaf for leaf (a read would break the capture on a
+    card)."""
+    jvoc, db0, js, cur, args, _jout = checks
+    kw = OPTION_SETS[options]
+    cam = StereoCamera(**SMALL_CAM)
+    batch = stack_features([port_features(f) for f in cur])
+    rows, seeds = _slot_inputs(args, "tensors")
+    monkeypatch.setattr(tda, "_kabsch_rotation", tda._horn_rotation)
+
+    def run():
+        store, bow = _port_parts(jvoc, db0, js)
+        group = tda.fused_checks_batch(batch, store.arrays, bow._db, bow._leaf_bits,
+                                       bow._weights, args["js"], rows, args["valids"], cam,
+                                       seeds, **kw)
+        with cuda_graphs.no_exit_reads():
+            one = tda.query_and_associate_packed(
+                FrameFeatures(*(a[0] for a in batch)), store.arrays, bow._db, bow._leaf_bits,
+                bow._weights, torch.tensor(3, dtype=torch.int64), cam,
+                torch.tensor(11, dtype=torch.int64), **kw)
+        return group, one
+
+    ref = run()
+
+    def refuse(name):
+        def read(*a, **k):
+            raise AssertionError(f"the check read a tensor on the host: Tensor.{name}")
+        return read
+
+    for name in _READS:
+        monkeypatch.setattr(torch.Tensor, name, refuse(name))
+    got = run()
+    monkeypatch.undo()
+    ref_leaves, ref_spec = pytree.tree_flatten(ref)
+    got_leaves, got_spec = pytree.tree_flatten(got)
+    assert got_spec == ref_spec and len(got_leaves) == tda.CHECK_SLOTS + 12 + 1 + 1
+    assert all(torch.equal(a, b) for a, b in zip(got_leaves, ref_leaves))
+    blob_len = tda._blob_len(S, K, NQ, kw.get("debug", False))
+    assert got[1][0].shape == (blob_len,) and got[0][0][0].shape == (blob_len,)
+
+
+def test_check_key_separates_shapes_and_options(checks, monkeypatch):
+    """Every option of the check (the cascade's, ``n_query``, ``debug``,
+    the slot program or the one-check program) reaches ``check_key``: one
+    changed (or the frame's capacity, the store's rows, the database's
+    width, the camera, the change-in-pose solve's caps, the GN block length
+    or route, the Jacobi sweeps) gives another key; the same call, and the
+    defaults given explicitly, the same key. The row and the seed are not
+    in it."""
+    jvoc, db0, js, cur, _args, _jout = checks
+    store, bow = _port_parts(jvoc, db0, js)
+    frame, cam = port_features(cur[0]), StereoCamera(**SMALL_CAM)
+    inputs = {"cur", "store_arrays", "db", "leaf_bits", "weights", "n_kfs", "cam", "key",
+              "init_poses", "n_query"}
+    opts = {name: p.default for name, p in
+            inspect.signature(tda.query_and_associate).parameters.items() if name not in inputs}
+    assert set(opts) == set(tda._CHECK_OPTS)
+
+    def key(f=frame, arrays=store.arrays, db=bow._db, c=cam, n_query=NQ, debug=False,
+            slot=True, **o):
+        return tda.check_key(f, arrays, db, c, n_query, debug, slot, **o)
+
+    base = key()
+    assert key(f=FrameFeatures(*(a.clone() for a in frame)), c=StereoCamera(**SMALL_CAM),
+               **opts) == base
+    keys = [base]
+    for name, v in opts.items():
+        keys.append(key(**{name: (not v) if isinstance(v, bool) else v + 1}))
+    keys += [key(n_query=NQ + 1), key(debug=True), key(slot=False),
+             key(c=StereoCamera(**{**SMALL_CAM, "fx_l": SMALL_CAM["fx_l"] + 1.0})),
+             key(f=frame._replace(desc_l=torch.zeros((K + 1, 8), dtype=torch.int32))),
+             key(arrays=store.arrays._replace(
+                 desc_l=torch.zeros((js.max_kfs + 1, K, 8), dtype=torch.int32))),
+             key(db=torch.zeros((bow._db.shape[0], bow._db.shape[1] + 1)))]
+    for module, name, value in ((tda, "DA_SOLVE_ITERS_STAGE1", 11),
+                                (tda, "DA_SOLVE_ITERS_STAGE2", 11),
+                                (robust_lm, "GN_EXIT_EVERY", robust_lm.GN_EXIT_EVERY + 1),
+                                (robust_lm, "GN_GRAPHS", not robust_lm.GN_GRAPHS),
+                                (tda, "_JACOBI_SWEEPS", 9)):
+        monkeypatch.setattr(module, name, value)
+        keys.append(key())
+        monkeypatch.undo()
+    assert len(set(keys)) == len(keys)
 
 
 WIN_KW = dict(kernel_param=1.5, max_iters=8, stage1_iters=2)

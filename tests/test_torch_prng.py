@@ -54,6 +54,20 @@ def test_uniform_matches_jax(seed, shape):
     assert 0.0 <= float(got.min()) and float(got.max()) < 1.0
 
 
+@pytest.mark.parametrize("seed", (0, 7, 2**31, 2**32 - 1))
+def test_prng_key_from_a_device_seed_matches_jax(seed):
+    """A seed given as an int64 scalar tensor (a captured check's input)
+    builds the key on its device: JAX's words, and the host route's."""
+    ref = np.asarray(jax.random.PRNGKey(seed)).view(np.int32).astype(np.int64) & 0xFFFFFFFF
+    got = prng.PRNGKey(torch.tensor(seed, dtype=torch.int64))
+    assert got.dtype == torch.int64 and tuple(got.shape) == (2,)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert torch.equal(got, prng.PRNGKey(seed))
+
+
 def test_seed_outside_32_bits_is_refused():
     with pytest.raises(ValueError):
         prng.PRNGKey(2**32)
+    with pytest.raises(ValueError):
+        prng.check_seed(-1)
+    assert prng.check_seed(2**32 - 1) == 2**32 - 1
