@@ -113,12 +113,25 @@ not 0 (there is no CPU fallback):
                after phase 15);
 11. fleet    - ``FleetSLAM`` over four bench-workload street sequences
                (seeds 11, 48, 85, 122; 30 frames each; one vocabulary) on the
-               card against each sequence's solo ``step()`` run on the card:
-               decisions equal, keyframe poses within 1e-4 rad / 1e-3 m; K1
-               and K2 once per lockstep attempt (and per bootstrap frame);
-               the aggregate frames/s beside the solo runs'; host syncs per
-               frame and per batched check; K1 device-only
-               at ``[8,370,1226]`` with four thresholds, and K2 there;
+               card, four runs in turns: its lockstep attempts and check
+               groups as CUDA-graph programs, eagerly (``parallel/batch.py``
+               ``FLEET_GRAPHS`` off) twice, as programs again: every run
+               bit-equal to the first (decisions, step results, keyframe
+               store and BoW rows, keyframe poses); the first against each
+               sequence's solo ``step()`` run on the card: decisions equal,
+               keyframe poses within 1e-4 rad / 1e-3 m; K1 and K2 once per
+               lockstep attempt (and per bootstrap frame and attempt
+               program's warm-up); the aggregate frames/s of each run
+               (the programs' also without their captures) beside the solo
+               runs'; host syncs per step and per check group; an attempt
+               of four and the largest check group as programs against
+               eager calls: bits, dispatch / done ms in turns; the programs
+               captured (count, s, pool MB, MB held); the launches of an
+               attempt, a check group and a batched step, eager against
+               programs, in a process of its own
+               (``tools/fleet_launches.py``: a program call must launch no
+               kernel and one graph a shard); K1 device-only at
+               ``[8,370,1226]`` with four thresholds, and K2 there;
 12. check    - one keyframe check of phase 7's run whose five candidates are
                all valid (its first loop-closure check where one has five):
                the five candidates as one batch (``query_and_associate``)
@@ -161,12 +174,15 @@ not 0 (there is no CPU fallback):
                repeated card runs its shards one after the other: no time
                of it is a scaling number). (a) ``batched_vo_step`` on 4
                street pairs, one a shard, twice: features bit-equal to the
-               one-card step, one K1 and one K2 launch a shard a step; (b)
-               phase 11's four sequences on the mesh, each estimator on its
-               shard's device: each sequence's decisions equal its solo
-               run, keyframe poses within 1e-4 rad / 1e-3 m, K1 and K2 once
-               per shard per attempt, aggregate frames/s beside phase 11's,
-               host syncs; (c) the loop-closure-bucket window (C=32,
+               one-card step, each shard's step one program replay
+               bit-equal to the eager step, one K1 and one K2 launch a
+               shard a step (and a warm-up); (b) phase 11's four sequences
+               on the mesh, each estimator on its shard's device, with the
+               programs and eagerly: bit-equal, each sequence's decisions
+               equal its solo run and phase 11's fleet, keyframe poses
+               within 1e-4 rad / 1e-3 m, K1 and K2 once per shard per
+               attempt, aggregate frames/s beside phase 11's, host syncs,
+               the programs captured; (c) the loop-closure-bucket window (C=32,
                L=8192, O=16384) sharded over the mesh against the unsharded
                solve, max |dpose| under 1e-3, both times; phase 13's
                windows through ``SRBAEngine(mesh=)`` against the engine
@@ -295,11 +311,13 @@ from srba_slam_tpu_torch.ops.hopper_fast import (  # noqa: E402
 )
 from srba_slam_tpu_torch.ops.nms import grid_topk, local_max_suppress  # noqa: E402
 from srba_slam_tpu_torch.ops.rectify import build_maps, remap_bilinear  # noqa: E402
+from srba_slam_tpu_torch.parallel import batch as batch_mod  # noqa: E402
 from srba_slam_tpu_torch.parallel import fleet as fleet_mod  # noqa: E402
 from srba_slam_tpu_torch.parallel.batch import (  # noqa: E402
     batched_vo_step, empty_features, make_mesh,
 )
 from srba_slam_tpu_torch.parallel.multichip import dryrun_multichip, entry  # noqa: E402
+from srba_slam_tpu_torch.tools import fleet_launches  # noqa: E402
 from srba_slam_tpu_torch.utils import bench_workload as bw  # noqa: E402
 from srba_slam_tpu_torch.utils import kernel_timing as kt  # noqa: E402
 from srba_slam_tpu_torch.utils import se3_np  # noqa: E402
@@ -331,6 +349,7 @@ BATCH = 8
 FLEET_SEEDS = (11, 48, 85, 122)
 N_FLEET_FRAMES = 30
 N_FLEET_CLI_FRAMES = 20
+N_FLEET_LAUNCH_FRAMES = 8
 ORIENTED_ROWS_TOL = 0.02
 CHECK_REPS = 10
 EXIT_PERIODS = (1, 2, 4, 8, 12)
@@ -742,6 +761,25 @@ def _scan_fns(frames, b: int):
     return graph, _flag_off(vo_mod, "SCAN_GRAPHS", graph)
 
 
+def _dispatch_done(graph, eager, reps: int = 5) -> dict:
+    """Host ms of ``graph`` (a program's call) and ``eager`` (the same call
+    eagerly) in turns (eager, graph, graph, eager; ``reps`` calls each):
+    {"graph": (dispatch, done), "eager": (...)}, medians of the ms until
+    the call returns and until the card is done."""
+    times = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        fn = graph if name == "graph" else eager
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            sync()
+            times[name].append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+    return {n: (statistics.median(t[0] for t in v), statistics.median(t[1] for t in v))
+            for n, v in times.items()}
+
+
 def _scan_ab(frames, b: int) -> str:
     """One scan of B frames (:func:`_scan_fns`) as the graph replay
     against the eager scan: every output equal bit for bit; then, the
@@ -759,18 +797,7 @@ def _scan_ab(frames, b: int) -> str:
     check(len(leaves_g) == len(leaves_e) and all(
         torch.equal(x, y) for x, y in zip(leaves_g, leaves_e)),
         f"scan of {b}: the graph replay differs from the eager scan")
-    times = {"eager": [], "graph": []}
-    for name in ("eager", "graph", "graph", "eager"):
-        fn = graph if name == "graph" else eager
-        for _ in range(5):
-            sync()
-            t0 = time.perf_counter()
-            fn()
-            t1 = time.perf_counter()
-            sync()
-            times[name].append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
-    med = {n: (statistics.median(t[0] for t in v), statistics.median(t[1] for t in v))
-           for n, v in times.items()}
+    med = _dispatch_done(graph, eager)
     return (f"B={b}: graph = eager bit for bit on all {len(leaves_g)} outputs | first graph "
             f"call {first_s:.3f} s ({_captures() - caps} captured) | dispatch / done ms, "
             f"medians in turns: eager {med['eager'][0]:.3f} / {med['eager'][1]:.3f}, graph "
@@ -1438,11 +1465,124 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> tuple[dict, dict]:
     return counts, dict(kf_global=strict_kf, wall=wall, syncs=syncs.n, batches=n_batches)
 
 
+FLEET_KINDS = ("fleet_attempt", "fleet_check")
+
+
+def _fleet_run(seqs, voc, mesh, graphs: bool) -> dict:
+    """One ``FleetSLAM`` run over ``seqs`` on fresh bench estimators, each on
+    its shard's device of ``mesh``, with the parallel layer's programs
+    (``graphs``) or eagerly (``FLEET_GRAPHS`` off), under deterministic
+    algorithms: its estimators, wall s, the pending count of each shard
+    attempt, the attempts and check groups it recorded, K1-K3 launches,
+    host syncs (all, and inside each check group with its read), and the
+    programs captured in it (count and host s) by kind."""
+    per = len(seqs) // len(mesh.devices)
+    ests = []
+    for i in range(len(seqs)):
+        est = bench_estimator(mesh.devices[i // per])
+        est.initialize(vocabulary=voc)
+        ests.append(est)
+    flt = fleet_mod.FleetSLAM(ests, mesh=mesh)
+    rec, calls = fleet_launches.record_calls(flt)
+    caps = {k: cuda_graphs.capture_stats(k) for k in FLEET_KINDS}
+    keep, batch_mod.FLEET_GRAPHS = batch_mod.FLEET_GRAPHS, graphs
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    _reset_launches()
+    try:
+        with SyncCount() as syncs:
+            query_syncs = _count_calls_syncs(flt, "_check_group", syncs)
+            pull_syncs = _count_calls_syncs(flt, "_pull_group", syncs)
+            t0 = time.perf_counter()
+            flt.run(seqs)
+            sync()
+            wall = time.perf_counter() - t0
+    finally:
+        batch_mod.FLEET_GRAPHS = keep
+        torch.use_deterministic_algorithms(deterministic)
+    captured = {k: {n: cuda_graphs.capture_stats(k)[n] - caps[k][n]
+                    for n in ("captures", "capture_s")} for k in FLEET_KINDS}
+    return dict(ests=ests, wall=wall, sizes=[len(a[1]) for a in rec["attempts"]], rec=rec,
+                calls=calls, launches=_launches(), syncs=syncs.n,
+                check_syncs=[a + b for a, b in zip(query_syncs, pull_syncs)],
+                captured=captured, capture_s=sum(c["capture_s"] for c in captured.values()))
+
+
+def _same_fleet_runs(a: dict, b: dict, what: str) -> None:
+    """Two fleet runs over the same sequences: every decision, step result,
+    threshold, DA seed, keyframe store and BoW row, last frame and keyframe
+    pose bit for bit."""
+    for i, (x, y) in enumerate(zip(a["ests"], b["ests"])):
+        same = (bw.decisions(x.step_log) == bw.decisions(y.step_log)
+                and [(r.vo_valid, r.n_stereo_matches, r.tracked_from_last_kf)
+                     for r in x.step_log] == [(r.vo_valid, r.n_stereo_matches,
+                                               r.tracked_from_last_kf) for r in y.step_log]
+                and (x.vo.fast_th, x.vo.orb_th, x._da_seed) == (y.vo.fast_th, y.vo.orb_th,
+                                                                 y._da_seed)
+                and x.store.n_kfs == y.store.n_kfs
+                and np.array_equal(x.store.match_ids, y.store.match_ids)
+                and all(torch.equal(p, q) for p, q in zip(x.store.arrays, y.store.arrays))
+                and torch.equal(x.bow._db, y.bow._db)
+                and all(torch.equal(p, q) for p, q in zip(x.vo.last_frame(),
+                                                          y.vo.last_frame())))
+        x.rba.flush(), y.rba.flush()
+        n = x.store.n_kfs
+        same = same and np.array_equal(x.rba.kf_global[:n], y.rba.kf_global[:n])
+        check(same, f"{what}: sequence {i} differs")
+
+
+def _fleet_programs() -> str:
+    """The captured fleet programs by kind: count, host s of warm-up and
+    capture (range), pool MB (range, and summed), MB held."""
+    rows = []
+    for kind in (*FLEET_KINDS, "batched_step"):
+        ps = [p for p in cuda_graphs.programs() if p["key"][0] == kind]
+        if ps:
+            cap = [p["capture_s"] for p in ps]
+            pool = [p["pool_bytes"] / 2**20 for p in ps]
+            rows.append(f"{kind}: {len(ps)} captured, {min(cap):.3f}-{max(cap):.3f} s, pool "
+                        f"{min(pool):.1f}-{max(pool):.1f} MB ({sum(pool):.1f} MB in all), "
+                        f"holds {max(p['held_bytes'] for p in ps) / 1e6:.3f} MB at most")
+    return "; ".join(rows) or "none"
+
+
+def _fleet_launches() -> str:
+    """The launches of one lockstep attempt (all four sequences pending),
+    one check group (the largest of 8 frames) and one ``batched_vo_step``
+    (a mesh of the card four times), eager against programs, under
+    torch.profiler in a process of its own (``tools/fleet_launches.py``;
+    this process traces no program: ROADMAP Queue 3). A program call of an
+    attempt or a check group must launch no kernel and one graph; the
+    batched step one graph a shard."""
+    proc = subprocess.run([sys.executable, "-m", "srba_slam_tpu_torch.tools.fleet_launches",
+                           "--seeds", ",".join(map(str, FLEET_SEEDS)),
+                           "--frames", str(N_FLEET_LAUNCH_FRAMES)],
+                          capture_output=True, text=True,
+                          cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    check(proc.returncode == 0, f"the fleet-launches process exited with {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("attempt", "check"):
+        check(got[f"{name} program"][:2] == [0, 1], f"a {name} program call launched "
+              f"{got[f'{name} program'][0]} kernels and {got[f'{name} program'][1]} graphs")
+    check(got["step program"][1] == got["shards"], f"a batched step launched "
+          f"{got['step program'][1]} graphs over {got['shards']} shards")
+    return (f"launches a call (kernel launches / graph launches / copies), torch.profiler in "
+            f"a process of its own: an attempt of {got['attempt n']} sequences eager "
+            f"{tuple(got['attempt eager'])}, program {tuple(got['attempt program'])}; a check "
+            f"group of {got['check q']} eager {tuple(got['check eager'])}, program "
+            f"{tuple(got['check program'])}; batched_vo_step over {got['shards']} shards of "
+            f"the card eager {tuple(got['step eager'])}, programs "
+            f"{tuple(got['step program'])} (its kernels the lead's gather and means)")
+
+
 def phase_fleet(cam) -> tuple[dict, dict]:
-    """Phase 11: FleetSLAM over four bench-workload street sequences
-    against each sequence's solo step() run, all on the card (a mesh of
-    the one card). Returns the launches and what phase 14 reuses: the
-    sequences, the vocabulary, the solo runs and the fleet's frames/s."""
+    """Phase 11: FleetSLAM over four bench-workload street sequences on the
+    card (a mesh of the one card) against each sequence's solo step() run,
+    its lockstep attempts and check groups as CUDA-graph programs and
+    eagerly (``FLEET_GRAPHS`` off) in turns, the same bits. Returns the
+    launches of the first run with programs and what phase 14 reuses: the
+    sequences, the vocabulary, that run and its frames/s."""
     seqs = [list(SyntheticSource(cam, n_frames=N_FLEET_FRAMES, seed=seed, step=bw.SOURCE["step"],
                                  scene=bw.SOURCE["scene"])) for seed in FLEET_SEEDS]
     torch.use_deterministic_algorithms(True)
@@ -1454,84 +1594,100 @@ def phase_fleet(cam) -> tuple[dict, dict]:
     scratch.ensure_vocabulary()
     voc = scratch.bow.voc
 
-    def estimator():
-        est = bench_estimator(DEV)
-        est.initialize(vocabulary=voc)
-        return est
-
     solo, solo_s = [], 0.0
     for frames in seqs:
-        est = estimator()
+        est = bench_estimator(DEV)
+        est.initialize(vocabulary=voc)
         t0 = time.perf_counter()
         for left, right in frames:
             est.step(left, right)
         sync()
         solo_s += time.perf_counter() - t0
         solo.append(est)
-    ests = [estimator() for _ in seqs]
-    attempts = [0]
-    frontend = fleet_mod.extract_and_match_batch
-
-    def counted(*a, **k):
-        attempts[0] += 1
-        return frontend(*a, **k)
-
-    fleet_mod.extract_and_match_batch = counted
-    _reset_launches()
-    flt = fleet_mod.FleetSLAM(ests, mesh=make_mesh(devices=[DEV]))
-    try:
-        with SyncCount() as syncs:
-            query_syncs = _count_calls_syncs(flt, "_check_group", syncs)
-            pull_syncs = _count_calls_syncs(flt, "_pull_group", syncs)
-            t0 = time.perf_counter()
-            flt.run(seqs)
-            sync()
-            wall = time.perf_counter() - t0
-    finally:
-        fleet_mod.extract_and_match_batch = frontend
-    counts = _launches()
     torch.use_deterministic_algorithms(False)
-    check_syncs = [a + b for a, b in zip(query_syncs, pull_syncs)]
+    mesh = make_mesh(devices=[DEV])
+    runs = [_fleet_run(seqs, voc, mesh, graphs) for graphs in (True, False, False, True)]
+    for r in runs[1:]:
+        _same_fleet_runs(runs[0], r, "fleet programs against the eager fleet")
     n_seq = len(seqs)
-    # the first frame bootstraps each sequence through step(); then one K1
-    # and one K2 launch per lockstep attempt over all pending sequences
-    check(counts == {"fast_nms": attempts[0] + n_seq, "orb_descriptors": attempts[0] + n_seq,
-                     "fast_score_map": 0},
-          f"fleet: launches {counts} over {attempts[0]} lockstep attempts")
-    check(attempts[0] >= N_FLEET_FRAMES - 1, f"{attempts[0]} attempts")
+    for r, graphs in zip(runs, (True, False, False, True)):
+        # the first frame bootstraps each sequence through step(); then one
+        # K1 and one K2 launch per lockstep attempt over all pending
+        # sequences (a replay of its program: one more for each program's
+        # warm-up)
+        n = len(r["sizes"]) + n_seq + r["captured"]["fleet_attempt"]["captures"]
+        check(r["launches"] == {"fast_nms": n, "orb_descriptors": n, "fast_score_map": 0},
+              f"fleet ({'programs' if graphs else 'eager'}): launches {r['launches']} over "
+              f"{len(r['sizes'])} lockstep attempts")
+        check(graphs or r["capture_s"] == 0, "the eager fleet captured a program")
+        # one check program a group size on the one card
+        check(r["captured"]["fleet_check"]["captures"] <= n_seq,
+              f"{r['captured']['fleet_check']['captures']} check programs for {n_seq} sequences")
+    check(len(runs[0]["sizes"]) >= N_FLEET_FRAMES - 1, f"{len(runs[0]['sizes'])} attempts")
     worst_rad = worst_m = 0.0
     kfs = []
-    for i, (f, s) in enumerate(zip(ests, solo)):
+    for i, (f, s) in enumerate(zip(runs[0]["ests"], solo)):
         check(bw.decisions(f.step_log) == bw.decisions(s.step_log),
               f"fleet sequence {i} (seed {FLEET_SEEDS[i]}): decisions differ from its solo run")
         n = s.store.n_kfs
         check(f.store.n_kfs == n >= 2, f"sequence {i}: {f.store.n_kfs} vs {n} keyframes")
+        s.rba.flush()
         d = np.abs(f.rba.kf_global[:n] - s.rba.kf_global[:n])
         worst_rad, worst_m = max(worst_rad, d[:, :3].max()), max(worst_m, d[:, 3:].max())
         kfs.append(n)
     check(worst_rad <= POSE_TOL_RAD and worst_m <= POSE_TOL_M,
           f"fleet keyframe poses differ from the solo runs by {worst_rad} rad / {worst_m} m")
     n_frames = n_seq * N_FLEET_FRAMES
-    first = [s[1] for s in seqs]
-    imgs = torch.from_numpy(np.stack([f[0] for f in first] + [f[1] for f in first])).to(DEV)
-    thr = torch.tensor([20.0, 15.0, 10.0, 5.0] * 2, device=DEV)
+    fps = [n_frames / r["wall"] for r in runs]
+    first = runs[0]
     print(f"[fleet] {n_seq} street sequences (seeds {FLEET_SEEDS}) x {N_FLEET_FRAMES} frames "
-          f"370x1226 on CUDA, one vocabulary, deterministic algorithms: {wall:.3f} s, "
-          f"{n_frames / wall:.2f} frames/s aggregate (the four solo runs: {solo_s:.3f} s, "
-          f"{n_frames / solo_s:.2f} frames/s) | {attempts[0]} lockstep attempts, launches "
-          f"{counts}: K1 and K2 once per attempt + one bootstrap frame a sequence | every "
+          f"370x1226 on CUDA, one vocabulary, deterministic algorithms, in turns programs / "
+          f"eager / eager / programs: {' / '.join('%.3f' % r['wall'] for r in runs)} s, "
+          f"{' / '.join('%.2f' % x for x in fps)} frames/s aggregate (the programs' runs "
+          f"without their captures, {runs[0]['capture_s']:.3f} / {runs[3]['capture_s']:.3f} s: "
+          f"{n_frames / (runs[0]['wall'] - runs[0]['capture_s']):.2f} / "
+          f"{n_frames / (runs[3]['wall'] - runs[3]['capture_s']):.2f}; the four solo runs "
+          f"{solo_s:.3f} s, {n_frames / solo_s:.2f} frames/s) | programs = eager bit for bit "
+          f"(decisions, step results, store and BoW rows, keyframe poses) in all four runs | "
+          f"{len(first['sizes'])} lockstep attempts, launches {first['launches']}: K1 and K2 "
+          f"once per attempt + one bootstrap frame a sequence + "
+          f"{first['captured']['fleet_attempt']['captures']} program warm-ups | every "
           f"sequence's decisions equal its solo run; keyframes {kfs}; KF poses within "
           f"{worst_rad:.2e} rad / {worst_m:.2e} m")
-    n_checks = sum(r.kf_check for e in ests for r in e.step_log)
-    print(f"[fleet syncs] host syncs (torch sync debug warnings): {syncs.n} over {n_frames} "
-          f"frames ({syncs.n / n_frames:.2f} a sequence-frame, {syncs.n / N_FLEET_FRAMES:.2f} "
-          f"a lockstep step); {len(check_syncs)} batched checks for {n_checks} sequence "
-          f"checks, syncs inside each (query, cascade, one copy out) median "
-          f"{_med(check_syncs)}, max {max(check_syncs, default=0)}")
+    n_checks = sum(r.kf_check for e in first["ests"] for r in e.step_log)
+    print(f"[fleet syncs] host syncs (torch sync debug warnings), programs / eager: "
+          f"{first['syncs']} / {runs[1]['syncs']} over {n_frames} frames "
+          f"({first['syncs'] / N_FLEET_FRAMES:.2f} / {runs[1]['syncs'] / N_FLEET_FRAMES:.2f} "
+          f"a lockstep step); {len(first['check_syncs'])} check groups for {n_checks} "
+          f"sequence checks, syncs inside each (query, cascade, one copy out) median "
+          f"{_med(first['check_syncs'])} / {_med(runs[1]['check_syncs'])}, max "
+          f"{max(first['check_syncs'], default=0)} / {max(runs[1]['check_syncs'], default=0)}")
+    # one attempt with all four pending and the largest check group of the
+    # last run, as programs against eager calls on the same state, in turns
+    attempt, check_group = runs[3]["calls"]
+    a_args = next(a for a in runs[3]["rec"]["attempts"] if len(a[1]) == n_seq)
+    c_args = max(runs[3]["rec"]["checks"], key=lambda c: len(c[2]))
+    rows = []
+    for name, fn in ((f"attempt of {n_seq}", lambda: attempt(*a_args)[1:]),
+                     (f"check group of {len(c_args[2])}", lambda: check_group(*c_args))):
+        eager = _flag_off(batch_mod, "FLEET_GRAPHS", fn)
+        same = all(torch.equal(x, y) for x, y in zip(pytree.tree_leaves(fn()),
+                                                      pytree.tree_leaves(eager())))
+        check(same, f"the fleet's {name}: the program differs from the eager call")
+        med = _dispatch_done(fn, eager)
+        rows.append(f"{name}: program = eager bit for bit | dispatch / done ms, medians in "
+                    f"turns: eager {med['eager'][0]:.3f} / {med['eager'][1]:.3f}, program "
+                    f"{med['graph'][0]:.3f} / {med['graph'][1]:.3f}")
+    print("[fleet programs] " + " || ".join(rows) + f" | programs: {_fleet_programs()} | "
+          + _fleet_launches())
+    first_frames = [s[1] for s in seqs]
+    imgs = torch.from_numpy(np.stack([f[0] for f in first_frames]
+                                     + [f[1] for f in first_frames])).to(DEV)
+    thr = torch.tensor([20.0, 15.0, 10.0, 5.0] * 2, device=DEV)
     print(f"[fleet kernels] one lockstep frontend's images [{2 * n_seq},370,1226] u8 at "
           f"per-image thresholds {[float(t) for t in thr]}: " + _kernel_line(imgs, thr))
-    return counts, dict(seqs=seqs, voc=voc, solo=solo, fps=n_frames / wall, wall=wall,
-                        attempts=attempts[0])
+    return first["launches"], dict(seqs=seqs, voc=voc, solo=solo, run=first, fps=fps[0],
+                                   wall=first["wall"], attempts=len(first["sizes"]))
 
 
 def _host_ms(fn, reps: int = CHECK_REPS) -> tuple[float, float]:
@@ -1764,18 +1920,7 @@ def _check_ab(rec) -> None:
             same = same and all(torch.equal(x, y) for x, y in zip(parts["graph"],
                                                                    parts["eager"]))
         check(same, f"phase 12's {name}: the program differs from the eager check")
-        times = {"eager": [], "graph": []}
-        for route in ("eager", "graph", "graph", "eager"):
-            fn = graph if route == "graph" else eager
-            for _ in range(5):
-                sync()
-                t0 = time.perf_counter()
-                fn()
-                t1 = time.perf_counter()
-                sync()
-                times[route].append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
-        med = {r: (statistics.median(t[0] for t in v), statistics.median(t[1] for t in v))
-               for r, v in times.items()}
+        med = _dispatch_done(graph, eager)
         rows.append(f"{name}: program = eager bit for bit ({len(leaves_g)} blobs"
                     + (", the store and the database" if name != "one-check" else "")
                     + f") | first program call {first_s:.3f} s ({_captures('check') - caps} "
@@ -2204,74 +2349,70 @@ def phase_mesh(frames, cam, fleet_ref: dict, entries: list, rba) -> dict:
             launches[name] += n
         return out
 
-    # (a) four sequences' street pairs, one a shard, two steps
+    # (a) four sequences' street pairs, one a shard, two steps: on one card,
+    # on the mesh with its programs, and on the mesh eagerly
     b, k = MESH_SIZE, 512
     steps = [[np.stack([frames[1 + s + i][j] for i in range(b)]) for j in (0, 1)]
              for s in range(2)]
     init = np.zeros((b, 6), np.float32)
     outs = {}
-    for name, m in (("one", one), ("mesh", mesh)):
+    for name, m in (("one", one), ("mesh", mesh), ("mesh eager", mesh)):
         prev = empty_features(b, k, device=m.lead)
         run = []
+        caps = _captures("batched_step")
         for lefts, rights in steps:
             def step(m=m, lefts=lefts, rights=rights, prev=prev):
                 return batched_vo_step(m, lefts, rights, prev, init, cam, k=k)
+            if name == "mesh eager":
+                step = _flag_off(batch_mod, "FLEET_GRAPHS", step)
             out = on_mesh(step) if name == "mesh" else step()
             run.append(out)
             prev = out[0]
         outs[name] = run
+        if name == "mesh":
+            step_caps = _captures("batched_step") - caps
     d_vo = 0.0
-    for i, (x, y) in enumerate(zip(outs["one"], outs["mesh"])):
+    for i, (x, y, z) in enumerate(zip(outs["one"], outs["mesh"], outs["mesh eager"])):
         for field, a_, b_ in zip(x[0]._fields, x[0], y[0]):
             check(torch.equal(a_, b_), f"batched_vo_step step {i}: {field} differs on the mesh")
         check(torch.equal(x[2], y[2]), f"batched_vo_step step {i}: validity differs")
         d_vo = max(d_vo, float((x[1] - y[1]).abs().max()))
+        check(all(torch.equal(p_, q_) for p_, q_ in zip(pytree.tree_leaves(y),
+                                                        pytree.tree_leaves(z))),
+              f"batched_vo_step step {i}: the shards' programs differ from the eager step")
     check(d_vo <= POSE_TOL_RAD, f"batched_vo_step poses differ on the mesh by {d_vo}")
     check(bool(outs["mesh"][1][2].all()), "batched_vo_step: a sequence lost tracking")
     step_launches = dict(launches)
-    check(step_launches == {"fast_nms": 2 * b, "orb_descriptors": 2 * b, "fast_score_map": 0},
-          f"batched_vo_step on the mesh: launches {step_launches}, not one a shard a step")
+    n_step = 2 * b + step_caps
+    check(step_launches == {"fast_nms": n_step, "orb_descriptors": n_step, "fast_score_map": 0},
+          f"batched_vo_step on the mesh: launches {step_launches}, not one a shard a step "
+          f"and one a warm-up ({step_caps} captured)")
 
-    # (b) phase 11's sequences, each estimator on its shard's device
+    # (b) phase 11's sequences, each estimator on its shard's device, with
+    # the programs and eagerly
     seqs, solo = fleet_ref["seqs"], fleet_ref["solo"]
-    per = len(seqs) // len(mesh.devices)
-    ests = []
-    for i in range(len(seqs)):
-        est = bench_estimator(mesh.devices[i // per])
-        est.initialize(vocabulary=fleet_ref["voc"])
-        ests.append(est)
-    shard_attempts = [0]
-    frontend = fleet_mod.extract_and_match_batch
-
-    def counted(*a, **kw):
-        shard_attempts[0] += 1
-        return frontend(*a, **kw)
-
-    fleet_mod.extract_and_match_batch = counted
-    flt = fleet_mod.FleetSLAM(ests, mesh=mesh)
-    try:
-        with SyncCount() as syncs:
-            t0 = time.perf_counter()
-            on_mesh(lambda: flt.run(seqs))
-            wall = time.perf_counter() - t0
-    finally:
-        fleet_mod.extract_and_match_batch = frontend
+    prog = on_mesh(lambda: _fleet_run(seqs, fleet_ref["voc"], mesh, True))
+    eager = _fleet_run(seqs, fleet_ref["voc"], mesh, False)
+    _same_fleet_runs(prog, eager, "mesh fleet programs against the eager mesh fleet")
     fleet_launches = {name: launches[name] - step_launches[name] for name in launches}
-    check(fleet_launches == {"fast_nms": shard_attempts[0] + len(seqs),
-                             "orb_descriptors": shard_attempts[0] + len(seqs),
-                             "fast_score_map": 0},
-          f"mesh fleet: launches {fleet_launches} over {shard_attempts[0]} shard attempts")
+    n_fl = len(prog["sizes"]) + len(seqs) + prog["captured"]["fleet_attempt"]["captures"]
+    check(fleet_launches == {"fast_nms": n_fl, "orb_descriptors": n_fl, "fast_score_map": 0},
+          f"mesh fleet: launches {fleet_launches} over {len(prog['sizes'])} shard attempts")
+    check(set(prog["sizes"]) == {1}, f"mesh fleet attempts of {set(prog['sizes'])} sequences")
     worst_rad = worst_m = 0.0
-    for i, (f, s_) in enumerate(zip(ests, solo)):
-        check(bw.decisions(f.step_log) == bw.decisions(s_.step_log),
-              f"mesh fleet sequence {i}: decisions differ from its solo run")
-        n = s_.store.n_kfs
-        check(f.store.n_kfs == n, f"mesh fleet sequence {i}: {f.store.n_kfs} vs {n} keyframes")
-        d = np.abs(f.rba.kf_global[:n] - s_.rba.kf_global[:n])
-        worst_rad, worst_m = max(worst_rad, d[:, :3].max()), max(worst_m, d[:, 3:].max())
+    for i, (f, p11, s_) in enumerate(zip(prog["ests"], fleet_ref["run"]["ests"], solo)):
+        for other, what in ((s_, "its solo run"), (p11, "phase 11's fleet")):
+            check(bw.decisions(f.step_log) == bw.decisions(other.step_log),
+                  f"mesh fleet sequence {i}: decisions differ from {what}")
+            n = other.store.n_kfs
+            check(f.store.n_kfs == n, f"mesh fleet sequence {i}: {f.store.n_kfs} vs {n} "
+                  f"keyframes in {what}")
+            d = np.abs(f.rba.kf_global[:n] - other.rba.kf_global[:n])
+            worst_rad, worst_m = max(worst_rad, d[:, :3].max()), max(worst_m, d[:, 3:].max())
     check(worst_rad <= POSE_TOL_RAD and worst_m <= POSE_TOL_M,
           f"mesh fleet keyframe poses differ from the solo runs by {worst_rad} / {worst_m}")
     n_frames = len(seqs) * N_FLEET_FRAMES
+    wall = prog["wall"]
 
     # (c) the loop-closure bucket, sharded against unsharded, and phase 13's
     # windows through the engine with a mesh against the engine without one
@@ -2304,14 +2445,20 @@ def phase_mesh(frames, cam, fleet_ref: dict, entries: list, rba) -> dict:
     torch.use_deterministic_algorithms(False)
     print(f"[mesh] {kind}: {[str(d) for d in mesh.devices]} | (a) batched_vo_step on {b} "
           f"street pairs 370x1226, one a shard, twice: features bit-equal to the one-card "
-          f"step, poses within {d_vo:.2e}, launches {step_launches} (one K1 and one K2 a shard "
-          f"a step) | (b) phase 11's {len(seqs)} sequences x {N_FLEET_FRAMES} frames on the "
-          f"mesh: {wall:.3f} s, {n_frames / wall:.2f} frames/s aggregate (phase 11 on one "
-          f"card: {fleet_ref['wall']:.3f} s, {fleet_ref['fps']:.2f} frames/s); every "
-          f"sequence's decisions equal its solo run, KF poses within {worst_rad:.2e} rad / "
-          f"{worst_m:.2e} m; {shard_attempts[0]} shard attempts ({fleet_ref['attempts']} "
-          f"lockstep attempts on one card), launches {fleet_launches}; host syncs "
-          f"{syncs.n} ({syncs.n / N_FLEET_FRAMES:.2f} a lockstep step)")
+          f"step, poses within {d_vo:.2e}, each shard's step one program replay = the eager "
+          f"step bit for bit, launches {step_launches} (one K1 and one K2 a shard a step, "
+          f"{step_caps} program warm-up) | (b) phase 11's {len(seqs)} sequences x "
+          f"{N_FLEET_FRAMES} frames on the mesh, programs / eager: {wall:.3f} / "
+          f"{eager['wall']:.3f} s, {n_frames / wall:.2f} / {n_frames / eager['wall']:.2f} "
+          f"frames/s aggregate (captures in the programs' run {prog['capture_s']:.3f} s; phase "
+          f"11's programs on one card: {fleet_ref['wall']:.3f} s, {fleet_ref['fps']:.2f} "
+          f"frames/s); programs = eager bit for bit; every sequence's decisions equal its solo "
+          f"run and phase 11's fleet, KF poses within {worst_rad:.2e} rad / {worst_m:.2e} m; "
+          f"{len(prog['sizes'])} shard attempts ({fleet_ref['attempts']} lockstep attempts on "
+          f"one card), launches {fleet_launches}; host syncs programs / eager {prog['syncs']} "
+          f"/ {eager['syncs']} ({prog['syncs'] / N_FLEET_FRAMES:.2f} / "
+          f"{eager['syncs'] / N_FLEET_FRAMES:.2f} a lockstep step) | programs: "
+          f"{_fleet_programs()}")
     print(f"[mesh windows] (c) the loop-closure bucket {LC_BUCKET}, {kw['max_iters']} LM "
           f"iterations, second of two calls: unsharded (CUDA-graph "
           f"blocks) {ms_1:.3f} ms, sharded over {MESH_SIZE} (eager blocks) {ms_n:.3f} ms, "

@@ -591,16 +591,39 @@ def check_key(cur: FrameFeatures, store_arrays: KFArrays, db: torch.Tensor,
             robust_lm.GN_EXIT_EVERY, robust_lm.GN_GRAPHS, _JACOBI_SWEEPS)
 
 
+def fleet_check_key(curs: list, stores: list, dbs: list, cam: StereoCamera, n_query: int,
+                    debug: bool, **opts) -> tuple:
+    """The key of a fleet shard's check-group program (``parallel/fleet.py``):
+    the group's size Q (``len(curs)``), the number of the shard's stores
+    and databases it holds (``len(stores)``), then what :func:`check_key`
+    holds for one of its checks (the shapes, the camera, ``n_query``,
+    ``debug``, every cascade option and the loops' caps and routes). The
+    program adds the held stores', databases' and vocabulary's addresses,
+    so the vocabulary's identity is in its key."""
+    return (("fleet_check", len(curs), len(stores))
+            + check_key(curs[0], stores[0], dbs[0], cam, n_query, debug, False, **opts)[2:])
+
+
+def check_output_list(top_s, top_i, da: DAResult, frame: FrameFeatures, debug: bool) -> list:
+    """A check's outputs as the estimator's host walk reads them (its
+    ``_kf_check_host``): the BoW scores and ids, the cascade's statuses,
+    matched indices and tracked counts, the frame's stereo matches and
+    points, and with ``debug`` the cascade's raw matches, distances and
+    residuals (the debug dumps' inputs); each leading with Q where the check
+    ran over Q sequences."""
+    return ([top_s, top_i, da.status, da.other_idx, da.tracked_count, frame.m_valid,
+             frame.xs_l, frame.ys_l, frame.xs_r, frame.m_r_idx, frame.pts3d]
+            + ([da.raw_oidx, da.distance, da.residuals] if debug else []))
+
+
 def slot_table(rows, seeds, device) -> torch.Tensor:
     """The rows (or stored-keyframe counts) and seeds of a group's checks,
     host ints (each seed checked to lie in [0, 2^32), ``prng.check_seed``),
     as one int64 [n, 2] tensor on ``device``: one upload, pinned and
     ``non_blocking`` on a card (a pageable copy would synchronize the
     host)."""
-    device = torch.device(device)
-    host = torch.tensor([[int(r), prng.check_seed(sd)] for r, sd in zip(rows, seeds)],
-                        dtype=torch.int64, pin_memory=device.type == "cuda")
-    return host.to(device, non_blocking=True)
+    return cuda_graphs.upload([[int(r), prng.check_seed(sd)] for r, sd in zip(rows, seeds)],
+                              device, torch.int64)
 
 
 def _on_device(rows, seeds, device) -> tuple:

@@ -1311,15 +1311,6 @@ class SRBAStereoSLAMEstimator:
         self._da_seed += 1
         return sub
 
-    def check_outputs(self, top_s, top_i, da, frame) -> list:
-        """A check's outputs as ``_kf_check_host`` takes them: the tensors
-        (with ``general.debug``, the cascade's intermediates for the dumps
-        too), each leading with a sequence dimension when the check ran
-        batched over sequences."""
-        return ([top_s, top_i, da.status, da.other_idx, da.tracked_count, frame.m_valid,
-                 frame.xs_l, frame.ys_l, frame.xs_r, frame.m_r_idx, frame.pts3d]
-                + ([da.raw_oidx, da.distance, da.residuals] if self.debug.enabled else []))
-
     def capture_check_program(self):
         """On a card, capture the one-check program of this estimator's
         store and database now (a program is keyed by the tensors it

@@ -379,8 +379,9 @@ def track_batch(engines, curs) -> list:
     thresholds) against the engine's previous frame with ONE pose solve of
     ``len(engines)`` lanes, copy the outputs to the host once, and commit
     each frame through its engine's ``commit_frame``. The engines share
-    camera, device and solve options (a fleet's sequences; per-frame
-    stepping is one engine). Returns the VOResults."""
+    camera, device and solve options (per-frame stepping passes one; a
+    fleet's lockstep attempt solves its lanes in its own program and
+    commits through :func:`commit_tracks`). Returns the VOResults."""
     return commit_tracks(engines, curs, to_host(solve_tracks(engines, curs)))
 
 
@@ -401,7 +402,8 @@ def solve_tracks(engines, curs) -> list[torch.Tensor]:
 
 def commit_tracks(engines, curs, host: list) -> list:
     """The host half of :func:`track_batch`: commit each frame from the
-    host copies ``host`` of :func:`solve_tracks`' outputs."""
+    host copies ``host`` of :func:`solve_tracks`' outputs (or of a fleet
+    attempt's, ``parallel/fleet.py``, the same list)."""
     ti, tv, mv, pose, ok, res, iters = host
     return [e.commit_frame(cur, ti[i], tv[i], mv[i], pose[i].copy(), bool(ok[i]),
                            float(res[i]), int(iters[i]))
@@ -494,6 +496,17 @@ def scan_key(lefts: torch.Tensor, cam: StereoCamera, rect_maps, **opts) -> tuple
     b, h, w = lefts.shape
     return ("vo_scan", b, h, w, lefts.dtype, rect_maps is not None, cam,
             tuple(sorted(opts.items())), robust_lm.GN_EXIT_EVERY, robust_lm.GN_GRAPHS)
+
+
+def attempt_key(lefts: torch.Tensor, n: int, cam: StereoCamera, rect_maps, **opts) -> tuple:
+    """The key of a fleet shard's lockstep-attempt program
+    (``parallel/fleet.py``): the number ``n`` of the shard's sequences that
+    the attempt runs, then what :func:`scan_key` holds for the shard's
+    frames ``lefts`` [S', H, W] (their count, size and dtype, whether
+    ``rect_maps`` is given, the camera, the frontend and solve options
+    ``opts``, the GN solve's block length and route). The maps themselves
+    are held by the program, so their address joins the key there."""
+    return ("fleet_attempt", n) + scan_key(lefts, cam, rect_maps, **opts)[1:]
 
 
 def _threshold_on(th, shape: tuple, device) -> torch.Tensor:

@@ -20,8 +20,10 @@ so a step past the exit runs no kernel.
 
 :func:`program` captures a whole computation whose loops run unread (a
 batch's VO scan, ``models/vo.py`` ``vo_scan``; a keyframe check,
-``models/data_association.py``) as one CUDA graph per key, as the JAX
-package jits it once per shape: its inputs are copied into fixed buffers,
+``models/data_association.py``; a fleet shard's lockstep attempt and check
+group, ``parallel/fleet.py``, and a shard's batched VO step,
+``parallel/batch.py``) as one CUDA graph per key, as the JAX package jits
+it once per shape: its inputs are copied into fixed buffers,
 the tensors it holds (a check's keyframe store and BoW database, written
 in place, and its vocabulary) are read and written where they are, the
 graph replays, and its outputs are cloned out. Inside that capture
@@ -62,7 +64,7 @@ _KEEP: list | None = None
 _PROGRAMS: dict = {}
 # Over the process: programs captured, and the host seconds of their
 # warm-ups and captures; the same by kind (a key's first element: "vo_scan",
-# "check")
+# "check", "fleet_attempt", "fleet_check", "batched_step")
 PROGRAM_STATS = dict(captures=0, capture_s=0.0)
 KIND_STATS: dict = {}
 
@@ -285,8 +287,9 @@ def _kind(key: tuple):
 
 
 def capture_stats(kind: str) -> dict:
-    """Programs of one kind (``"vo_scan"``, ``"check"``) captured so far
-    and the host seconds of their warm-ups and captures."""
+    """Programs of one kind (``"vo_scan"``, ``"check"``, ``"fleet_attempt"``,
+    ``"fleet_check"``, ``"batched_step"``) captured so far and the host
+    seconds of their warm-ups and captures."""
     stats = KIND_STATS.get(kind, {})
     return dict(captures=stats.get("captures", 0), capture_s=stats.get("capture_s", 0.0))
 
@@ -303,6 +306,31 @@ def _storage(x):
     return (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
 
 
+def upload(rows, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Host data (nested lists of numbers, or an array) as one tensor on
+    ``device``: one copy, from pinned memory and ``non_blocking`` on a card,
+    so the host does not wait for the card (a pageable copy would
+    synchronize it); a program's device inputs."""
+    device = torch.device(device)
+    host = torch.as_tensor(rows, dtype=dtype)
+    if device.type == "cuda":
+        host = host.pin_memory()     # a copy: torch pins no tensor made from numpy
+    return host.to(device, non_blocking=True)
+
+
+def program_key(inputs: dict, key: tuple, held: dict | None = None) -> tuple:
+    """The key under which :func:`program` keeps the program of ``fn(inputs)``
+    (and the inputs' device): ``key``, the inputs' structure, device, shapes
+    and dtypes (their non-tensor leaves as they are), and the held tensors'
+    structure, addresses, shapes, strides and dtypes."""
+    leaves, spec = pytree.tree_flatten(inputs)
+    h_leaves, h_spec = pytree.tree_flatten(held or {})
+    dev = next(t for t in leaves + h_leaves if _is_tensor(t)).device
+    return (key, repr(spec), dev, tuple((tuple(t.shape), t.dtype) if _is_tensor(t) else t
+                                        for t in leaves),
+            repr(h_spec), tuple(_storage(t) for t in h_leaves)), dev
+
+
 def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None):
     """``fn(inputs)`` on a card as one replay of a CUDA graph captured at
     the first call of ``key`` and of the inputs' shapes and dtypes.
@@ -311,8 +339,9 @@ def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None):
     tuples, named tuples and dicts, as ``torch.utils._pytree`` flattens
     them; any other leaf, such as None, is part of the key and stays as it
     is); ``fn`` returns such a nest. Each call copies the inputs into the program's buffers, launches
-    the graph on the current stream and returns clones of its outputs, so
-    a later call does not overwrite what an earlier one returned. ``key``
+    the graph on the current stream and returns clones of its outputs
+    (made contiguous in the graph, so a clone is a copy), so a later call
+    does not overwrite what an earlier one returned. ``key``
     holds everything else that ``fn`` bakes into its kernels (shapes it
     derives, options, Python numbers). ``counted`` are kernel wrappers with
     a ``launches`` count (``ops/hopper_fast.py``): a capture does not add
@@ -336,11 +365,7 @@ def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None):
     host. A capture that fails raises."""
     held = held or {}
     leaves, spec = pytree.tree_flatten(inputs)
-    h_leaves, h_spec = pytree.tree_flatten(held)
-    dev = next(t for t in leaves + h_leaves if _is_tensor(t)).device
-    full_key = (key, repr(spec), dev, tuple((tuple(t.shape), t.dtype) if _is_tensor(t) else t
-                                            for t in leaves),
-                repr(h_spec), tuple(_storage(t) for t in h_leaves))
+    full_key, dev = program_key(inputs, key, held)
     lib = cuda_build.load()
     with torch.cuda.device(dev):
         prog = _PROGRAMS.get(full_key)
@@ -387,6 +412,9 @@ def _capture(fn, leaves, spec, held: dict, dev, counted: tuple, key: tuple) -> S
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, stream=side):
             out = fn({**pytree.tree_unflatten(static, spec), **held})
+            # outputs dense in the pool: a replay clones them with copies,
+            # where a strided view's clone would launch a kernel
+            out = pytree.tree_map(lambda t: t.contiguous() if _is_tensor(t) else t, out)
         launches = tuple(w.launches - b for w, b in zip(counted, base))
     finally:
         _BODIES, _KEEP, _READ_EXITS = saved

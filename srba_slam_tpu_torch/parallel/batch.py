@@ -11,27 +11,42 @@ leading dimension into one contiguous chunk per device, and
 ``gather_batch`` puts the chunks back together on the lead device.
 
 ``batched_vo_step`` runs each shard's sequences on its device: the frontend
-of the shard's 2B' images as one batch (one K1 and one K2 launch), and
-their frame-to-frame tracking and pose solve as one ``track_and_solve`` of
-B' lanes (≙ JAX's ``_batched_step`` on one shard). The fleet means are
-reduced on the lead device, the shards summed in shard order: JAX's mesh
-is one controller in one process, and a collective's order of sums would
-depend on its algorithm (ROADMAP: reductions are deterministic).
+of the shard's 2B' images as one batch (one K1 and one K2 launch), their
+frame-to-frame tracking and pose solve as one ``track_and_solve`` of B'
+lanes, and the shard's partial sums (≙ JAX's ``_batched_step`` on one
+shard). On a card (``FLEET_GRAPHS``) that is one replay of a CUDA-graph
+program per shard (``ops/cuda_graphs.py`` ``program``, one per
+:func:`step_key` and device), its FAST and ORB thresholds device inputs,
+captured on the shard's own device; every shard's replay is enqueued
+before anything is read. The fleet means are reduced on the lead device,
+the shards' partial sums added in shard order: JAX's mesh is one
+controller in one process, and a collective's order of sums would depend
+on its algorithm (ROADMAP: reductions are deterministic).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from srba_slam_tpu_torch.models.vo import (
-    FrameFeatures, extract_and_match_batch, stack_features, track_and_solve,
+    FrameFeatures, _frames_on, _threshold_on, extract_and_match_batch, scan_key,
+    stack_features, track_and_solve,
 )
+from srba_slam_tpu_torch.ops import cuda_graphs
+from srba_slam_tpu_torch.ops.hopper_fast import fast_nms, fast_score_map, orb_descriptors
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
 BATCH_AXIS = "batch"
+# On a CUDA device, a shard's batched VO step (batched_vo_step), a fleet
+# shard's lockstep attempt and a fleet shard's check group
+# (parallel/fleet.py) are each one replay of a CUDA-graph program per key;
+# eager launches otherwise (the CPU path, and the card's reference in the
+# tests and chip_smoke.py)
+FLEET_GRAPHS = True
+# the kernel wrappers whose launches a program's replay adds to their counts
+COUNTED = (fast_nms, orb_descriptors, fast_score_map)
 
 
 class Mesh(NamedTuple):
@@ -136,33 +151,66 @@ def gather_batch(mesh: Mesh, shards: list):
     return _tree_map(lambda *xs: torch.cat([x.to(mesh.lead) for x in xs]), *shards)
 
 
+def programs(device) -> bool:
+    """Whether the parallel layer's work on ``device`` runs as CUDA-graph
+    programs: on a card, with ``FLEET_GRAPHS``."""
+    return FLEET_GRAPHS and torch.device(device).type == "cuda"
+
+
+def step_key(lefts: torch.Tensor, cam: StereoCamera, k: int, cell: int) -> tuple:
+    """The key of a shard's :func:`batched_vo_step` program: the shard's
+    frames' batch, height, width and dtype, the camera, ``k`` and ``cell``
+    (``_batched_step``'s static arguments in JAX) and the GN solve's block
+    length and route, as :func:`models.vo.scan_key` holds them; the other
+    options of the frontend and the solve are the functions' defaults."""
+    return ("batched_step",) + scan_key(lefts, cam, None, k=k, cell=cell)[1:]
+
+
+def _step_body(x: dict, cam: StereoCamera, k: int, cell: int) -> tuple:
+    """One shard's batched VO step: the frontend of its pairs (one K1 and
+    one K2 launch), the B' tracks and pose solves as lanes, and the shard's
+    sums of the mean residuals and of the valid poses."""
+    dev = x["lefts"].device
+    cur = stack_features(extract_and_match_batch(x["lefts"], x["rights"], cam, x["fast_th"],
+                                                 x["orb_th"], k=k, cell=cell, device=dev))
+    pose = track_and_solve(x["prev"], cur, cam, x["init"], x["orb_th"]).pose
+    return (cur, pose.pose, pose.valid, pose.mean_residual.sum(),
+            pose.valid.to(torch.float32).sum())
+
+
 def batched_vo_step(mesh: Mesh, lefts, rights, prev: FrameFeatures, init_pose,
-                    cam: StereoCamera, fast_th: float = 20.0, orb_th: int = 60, k: int = 256,
-                    cell: int = 5):
+                    cam: StereoCamera, fast_th=20.0, orb_th=60, k: int = 256, cell: int = 5):
     """One VO step for B sequences at once, sharded over ``mesh``: extract
     and stereo-match each sequence's pair (``lefts``/``rights`` [B, H, W]),
     track it against its previous frame (``prev``, FrameFeatures stacked
-    along B) from ``init_pose`` [B, 6], and solve its pose. B must divide
-    over the mesh. Every shard's frontend is enqueued before any pose
-    solve. Returns ``(cur, poses, valid, fleet_mean_residual,
+    along B) from ``init_pose`` [B, 6], and solve its pose, at the FAST
+    threshold ``fast_th`` and the ORB threshold ``orb_th`` (numbers, or
+    one-value tensors; device inputs of the programs). B must divide over
+    the mesh. On a card (``FLEET_GRAPHS``) each shard's step is one replay
+    of its program, and every shard's is enqueued before any is read.
+    Returns ``(cur, poses, valid, fleet_mean_residual,
     fleet_valid_fraction)`` on the lead device: the stacked features, the
     per-sequence increments [B, 6] and validity [B], and the two fleet-wide
     means."""
-    th = float(np.float32(fast_th))
+    orb_th = orb_th if isinstance(orb_th, torch.Tensor) else int(orb_th)
     shards = shard_batch(mesh, (lefts, rights, prev, init_pose))
-    curs = [stack_features(extract_and_match_batch(l, r, cam, th, int(orb_th), k=k, cell=cell,
-                                                   device=dev))
-            for dev, (l, r, _p, _i) in zip(mesh.devices, shards)]
-    outs = [track_and_solve(p, cur, cam, init.to(torch.float32), int(orb_th)).pose
-            for cur, (_l, _r, p, init) in zip(curs, shards)]
+    outs = []
+    for dev, (shard_l, shard_r, shard_prev, shard_init) in zip(mesh.devices, shards):
+        x = dict(lefts=_frames_on(shard_l, dev), rights=_frames_on(shard_r, dev),
+                 prev=shard_prev, init=shard_init.to(torch.float32),
+                 fast_th=_threshold_on(fast_th, (), dev), orb_th=_threshold_on(orb_th, (), dev))
+        if programs(dev):
+            outs.append(cuda_graphs.program(lambda x_: _step_body(x_, cam, k, cell), x,
+                                            step_key(x["lefts"], cam, k, cell), counted=COUNTED))
+        else:
+            outs.append(_step_body(x, cam, k, cell))
     res_sum = valid_sum = None
-    for out in outs:  # shard order, on the lead device
-        r = out.mean_residual.sum().to(mesh.lead)
-        v = out.valid.to(torch.float32).sum().to(mesh.lead)
+    for _cur, _pose, _valid, r, v in outs:  # shard order, on the lead device
+        r, v = r.to(mesh.lead), v.to(mesh.lead)
         res_sum, valid_sum = (r, v) if res_sum is None else (res_sum + r, valid_sum + v)
-    b = sum(out.valid.shape[0] for out in outs)
-    return (gather_batch(mesh, curs), gather_batch(mesh, [o.pose for o in outs]),
-            gather_batch(mesh, [o.valid for o in outs]), res_sum / b, valid_sum / b)
+    b = sum(o[2].shape[0] for o in outs)
+    return (gather_batch(mesh, [o[0] for o in outs]), gather_batch(mesh, [o[1] for o in outs]),
+            gather_batch(mesh, [o[2] for o in outs]), res_sum / b, valid_sum / b)
 
 
 def empty_features(batch: int, k: int, device="cuda") -> FrameFeatures:

@@ -914,53 +914,256 @@ FLEET_OPTIONS = dict(orb_adaptive_fast_th=True, n_feats=128, detect_fast_th=12,
                      srba_max_optimize_depth=3, da_filter_by_direction=False, residual_th=10.0)
 
 
+def _fleet_vocabulary():
+    from srba_slam_tpu_torch.models.bow import Vocabulary
+
+    rng = np.random.default_rng(0)
+    return Vocabulary.train(rng.integers(0, 2**32, (512, 8), dtype=np.uint64).astype(np.uint32),
+                            k=8, L=2, seed=0)
+
+
+def _fleet_sequences(seeds, n_frames: int = 12) -> list:
+    return [list(SyntheticSource(StereoCamera(**FLEET_CAM), n_frames=n_frames, seed=s,
+                                 step=0.12)) for s in seeds]
+
+
+def _fleet_estimators(device, voc, n: int) -> list:
+    ests = []
+    for _ in range(n):
+        e = SRBAStereoSLAMEstimator(
+            GeneralOptions(), SRBAStereoSLAMOptions(camera=StereoCamera(**FLEET_CAM),
+                                                    **FLEET_OPTIONS),
+            VOOptions(fast_th=12, n_feats=128), capacity=128, max_kfs=32, device=device)
+        e.initialize(vocabulary=voc)
+        ests.append(e)
+    return ests
+
+
 def test_fleet_on_a_repeated_card_mesh_equals_meshless(cuda, monkeypatch):
     """Four sequences (the workload of tests/test_torch_parallel.py's fleet,
     two more seeds) on ``["cuda:0"] * 4``, one sequence a shard: the
     mesh-less fleet's decisions, keyframe poses within 1e-4; K1 and K2 once
     per shard per lockstep attempt."""
-    from srba_slam_tpu_torch.models.bow import Vocabulary
+    from srba_slam_tpu_torch.ops import cuda_graphs
     from srba_slam_tpu_torch.parallel import fleet
     from srba_slam_tpu_torch.parallel.batch import make_mesh
 
-    cam = StereoCamera(**FLEET_CAM)
-    rng = np.random.default_rng(0)
-    voc = Vocabulary.train(rng.integers(0, 2**32, (512, 8), dtype=np.uint64).astype(np.uint32),
-                           k=8, L=2, seed=0)
-    seqs = [list(SyntheticSource(cam, n_frames=12, seed=s, step=0.12)) for s in (11, 23, 35, 47)]
+    voc = _fleet_vocabulary()
+    seqs = _fleet_sequences((11, 23, 35, 47))
 
     sizes = []
-    frontend = fleet.extract_and_match_batch
-    monkeypatch.setattr(fleet, "extract_and_match_batch", lambda lefts, *a, **k: (
-        sizes.append(len(lefts)), frontend(lefts, *a, **k))[1])
+    attempt = fleet.FleetSLAM._attempt
+    monkeypatch.setattr(fleet.FleetSLAM, "_attempt", lambda self, s, idx, *a: (
+        sizes.append(len(idx)), attempt(self, s, idx, *a))[1])
 
     def run(mesh):
         sizes.clear()
-        ests = []
-        for _ in seqs:
-            e = SRBAStereoSLAMEstimator(
-                GeneralOptions(), SRBAStereoSLAMOptions(camera=cam, **FLEET_OPTIONS),
-                VOOptions(fast_th=12, n_feats=128), capacity=128, max_kfs=32, device=cuda)
-            e.initialize(vocabulary=voc)
-            ests.append(e)
+        ests = _fleet_estimators(cuda, voc, len(seqs))
         before = hopper_fast.fast_nms.launches, hopper_fast.orb_descriptors.launches
+        captures = cuda_graphs.capture_stats("fleet_attempt")["captures"]
         fleet.FleetSLAM(ests, mesh=mesh).run(seqs)
         n_k1 = hopper_fast.fast_nms.launches - before[0]
         assert hopper_fast.orb_descriptors.launches - before[1] == n_k1
-        return ests, n_k1, list(sizes)
+        return (ests, n_k1, list(sizes),
+                cuda_graphs.capture_stats("fleet_attempt")["captures"] - captures)
 
-    plain, n_plain, sizes_plain = run(make_mesh(devices=[cuda]))
-    meshed, n_meshed, sizes_meshed = run(make_mesh(devices=[cuda] * 4))
+    plain, n_plain, sizes_plain, caps_plain = run(make_mesh(devices=[cuda]))
+    meshed, n_meshed, sizes_meshed, caps_meshed = run(make_mesh(devices=[cuda] * 4))
     for m, p in zip(meshed, plain):
         assert decisions(m.step_log) == decisions(p.step_log)
         n = p.store.n_kfs
         assert m.store.n_kfs == n >= 2
         assert float(np.abs(m.rba.kf_global[:n] - p.rba.kf_global[:n]).max()) <= 1e-4
-    # bootstrap frames: one launch a sequence; then one a shard an attempt:
-    # the mesh-less fleet's batch of an attempt is one launch a sequence here
-    assert n_plain == 4 + len(sizes_plain) and len(sizes_plain) >= 11
-    assert n_meshed == 4 + len(sizes_meshed) == 4 + sum(sizes_plain)
-    assert set(sizes_meshed) == {1}
+    # bootstrap frames: one launch a sequence; then one a shard an attempt
+    # (a replay of its program) and one a program's warm-up: the mesh-less
+    # fleet's batch of an attempt is one launch a sequence here; the four
+    # shards of one card share their attempt program
+    assert n_plain == 4 + len(sizes_plain) + caps_plain and len(sizes_plain) >= 11
+    assert n_meshed == 4 + len(sizes_meshed) + caps_meshed
+    assert len(sizes_meshed) == sum(sizes_plain) and set(sizes_meshed) == {1}
+    assert caps_meshed <= 1
+
+
+def _recording_fleet(ests, mesh=None):
+    """A fleet over ``ests`` whose lockstep attempts and check groups are
+    recorded as they are called: (fleet, {"attempts": [args], "checks":
+    [args]}, the unwrapped methods)."""
+    from srba_slam_tpu_torch.parallel import fleet
+    from srba_slam_tpu_torch.tools.fleet_launches import record_calls
+
+    flt = fleet.FleetSLAM(ests, mesh=mesh)
+    return (flt, *record_calls(flt))
+
+
+def _assert_same_run(a, b):
+    """Two fleet runs' estimators: the same decisions, step results,
+    thresholds, DA stream, keyframe store and BoW rows and keyframe poses,
+    bit for bit."""
+    for x, y in zip(a, b):
+        assert decisions(x.step_log) == decisions(y.step_log)
+        for rx, ry in zip(x.step_log, y.step_log):
+            assert (rx.vo_valid, rx.n_stereo_matches, rx.tracked_from_last_kf) == (
+                ry.vo_valid, ry.n_stereo_matches, ry.tracked_from_last_kf)
+        assert (x.vo.fast_th, x.vo.orb_th, x._da_seed) == (y.vo.fast_th, y.vo.orb_th, y._da_seed)
+        assert x.store.n_kfs == y.store.n_kfs >= 2
+        for name, p, q in zip(x.store.arrays._fields, x.store.arrays, y.store.arrays):
+            assert torch.equal(p, q), name
+        assert torch.equal(x.bow._db, y.bow._db)
+        np.testing.assert_array_equal(x.store.match_ids, y.store.match_ids)
+        x.rba.flush(), y.rba.flush()
+        np.testing.assert_array_equal(x.rba.kf_global[:x.store.n_kfs],
+                                      y.rba.kf_global[:y.store.n_kfs])
+        for p, q in zip(x.vo.last_frame(), y.vo.last_frame()):
+            assert torch.equal(p, q)
+
+
+def test_fleet_programs_equal_eager(cuda, monkeypatch):
+    """A two-sequence fleet with its lockstep attempts and check groups as
+    CUDA-graph programs (``FLEET_GRAPHS``) against the eager fleet: every
+    decision, step result, store and BoW row and keyframe pose bit for bit.
+    Then an attempt with both sequences pending, a retry of one, and the
+    largest check group of the run, each called as its program twice and
+    eagerly on the same state: the same outputs; a program captured once a
+    key (a second call captures nothing)."""
+    from srba_slam_tpu_torch.ops import cuda_graphs
+    from srba_slam_tpu_torch.parallel import batch
+
+    voc = _fleet_vocabulary()
+    seqs = _fleet_sequences((11, 23))
+    runs = {}
+    for graphs in (True, False):
+        monkeypatch.setattr(batch, "FLEET_GRAPHS", graphs)
+        captures = {k: cuda_graphs.capture_stats(k)["captures"]
+                    for k in ("fleet_attempt", "fleet_check")}
+        ests = _fleet_estimators(cuda, voc, 2)
+        flt, rec, methods = _recording_fleet(ests)
+        flt.run(seqs)
+        runs[graphs] = (ests, rec, methods, {k: cuda_graphs.capture_stats(k)["captures"] - n
+                                             for k, n in captures.items()})
+    _assert_same_run(runs[True][0], runs[False][0])
+    ests, rec, (attempt, check_group), captured = runs[True]
+    # one check program a group size (1 or 2), whichever sequence leads it
+    assert captured["fleet_attempt"] >= 1 and 1 <= captured["fleet_check"] <= 2
+    assert runs[False][3] == {"fleet_attempt": 0, "fleet_check": 0}
+    s, idx, lefts, rights = next(a for a in rec["attempts"] if len(a[1]) == 2)
+    group = max(rec["checks"], key=lambda c: len(c[2]))
+    calls = [lambda: attempt(s, idx, lefts, rights)[1:], lambda: attempt(s, idx[1:], lefts,
+                                                                         rights)[1:],
+             lambda: check_group(*group)]
+    n = cuda_graphs.PROGRAM_STATS["captures"]
+    for call in calls:
+        monkeypatch.setattr(batch, "FLEET_GRAPHS", True)
+        first = _leaves(call())
+        n_first = cuda_graphs.PROGRAM_STATS["captures"]
+        graph = _leaves(call())
+        assert cuda_graphs.PROGRAM_STATS["captures"] == n_first
+        monkeypatch.setattr(batch, "FLEET_GRAPHS", False)
+        eager = _leaves(call())
+        assert len(graph) == len(eager) == len(first) > 0
+        for i, (x, y, z) in enumerate(zip(graph, eager, first)):
+            assert x.dtype == y.dtype and torch.equal(x, y) and torch.equal(x, z), i
+    # the run's attempt of two and check group had their programs; a retry
+    # of one sequence alone may be a new key
+    assert cuda_graphs.PROGRAM_STATS["captures"] <= n + 1
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_batched_vo_step_programs_equal_eager(cuda, monkeypatch, n_shards):
+    """``batched_vo_step`` of two sequences over a mesh of the card (once,
+    and twice: one sequence a shard), two steps, each shard's step one
+    replay of its program: bit for bit the eager step (``FLEET_GRAPHS``
+    off), its fleet means too; one K1 and one K2 launch a shard a step, and
+    one more for each program's warm-up (the shards of one card share it)."""
+    from srba_slam_tpu_torch.ops import cuda_graphs
+    from srba_slam_tpu_torch.parallel import batch
+
+    seqs = _fleet_sequences((11, 23), n_frames=3)
+    cam = StereoCamera(**FLEET_CAM)
+    mesh = batch.make_mesh(devices=[cuda] * n_shards)
+    init = torch.zeros((2, 6), device=cuda)
+    runs = {}
+    for graphs in (True, False):
+        monkeypatch.setattr(batch, "FLEET_GRAPHS", graphs)
+        prev = batch.empty_features(2, 128, device=cuda)
+        before = hopper_fast.fast_nms.launches
+        captures = cuda_graphs.capture_stats("batched_step")["captures"]
+        outs = []
+        for j in (1, 2):
+            out = batch.batched_vo_step(mesh, np.stack([q[j][0] for q in seqs]),
+                                        np.stack([q[j][1] for q in seqs]), prev, init, cam,
+                                        torch.tensor(12.0, device=cuda),
+                                        torch.tensor(60, device=cuda), k=128)
+            outs.append(out)
+            prev = out[0]
+        caps = cuda_graphs.capture_stats("batched_step")["captures"] - captures
+        assert hopper_fast.fast_nms.launches - before == 2 * n_shards + caps
+        assert (caps <= 1) if graphs else (caps == 0)
+        runs[graphs] = outs
+    for a, b in zip(runs[True], runs[False]):
+        la, lb = _leaves(a), _leaves(b)
+        assert len(la) == len(lb) == 13 + 4
+        for i, (x, y) in enumerate(zip(la, lb)):
+            assert x.dtype == y.dtype and torch.equal(x, y), i
+    assert bool(runs[True][1][2].all()) and float(runs[True][1][4]) == 1.0
+
+
+def fleet_launches_child() -> None:
+    """:func:`test_fleet_programs_launch_no_kernels`' process: a two-sequence
+    fleet over 10 frames through ``tools/fleet_launches.py`` ``measure``;
+    prints its JSON object."""
+    import json
+
+    from srba_slam_tpu_torch.tools import fleet_launches
+
+    ests = _fleet_estimators("cuda", _fleet_vocabulary(), 2)
+    print(json.dumps(fleet_launches.measure(ests, _fleet_sequences((11, 23), n_frames=10))))
+
+
+def test_fleet_programs_launch_no_kernels(cuda):
+    """In a process of its own (traces of captured programs stay out of
+    this one, ROADMAP Queue 3): a call of the lockstep-attempt program and
+    of the check-group program launches no kernel and one graph (the eager
+    calls hundreds of kernels); ``batched_vo_step`` on a mesh of the card
+    twice one graph a shard, its only kernels the lead's gather and means."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys; sys.path.insert(0, 'tests'); import test_torch_cuda; "
+            "test_torch_cuda.fleet_launches_child()")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=root,
+                          timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["attempt n"] == 2 and got["check q"] >= 1 and got["shards"] == 2
+    assert got["attempt program"][:2] == [0, 1] and got["check program"][:2] == [0, 1]
+    assert got["attempt eager"][0] > 100 and got["check eager"][0] > 100
+    step_kernels, step_graphs, _copies = got["step program"]
+    assert step_graphs == 2 and step_kernels <= 3 * (13 + 4) < got["step eager"][0]
+
+
+def test_fleet_attempts_and_checks_sync_nothing(cuda):
+    """After a two-sequence fleet run with its programs, every lockstep
+    attempt and check group that it made, called again on the same
+    arguments under ``torch.cuda.set_sync_debug_mode("error")``: its
+    uploads (pinned), its program's input copies, replay and output clones
+    make no host sync."""
+    voc = _fleet_vocabulary()
+    ests = _fleet_estimators(cuda, voc, 2)
+    flt, rec, (attempt, check_group) = _recording_fleet(ests)
+    flt.run(_fleet_sequences((11, 23)))
+    assert len(rec["attempts"]) >= 11 and rec["checks"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [attempt(*a)[2] for a in rec["attempts"]]
+        outs += [check_group(*c) for c in rec["checks"]]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(o[3]).all() for o in outs[:len(rec["attempts"])])
 
 
 def test_kernels_and_graphs_on_a_second_card(cuda):
