@@ -153,22 +153,34 @@ not 0 (there is no CPU fallback):
                with CUDA activity only;
 13. insertion - where an insertion's and the epilogue's time goes: the
                bench estimator of phase 7 again over the 81 frames (strict
-               schedule, each window a group of one; its decisions equal the
+               schedule, each window a group of one, on the group's eager
+               route, ``WBA_GROUP_PROGRAMS`` off; its decisions equal the
                fingerprint), each part of an insertion
                timed alone, synchronized around it (``define_new_keyframe``'s
-               host work, the group's upload, ``assembly_plan``,
-               ``optimize_window``, the group's read, ``_commit_one``,
-               ``spanning_tree(0)``, ``on_commit``, ``bow.insert``,
-               ``store.append``); every window solved again, whole and with
-               ``max_iters=0`` (stage 1), at its bucket's shapes; the LM
-               blocks as CUDA graphs against eager blocks in turns, equal bit
-               for bit, and by exit period; launches and syncs of the largest
-               window's solve. The pose graph of phase 7's ``finalize``: its
-               first call against later calls on the same inputs, graph
-               replays against eager iterations (equal bit for bit) and
-               against the dense-``jacfwd`` loop it replaced (poses within
-               1e-3), in turns; one iteration split in its parts; launches
-               and syncs of one call;
+               host work, the group's one upload, ``assembly_plan`` (the
+               tables on the host), ``optimize_window``, the group's read,
+               ``_commit_one``, ``spanning_tree(0)``, ``on_commit``,
+               ``bow.insert``, ``store.append``); every window solved again,
+               whole and with ``max_iters=0`` (stage 1), at its bucket's
+               shapes; the LM blocks as CUDA graphs against eager blocks in
+               turns, equal bit for bit, and by exit period; launches and
+               syncs of the largest window's solve. Then the windows in the
+               engine's groups (by bucket, at most 4) through the group
+               programs (``window_ba.solve_window_group``): each equal bit for
+               bit to its eager route and each slot to its one-window solve;
+               the bench estimator again with the programs (decisions equal
+               the fingerprint, ``define_kf_ms`` median and mean, programs
+               captured in the run); the programs' capture s and pool MB.
+               The pose graph of phase 7's ``finalize``, one program
+               (``PG_PROGRAM``): its first call split into warm-up, capture
+               and the rest, later calls on the same inputs, the program
+               equal bit for bit to its parts launched from the host
+               (``PG_PROGRAM`` off) and to eager iterations, in turns against
+               the former and against the dense-``jacfwd`` loop it replaced
+               (poses within 1e-3); one iteration split in its parts; the
+               host syncs of one call; the launches of a group call and of a
+               pose-graph call, eager against program, under torch.profiler
+               in a process of its own (a program call: 0 kernels, 1 graph);
 14. mesh     - the sharded paths over a mesh of 4 devices: 4 distinct cards
                where the machine has them, else ``cuda:0`` 4 times (a
                repeated card runs its shards one after the other: no time
@@ -217,9 +229,10 @@ not 0 (there is no CPU fallback):
                inside each timed part; a b20 scan as the graph against the
                eager scan (bits, dispatch ms);
                (d) phase 13's windows in groups by bucket through
-               ``optimize_windows_batch_blob``: each slot equal to its
-               one-window solve, graph blocks equal to eager ones, ms a
-               group beside the one-window solves; (e) one fused check group
+               ``solve_window_group``: the program equal to the eager group
+               and to eager LM blocks, each slot equal to its one-window
+               solve, dispatch / done ms of the program and the eager group
+               in turns, beside the one-window solves; (e) one fused check group
                of (a) again under ``set_sync_debug_mode("error")`` (no host
                sync; its slot programs captured first), equal bit for bit
                to the eager group, each slot equal to the one-check path on
@@ -232,14 +245,20 @@ not 0 (there is no CPU fallback):
                launched in its timed parts, the card line, a busy share
                (spans of CUDA events, no CUPTI) and a CPU anchor (measured
                in its subprocess, since a fresh checkout has no cached
-               anchor), the scan graphs and the check programs it captured
-               (none inside a timed part); a scan of 60 (the
+               anchor), the scan graphs, the check programs and the window
+               programs it captured (the checks' and the windows' expected
+               none inside a timed part); a scan of 60 (the
                device-resident chunk) as the graph against the eager scan;
                then ``parallel/multichip.py``
                ``entry()`` once. ``entry``'s outputs and its example
                frontend equal the same call with ``device="cpu"`` (the
                features' integer fields, m_valid and num_inliers exact, the
                pose within 1e-4), and so does its step on street frames 0-1.
+
+After phases 11, 14, 15 and 16, following ``gc.collect()`` and
+``torch.cuda.empty_cache()``, a ``[memory]`` line: the live captured
+programs by kind (an estimator's or a fleet's check programs are freed
+with its tensors) and ``torch.cuda.memory_reserved``.
 
 Between phases 15 and 16, the scan's launches a frame at B = 8, 20 and
 60, eager against graph, under torch.profiler in a process of its own
@@ -277,6 +296,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import contextlib  # noqa: E402
+import gc  # noqa: E402
 import hashlib  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
@@ -327,6 +347,7 @@ from srba_slam_tpu_torch.utils.evaluation import ate_rmse  # noqa: E402
 from srba_slam_tpu_torch.utils.framesource import SyntheticSource  # noqa: E402
 
 DEV = "cuda"
+CARD = ""            # nvidia-smi's name and power limit (phase 1)
 N_SLICE_FRAMES = 30
 N_CPU_FRAMES = 5
 POSE_TOL_RAD = 1e-4
@@ -496,6 +517,8 @@ def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    global CARD
+    CARD = smi
     nvcc = subprocess.run([cuda_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip().splitlines()[-1]
     print(smi)
@@ -2034,15 +2057,18 @@ def phase_check(cam, frames, rec) -> None:
 
 def _split_run(frames):
     """The bench estimator over ``frames`` (the strict solve schedule: each
-    window a group of one, landed at its insertion) with each part of an
-    insertion timed on the host clock, synchronized before and after the
-    part, and every window solve recorded. ``upload`` runs from the launch
-    of a group (``SRBAEngine._dispatch_queued``) to its first
-    ``assembly_plan``, ``copy_out`` is the group's read at its commit."""
+    window a group of one, landed at its insertion; the group solved on
+    its eager route, ``WBA_GROUP_PROGRAMS`` off, so that its parts run from
+    the host) with each part of an insertion timed on the host clock,
+    synchronized before and after the part, and every window solve
+    recorded. ``assembly_plan`` builds a window's gather tables on the host
+    (``window_ba.packed_plan_arrays``), ``upload`` is the group's one
+    pinned copy (``window_ba.group_upload``), ``copy_out`` the group's read
+    at its commit."""
     est = bench_estimator(DEV, solve_sync=True)
     rba = est.rba
     parts = {name: [] for name in INSERTION_PARTS}
-    solves, entries, marks = [], [], {}
+    solves, entries = [], []
 
     def timing(fn, name, keep=lambda a: True):
         def wrapped(*a, **k):
@@ -2056,26 +2082,13 @@ def _split_run(frames):
             return out
         return wrapped
 
-    run_dispatch, run_plan, run_opt = (rba._dispatch_queued, srba_mod._packed_plan,
-                                       srba_mod.optimize_window)
+    run_dispatch, run_opt = rba._dispatch_queued, srba_mod.optimize_window
+    run_plan, run_upload = window_ba.packed_plan_arrays, window_ba.group_upload
     run_host = srba_mod.to_host
 
     def dispatch():
-        if rba._queued:
-            entries.extend(q["entry"] for q in rba._queued)
-            sync()
-            marks["start"] = time.perf_counter()
+        entries.extend(q["entry"] for q in rba._queued)
         return run_dispatch()
-
-    def plan(*a, **k):
-        sync()
-        t0 = time.perf_counter()
-        if "start" in marks:
-            parts["upload"].append((t0 - marks.pop("start")) * 1e3)
-        out = run_plan(*a, **k)
-        sync()
-        parts["assembly_plan"].append((time.perf_counter() - t0) * 1e3)
-        return out
 
     def copy_out(tensors):
         sync()
@@ -2089,13 +2102,14 @@ def _split_run(frames):
         t0 = time.perf_counter()
         out = run_opt(win, cam, **kw)
         sync()
-        marks["solved"] = time.perf_counter()
-        parts["optimize_window"].append((marks["solved"] - t0) * 1e3)
+        parts["optimize_window"].append((time.perf_counter() - t0) * 1e3)
         solves.append((win, cam, kw))
         return out
 
     rba._dispatch_queued = dispatch
-    srba_mod._packed_plan, srba_mod.optimize_window, srba_mod.to_host = plan, opt, copy_out
+    srba_mod.optimize_window, srba_mod.to_host = opt, copy_out
+    window_ba.packed_plan_arrays = timing(run_plan, "assembly_plan")
+    window_ba.group_upload = timing(run_upload, "upload")
     rba.define_new_keyframe = timing(rba.define_new_keyframe, "define_new_keyframe")
     rba._commit_one = timing(rba._commit_one, "_commit_one")
     rba.spanning_tree = timing(rba.spanning_tree, "spanning_tree(0)", lambda a: a[0] == 0)
@@ -2104,12 +2118,14 @@ def _split_run(frames):
     run_insert, run_append = bow_cls.insert, store_cls.append
     bow_cls.insert = timing(run_insert, "bow.insert")     # the database is made at frame 0
     store_cls.append = timing(run_append, "store.append")
+    keep_programs, window_ba.WBA_GROUP_PROGRAMS = window_ba.WBA_GROUP_PROGRAMS, False
     try:
         for left, right in frames:
             est.step(left, right)
     finally:
-        srba_mod._packed_plan, srba_mod.optimize_window = run_plan, run_opt
-        srba_mod.to_host = run_host
+        window_ba.WBA_GROUP_PROGRAMS = keep_programs
+        srba_mod.optimize_window, srba_mod.to_host = run_opt, run_host
+        window_ba.packed_plan_arrays, window_ba.group_upload = run_plan, run_upload
         bow_cls.insert, store_cls.append = run_insert, run_append
     n_ins = sum(r.inserted_kf not in (None, 0) for r in est.step_log)
     return est, parts, solves, entries, n_ins, run_opt
@@ -2164,7 +2180,7 @@ def _iteration_split(args) -> dict:
     """Device ms (CUDA events) of the parts of one pose-graph iteration:
     the dense Jacobian and ``J.T @ J`` (the form before), the per-edge
     Jacobian and the normal equations summed from its blocks (the form
-    now), and the Cholesky with its solve."""
+    now), and the Cholesky with its two triangular solves."""
     poses, eu, ev, rel, w, freef, free6 = _pg_inputs(args)
     J = posegraph.dense_jacobian(poses, eu, ev, rel, w, freef)
     H = torch.where(free6[:, None] & free6[None, :], J.T @ J, 0.0) \
@@ -2173,8 +2189,8 @@ def _iteration_split(args) -> dict:
     seen, run = [], posegraph._normal_equations
     posegraph._normal_equations = lambda k, q: (seen.append(k), run(k, q))[1]
     try:
-        _flag_off(posegraph, "PG_GRAPHS", lambda: posegraph.optimize_pose_graph(*args,
-                                                                               max_iters=1))()
+        _flag_off(posegraph, "PG_PROGRAM", _flag_off(
+            posegraph, "PG_GRAPHS", lambda: posegraph.optimize_pose_graph(*args, max_iters=1)))()
     finally:
         posegraph._normal_equations = run
     return {"dense jacobian": cuda_ms(lambda: posegraph.dense_jacobian(poses, eu, ev, rel, w,
@@ -2183,8 +2199,8 @@ def _iteration_split(args) -> dict:
             "edge jacobian": cuda_ms(lambda: posegraph._edge_jacobian(poses, eu, ev, rel, w,
                                                                       freef), reps=5),
             "normal equations": cuda_ms(lambda: run(seen[0], poses), reps=5),
-            "cholesky + solve": cuda_ms(lambda: torch.cholesky_solve(
-                g[:, None], torch.linalg.cholesky_ex(H)[0]), reps=5),
+            "cholesky + solve": cuda_ms(lambda: cuda_graphs.cholesky_solve(
+                torch.linalg.cholesky_ex(H)[0], g), reps=5),
             "J": tuple(J.shape)}
 
 
@@ -2277,16 +2293,24 @@ def phase_insertion(frames, pg_call) -> tuple[list, srba_mod.SRBAEngine]:
           f"(now {keep}): {periods} | the largest {shapes[big]}: graphs {_counts(c_g)}; eager "
           f"{_counts(c_e)}")
 
+    groups, launches = _insertion_programs(frames, entries, est.rba, pg_call)
+
     args, kw = pg_call["args"], pg_call["kw"]
 
     def pg():
         return posegraph.optimize_pose_graph(*args, **kw)
 
     later = [_one_call(pg)[0] for _ in range(3)]
-    e_ms, e_out = _one_call(_flag_off(posegraph, "PG_GRAPHS", pg))
+    replays = _flag_off(posegraph, "PG_PROGRAM", pg)
+    r_ms, r_out = _one_call(replays)
+    e_ms, e_out = _one_call(_flag_off(posegraph, "PG_GRAPHS", replays))
     g_out = pg()
-    for name, x, y in zip(("poses", "cost_init", "cost_final", "iters"), g_out, e_out):
-        check(torch.equal(x, y), f"the pose graph's {name} differs between replays and eager")
+    for what, other in (("its parts launched from the host (PG_PROGRAM off)", r_out),
+                        ("eager iterations", e_out)):
+        for name, x, y in zip(("poses", "cost_init", "cost_final", "iters"), g_out, other):
+            check(torch.equal(x, y), f"the pose graph's {name} differs between the program "
+                                     f"and {what}")
+    (pg_p, pg_r) = _in_turns(pg, replays, 3)
     # in turns, one call each (the dense loop takes seconds): dense, new, new, dense
     (d1, (d_poses, d_cost)), (n1, _), (n2, _), (d2, _) = (
         _one_call(f) for f in (lambda: _dense_pose_graph(args, kw["max_iters"]), pg, pg,
@@ -2294,21 +2318,162 @@ def phase_insertion(frames, pg_call) -> tuple[list, srba_mod.SRBAEngine]:
     pg_d, pg_n = statistics.median([d1, d2]), statistics.median([n1, n2])
     d = (g_out[0] - d_poses).abs().max(dim=0).values
     check(bool((d <= 1e-3).all()), f"the pose graph differs from the dense loop by {d.tolist()}")
-    pg_counts = _schedule_counts(pg)
+    r_counts = _schedule_counts(replays)
+    with SyncCount() as syncs:
+        pg()
+    sync()
     it = _iteration_split(args)
     torch.use_deterministic_algorithms(False)
+    prog = next(p for p in cuda_graphs.programs() if p["key"][0] == "posegraph"
+                and p["key"][1:3] == (args[0].shape[0], args[2].shape[0]))
+    first = pg_call["ms"]
     print(f"[epilogue] optimize_pose_graph at N {args[0].shape[0]}, E {args[2].shape[0]}, "
-          f"{kw}: first call {pg_call['ms']:.3f} ms (phase 7's finalize), then "
-          f"{', '.join(f'{x:.3f}' for x in later)} ms on the same inputs | "
-          f"preferred_linalg_library {torch.backends.cuda.preferred_linalg_library()} | eager "
-          f"iterations {e_ms:.3f} ms (one call), equal to the graph replays bit for bit | in "
-          f"turns (dense, new, new, dense): the dense-jacfwd loop {pg_d:.3f} ms, per-edge graphs "
-          f"{pg_n:.3f} ms ({pg_n / pg_d:.3f}x), poses within {d[:3].max():.2e} rad / {d[3:].max():.2e} m, "
-          f"cost {float(g_out[2]):.6g} against {float(d_cost):.6g} | one call: "
-          f"{_counts(pg_counts)} | one iteration, device ms: "
-          + ", ".join(f"{name} {v:.3f}" for name, v in it.items() if name != "J")
+          f"max_iters {kw['max_iters']}, host edges {'host_edges' in kw}: one program "
+          f"(PG_PROGRAM) | first call {first:.3f} ms (phase 7's finalize): warm-up "
+          f"{prog['warmup_s'] * 1e3:.3f} ms, capture {(prog['capture_s'] - prog['warmup_s']) * 1e3:.3f}"
+          f" ms, the rest (tables, upload, replay) {first - prog['capture_s'] * 1e3:.3f} ms; pool "
+          f"{prog['pool_bytes'] / 2**20:.1f} MB (steps {prog['body_bytes'] / 2**20:.1f} MB) | "
+          f"later calls {', '.join(f'{x:.3f}' for x in later)} ms | equal bit for bit to its "
+          f"parts launched from the host (PG_PROGRAM off, iterations as graph replays: "
+          f"{r_ms:.3f} ms one call) and to eager iterations ({e_ms:.3f} ms) | in turns (replays, "
+          f"program, program, replays): replays {pg_r:.3f} ms, program {pg_p:.3f} ms "
+          f"({pg_p / pg_r:.3f}x) | preferred_linalg_library "
+          f"{torch.backends.cuda.preferred_linalg_library()} | in turns (dense, program, "
+          f"program, dense): the dense-jacfwd loop {pg_d:.3f} ms, the program {pg_n:.3f} ms "
+          f"({pg_n / pg_d:.3f}x), poses within {d[:3].max():.2e} rad / {d[3:].max():.2e} m, "
+          f"cost {float(g_out[2]):.6g} against {float(d_cost):.6g} | one call: program "
+          f"{launches['pose graph program']} (kernel launches / graph launches / copies, "
+          f"torch.profiler in a process of its own), host syncs {syncs.n}; parts from the host "
+          f"{launches['pose graph eager']} there, {_counts(r_counts)} here | one iteration, "
+          f"device ms: " + ", ".join(f"{name} {v:.3f}" for name, v in it.items() if name != "J")
           + f" (dense J {it['J']})")
     return entries, est.rba
+
+
+def _engine_groups(entries) -> list:
+    """The windows of ``entries`` as the engine's schedule groups them: by
+    bucket in order, at most WINDOW_SLOTS // 2 a group (the half group at
+    which the engine launches)."""
+    half, by = window_ba.WINDOW_SLOTS // 2, {}
+    for e in entries:
+        by.setdefault((e["C"], e["L"], e["O"]), []).append(e)
+    return [(key, es[i:i + half]) for key, es in sorted(by.items())
+            for i in range(0, len(es), half)]
+
+
+def _window_programs() -> str:
+    """The captured window-group programs: bucket, valid slots, host
+    seconds of warm-up and capture, MB of the graph's pool and of its LM
+    steps' pools."""
+    rows = [f"{p['key'][1:4]} x {sum(p['key'][4])} {p['capture_s']:.3f} s (warm-up "
+            f"{p['warmup_s']:.3f}), pool {p['pool_bytes'] / 2**20:.1f} MB (steps "
+            f"{p['body_bytes'] / 2**20:.1f} MB)"
+            for p in cuda_graphs.programs() if p["key"][0] == "window_group"]
+    return "; ".join(rows) or "none"
+
+
+def program_launches_child(path: str) -> None:
+    """:func:`_program_launches`' process: a window group and a pose-graph
+    call saved at ``path``, each on its eager route (traced first) and as
+    its program (traced last). Prints one JSON object: per call, kernel
+    launches, graph launches and copies."""
+    rec = torch.load(path, weights_only=False)
+    cam = StereoCamera(*rec["cam"])
+    pg_args = [torch.as_tensor(a, device=DEV) for a in rec["pg_args"]]
+
+    def group():
+        return window_ba.solve_window_group(*rec["group"], cam, DEV, **rec["group_kw"])
+
+    def pose_graph():
+        return posegraph.optimize_pose_graph(*pg_args, **rec["pg_kw"])
+
+    got = {"group eager": _flag_off(window_ba, "WBA_GROUP_PROGRAMS", lambda: _scan_launch_counts(
+        group))(), "pose graph eager": _flag_off(posegraph, "PG_PROGRAM", lambda: (
+            _scan_launch_counts(pose_graph)))()}
+    got["group program"] = _scan_launch_counts(group)
+    got["pose graph program"] = _scan_launch_counts(pose_graph)
+    print(json.dumps(dict(got, captures=cuda_graphs.PROGRAM_STATS["captures"])))
+
+
+def _program_launches(group: tuple, kw: dict, cam, pg_call: dict) -> dict:
+    """The launches of one window-group call and one pose-graph call, each
+    eager against its program, under torch.profiler in a process of its
+    own (:func:`program_launches_child`; this process traces no program:
+    ROADMAP Queue 3). A program call must launch no kernel and one graph."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "programs.pt")
+        torch.save(dict(group=group, group_kw=kw, cam=tuple(cam),
+                        pg_args=[a.cpu() for a in pg_call["args"]], pg_kw=pg_call["kw"]), path)
+        code = f"import chip_smoke; chip_smoke.program_launches_child({path!r})"
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    check(proc.returncode == 0, f"the program-launches process exited with {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("group program", "pose graph program"):
+        check(got[name][:2] == [0, 1], f"a {name} call launched {got[name][0]} kernels and "
+                                       f"{got[name][1]} graphs")
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in got.items()}
+
+
+def _insertion_programs(frames, entries, rba, pg_call) -> tuple[list, dict]:
+    """Phase 13's windows through the window-group programs, in the
+    engine's groups (:func:`_engine_groups`): each group's program
+    (``window_ba.solve_window_group``) equal bit for bit to its eager route
+    (``WBA_GROUP_PROGRAMS`` off) and each slot to its one-window solve
+    (``SRBAEngine._solve_window``), padded rows zero; then the bench
+    estimator again over the frames (strict) with the programs, its
+    decisions equal to the fingerprint, ``define_kf_ms`` median and mean
+    and the programs it captured; the launches of the largest group's call
+    and of a pose-graph call (:func:`_program_launches`). Prints the
+    ``[insertion programs]`` line; returns the groups and the launches."""
+    groups = _engine_groups(entries)
+    caps0 = cuda_graphs.capture_stats("window_group")["captures"]
+    first_s = []
+    for key, es in groups:
+        windows = [window_ba.pack_window(*e["window"]) for e in es]
+        t0 = time.perf_counter()
+        prog = rba._solve_group(windows, key)
+        sync()
+        first_s.append(time.perf_counter() - t0)
+        eager = _flag_off(window_ba, "WBA_GROUP_PROGRAMS",
+                          lambda w=windows, k=key: rba._solve_group(w, k))()
+        check(torch.equal(prog, eager), f"group {key} x {len(es)}: the program differs from "
+                                        f"its eager route")
+        for i, e in enumerate(es):
+            check(torch.equal(prog[i], rba._solve_window(e)), f"group {key} x {len(es)}: slot "
+                                                              f"{i} differs from its one-window "
+                                                              f"solve")
+        check(not prog[len(es):].any(), f"group {key} x {len(es)}: a padded row is not 0")
+    caps1 = cuda_graphs.capture_stats("window_group")["captures"]
+    est = bench_estimator(DEV, solve_sync=True)
+    for left, right in frames:
+        est.step(left, right)
+    check(bw.decisions(est.step_log) == bw.load_fingerprint()["decisions"],
+          "phase 13's run with the window programs made other decisions than the fingerprint")
+    ins = [r.define_kf_ms for r in est.step_log if r.inserted_kf not in (None, 0)]
+    caps2 = cuda_graphs.capture_stats("window_group")["captures"]
+    key, big = max(groups, key=lambda g: (np.prod(g[0]), len(g[1])))
+    windows = [window_ba.pack_window(*e["window"]) for e in big]
+    pad = window_ba.WINDOW_SLOTS - len(windows)
+    group = (*(np.stack([w[j] for w in windows] + [windows[0][j]] * pad) for j in (0, 1)),
+             [True] * len(windows) + [False] * pad, *key)
+    launches = _program_launches(group, rba._solve_kw(), rba.cam, pg_call)
+    sizes: dict = {}
+    for k, es in groups:
+        sizes.setdefault(k, []).append(len(es))
+    print(f"[insertion programs] {len(entries)} windows in {len(groups)} groups as the engine "
+          f"makes them (by bucket, at most {window_ba.WINDOW_SLOTS // 2}): {sizes} | each group "
+          f"one program replay (WBA_GROUP_PROGRAMS), equal bit for bit to its eager route and "
+          f"each slot to its one-window solve, padded rows 0 | first calls "
+          f"{', '.join(f'{x:.3f}' for x in first_s)} s ({caps1 - caps0} captured) | the bench "
+          f"estimator again with the programs: decisions equal the fingerprint, define_kf_ms "
+          f"median {_med(ins)} ms, mean {statistics.mean(ins):.3f} ms over {len(ins)} "
+          f"insertions, {caps2 - caps1} window programs captured in the run | a call of "
+          f"{key} x {len(big)} (kernel launches / graph launches / copies, torch.profiler in a "
+          f"process of its own): eager {launches['group eager']}, program "
+          f"{launches['group program']} | programs: {_window_programs()}")
+    return groups, launches
 
 
 def _mesh():
@@ -2480,14 +2645,15 @@ def _pipeline_counters(est):
     n = dict(reads=0, predictions=0, fast_replays=0, classic_replays=0, demotions=0,
              sync_checks=0, window_groups=[], check_groups=[], first_group=None)
     run_host_e, run_host_s = estimator_mod.to_host, srba_mod.to_host
-    run_group, run_fused = srba_mod.optimize_windows_batch_blob, estimator_mod.fused_checks_batch
+    run_group, run_fused = srba_mod.solve_window_group, estimator_mod.fused_checks_batch
 
     def host(tensors):
         n["reads"] += 1
         return run_host_e(tensors)
 
     def group(ints, floats, valids, *a, **k):
-        n["window_groups"].append(sum(bool(v) for v in valids))
+        if not k.get("capture_only"):
+            n["window_groups"].append(sum(bool(v) for v in valids))
         return run_group(ints, floats, valids, *a, **k)
 
     def fused(feats, arrays, db, leaf_bits, weights, js, rows, valids, cam, seeds, **k):
@@ -2506,7 +2672,7 @@ def _pipeline_counters(est):
                          **k)
 
     estimator_mod.to_host, srba_mod.to_host = host, host
-    srba_mod.optimize_windows_batch_blob, estimator_mod.fused_checks_batch = group, fused
+    srba_mod.solve_window_group, estimator_mod.fused_checks_batch = group, fused
     run_defer, run_miss, run_dem = est._defer_check, est._miss_recover, est._demote_shrink_miss
     run_check = est._kf_check
 
@@ -2534,8 +2700,7 @@ def _pipeline_counters(est):
 
     def restore():
         estimator_mod.to_host, srba_mod.to_host = run_host_e, run_host_s
-        srba_mod.optimize_windows_batch_blob, estimator_mod.fused_checks_batch = (run_group,
-                                                                                  run_fused)
+        srba_mod.solve_window_group, estimator_mod.fused_checks_batch = run_group, run_fused
         for name in ("_defer_check", "_miss_recover", "_demote_shrink_miss", "_kf_check"):
             del est.__dict__[name]
 
@@ -2614,45 +2779,45 @@ def _gate_run(name: str, run: dict, fp: dict, jax_run: dict, gt_poses, strict_kf
         n_kfs=g["n_kfs"], checks=g["checks"])
 
 
-def _window_groups(entries) -> str:
-    """(d): phase 13's windows in groups by bucket through
-    ``optimize_windows_batch_blob``: every slot equal to its one-window
-    solve bit for bit, graph blocks equal to eager blocks; ms a group
-    beside the sum of its one-window solves."""
-    cam = StereoCamera.kitti()
+def _window_groups(entries, rba) -> str:
+    """(d): phase 13's windows in groups by bucket (the first WINDOW_SLOTS
+    of each) through ``solve_window_group``: the program equal bit for bit
+    to its eager route (``WBA_GROUP_PROGRAMS`` off), and to that route
+    with eager LM blocks (``WBA_GRAPHS`` off too), every slot to its
+    one-window solve, padded rows zero; host ms to dispatch and until done
+    in turns (eager, program, program, eager) beside the sum of the
+    one-window solves."""
     buckets: dict = {}
     for e in entries:
         buckets.setdefault((e["C"], e["L"], e["O"]), []).append(e)
-    rows, kw = [], None
-    for (C, L, O), es in sorted(buckets.items()):
+    rows = []
+    for key, es in sorted(buckets.items()):
         grp = es[:window_ba.WINDOW_SLOTS]
-        kw = dict(kernel_param=1.5, max_iters=8, stage1_iters=2)
-        packed = [window_ba.pack_window(*e["window"]) for e in grp]
-        pad = window_ba.WINDOW_SLOTS - len(grp)
-        ints = torch.from_numpy(np.stack([p[0] for p in packed] + [packed[0][0]] * pad)).to(DEV)
-        floats = torch.from_numpy(np.stack([p[1] for p in packed]
-                                           + [packed[0][1]] * pad)).to(DEV)
-        valids = [True] * len(grp) + [False] * pad
-        plans = [window_ba._packed_plan(p[0], C, L, O, DEV) for p in packed]
-        plans = plans + plans[:1] * pad
-        ones = [window_ba.optimize_window_packed_blob(ints[i], floats[i], C, L, O, cam,
-                                                      plan=plans[i], **kw)
-                for i in range(len(grp))]
-        def call():
-            return window_ba.optimize_windows_batch_blob(ints, floats, valids, C, L, O, cam,
-                                                         plans=plans, **kw)
+        windows = [window_ba.pack_window(*e["window"]) for e in grp]
+
+        def call(w=windows, k=key):
+            return rba._solve_group(w, k)
+
+        eager_route = _flag_off(window_ba, "WBA_GROUP_PROGRAMS", call)
+        caps = _captures("window_group")
+        t0 = time.perf_counter()
         out = call()
-        eager = _flag_off(window_ba, "WBA_GRAPHS", call)()
-        for i, one in enumerate(ones):
-            check(torch.equal(out[i], one), f"bucket {(C, L, O)}: slot {i} differs from its "
-                                            f"one-window solve")
-        check(torch.equal(out, eager), f"bucket {(C, L, O)}: graph and eager LM blocks differ")
-        check(not out[len(grp):].any(), f"bucket {(C, L, O)}: a padded row is not 0")
-        group_ms = _host_ms(call, 3)[0]
-        one_ms = sum(_host_ms(lambda i=i: window_ba.optimize_window_packed_blob(
-            ints[i], floats[i], C, L, O, cam, plan=plans[i], **kw), 3)[0]
-            for i in range(len(grp)))
-        rows.append(f"{(C, L, O)} x {len(grp)}: the group {group_ms:.3f} ms, the one-window "
+        sync()
+        first_s = time.perf_counter() - t0
+        check(torch.equal(out, eager_route()), f"bucket {key}: the program differs from the "
+                                               f"eager group")
+        check(torch.equal(out, _flag_off(window_ba, "WBA_GRAPHS", eager_route)()),
+              f"bucket {key}: the program differs from eager LM blocks")
+        for i, e in enumerate(grp):
+            check(torch.equal(out[i], rba._solve_window(e)), f"bucket {key}: slot {i} differs "
+                                                             f"from its one-window solve")
+        check(not out[len(grp):].any(), f"bucket {key}: a padded row is not 0")
+        med = _dispatch_done(call, eager_route, reps=3)
+        one_ms = sum(_host_ms(lambda e=e: rba._solve_window(e), 3)[0] for e in grp)
+        rows.append(f"{key} x {len(grp)}: first program call {first_s:.3f} s "
+                    f"({_captures('window_group') - caps} captured); dispatch / done ms, medians "
+                    f"in turns: eager group {med['eager'][0]:.3f} / {med['eager'][1]:.3f}, "
+                    f"program {med['graph'][0]:.3f} / {med['graph'][1]:.3f}; the one-window "
                     f"solves {one_ms:.3f} ms summed")
     return "; ".join(rows)
 
@@ -2717,7 +2882,7 @@ def _fused_group_check(g: dict) -> str:
             f"points within {worst:.1e})")
 
 
-def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
+def phase_pipeline(frames, gt_poses, strict: dict, entries, rba) -> dict:
     """Phase 15: the JAX package's default schedule on the bench workload
     (pipelined window solves, deferred checks, one read a batch): (a) at
     batch 20 and 8, (b) with solve_flush_before_insert, (c) the device-
@@ -2783,7 +2948,7 @@ def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
                   f"bits): {ec['timed_s']:.3f} s, {ec['fps']:.2f} fps, decisions equal the JAX "
                   f"run's, KF positions within {gates_ec[name]['d_jax']:.2e} m of it | graphs "
                   f"captured in the timed part: scans {r['captures']['vo_scan']}, check programs "
-                  f"{r['captures']['check']}")
+                  f"{r['captures']['check']}, window programs {r['captures']['window_group']}")
         print(f"[pipeline] {name}: {len(frames) - PIPE_WARMUP} timed frames after "
               f"{PIPE_WARMUP}: {r['timed_s']:.3f} s, {r['fps']:.2f} fps (phase 10 strict b8: "
               f"{strict['wall']:.3f} s for all {len(frames)}, {len(frames) / strict['wall']:.2f} "
@@ -2801,8 +2966,9 @@ def phase_pipeline(frames, gt_poses, strict: dict, entries) -> dict:
     print(f"[pipeline check graphs] {_check_programs()}")
     b20 = runs["pipelined b20"]["n"]
     check(b20["first_group"] is not None, "no fused check group of two checks or more")
-    print(f"[pipeline windows] (d) phase 13's {len(entries)} windows by bucket: "
-          + _window_groups(entries))
+    print(f"[pipeline windows] (d) phase 13's {len(entries)} windows by bucket, programs "
+          f"equal bit for bit to the eager group, to eager LM blocks and to the one-window "
+          f"solves: " + _window_groups(entries, rba))
     print(f"[pipeline checks] (e) " + _fused_group_check(b20["first_group"]))
     return counts
 
@@ -2844,8 +3010,11 @@ def phase_bench(frames, gt_poses) -> dict:
     print(f"[bench scan graphs] one repeat a part, {line['card']}: K1/K2 launches in the timed "
           f"parts (a replay adds its graph's) {line['launches']['fast_nms']}/"
           f"{line['launches']['orb_descriptors']}, scan graphs {line['scan_graphs']}, check "
-          f"programs {line['check_graphs']} | "
-          + _scan_ab(frames, bw.DEV_CHUNK))
+          f"programs {line['check_graphs']}, window programs {line['window_graphs']} | captures "
+          f"inside the timed parts (expected 0 for the checks and the windows: the harness "
+          f"captures them after its warm-up): check programs "
+          f"{line['check_graphs']['captures_timed']}, window programs "
+          f"{line['window_graphs']['captures_timed']} | " + _scan_ab(frames, bw.DEV_CHUNK))
     # the comparisons below launch kernels outside the counted path
     fn_cpu, args_cpu = entry("cpu")
     diff = _int_fields_differing(args[2], args_cpu[2])
@@ -3004,6 +3173,22 @@ def phase_cli() -> dict:
     return counts
 
 
+def _memory(after: str) -> None:
+    """The live captured programs by kind and the card's reserved memory,
+    after ``gc.collect()`` and ``torch.cuda.empty_cache()``: a program whose
+    held tensors are gone (an estimator's, a fleet's) has been freed."""
+    gc.collect()
+    live = cuda_graphs.live_programs()        # frees the dropped programs' graphs first
+    torch.cuda.empty_cache()
+    pools: dict = {}
+    for p in cuda_graphs.programs():
+        pools[p["key"][0]] = pools.get(p["key"][0], 0) + (p["pool_bytes"] + p["body_bytes"]) / 2**20
+    print(f"[memory] after {after}: {sum(live.values())} live programs {live}, their pools and "
+          f"steps' pools MB at capture {{{', '.join(f'{k}: {v:.0f}' for k, v in pools.items())}}}, "
+          f"memory_reserved {torch.cuda.memory_reserved(0) / 2**20:.1f} MB, "
+          f"memory_allocated {torch.cuda.memory_allocated(0) / 2**20:.1f} MB ({CARD})")
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     seconds = {}
@@ -3036,12 +3221,20 @@ def main():
     paths["batched"], strict = timed("batched", phase_batched, frames, src.gt_poses,
                                      per_frame_s)
     paths["fleet"], fleet_ref = timed("fleet", phase_fleet, cam)
+    _memory("phase 11")
     timed("check", phase_check, cam, frames, picked)
+    del picked          # its store's tensors hold a check program
     entries, rba = timed("insertion", phase_insertion, frames, pg_call)
     paths["mesh"] = timed("mesh", phase_mesh, frames, cam, fleet_ref, entries, rba)
-    paths["pipeline"] = timed("pipeline", phase_pipeline, frames, src.gt_poses, strict, entries)
+    del fleet_ref       # phase 11's estimators, and the programs that hold their tensors
+    _memory("phase 14")
+    paths["pipeline"] = timed("pipeline", phase_pipeline, frames, src.gt_poses, strict, entries,
+                              rba)
+    del entries, rba    # phase 13's engine, which holds its estimator
+    _memory("phase 15")
     timed("scan launches", phase_scan_launches, frames)
     paths["bench"] = timed("bench", phase_bench, frames, src.gt_poses)
+    _memory("phase 16")
     print(f"[phases] seconds {seconds}")
     for k in (k1, k2, k3):
         k["launches_by_path"] = {path: c[k["name"]] for path, c in paths.items()}

@@ -55,7 +55,9 @@ inside a timed part, and their host seconds: on the card each batch's scan
 is a replay of a graph captured once per batch length,
 ``models/vo.py`` ``vo_scan``), ``check_graphs`` (the same for the keyframe
 checks' programs, ``models/data_association.py``: one per program, shape
-and options), ``sections`` (the median headline repeat's profiler
+and options), ``window_graphs`` (the same for the window-solve groups'
+programs, ``ops/window_ba.py`` ``solve_window_group``: one per bucket,
+group and options), ``sections`` (the median headline repeat's profiler
 sections over its timed part, ms; under the pipelined schedule
 ``queryDB`` times a check's launch) and ``busy_share``.
 
@@ -111,8 +113,9 @@ CPU_ANCHOR_PROVENANCE = (f"measured: the port's per-frame path on the CPU (devic
 VS_BASELINE_PROVENANCE = ("median fps / ASSUMED 15 fps reference-CPU throughput (the "
                           "reference publishes no numbers; BASELINE.md)")
 KERNELS = (hopper_fast.fast_nms, hopper_fast.orb_descriptors, hopper_fast.fast_score_map)
-# the kinds of captured program the line counts (``ops/cuda_graphs.py``)
-GRAPH_KINDS = ("vo_scan", "check")
+# the kinds of captured program the line counts (``ops/cuda_graphs.py``),
+# by their names on the line
+GRAPH_KINDS = {"scan": "vo_scan", "check": "check", "window": "window_group"}
 
 
 class GateError(RuntimeError):
@@ -229,14 +232,16 @@ def _sections_since(est, before: dict) -> dict:
 def _warmed(device, frames, name: str):
     """A fresh bench estimator with the schedule ``name`` of
     ``bw.SCHEDULES`` after the warm-up frames at its batch, its solves
-    landed and its one-check program captured (on the card; the warm-up's
-    checks captured its slot program)."""
+    landed, its one-check program captured (on the card; the warm-up's
+    checks captured its slot program) and the window-group programs of the
+    buckets its warm-up met (group sizes 1 to WINDOW_SLOTS // 2)."""
     batch, mid, _chunk = bw.SCHEDULES[name]
     est = bench_estimator(device)
     est.solve_flush_before_insert = mid
     est.perform_stereo_slam_batched(frames[:WARMUP_FRAMES], batch=batch)
     est.rba.flush()
     est.capture_check_program()
+    est.rba.capture_window_programs()
     _sync(est.device)
     return est
 
@@ -261,7 +266,8 @@ class _Timed:
 
     def __enter__(self):
         self._launches, self._sections = _launch_counts(), _sections(self.est)
-        self._captures = {k: cuda_graphs.capture_stats(k)["captures"] for k in GRAPH_KINDS}
+        self._captures = {k: cuda_graphs.capture_stats(k)["captures"]
+                          for k in GRAPH_KINDS.values()}
         _sync(self.est.device)
         self._t0 = time.perf_counter()
         return self
@@ -464,7 +470,7 @@ def run(device="cuda", repeats: int = REPEATS, dev_repeats: int = DEV_REPEATS,
     frames, gt_poses = frames if frames is not None else render_frames()
     timed = len(frames) - WARMUP_FRAMES
     cpu = _get_cpu_anchor()
-    graphs0 = {k: cuda_graphs.capture_stats(k) for k in GRAPH_KINDS}
+    graphs0 = {k: cuda_graphs.capture_stats(k) for k in GRAPH_KINDS.values()}
 
     head = _headline(device, frames, gt_poses, jax_runs[HEADLINE], repeats)
     dts = [r["s"] for r in head]
@@ -515,7 +521,7 @@ def run(device="cuda", repeats: int = REPEATS, dev_repeats: int = DEV_REPEATS,
             captures=cuda_graphs.capture_stats(kind)["captures"] - graphs0[kind]["captures"],
             captures_timed=sum(r["captures"][kind] for r in head + dev_rows + bounded_rows),
             capture_s=cuda_graphs.capture_stats(kind)["capture_s"] - graphs0[kind]["capture_s"])
-           for name, kind in (("scan", "vo_scan"), ("check", "check"))},
+           for name, kind in GRAPH_KINDS.items()},
         "sections": head[med_i]["sections"],
         "busy_share": busy,
     }

@@ -140,3 +140,11 @@ extern "C" int srba_graph_instantiate(void* graph, void** exec_out) {
     }
     return (int)err;
 }
+
+// Free an executable graph made by srba_cond_graph_create or
+// srba_graph_instantiate (the caller has synchronized its device).
+extern "C" int srba_graph_exec_destroy(void* exec) {
+    cudaError_t err = cudaGraphExecDestroy((cudaGraphExec_t)exec);
+    if (err != cudaSuccess) cudaGetLastError();
+    return (int)err;
+}

@@ -1870,10 +1870,12 @@ class SRBAStereoSLAMEstimator:
             poses0[:n] = self.rba.kf_global[:n]
             dev = self.device
             with self.profiler.section("global_posegraph"):
+                # pinned uploads, and the gather tables from the host's
+                # edges: the call reads nothing back before its result
                 poses, _c0, _c1, _ = optimize_pose_graph(
-                    *(torch.as_tensor(a, device=dev) for a in
+                    *(cuda_graphs.upload(a, dev) for a in
                       (poses0, np.arange(n_pad) < n, eu_a, ev_a, rel_a, e_valid)),
-                    max_iters=25)
+                    max_iters=25, host_edges=(eu_a, ev_a, e_valid))
                 final_cam = poses[:n].cpu().numpy().astype(np.float64)
         else:
             final_cam = self.rba.kf_global[:n].copy()

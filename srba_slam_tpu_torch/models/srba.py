@@ -25,9 +25,9 @@ capacity buckets (``window_buckets``).
 Solve scheduling is the JAX package's two-stage queue. An insertion builds
 its window from the host state and queues it (``_queued``); once half a
 group (``WINDOW_SLOTS // 2``) is queued, ``_dispatch_queued`` launches the
-queued windows, grouped by bucket, as ``optimize_windows_batch_blob``
-calls (``_pending``), with no host read. The results land when the owner
-reads the host next: ``pending_device_arrays()`` gives the groups' result
+queued windows, grouped by bucket, as ``solve_window_group`` calls
+(``_pending``; on a card one program replay a group), with no host read.
+The results land when the owner reads the host next: ``pending_device_arrays()`` gives the groups' result
 blobs to merge into that read, ``commit_pending()`` writes each solve
 back through ``_commit_one``, recomputes the spanning tree once and calls
 ``on_commit``. ``flush()`` lands both stages. The estimator decides when
@@ -49,10 +49,9 @@ import numpy as np
 import torch
 
 from srba_slam_tpu_torch.models.vo import to_host
-from srba_slam_tpu_torch.ops import cuda_graphs
 from srba_slam_tpu_torch.ops.window_ba import (
-    WINDOW_SLOTS, BAWindow, _packed_plan, assembly_plan, optimize_window,
-    optimize_windows_batch_blob, pack_window, result_blob, shard_window_obs,
+    WINDOW_SLOTS, BAWindow, assembly_plan, optimize_window, pack_window, result_blob,
+    shard_window_obs, solve_window_group,
 )
 from srba_slam_tpu_torch.utils import se3_np
 from srba_slam_tpu_torch.utils.camera import StereoCamera
@@ -195,6 +194,9 @@ class SRBAEngine:
         # lazy=False lands them before define_new_keyframe returns
         self.lazy = lazy
         self._queued: list[dict] = []   # built windows, not yet launched
+        # the first packed window of each (C, L, O) bucket met, for
+        # capture_window_programs
+        self._met: dict = {}
         # launched groups: dict(blob=[WINDOW_SLOTS, row] on the device,
         # entries=the group's windows in slot order), oldest first
         self._pending: list[dict] = []
@@ -1005,6 +1007,7 @@ class SRBAEngine:
             self._pending.append(dict(blob=self._solve_window(entry)[None], entries=[entry]))
             return info
         ints, floats = pack_window(*entry["window"])
+        self._met.setdefault((C, L, O), (ints, floats))
         self._queued.append(dict(ints=ints, floats=floats, entry=entry))
         # eager half-group launch: the device solves while the host walks on
         if len(self._queued) >= WINDOW_SLOTS // 2:
@@ -1043,11 +1046,10 @@ class SRBAEngine:
     def _dispatch_queued(self):
         """Launch every queued window, grouped by (C, L, O) bucket in
         queue order into groups of up to WINDOW_SLOTS, one
-        ``optimize_windows_batch_blob`` a group on two stacked uploads (a
-        padded slot holds a copy of the group's first window and launches
-        nothing). No host read."""
+        ``solve_window_group`` a group (one upload; a padded slot holds a
+        copy of the group's first window and launches nothing; on a card
+        one program replay). No host read."""
         q, self._queued = self._queued, []
-        dev = self.device
         i = 0
         while i < len(q):
             key = _bucket(q[i])
@@ -1056,16 +1058,36 @@ class SRBAEngine:
             while i < len(q) and len(grp) < WINDOW_SLOTS and _bucket(q[i]) == key:
                 grp.append(q[i])
                 i += 1
-            pad = WINDOW_SLOTS - len(grp)
-            with cuda_graphs.span("eager", dev):
-                ints, floats = (torch.from_numpy(np.stack([x[name] for x in grp]
-                                                          + [grp[0][name]] * pad)).to(
-                    dev, non_blocking=True) for name in ("ints", "floats"))
-                plans = [_packed_plan(x["ints"], *key, dev) for x in grp]
-                blob = optimize_windows_batch_blob(
-                    ints, floats, [True] * len(grp) + [False] * pad, *key, self.cam,
-                    plans=plans + plans[:1] * pad, solve=optimize_window, **self._solve_kw())
+            blob = self._solve_group([(x["ints"], x["floats"]) for x in grp], key)
             self._pending.append(dict(blob=blob, entries=[x["entry"] for x in grp]))
+
+    def _solve_group(self, windows: list, key: tuple, capture_only: bool = False):
+        """``solve_window_group`` of the packed ``windows`` of bucket
+        ``key`` at the front of a group of WINDOW_SLOTS."""
+        pad = WINDOW_SLOTS - len(windows)
+        ints, floats = (np.stack([w[j] for w in windows] + [windows[0][j]] * pad)
+                        for j in (0, 1))
+        return solve_window_group(ints, floats, [True] * len(windows) + [False] * pad, *key,
+                                  self.cam, self.device, capture_only=capture_only,
+                                  solve=optimize_window, **self._solve_kw())
+
+    def capture_window_programs(self) -> list[tuple]:
+        """On a card, capture now the group programs that the engine's
+        schedule launches (``window_ba.solve_window_group``): for each
+        bucket met so far and each group size from 1 to WINDOW_SLOTS // 2
+        (the half group at which the engine launches), on copies of the
+        bucket's first window, the outputs dropped and the engine
+        untouched. The bench harness calls it after its warm-up, so that no
+        timed part captures a window program. Returns the (bucket, size)
+        of the programs captured now."""
+        if self.device.type != "cuda" or self.mesh is not None:
+            return []
+        made = []
+        for key, window in sorted(self._met.items()):
+            for n in range(1, WINDOW_SLOTS // 2 + 1):
+                if self._solve_group([window] * n, key, capture_only=True):
+                    made.append((key, n))
+        return made
 
     def pending_device_arrays(self) -> tuple:
         """The result blobs of every launched group, oldest first, for the

@@ -110,5 +110,7 @@ def load() -> ctypes.CDLL:
         lib.srba_graph_instantiate.restype = ci
         lib.srba_graph_launch.argtypes = [vp, vp]
         lib.srba_graph_launch.restype = ci
+        lib.srba_graph_exec_destroy.argtypes = [vp]
+        lib.srba_graph_exec_destroy.restype = ci
         _lib = lib
     return _lib

@@ -22,11 +22,19 @@ so a step past the exit runs no kernel.
 batch's VO scan, ``models/vo.py`` ``vo_scan``; a keyframe check,
 ``models/data_association.py``; a fleet shard's lockstep attempt and check
 group, ``parallel/fleet.py``, and a shard's batched VO step,
-``parallel/batch.py``) as one CUDA graph per key, as the JAX package jits
-it once per shape: its inputs are copied into fixed buffers,
+``parallel/batch.py``; a group of window solves, ``ops/window_ba.py``
+``solve_window_group``; the pose graph, ``ops/posegraph.py``) as one CUDA
+graph per key, as the JAX package jits it once per shape: its inputs are
+copied into fixed buffers,
 the tensors it holds (a check's keyframe store and BoW database, written
 in place, and its vocabulary) are read and written where they are, the
-graph replays, and its outputs are cloned out. Inside that capture
+graph replays, and its outputs are cloned out. A program that holds
+tensors lives no longer than they do: once one of them is freed, the
+program leaves the cache, and its graphs and their memory pools are freed
+at the next safe point (:func:`release_dropped`). A program that holds
+nothing (a scan, an attempt, a batched step, a window-solve group, the
+pose graph) is keyed by shapes and options only and stays for the life of
+the process, as the JAX package's jit cache does. Inside that capture
 ``loop`` appends its steps to the graph as the same WHILE node
 (``csrc/graph_cond.cu`` ``srba_cond_append``; a carry without ``more``
 runs its n steps): the steps that the eager launches run, the same bits.
@@ -42,9 +50,12 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import itertools
 import time
+import weakref
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -62,9 +73,15 @@ _BODIES: dict | None = None
 _KEEP: list | None = None
 # The captured programs, by key and the shapes of their inputs
 _PROGRAMS: dict = {}
+# Programs whose held tensors were freed: out of _PROGRAMS, their graphs
+# not yet freed (release_dropped)
+_DROPPED: list = []
+# Tells a program from a later one captured under the same key
+_TOKENS = itertools.count()
 # Over the process: programs captured, and the host seconds of their
 # warm-ups and captures; the same by kind (a key's first element: "vo_scan",
-# "check", "fleet_attempt", "fleet_check", "batched_step")
+# "check", "fleet_attempt", "fleet_check", "batched_step", "window_group",
+# "posegraph")
 PROGRAM_STATS = dict(captures=0, capture_s=0.0)
 KIND_STATS: dict = {}
 
@@ -275,6 +292,7 @@ def _while_more(graph, sc: dict):
         if code != 0:
             raise RuntimeError(f"srba_graph_launch failed: cudaError {code}")
 
+    launch.execs = execs          # freed with a dropped program (_release)
     return launch
 
 
@@ -288,8 +306,9 @@ def _kind(key: tuple):
 
 def capture_stats(kind: str) -> dict:
     """Programs of one kind (``"vo_scan"``, ``"check"``, ``"fleet_attempt"``,
-    ``"fleet_check"``, ``"batched_step"``) captured so far and the host
-    seconds of their warm-ups and captures."""
+    ``"fleet_check"``, ``"batched_step"``, ``"window_group"``,
+    ``"posegraph"``) captured so far and the host seconds of their warm-ups
+    and captures."""
     stats = KIND_STATS.get(kind, {})
     return dict(captures=stats.get("captures", 0), capture_s=stats.get("capture_s", 0.0))
 
@@ -318,6 +337,34 @@ def upload(rows, device, dtype: torch.dtype | None = None) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
+_ALIGN = 8   # bytes: the widest element a packed buffer holds (int64)
+
+
+def pack(arrays) -> tuple[np.ndarray, tuple]:
+    """Host arrays of any dtypes as one uint8 array (each at an offset
+    aligned to 8 bytes), for one :func:`upload` of them all; and the layout
+    that :func:`unpack` reads them back with: (offset, dtype, shape) each."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    layout, off = [], 0
+    for a in arrays:
+        layout.append((off, torch.from_numpy(a[:0].reshape(-1)).dtype, a.shape))
+        off += -(-a.nbytes // _ALIGN) * _ALIGN
+    buf = np.zeros(off, np.uint8)
+    for a, (o, _dt, _shape) in zip(arrays, layout):
+        buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    return buf, tuple(layout)
+
+
+def unpack(buf: torch.Tensor, layout: tuple) -> list[torch.Tensor]:
+    """The arrays of :func:`pack` as views of ``buf`` (its upload): no copy,
+    no kernel."""
+    out = []
+    for off, dtype, shape in layout:
+        size = dtype.itemsize * int(np.prod(shape, dtype=np.int64))
+        out.append(buf[off:off + size].view(dtype).reshape(shape))
+    return out
+
+
 def program_key(inputs: dict, key: tuple, held: dict | None = None) -> tuple:
     """The key under which :func:`program` keeps the program of ``fn(inputs)``
     (and the inputs' device): ``key``, the inputs' structure, device, shapes
@@ -329,6 +376,74 @@ def program_key(inputs: dict, key: tuple, held: dict | None = None) -> tuple:
     return (key, repr(spec), dev, tuple((tuple(t.shape), t.dtype) if _is_tensor(t) else t
                                         for t in leaves),
             repr(h_spec), tuple(_storage(t) for t in h_leaves)), dev
+
+
+def _get(fn, inputs: dict, key: tuple, counted, held: dict):
+    """The program of ``fn(inputs)`` under ``key``, captured now unless
+    cached; with the inputs' leaves and device, and whether it was
+    captured now."""
+    leaves, spec = pytree.tree_flatten(inputs)
+    full_key, dev = program_key(inputs, key, held)
+    prog = _PROGRAMS.get(full_key)
+    fresh = prog is None
+    if fresh:
+        with torch.cuda.device(dev):
+            prog = _capture(fn, leaves, spec, held, dev, tuple(counted), key)
+        _register(full_key, prog, pytree.tree_leaves(held))
+    return prog, leaves, dev, fresh
+
+
+def _register(full_key: tuple, prog: SimpleNamespace, held_leaves) -> None:
+    """Cache ``prog`` under ``full_key``, dropped (:func:`_drop`) once any
+    of the tensors it holds is freed. The held leaves are the owners'
+    long-lived tensors (a store's arrays, a database, a vocabulary), never
+    views made for the call: a view would be freed, and its program
+    dropped, as soon as the call returns."""
+    prog.token = next(_TOKENS)
+    _PROGRAMS[full_key] = prog
+    for t in held_leaves:
+        if _is_tensor(t):
+            weakref.finalize(t, _drop, full_key, prog.token).atexit = False
+
+
+def _drop(full_key: tuple, token: int) -> None:
+    """A held tensor of the program ``token`` was freed: the program leaves
+    the cache (a tensor later made at the same address captures anew). Runs
+    inside the garbage collector, maybe during another program's capture,
+    so it makes no CUDA call: :func:`release_dropped` frees its graphs."""
+    prog = _PROGRAMS.get(full_key)
+    if prog is not None and prog.token == token:
+        del _PROGRAMS[full_key]
+        _DROPPED.append(prog)
+
+
+def release_dropped() -> int:
+    """Free the graphs of the dropped programs: synchronize each one's
+    device, destroy its executable graphs (its own and its loops'), reset
+    its CUDA graphs and let go of its buffers, so that its pools go back to
+    the allocator (``torch.cuda.empty_cache`` returns them to the card).
+    Called where no capture runs: before a capture (which synchronizes
+    anyway), by :func:`programs` and :func:`live_programs`. Returns the
+    number freed."""
+    if not _DROPPED or torch.cuda.is_current_stream_capturing():
+        return 0
+    dropped = list(_DROPPED)
+    _DROPPED.clear()
+    for prog in dropped:
+        _release(prog)
+    return len(dropped)
+
+
+def _release(prog: SimpleNamespace) -> None:
+    lib = cuda_build.load()
+    torch.cuda.synchronize(prog.dev)
+    for graph, launch, _sc, _sk in prog.bodies.values():
+        for exec_ in (launch.execs.values() if launch is not None else ()):
+            lib.srba_graph_exec_destroy(exec_)
+        graph.reset()
+    lib.srba_graph_exec_destroy(prog.exec_)
+    prog.graph.reset()
+    prog.bodies, prog.keep, prog.outs, prog.static = {}, [], [], []
 
 
 def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None):
@@ -352,7 +467,8 @@ def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None):
     inputs (``fn({**inputs, **held})``, the names distinct). Their
     addresses, shapes, strides and dtypes join the key, so a held tensor
     that another takes the place of captures anew; the program keeps no
-    reference to them. A key's first call runs ``fn`` on them twice (the
+    reference to them, and is dropped once one of them is freed
+    (:func:`_register`). A key's first call runs ``fn`` on them twice (the
     warm-up, then the replay), so what ``fn`` writes there must not depend
     on what it wrote before. A keyframe check holds the keyframe store and
     the BoW database (its row written in place, as JAX donates them, before
@@ -364,14 +480,9 @@ def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None):
     conditional nodes (:func:`loop`), without reading an exit test on the
     host. A capture that fails raises."""
     held = held or {}
-    leaves, spec = pytree.tree_flatten(inputs)
-    full_key, dev = program_key(inputs, key, held)
+    prog, leaves, dev, _fresh = _get(fn, inputs, key, counted, held)
     lib = cuda_build.load()
     with torch.cuda.device(dev):
-        prog = _PROGRAMS.get(full_key)
-        if prog is None:
-            prog = _PROGRAMS[full_key] = _capture(fn, leaves, spec, held, dev, tuple(counted),
-                                                  key)
         with span("graph", dev):
             for d, s_ in zip(prog.static, leaves):
                 if _is_tensor(d):
@@ -385,10 +496,19 @@ def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None):
         return pytree.tree_unflatten(outs, prog.out_spec)
 
 
+def capture(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None) -> bool:
+    """The program of ``program(fn, inputs, key, counted, held)`` captured
+    now unless it is cached, without a replay (its warm-up runs ``fn`` once
+    on copies of the inputs, its outputs dropped). True if it was captured
+    now: a caller captures ahead of the timed part of a run."""
+    return _get(fn, inputs, key, counted, held or {})[3]
+
+
 def _capture(fn, leaves, spec, held: dict, dev, counted: tuple, key: tuple) -> SimpleNamespace:
     """A key's warm-up and capture for :func:`program`: the executable
     graph, its input buffers, its outputs in the graph's pool, the launches
-    of the ``counted`` wrappers it holds, and what the capture cost."""
+    of the ``counted`` wrappers it holds, and what the warm-up and the
+    capture cost."""
     global _BODIES, _KEEP, _READ_EXITS
     t0 = time.perf_counter()
     static = [t.clone() if _is_tensor(t) else t for t in leaves]
@@ -398,6 +518,7 @@ def _capture(fn, leaves, spec, held: dict, dev, counted: tuple, key: tuple) -> S
     base = [w.launches for w in counted]
     try:
         torch.cuda.synchronize(dev)
+        release_dropped()
         torch.cuda.empty_cache()
         r0 = torch.cuda.memory_reserved(dev)
         side = torch.cuda.Stream(device=dev)
@@ -408,6 +529,7 @@ def _capture(fn, leaves, spec, held: dict, dev, counted: tuple, key: tuple) -> S
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         r1 = torch.cuda.memory_reserved(dev)
+        t1 = time.perf_counter()
         base = [w.launches for w in counted]     # the warm-up's launches ran
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, stream=side):
@@ -430,21 +552,36 @@ def _capture(fn, leaves, spec, held: dict, dev, counted: tuple, key: tuple) -> S
                                                                          capture_s=0.0))):
         stats["captures"] += 1
         stats["capture_s"] += capture_s
-    return SimpleNamespace(key=key, graph=graph, exec_=exec_, static=static, outs=outs,
-                    out_spec=out_spec, counted=counted, launches=launches, bodies=bodies,
-                    keep=keep, capture_s=capture_s, body_bytes=r1 - r0,
-                    pool_bytes=torch.cuda.memory_reserved(dev) - r1,
-                    copy_bytes=_nbytes(static) + _nbytes(outs),
-                    held_bytes=_nbytes(pytree.tree_leaves(held)))
+    return SimpleNamespace(key=key, dev=dev, graph=graph, exec_=exec_, static=static, outs=outs,
+                           out_spec=out_spec, counted=counted, launches=launches, bodies=bodies,
+                           keep=keep, capture_s=capture_s, warmup_s=t1 - t0, body_bytes=r1 - r0,
+                           pool_bytes=torch.cuda.memory_reserved(dev) - r1,
+                           copy_bytes=_nbytes(static) + _nbytes(outs),
+                           held_bytes=_nbytes(pytree.tree_leaves(held)))
 
 
 def programs() -> list[dict]:
-    """What each captured program holds and cost: its key, the launches of
-    its counted wrappers, its captured steps, the host seconds of its
-    warm-up and capture, the device bytes its graph's pool and its steps'
+    """What each live program holds and cost (the dropped ones freed
+    first): its key, its token (which capture made it), the launches of
+    its counted wrappers, its captured
+    steps, the host seconds of its warm-up and capture (``warmup_s`` of
+    them the warm-up), the device bytes its graph's pool and its steps'
     pools reserved, the bytes a replay copies (its inputs in, its outputs
     cloned out) and the bytes of the tensors it holds in place."""
-    return [dict(key=p.key, launches={w.__name__: n for w, n in zip(p.counted, p.launches)},
-                 steps=len(p.bodies), capture_s=p.capture_s, pool_bytes=p.pool_bytes,
-                 body_bytes=p.body_bytes, copy_bytes=p.copy_bytes, held_bytes=p.held_bytes)
+    release_dropped()
+    return [dict(key=p.key, token=p.token,
+                 launches={w.__name__: n for w, n in zip(p.counted, p.launches)},
+                 steps=len(p.bodies), capture_s=p.capture_s, warmup_s=p.warmup_s,
+                 pool_bytes=p.pool_bytes, body_bytes=p.body_bytes, copy_bytes=p.copy_bytes,
+                 held_bytes=p.held_bytes)
             for p in _PROGRAMS.values()]
+
+
+def live_programs() -> dict:
+    """The live programs by kind (a key's first element), the dropped ones
+    freed first."""
+    release_dropped()
+    counts: dict = {}
+    for p in _PROGRAMS.values():
+        counts[_kind(p.key)] = counts.get(_kind(p.key), 0) + 1
+    return counts

@@ -15,9 +15,14 @@ edge's Jacobian is ``[6, 12]``, forward mode over 12 tangents for all
 edges at once (``_edge_jacobian``; ``dense_jacobian``, the ``[6E, 6N]``
 form JAX builds, stays for the tests to hold it against). ``H`` and ``g``
 are summed from the edge blocks by the window solve's deterministic
-gather tables, built once per call. The fixed iteration count of JAX's
-``fori_loop`` reads nothing from the device; on a card each iteration is
-a replay of one CUDA graph (``PG_GRAPHS``).
+gather tables, built on the host once per call from the edge arrays (the
+caller's host copies, else read back). The fixed iteration count of
+JAX's ``fori_loop`` reads nothing from the device. On a card the whole
+call is one replay of a CUDA-graph program per shape and options
+(``PG_PROGRAM``, ``ops/cuda_graphs.py`` ``program``; ≙ JAX's one jit),
+its iterations one WHILE node counted to ``max_iters``; with
+``PG_PROGRAM`` off each iteration is a replay of one CUDA graph
+(``PG_GRAPHS``), the same bits.
 """
 
 from __future__ import annotations
@@ -31,6 +36,10 @@ from srba_slam_tpu_torch.utils import se3
 
 # On a CUDA device, each iteration replays as one CUDA graph; eager otherwise.
 PG_GRAPHS = True
+# On a CUDA device, the whole call replays as one CUDA-graph program; False
+# (tests and chip_smoke.py only) launches its parts from the host, the same
+# bits.
+PG_PROGRAM = True
 
 
 def _apply_delta(poses: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
@@ -113,7 +122,7 @@ def _iteration(c: dict, k: dict) -> dict:
     H = H + torch.diag(torch.where(free6, 0.0, 1.0))
     g = torch.where(free6, g, 0.0)
     L, info = torch.linalg.cholesky_ex(H)
-    delta = -torch.cholesky_solve(g[:, None], L)[:, 0]
+    delta = -cuda_graphs.cholesky_solve(L, g)
     ok = torch.all(torch.isfinite(delta)) & (info == 0)
     delta = torch.where(ok, delta, 0.0).reshape(-1, 6) * k["freef"]
     new_poses = _apply_delta(poses, delta)
@@ -126,6 +135,42 @@ def _iteration(c: dict, k: dict) -> dict:
                 iters=c["iters"] + accept.to(torch.int32))
 
 
+def edge_tables(eu: np.ndarray, ev: np.ndarray, edge_valid: np.ndarray, n: int) -> tuple:
+    """The gather tables of H's N x N blocks and of g's N blocks
+    (``segment_tables``), built on the host from the edge arrays (invalid
+    edges left out: their residuals are zero)."""
+    valid = np.asarray(edge_valid, bool)
+    u = np.where(valid, np.asarray(eu, np.int64), -1)
+    v = np.where(valid, np.asarray(ev, np.int64), -1)
+
+    def pair(x, y):
+        return np.where(x >= 0, x * n + y, -1)
+
+    return (segment_tables(np.concatenate([pair(u, u), pair(v, v), pair(u, v), pair(v, u)]),
+                           n * n, fixed=True),
+            segment_tables(np.concatenate([u, v]), n, fixed=True))
+
+
+def _solve(x: dict, layout: tuple, n_h: int, max_iters: int, init_lambda: float):
+    """The pose graph on the inputs ``x`` (the tables in one buffer,
+    ``layout`` its :func:`cuda_graphs.pack` layout, the first ``n_h`` of
+    them H's): the initial cost, then the iterations. No host read."""
+    f32 = torch.float32
+    poses0 = x["poses0"]
+    dev = poses0.device
+    n = poses0.shape[0]
+    free = x["node_valid"] & (torch.arange(n, device=dev) != 0)
+    tables = cuda_graphs.unpack(x["tables"], layout)
+    k = dict(eu=x["eu"].long(), ev=x["ev"].long(), rel=x["rel"], edge_w=x["edge_valid"].to(f32),
+             freef=free[:, None].to(f32), free6=free[:, None].expand(n, 6).reshape(-1),
+             eye=torch.eye(n * 6, dtype=f32, device=dev), h=tables[:n_h], g=tables[n_h:])
+    cost0 = _cost(k, poses0)
+    c = dict(poses=poses0, cost=cost0, lam=torch.full((), init_lambda, dtype=f32, device=dev),
+             iters=torch.zeros((), dtype=torch.int32, device=dev))
+    c = cuda_graphs.loop(_iteration, c, k, max_iters, ("posegraph",), PG_GRAPHS)
+    return c["poses"], cost0, c["cost"], c["iters"]
+
+
 def optimize_pose_graph(
     poses0: torch.Tensor,      # f32 [N, 6] initial absolute poses
     node_valid: torch.Tensor,  # bool [N]
@@ -135,31 +180,25 @@ def optimize_pose_graph(
     edge_valid: torch.Tensor,  # bool [E]
     max_iters: int = 30,
     init_lambda: float = 1e-4,
+    host_edges: tuple | None = None,
 ):
-    """Returns (poses [N,6], cost_init, cost_final, iters)."""
-    f32 = torch.float32
+    """Returns (poses [N,6], cost_init, cost_final, iters). ``host_edges``
+    = (eu, ev, edge_valid) as the caller's numpy arrays, equal to the
+    tensors: the gather tables are built from them, and nothing is read
+    from the device; without them the three are read back."""
     dev = poses0.device
     n = poses0.shape[0]
-    free = node_valid & (torch.arange(n, device=dev) != 0)
-    # the gather tables of H's N x N blocks and g's N blocks (invalid edges
-    # left out: their residuals are zero)
-    u, v, valid = (x.cpu().numpy() for x in (eu, ev, edge_valid))
-    u, v = np.where(valid, u, -1).astype(np.int64), np.where(valid, v, -1).astype(np.int64)
+    if host_edges is None:
+        host_edges = tuple(t.cpu().numpy() for t in (eu, ev, edge_valid))
+    h, g = edge_tables(*host_edges, n)
+    buf, layout = cuda_graphs.pack(h + g)
+    x = dict(poses0=poses0, node_valid=node_valid, eu=eu, ev=ev, rel=rel, edge_valid=edge_valid,
+             tables=cuda_graphs.upload(buf, dev))
 
-    def pair(x, y):
-        return np.where(x >= 0, x * n + y, -1)
+    def body(x_):
+        return _solve(x_, layout, len(h), max_iters, init_lambda)
 
-    def up(seg, n_seg):
-        return [torch.as_tensor(t, device=dev)
-                for t in segment_tables(seg, n_seg, fixed=True)]
-
-    k = dict(eu=eu.long(), ev=ev.long(), rel=rel, edge_w=edge_valid.to(f32),
-             freef=free[:, None].to(f32), free6=torch.repeat_interleave(free, 6),
-             eye=torch.eye(n * 6, dtype=f32, device=dev),
-             h=up(np.concatenate([pair(u, u), pair(v, v), pair(u, v), pair(v, u)]), n * n),
-             g=up(np.concatenate([u, v]), n))
-    cost0 = _cost(k, poses0)
-    c = dict(poses=poses0, cost=cost0, lam=torch.full((), init_lambda, dtype=f32, device=dev),
-             iters=torch.zeros((), dtype=torch.int32, device=dev))
-    c = cuda_graphs.loop(_iteration, c, k, max_iters, ("posegraph",), PG_GRAPHS)
-    return c["poses"], cost0, c["cost"], c["iters"]
+    if PG_PROGRAM and dev.type == "cuda":
+        return cuda_graphs.program(body, x, ("posegraph", n, eu.shape[0], max_iters,
+                                             init_lambda, PG_GRAPHS))
+    return body(x)

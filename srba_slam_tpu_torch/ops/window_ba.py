@@ -173,12 +173,12 @@ class AssemblyPlan(NamedTuple):
     h_cl: list    # [ac; bc] -> C*L
 
 
-def assembly_plan(obs_cam, obs_lm, lm_base, obs_valid, C: int, L: int,
-                  device) -> AssemblyPlan:
-    """Host-side gather tables for the block sums of a window (numpy index
-    arrays in). Padded observations (``obs_valid`` False) are left out,
-    since their weight is zero; the tables' shapes follow (C, L, O) only,
-    so every window of a bucket solves on the same shapes."""
+def plan_arrays(obs_cam, obs_lm, lm_base, obs_valid, C: int, L: int) -> AssemblyPlan:
+    """The gather tables for the block sums of a window, built on the host
+    (numpy index arrays in, numpy int64 tables out). Padded observations
+    (``obs_valid`` False) are left out, since their weight is zero; the
+    tables' shapes follow (C, L, O) only (:func:`plan_levels`), so every
+    window of a bucket solves on the same shapes."""
     valid = np.asarray(obs_valid, bool)
     a = np.where(valid, np.asarray(obs_cam, np.int64), -1)
     li = np.where(valid, np.asarray(obs_lm, np.int64), -1)
@@ -187,18 +187,37 @@ def assembly_plan(obs_cam, obs_lm, lm_base, obs_valid, C: int, L: int,
     def pair(x, y, n):  # segment x * n + y, left out where x is
         return np.where(x >= 0, x * n + y, -1)
 
-    def up(seg, n_seg):
-        # staged copies: a blocking copy to a card synchronizes the host
-        return [torch.from_numpy(t).to(device, non_blocking=True)
-                for t in segment_tables(seg, n_seg, fixed=True)]
+    def tables(seg, n_seg):
+        return segment_tables(seg, n_seg, fixed=True)
 
     return AssemblyPlan(
-        g_c=up(np.concatenate([a, b]), C),
-        h_cc=up(np.concatenate([pair(a, a, C), pair(b, b, C), pair(a, b, C), pair(b, a, C)]),
-                C * C),
-        lm=up(li, L),
-        h_cl=up(np.concatenate([pair(a, li, L), pair(b, li, L)]), C * L),
+        g_c=tables(np.concatenate([a, b]), C),
+        h_cc=tables(np.concatenate([pair(a, a, C), pair(b, b, C), pair(a, b, C),
+                                    pair(b, a, C)]), C * C),
+        lm=tables(li, L),
+        h_cl=tables(np.concatenate([pair(a, li, L), pair(b, li, L)]), C * L),
     )
+
+
+def plan_levels(C: int, L: int, O: int) -> AssemblyPlan:
+    """The number of tables of each field of a (C, L, O) window's plan."""
+    return AssemblyPlan(g_c=len(_fixed_levels(2 * O, C, _SEG_WIDTH)),
+                        h_cc=len(_fixed_levels(4 * O, C * C, _SEG_WIDTH)),
+                        lm=len(_fixed_levels(O, L, _SEG_WIDTH)),
+                        h_cl=len(_fixed_levels(2 * O, C * L, _SEG_WIDTH)))
+
+
+def _plan_to(plan: AssemblyPlan, device) -> AssemblyPlan:
+    """A host plan's tables on ``device``, a copy a table."""
+    # staged copies: a blocking copy to a card synchronizes the host
+    return AssemblyPlan(*([torch.from_numpy(t).to(device, non_blocking=True) for t in field]
+                          for field in plan))
+
+
+def assembly_plan(obs_cam, obs_lm, lm_base, obs_valid, C: int, L: int,
+                  device) -> AssemblyPlan:
+    """:func:`plan_arrays` on ``device``."""
+    return _plan_to(plan_arrays(obs_cam, obs_lm, lm_base, obs_valid, C, L), device)
 
 
 def _project_residuals(cam_pose, lm_pos, lm_base, obs_cam, obs_lm, obs_px,
@@ -542,7 +561,7 @@ def _window_keys(win: BAWindow | ShardedWindow, cam: StereoCamera, kernel_param:
     on_diag = torch.arange(C * C, device=dev) % (C + 1) == 0
     prior_blocks = torch.where(on_diag[:, None, None], torch.diag(prior_w6), 0.0)
     k = dict(lm_w=win.lm_valid.to(f32), free_cam=free_cam, free_w=free_cam.to(f32),
-             free6=torch.repeat_interleave(free_cam, 6), prior_w6=prior_w6,
+             free6=free_cam[:, None].expand(C, 6).reshape(-1), prior_w6=prior_w6,
              prior_blocks=prior_blocks, init_R=init_R, init_t=init_t,
              eye6C=torch.eye(C * 6, dtype=f32, device=dev), **obs)
     return k, win
@@ -616,11 +635,16 @@ def unpack_window(ints: torch.Tensor, floats: torch.Tensor, C: int, L: int, O: i
                     obs_valid)
 
 
-def _packed_plan(ints: np.ndarray, C: int, L: int, O: int, device) -> AssemblyPlan:
-    """``assembly_plan`` of a window from its host ``pack_window`` ints."""
+def packed_plan_arrays(ints: np.ndarray, C: int, L: int, O: int) -> AssemblyPlan:
+    """:func:`plan_arrays` of a window from its host ``pack_window`` ints."""
     lm_base, obs_cam, obs_lm = ints[:L], ints[L:L + O], ints[L + O:L + 2 * O]
     obs_valid = ints[L + 2 * O + C + L:] != 0
-    return assembly_plan(obs_cam, obs_lm, lm_base, obs_valid, C, L, device)
+    return plan_arrays(obs_cam, obs_lm, lm_base, obs_valid, C, L)
+
+
+def _packed_plan(ints: np.ndarray, C: int, L: int, O: int, device) -> AssemblyPlan:
+    """``assembly_plan`` of a window from its host ``pack_window`` ints."""
+    return _plan_to(packed_plan_arrays(ints, C, L, O), device)
 
 
 def result_blob(r: BAResult) -> torch.Tensor:
@@ -648,42 +672,97 @@ def optimize_window_packed_blob(ints: torch.Tensor, floats: torch.Tensor, C: int
 # Windows in a group of the batched window solve: a queued solve waits for
 # at most WINDOW_SLOTS - 1 others of its bucket (≙ the JAX package's).
 WINDOW_SLOTS = 8
+# On a card, a group of window solves (solve_window_group) replays as one
+# CUDA-graph program per bucket, valid slots and options; False (tests and
+# chip_smoke.py only) solves the valid slots in turn, the same bits.
+WBA_GROUP_PROGRAMS = True
 
 
-def optimize_windows_batch_blob(ints: torch.Tensor, floats: torch.Tensor, valids,
-                                C: int, L: int, O: int, cam: StereoCamera, plans=None,
-                                kernel_param: float = 1.5, max_iters: int = 12,
-                                use_kernel: bool = True, w_prior_rot: float = 1000.0,
-                                w_prior_trans: float = 100.0, stage1_iters: int = 0,
-                                use_kernel_stage1: bool = True, solve=None) -> torch.Tensor:
-    """Up to WINDOW_SLOTS window solves of one (C, L, O) bucket as one
-    group, on the device of ``ints``/``floats`` ([WINDOW_SLOTS, n]
-    stacked ``pack_window`` blobs; a padded slot holds a copy of a valid
-    window, as the JAX package pads). ``valids`` is the host's list of the
-    valid slots; ``plans`` the slots' ``assembly_plan`` from the host ints
-    (read back when omitted). Returns [WINDOW_SLOTS, C*6 + L*3 + 4] rows
-    (:func:`result_blob`), zero for a padded slot; nothing is read on the
-    host.
+def group_upload(ints: np.ndarray, floats: np.ndarray, tables: list, device
+                 ) -> tuple[torch.Tensor, tuple]:
+    """A group's inputs in one copy to ``device`` (pinned on a card,
+    ``cuda_graphs.upload``): the stacked ``pack_window`` ints and floats
+    [S, n] and the valid slots' gather tables ``tables`` (a
+    :func:`plan_arrays` each), stacked per table [n_valid, rows, width].
+    Returns the buffer and its layout (``cuda_graphs.pack``)."""
+    # table by table (field after field), the slots' tables stacked
+    stacked = [np.stack(t) for t in zip(*([t for field in p for t in field] for p in tables))]
+    buf, layout = cuda_graphs.pack([ints, floats, *stacked])
+    return cuda_graphs.upload(buf, device), layout
 
-    The valid slots solve in turn, each its one-window solve (a padded
-    slot launches nothing), so each row holds its one-window solve's bits;
-    on a card each solve replays its bucket's CUDA-graph blocks (≙ the
-    JAX package's default route, ``_VMAP_LO_LIMIT = 0``; its vmapped lanes
-    are not ported). ``solve`` is the one-window solve (``optimize_window``
-    when omitted)."""
-    kw = dict(kernel_param=kernel_param, max_iters=max_iters, use_kernel=use_kernel,
-              w_prior_rot=w_prior_rot, w_prior_trans=w_prior_trans,
-              stage1_iters=stage1_iters, use_kernel_stage1=use_kernel_stage1)
-    valids = [bool(v) for v in valids]
-    n_slots = len(valids)
-    dev = floats.device
-    if plans is None:
-        host = ints.cpu().numpy()
-        plans = [_packed_plan(host[i], C, L, O, dev) for i in range(n_slots)]
-    blob_len = C * 6 + L * 3 + 4
-    solve = optimize_window if solve is None else solve
-    zero = torch.zeros(blob_len, dtype=torch.float32, device=dev)
+
+def group_inputs(buf: torch.Tensor, layout: tuple, C: int, L: int, O: int) -> tuple:
+    """The inverse of :func:`group_upload` on the device: views of ``buf``,
+    ``(ints, floats, plans)``, ``plans`` one :class:`AssemblyPlan` a valid
+    slot (views of the stacked tables)."""
+    ints, floats, *stacked = cuda_graphs.unpack(buf, layout)
+    plans = []
+    for j in range(stacked[0].shape[0] if stacked else 0):
+        tabs = iter(t[j] for t in stacked)
+        plans.append(AssemblyPlan(*([next(tabs) for _ in range(n)]
+                                    for n in plan_levels(C, L, O))))
+    return ints, floats, plans
+
+
+def _group_body(buf: torch.Tensor, layout: tuple, valids: tuple, C: int, L: int, O: int,
+                cam: StereoCamera, kw: dict, solve) -> torch.Tensor:
+    """A group's rows from its uploaded inputs (:func:`group_inputs`): the
+    valid slots' one-window solves ``solve`` in turn, each on its own
+    tables (a padded slot launches nothing), so each row holds its
+    one-window solve's bits; zero for a padded slot (≙ the JAX package's
+    default route, ``_VMAP_LO_LIMIT = 0``: a ``lax.scan`` whose
+    ``lax.cond`` skips a padded slot; its vmapped lanes are not ported)."""
+    ints, floats, plans = group_inputs(buf, layout, C, L, O)
+    plans = iter(plans)
+    zero = torch.zeros(C * 6 + L * 3 + 4, dtype=torch.float32, device=floats.device)
     return torch.stack([
-        result_blob(solve(unpack_window(ints[i], floats[i], C, L, O), cam, plan=plans[i], **kw))
-        if v else zero for i, v in enumerate(valids)])
+        result_blob(solve(unpack_window(ints[i], floats[i], C, L, O), cam, plan=next(plans),
+                          **kw)) if v else zero for i, v in enumerate(valids)])
 
+
+def group_key(valids, C: int, L: int, O: int, cam: StereoCamera, kw: dict) -> tuple:
+    """The key of a group's program: the bucket, the valid slots, every
+    solve option, the camera, and the module settings that shape the LM
+    loops (their block length, graphs or eager steps)."""
+    return ("window_group", C, L, O, tuple(bool(v) for v in valids),
+            tuple(sorted(kw.items())), cam, WBA_EXIT_EVERY, WBA_GRAPHS)
+
+
+def solve_window_group(ints: np.ndarray, floats: np.ndarray, valids, C: int, L: int, O: int,
+                       cam: StereoCamera, device, capture_only: bool = False, solve=None,
+                       **kw) -> torch.Tensor | bool:
+    """The engine's group of window solves (≙ the JAX package's
+    ``optimize_windows_batch_blob``, one jitted program): host
+    ``pack_window`` ints and floats [S, n] (a padded slot a copy of a valid
+    window), ``valids`` the host's list of the valid slots, the solve
+    options ``kw`` of :func:`optimize_window`. The valid slots' gather
+    tables are built on the host and go up with the windows in one copy
+    (:func:`group_upload`). Returns the [S, C*6 + L*3 + 4] rows on
+    ``device`` (:func:`result_blob`, zero for a padded slot), not read.
+
+    On a card (``WBA_GROUP_PROGRAMS``) the group is one replay of its
+    program (:func:`group_key`): its valid slots' solves, their LM loops as
+    WHILE nodes on the device, the padded rows made in the graph; eager
+    otherwise (the one-window solves in turn, the same kernels, the same
+    bits). ``capture_only`` captures the program unless it is cached,
+    launches nothing, and returns whether it captured (the engine's capture
+    ahead; False off the program route). ``solve`` is the one-window solve
+    (``optimize_window`` when omitted)."""
+    valids = tuple(bool(v) for v in valids)
+    device = torch.device(device)
+    programs = WBA_GROUP_PROGRAMS and device.type == "cuda"
+    if capture_only and not programs:
+        return False
+    tables = [packed_plan_arrays(ints[i], C, L, O) for i, v in enumerate(valids) if v]
+    buf, layout = group_upload(ints, floats, tables, device)
+
+    solve = optimize_window if solve is None else solve
+
+    def body(x):
+        return _group_body(x["buf"], layout, valids, C, L, O, cam, kw, solve)
+
+    if programs:
+        args = (body, dict(buf=buf), group_key(valids, C, L, O, cam, kw))
+        return cuda_graphs.capture(*args) if capture_only else cuda_graphs.program(*args)
+    with cuda_graphs.span("eager", device):
+        return body(dict(buf=buf))

@@ -632,15 +632,17 @@ def _loop_graph_np(rng, n=30, n_pad=64, e_pad=64, n_lc=3):
 
 
 def test_pose_graph_replays_match_eager(cuda, monkeypatch):
-    """The pose graph's iterations replayed as a CUDA graph give the eager
-    iterations' bits, and the CPU path's poses within 1e-3; the capture
-    synchronizes nothing, and a call synchronizes only for its tables."""
+    """With ``PG_PROGRAM`` off, the pose graph's iterations replayed as a
+    CUDA graph give the eager iterations' bits, and the CPU path's poses
+    within 1e-3; the capture synchronizes nothing, and a call synchronizes
+    only for its edges read back and its tables."""
     from srba_slam_tpu_torch.ops import cuda_graphs, posegraph, window_ba
     from srba_slam_tpu_torch.utils import kernel_timing
 
     args = _loop_graph_np(np.random.default_rng(30))
     args_c = [torch.from_numpy(a).to(cuda) for a in args]
     monkeypatch.setattr(cuda_graphs, "_GRAPHS", {})
+    monkeypatch.setattr(posegraph, "PG_PROGRAM", False)     # the replays, not the program
     graph = posegraph.optimize_pose_graph(*args_c, max_iters=25)
     assert len(cuda_graphs._GRAPHS) == 1
     monkeypatch.setattr(posegraph, "PG_GRAPHS", False)
@@ -1199,40 +1201,24 @@ def test_kernels_and_graphs_on_a_second_card(cuda):
         assert a.device == dev and torch.equal(a, b), field
 
 
-def _group_windows(cuda, bucket, slots=(0, 1, 2)):
-    """Windows in the ``slots`` of a group of WINDOW_SLOTS; a padded slot
-    holds a copy of the first window, as the engine pads."""
-    from srba_slam_tpu_torch.ops import window_ba
-
-    C, L, O = bucket
-    packed = [window_ba.pack_window(*(a.numpy() for a in _bucket_window(C, L, O, seed)))
-              for seed in range(len(slots))]
-    at = {s: p for s, p in zip(slots, packed)}
-    full = [at.get(i, packed[0]) for i in range(window_ba.WINDOW_SLOTS)]
-    ints = torch.from_numpy(np.stack([p[0] for p in full])).to(cuda)
-    floats = torch.from_numpy(np.stack([p[1] for p in full])).to(cuda)
-    plans = [window_ba._packed_plan(p[0], C, L, O, cuda) for p in full]
-    return ints, floats, [i in at for i in range(window_ba.WINDOW_SLOTS)], plans
-
-
 @pytest.mark.parametrize("slots", [(0, 1, 2), (1, 4, 7)], ids=["front", "scattered"])
 def test_window_group_graphs_match_eager_and_one_window(cuda, monkeypatch, slots):
     """A group of three windows in eight slots, valid at the front or
-    scattered among padded slots: CUDA-graph blocks give the eager blocks'
-    bits, each slot its one-window solve's, the padded rows are zero, and
-    once captured the group synchronizes nothing (set_sync_debug_mode
-    "error" raises on a sync)."""
+    scattered among padded slots (``solve_window_group``, one program on
+    the card): CUDA-graph blocks give the eager blocks' bits, each slot its
+    one-window solve's, the padded rows are zero, and once captured the
+    group synchronizes nothing (set_sync_debug_mode "error" raises on a
+    sync)."""
     from srba_slam_tpu_torch.ops import window_ba
 
     bucket = (8, 512, 1024)
     C, L, O = bucket
-    ints, floats, valids, plans = _group_windows(cuda, bucket, slots)
+    ints, floats, valids = _packed_group(bucket, slots)
     cam = StereoCamera.kitti()
     kw = dict(kernel_param=1.5, max_iters=8, stage1_iters=2)
 
     def group():
-        return window_ba.optimize_windows_batch_blob(ints, floats, valids, C, L, O, cam,
-                                                     plans=plans, **kw)
+        return window_ba.solve_window_group(ints, floats, valids, C, L, O, cam, cuda, **kw)
 
     graph = group()
     torch.cuda.set_sync_debug_mode("error")
@@ -1249,8 +1235,10 @@ def test_window_group_graphs_match_eager_and_one_window(cuda, monkeypatch, slots
         if not v:
             assert not graph[i].any(), i
             continue
-        one = window_ba.optimize_window_packed_blob(ints[i], floats[i], C, L, O, cam,
-                                                    plan=plans[i], **kw)
+        plan = window_ba._packed_plan(ints[i], C, L, O, cuda)
+        one = window_ba.optimize_window_packed_blob(
+            torch.from_numpy(ints[i]).to(cuda), torch.from_numpy(floats[i]).to(cuda), C, L, O,
+            cam, plan=plan, **kw)
         assert torch.equal(graph[i], one), i
 
 
@@ -1495,10 +1483,10 @@ def test_estimator_captures_its_check_program_after_warm_up(cuda, monkeypatch):
 def test_uploader_runs_while_graphs_capture(cuda, monkeypatch):
     """The batched loop on the card from empty graph caches, its frame
     source slow enough that the uploader thread stages frames while the
-    main thread captures the first GN, Jacobi and LM graphs (the LM steps
-    in the loops' cache, the GN and Jacobi steps of the scans and the
-    checks in their programs' own caches): the captures succeed, and the
-    run makes the card's per-frame decisions."""
+    main thread captures the first GN, Jacobi and LM graphs (the GN,
+    Jacobi and LM steps of the scans, the checks and the window groups in
+    their programs' own caches): the captures succeed, and the run makes
+    the card's per-frame decisions."""
     import time
 
     from srba_slam_tpu_torch.ops import cuda_graphs
@@ -1527,7 +1515,7 @@ def test_uploader_runs_while_graphs_capture(cuda, monkeypatch):
     batched = make()
     batched.perform_stereo_slam_batched(slow(frames), batch=4)
     kinds = {p["key"][0] for p in cuda_graphs.programs()}
-    assert kinds == {"vo_scan", "check"}
+    assert kinds == {"vo_scan", "check", "window_group"}
     assert len(cuda_graphs._GRAPHS) + sum(p["steps"] for p in cuda_graphs.programs()) >= 3
     assert [u["n"] for u in batched.lat["uploads"]] == [4, 4, 4, 4, 3]
     per_frame = make()
@@ -1535,3 +1523,216 @@ def test_uploader_runs_while_graphs_capture(cuda, monkeypatch):
         per_frame.step(left, right)
     assert decisions(batched.step_log) == decisions(per_frame.step_log)
     assert batched.store.n_kfs == per_frame.store.n_kfs >= 3
+
+
+def _packed_group(bucket, slots):
+    """Host-packed windows of ``bucket`` in ``slots`` of WINDOW_SLOTS (a
+    padded slot a copy of the first), as the engine passes a group."""
+    from srba_slam_tpu_torch.ops import window_ba
+
+    C, L, O = bucket
+    packed = [window_ba.pack_window(*(a.numpy() for a in _bucket_window(C, L, O, seed)))
+              for seed in range(len(slots))]
+    at = dict(zip(slots, packed))
+    full = [at.get(i, packed[0]) for i in range(window_ba.WINDOW_SLOTS)]
+    return (np.stack([p[0] for p in full]), np.stack([p[1] for p in full]),
+            [i in at for i in range(window_ba.WINDOW_SLOTS)])
+
+
+GROUP_KW = dict(kernel_param=1.5, max_iters=8, stage1_iters=2)
+
+
+@pytest.mark.parametrize("slots", [(0,), (0, 1, 2, 3), (1, 4, 7)],
+                         ids=["one", "front4", "scattered"])
+def test_window_group_program_equals_eager_and_one_window(cuda, monkeypatch, slots):
+    """A group of windows of the (16, 1024, 2048) bucket through
+    ``solve_window_group``: one program captured, then replayed under
+    ``set_sync_debug_mode("error")`` (no host sync: its pinned upload, its
+    input copy, the replay and the clone out); its rows equal the eager
+    group's (``WBA_GROUP_PROGRAMS`` off) and each slot its one-window solve
+    (``SRBAEngine._solve_window``'s), bit for bit; padded rows zero."""
+    from srba_slam_tpu_torch.ops import cuda_graphs, window_ba
+
+    bucket = (16, 1024, 2048)
+    C, L, O = bucket
+    ints, floats, valids = _packed_group(bucket, slots)
+    cam = StereoCamera.kitti()
+
+    def group():
+        return window_ba.solve_window_group(ints, floats, valids, C, L, O, cam, cuda, **GROUP_KW)
+
+    monkeypatch.setattr(cuda_graphs, "_PROGRAMS", {})    # an earlier test may hold its key
+    captures = cuda_graphs.capture_stats("window_group")["captures"]
+    graph = group()
+    assert cuda_graphs.capture_stats("window_group")["captures"] == captures + 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = group()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cuda_graphs.capture_stats("window_group")["captures"] == captures + 1
+    assert torch.equal(graph, again)
+    monkeypatch.setattr(window_ba, "WBA_GROUP_PROGRAMS", False)
+    eager = group()
+    assert torch.equal(graph, eager)
+    for i, v in enumerate(valids):
+        if not v:
+            assert not graph[i].any(), i
+            continue
+        win = window_ba.unpack_window(torch.from_numpy(ints[i]), torch.from_numpy(floats[i]),
+                                      C, L, O)
+        plan = window_ba.assembly_plan(*(a.numpy() for a in (
+            win.obs_cam, win.obs_lm, win.lm_base, win.obs_valid)), C, L, cuda)
+        one = window_ba.result_blob(window_ba.optimize_window(
+            window_ba.BAWindow(*(a.to(cuda) for a in win)), cam, plan=plan, **GROUP_KW))
+        assert torch.equal(graph[i], one), i
+
+
+def test_pose_graph_program_equals_eager(cuda, monkeypatch):
+    """The pose graph as one program (``PG_PROGRAM``) gives the bits of
+    its parts launched from the host (``PG_PROGRAM`` off, its iterations
+    graph replays); with the host's edges and inputs on the card a call
+    makes no host sync before its result's read."""
+    from srba_slam_tpu_torch.ops import cuda_graphs, posegraph
+
+    args = _loop_graph_np(np.random.default_rng(30))
+    args_c = [torch.from_numpy(a).to(cuda) for a in args]
+    host = (args[2], args[3], args[5])
+
+    def call():
+        return posegraph.optimize_pose_graph(*args_c, max_iters=25, host_edges=host)
+
+    monkeypatch.setattr(cuda_graphs, "_PROGRAMS", {})    # an earlier finalize may hold its key
+    captures = cuda_graphs.capture_stats("posegraph")["captures"]
+    prog = call()
+    assert cuda_graphs.capture_stats("posegraph")["captures"] == captures + 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.setattr(posegraph, "PG_PROGRAM", False)
+    eager = call()
+    for name, a, b, c in zip(("poses", "cost_init", "cost_final", "iters"), prog, again, eager):
+        assert torch.equal(a, b) and torch.equal(a, c), name
+    assert float(prog[2]) < 0.05 * float(prog[1])
+
+
+def program_launches_child() -> None:
+    """:func:`test_window_and_pose_graph_programs_launch_no_kernels`'
+    process: one window group of three at (8, 512, 1024) and the pose graph
+    of a loop, each eager (traced first) and as its program (traced last):
+    kernel launches, graph launches and copies of one call. Prints one JSON
+    object."""
+    import json
+
+    from srba_slam_tpu_torch.ops import posegraph, window_ba
+    from srba_slam_tpu_torch.utils import kernel_timing as kt
+
+    bucket = (8, 512, 1024)
+    ints, floats, valids = _packed_group(bucket, (0, 1, 2))
+    cam = StereoCamera.kitti()
+    args = _loop_graph_np(np.random.default_rng(30))
+    args_c = [torch.from_numpy(a).to("cuda") for a in args]
+
+    def group():
+        return window_ba.solve_window_group(ints, floats, valids, *bucket, cam, "cuda",
+                                            **GROUP_KW)
+
+    def pose_graph():
+        return posegraph.optimize_pose_graph(*args_c, max_iters=25,
+                                             host_edges=(args[2], args[3], args[5]))
+
+    def counts(fn):
+        evs = kt.profile_calls(fn)
+        return [kt.launch_count(evs), sum(e.count for e in evs if "GraphLaunch" in e.key),
+                sum(e.count for e in evs if e.key == "cudaMemcpyAsync")]
+
+    got = {}
+    window_ba.WBA_GROUP_PROGRAMS, posegraph.PG_PROGRAM = False, False
+    got["group eager"], got["pose graph eager"] = counts(group), counts(pose_graph)
+    window_ba.WBA_GROUP_PROGRAMS, posegraph.PG_PROGRAM = True, True
+    got["group program"], got["pose graph program"] = counts(group), counts(pose_graph)
+    print(json.dumps(got))
+
+
+def test_window_and_pose_graph_programs_launch_no_kernels(cuda):
+    """In a process of its own (traces of captured programs stay out of
+    this one, ROADMAP Queue 3): a call of a window group's program and of
+    the pose graph's program launches no kernel and one graph; eagerly the
+    group launches hundreds of kernels and graphs a slot, the pose graph
+    its kernels and one graph an iteration."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys; sys.path.insert(0, 'tests'); import test_torch_cuda; "
+            "test_torch_cuda.program_launches_child()")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=root,
+                          timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["group program"][:2] == [0, 1] and got["pose graph program"][:2] == [0, 1]
+    assert got["group eager"][0] > 100 and got["group eager"][1] >= 3
+    assert got["pose graph eager"][0] > 10 and got["pose graph eager"][1] == 25
+
+
+def _small_estimator(cuda):
+    cam = StereoCamera(**SMALL_CAM)
+    opts = SRBAStereoSLAMOptions(
+        orb_adaptive_fast_th=True, camera=cam, n_feats=256, detect_fast_th=12,
+        adaptive_th_min_matches=40, max_translation=0.5, max_rotation=10.0,
+        updated_matches_th=40, vo_id_tracking_th=30, srba_submap_size=5,
+        srba_max_optimize_depth=3, da_filter_by_direction=False, residual_th=10.0)
+    est = SRBAStereoSLAMEstimator(GeneralOptions(), opts, VOOptions(fast_th=12, n_feats=256),
+                                  capacity=256, max_kfs=64, device=cuda)
+    est.initialize()
+    return est
+
+
+def test_programs_of_a_deleted_estimator_are_freed(cuda):
+    """A batched run on the card captures check programs that hold the
+    estimator's store, database and vocabulary, and programs that hold
+    nothing (its scans, its window groups). Once the estimator is deleted
+    and collected, its check programs are gone from ``programs()`` and
+    their pools go back to the card (``memory_reserved`` after
+    ``empty_cache`` falls by at least their pools); the programs without
+    held tensors stay, and the next estimator replays them."""
+    import gc
+
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    cam = StereoCamera(**SMALL_CAM)
+    frames = list(SyntheticSource(cam, n_frames=20, seed=11, step=0.12))
+    gc.collect()
+    earlier = {p["token"] for p in cuda_graphs.programs()}
+    est = _small_estimator(cuda)
+    est.perform_stereo_slam_batched(frames, batch=4)
+    est.rba.flush()
+    assert est.store.n_kfs >= 3
+    mine = [p for p in cuda_graphs.programs()
+            if p["key"][0] == "check" and p["token"] not in earlier]
+    shared = {p["token"] for p in cuda_graphs.programs() if p["held_bytes"] == 0}
+    assert mine and any(p["key"][0] == "window_group" for p in cuda_graphs.programs()
+                        if p["token"] in shared)
+    pools = sum(p["pool_bytes"] + p["body_bytes"] for p in mine)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(cuda)
+    del est
+    gc.collect()
+    tokens = {p["token"] for p in cuda_graphs.programs()}   # frees the dropped ones' graphs
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved(cuda)
+    assert not tokens & {p["token"] for p in mine}
+    assert shared <= tokens
+    assert before - after >= pools, (before, after, pools)
+    captures = cuda_graphs.capture_stats("window_group")["captures"]
+    again = _small_estimator(cuda)
+    again.perform_stereo_slam_batched(frames, batch=4)
+    again.rba.flush()
+    assert cuda_graphs.capture_stats("window_group")["captures"] == captures

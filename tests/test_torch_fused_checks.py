@@ -12,11 +12,11 @@
   the group, nor in the one-check path with device scalars, with every
   cascade option on and off (every Tensor host read patched to raise);
   ``check_key`` holds every option and shape.
-* ``optimize_windows_batch_blob``: two buckets, three windows each in
-  eight slots, valid at the front or scattered among padded slots: each
-  row against the JAX package's group (the tolerances of
-  tests/test_torch_window_ba.py), equal bit for bit to its one-window
-  solve, padded rows zero; no host read.
+* ``solve_window_group`` (the port's ``optimize_windows_batch_blob``):
+  two buckets, three windows each in eight slots, valid at the front or
+  scattered among padded slots: each row against the JAX package's group
+  (the tolerances of tests/test_torch_window_ba.py), equal bit for bit to
+  its one-window solve, padded rows zero; no host read.
 """
 
 import inspect
@@ -284,8 +284,7 @@ def test_window_group_matches_jax_and_one_window_solves(monkeypatch, bucket, slo
     ti, tf = torch.from_numpy(ints), torch.from_numpy(floats)
     plans = [twb._packed_plan(ints[i], C, L, O, "cpu") for i in range(len(ints))]
     reads = _count_host_reads(monkeypatch)
-    rows = twb.optimize_windows_batch_blob(ti, tf, list(valids), C, L, O, cam, plans=plans,
-                                           **WIN_KW)
+    rows = twb.solve_window_group(ints, floats, list(valids), C, L, O, cam, "cpu", **WIN_KW)
     n_reads = reads[0]
     monkeypatch.undo()
     assert n_reads == 0

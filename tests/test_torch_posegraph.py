@@ -89,3 +89,15 @@ def test_edge_jacobian_equals_the_dense_one(n, n_pad, e_pad, noise, n_lc):
     assert float(dense.abs().max()) > 1.0
     at_zero = posegraph._apply_delta(poses, torch.zeros_like(poses))
     assert torch.equal(r0, posegraph._residuals(at_zero, eu, ev, rel, w))
+
+
+@pytest.mark.parametrize("n,n_pad,e_pad,noise,n_lc", [(12, 16, 32, 0.01, 1), (30, 64, 64, 0.02, 3)])
+def test_host_edges_equal_the_read_back_route(n, n_pad, e_pad, noise, n_lc):
+    """The edge arrays given from the host (as ``finalize`` passes them)
+    build the same tables as the tensors read back: the same bits."""
+    args = _loop_graph(np.random.default_rng(n), n, n_pad, e_pad, noise, n_lc)
+    dev = list(map(torch.from_numpy, args))
+    back = t_opt(*dev, max_iters=10)
+    host = t_opt(*dev, max_iters=10, host_edges=(args[2], args[3], args[5]))
+    for name, a, b in zip(("poses", "cost_init", "cost_final", "iters"), host, back):
+        assert torch.equal(a, b), name
