@@ -198,9 +198,17 @@ not 0 (there is no CPU fallback):
                L=8192, O=16384) sharded over the mesh against the unsharded
                solve, max |dpose| under 1e-3, both times; phase 13's
                windows through ``SRBAEngine(mesh=)`` against the engine
-               without a mesh, window poses within 1e-3; (d)
+               without a mesh, window poses within 1e-3; each sharded solve
+               on its programs (rounds of a program a shard and one on the
+               lead, ``window_ba.WBA_SHARD_PROGRAMS``) equal bit for bit to
+               its eager LM blocks, dispatch / done ms in turns, a call
+               under ``set_sync_debug_mode("error")``, each engine bucket's
+               programs captured once, the launches of a call (0 kernels;
+               one graph a shard and one on the lead a round) under
+               torch.profiler in a process of its own; (d)
                ``parallel/multichip.py`` ``dryrun_multichip`` on the same
-               devices;
+               devices (its two sharded windows on the programs, equal to
+               their eager blocks);
 15. pipeline - the JAX package's default schedule on the bench workload:
                window solves pipelined in groups, keyframe checks deferred
                and fused per batch, one read of the host a batch. (a)
@@ -381,6 +389,7 @@ SPLIT_REPS = 2
 MESH_SIZE = 4
 LC_BUCKET = dict(C=32, L=8192, O=16384, n_cams=30, n_lms=5000, pose_noise=0.03, px_noise=0.3)
 SHARDED_TOL = 1e-3
+SHARD_REPS = 3          # phase 14 (c): calls a route a turn
 # phase 15: the JAX package's bench loop (bench.py: 21 warm-up frames at
 # batch 20, the device-resident loop in chunks of 60 and of 8) and its
 # scheduling gate (tests/test_batch_mode.py: pipelined keyframe poses within
@@ -2476,6 +2485,160 @@ def _insertion_programs(frames, entries, rba, pg_call) -> tuple[list, dict]:
     return groups, launches
 
 
+def _shard_programs() -> str:
+    """The captured sharded-window programs (``window_ba.shard_key``) by
+    bucket and options: programs a shard and on the lead, host seconds of
+    their warm-ups and captures, MB of their pools (and their steps')."""
+    by: dict = {}
+    for p in cuda_graphs.programs():
+        key = p["key"]
+        if key[0] != "window_shard":
+            continue
+        row = by.setdefault((key[1:4], dict(key[5])["max_iters"], dict(key[5])["stage1_iters"]),
+                            dict(shard=0, lead=0, s=0.0, mb=0.0))
+        row["shard" if key[9] == "shard" else "lead"] += 1
+        row["s"] += p["capture_s"]
+        row["mb"] += (p["pool_bytes"] + p["body_bytes"]) / 2**20
+    return "; ".join(f"{b} iters {it} stage1 {s1}: {r['shard']} shard + {r['lead']} lead, "
+                     f"{r['s']:.3f} s, {r['mb']:.0f} MB" for (b, it, s1), r in by.items()) or "none"
+
+
+def _sharded_rounds(kw: dict) -> int:
+    """The rounds of a sharded solve of options ``kw`` whose exit tests no
+    block before its last stops: the first state, each stage's iterations
+    (in blocks of ``WBA_EXIT_EVERY``), the switch between stages, the end."""
+    stages = [n for n in (kw.get("stage1_iters", 0), kw["max_iters"]) if n > 0]
+    its = sum(-(-n // max(1, min(window_ba.WBA_EXIT_EVERY, n))) * max(1, min(
+        window_ba.WBA_EXIT_EVERY, n)) for n in stages)
+    return 2 + its + (len(stages) - 1)
+
+
+def _sharded_ab(sw, cam, kw: dict) -> dict:
+    """A sharded window ``sw`` solved on its programs against its eager LM
+    blocks (``WBA_SHARD_PROGRAMS`` off): the first call (its captures),
+    every output equal bit for bit, a call under
+    ``set_sync_debug_mode("error")``, then dispatch / done ms in turns."""
+    def prog():
+        return window_ba.optimize_window(sw, cam, **kw)
+
+    eager = _flag_off(window_ba, "WBA_SHARD_PROGRAMS", prog)
+    stats0 = cuda_graphs.capture_stats("window_shard")
+    sync()
+    t0 = time.perf_counter()
+    out = prog()
+    sync()
+    first_s = time.perf_counter() - t0
+    stats1 = cuda_graphs.capture_stats("window_shard")
+    ref = eager()
+    for field, a, b in zip(out._fields, out, ref):
+        check(torch.equal(a, b), f"sharded solve at {tuple(sw.shards[0].cam_pose.shape)}: "
+                                 f"{field} differs between its programs and its eager blocks")
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        blob = window_ba.optimize_window_blob(sw, cam, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(torch.equal(blob, window_ba.result_blob(out)), "a sharded solve replayed differs")
+    return dict(out=out, first_s=first_s, captures=stats1["captures"] - stats0["captures"],
+                capture_s=stats1["capture_s"] - stats0["capture_s"],
+                med=_dispatch_done(prog, eager, reps=SHARD_REPS))
+
+
+def _engine_sharded(entries, plain_eng, mesh_eng) -> dict:
+    """Phase 13's windows through ``mesh_eng`` (``SRBAEngine(mesh=)``):
+    a first pass on the programs, each window's pose rows against
+    ``plain_eng`` (no mesh) within SHARDED_TOL, each bucket's programs
+    captured at its first window only; then, each window in turns
+    (programs, eager, eager, programs), the rows of both routes equal bit
+    for bit, the host ms until ``_solve_window`` returns (its layout on the
+    host, one pinned upload a shard and its rounds queued) and until the
+    card is done."""
+    buckets = {(e["C"], e["L"], e["O"]) for e in entries}
+    s1 = mesh_eng.p.stage1_iters > 0
+    per_bucket = MESH_SIZE * (2 if s1 else 1) + (5 if s1 else 3)
+    stats0 = cuda_graphs.capture_stats("window_shard")
+    err, t_plain = 0.0, []
+    for entry in entries:
+        c6 = entry["C"] * 6
+        ta, blob_a = _one_call(lambda: plain_eng._solve(entry))
+        blob_b = mesh_eng._solve(entry)
+        t_plain.append(ta)
+        err = max(err, float(np.abs(blob_a[:c6] - blob_b[:c6]).max()))
+    stats1 = cuda_graphs.capture_stats("window_shard")
+    captures = stats1["captures"] - stats0["captures"]
+    check(bool(entries) and err < SHARDED_TOL,
+          f"SRBAEngine(mesh=) window poses differ by {err} over {len(entries)} windows")
+    check(captures == per_bucket * len(buckets), f"SRBAEngine(mesh=) captured {captures} "
+          f"sharded programs over {len(buckets)} buckets, not {per_bucket} a bucket")
+    times = {k: [] for k in ("prog_dispatch", "prog_done", "eager_dispatch", "eager_done")}
+    for entry in entries:
+        def prog(entry=entry):
+            return mesh_eng._solve_window(entry)
+
+        routes = {"prog": prog, "eager": _flag_off(window_ba, "WBA_SHARD_PROGRAMS", prog)}
+        rows = {}
+        for name in ("prog", "eager", "eager", "prog"):
+            sync()
+            t0 = time.perf_counter()
+            rows[name] = routes[name]()
+            t1 = time.perf_counter()
+            sync()
+            times[name + "_dispatch"].append((t1 - t0) * 1e3)
+            times[name + "_done"].append((time.perf_counter() - t0) * 1e3)
+        check(torch.equal(rows["prog"], rows["eager"]), f"SRBAEngine(mesh=) window at "
+              f"{(entry['C'], entry['L'], entry['O'])}: programs differ from the eager blocks")
+    check(cuda_graphs.capture_stats("window_shard")["captures"] == stats1["captures"],
+          "SRBAEngine(mesh=) captured again in the timed turns")
+    return dict(times, err=err, plain=t_plain, buckets=len(buckets), per_bucket=per_bucket,
+                captures=captures, capture_s=stats1["capture_s"] - stats0["capture_s"])
+
+
+def sharded_launches_child(path: str) -> None:
+    """:func:`_sharded_launches`' process: the loop-closure-bucket window
+    and an engine window saved at ``path``, each solved sharded over the
+    saved devices on its eager LM blocks (traced first) and on its
+    programs (traced last). Prints one JSON object: per call, kernel
+    launches, graph launches and copies."""
+    rec = torch.load(path, weights_only=False)
+    mesh = make_mesh(devices=rec["devices"], axis="obs")
+    cam = StereoCamera(*rec["cam"])
+    lc = window_ba.shard_window_obs(window_ba.BAWindow(*rec["lc"]), mesh)
+    eng = srba_mod.SRBAEngine(StereoCamera(*rec["eng_cam"]), rec["params"], mesh=mesh)
+    fns = {"lc": lambda: window_ba.optimize_window_blob(lc, cam, **rec["kw"]),
+           "engine": lambda: eng._solve_window(dict(window=rec["window"]))}
+    got = {f"{name} eager": _flag_off(window_ba, "WBA_SHARD_PROGRAMS", lambda fn=fn: (
+        _scan_launch_counts(fn)))() for name, fn in fns.items()}
+    got.update({f"{name} programs": _scan_launch_counts(fn) for name, fn in fns.items()})
+    print(json.dumps(got))
+
+
+def _sharded_launches(big, cam, kw: dict, entries, mesh_eng) -> dict:
+    """The launches of one sharded solve of the loop-closure-bucket window
+    ``big`` and of the largest of phase 13's windows through ``mesh_eng``,
+    each eager against its programs, under torch.profiler in a process of
+    its own (:func:`sharded_launches_child`). A call on the programs must
+    launch no kernel, and one graph a shard and one on the lead a round."""
+    entry = max(entries, key=lambda e: (e["C"] * e["L"] * e["O"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sharded.pt")
+        torch.save(dict(devices=[str(d) for d in mesh_eng.mesh.devices], cam=tuple(cam),
+                        lc=[t.cpu().numpy() for t in big], kw=kw, eng_cam=tuple(mesh_eng.cam),
+                        params=mesh_eng.p, window=entry["window"]), path)
+        code = f"import chip_smoke; chip_smoke.sharded_launches_child({path!r})"
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    check(proc.returncode == 0, f"the sharded-launches process exited with {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    got = {k: tuple(v) for k, v in json.loads(proc.stdout.strip().splitlines()[-1]).items()}
+    n = len(mesh_eng.mesh.devices) + 1
+    for name, rounds in (("lc", _sharded_rounds(kw)), ("engine", _sharded_rounds(
+            mesh_eng._solve_kw()))):
+        check(got[f"{name} programs"][:2] == (0, rounds * n), f"a sharded {name} call launched "
+              f"{got[f'{name} programs'][:2]} kernels and graphs, not 0 and {rounds} x {n}")
+    return dict(got, bucket=(entry["C"], entry["L"], entry["O"]))
+
+
 def _mesh():
     """Phase 14's mesh: 4 distinct cards where the machine has them, else
     the one card 4 times (a virtual mesh), and which it is."""
@@ -2499,8 +2662,10 @@ def phase_mesh(frames, cam, fleet_ref: dict, entries: list, rba) -> dict:
     (b) phase 11's four sequences on the mesh against their solo runs;
     (c) the loop-closure-bucket window sharded against unsharded, and
     phase 13's windows through SRBAEngine(mesh=) against the engine
-    without one; (d) dryrun_multichip on the same devices. Returns the
-    launches of the mesh runs of (a) and (b)."""
+    without one, each sharded solve's programs against its eager LM blocks
+    (:func:`_sharded_ab`, :func:`_engine_sharded`, :func:`_sharded_launches`);
+    (d) dryrun_multichip on the same devices. Returns the launches of the
+    mesh runs of (a) and (b)."""
     mesh, kind = _mesh()
     one = make_mesh(devices=[f"{DEV}:0"])
     torch.use_deterministic_algorithms(True)
@@ -2580,31 +2745,24 @@ def phase_mesh(frames, cam, fleet_ref: dict, entries: list, rba) -> dict:
     wall = prog["wall"]
 
     # (c) the loop-closure bucket, sharded against unsharded, and phase 13's
-    # windows through the engine with a mesh against the engine without one
+    # windows through the engine with a mesh against the engine without one;
+    # each sharded solve on its programs against its eager LM blocks
     kcam = StereoCamera.kitti()
     big, _gt = make_ba_window_problem(kcam, np.random.default_rng(7), **LC_BUCKET)
     big = window_ba.BAWindow(*(t.to(mesh.lead) for t in big))
     kw = dict(kernel_param=1.5, max_iters=8)
     ms_1, r1 = _timed_twice(lambda: window_ba.optimize_window(big, kcam, **kw))
-    sharded = window_ba.shard_window_obs(big, make_mesh(devices=mesh.devices, axis="obs"))
-    ms_n, rn = _timed_twice(lambda: window_ba.optimize_window(sharded, kcam, **kw))
+    obs_mesh = make_mesh(devices=mesh.devices, axis="obs")
+    sharded = window_ba.shard_window_obs(big, obs_mesh)
+    lc = _sharded_ab(sharded, kcam, kw)
+    rn = lc["out"]
     lc_err = float((rn.cam_pose - r1.cam_pose).abs().max())
     check(lc_err < SHARDED_TOL, f"the sharded loop-closure-bucket window differs by {lc_err}")
     check(float(r1.cost_final) < float(r1.cost_init), "the LC-bucket solve did not improve")
     plain_eng = srba_mod.SRBAEngine(rba.cam, rba.p, device=mesh.lead)
-    mesh_eng = srba_mod.SRBAEngine(rba.cam, rba.p, mesh=make_mesh(devices=mesh.devices,
-                                                                axis="obs"))
-    eng_err, t_plain, t_mesh = 0.0, [], []
-    for entry in entries:
-        c6 = entry["C"] * 6
-        ta, blob_a = _one_call(lambda: plain_eng._solve(entry))
-        tb, blob_b = _one_call(lambda: mesh_eng._solve(entry))
-        t_plain.append(ta)
-        t_mesh.append(tb)
-        eng_err = max(eng_err, float(np.abs(blob_a[:c6] - blob_b[:c6]).max()))
-    check(bool(entries) and eng_err < SHARDED_TOL,
-          f"SRBAEngine(mesh=) window poses differ by {eng_err} over {len(entries)} windows")
-
+    mesh_eng = srba_mod.SRBAEngine(rba.cam, rba.p, mesh=obs_mesh)
+    eng = _engine_sharded(entries, plain_eng, mesh_eng)
+    win_launches = _sharded_launches(big, kcam, kw, entries, mesh_eng)
     # (d) the dry run on the same devices
     dry = dryrun_multichip(MESH_SIZE, devices=list(mesh.devices))
     torch.use_deterministic_algorithms(False)
@@ -2626,10 +2784,31 @@ def phase_mesh(frames, cam, fleet_ref: dict, entries: list, rba) -> dict:
           f"{_fleet_programs()}")
     print(f"[mesh windows] (c) the loop-closure bucket {LC_BUCKET}, {kw['max_iters']} LM "
           f"iterations, second of two calls: unsharded (CUDA-graph "
-          f"blocks) {ms_1:.3f} ms, sharded over {MESH_SIZE} (eager blocks) {ms_n:.3f} ms, "
-          f"max |dpose| {lc_err:.2e} | phase 13's {len(entries)} windows through "
-          f"SRBAEngine(mesh=): window poses within {eng_err:.2e} of the engine without a mesh; "
-          f"median {_med(t_mesh)} ms a solve against {_med(t_plain)} ms")
+          f"blocks) {ms_1:.3f} ms, sharded over {MESH_SIZE} (programs) "
+          f"{lc['med']['graph'][1]:.3f} ms, max |dpose| {lc_err:.2e} | phase 13's "
+          f"{len(entries)} windows through SRBAEngine(mesh=): window poses within "
+          f"{eng['err']:.2e} of the engine without a mesh; median {_med(eng['plain'])} ms a "
+          f"solve without a mesh")
+    n_sh = MESH_SIZE
+    print(f"[mesh programs] (c) each sharded solve as rounds of {n_sh} shard programs and one "
+          f"lead program (WBA_SHARD_PROGRAMS) against its eager LM blocks, equal bit for bit "
+          f"| the loop-closure bucket: first call {lc['first_s']:.3f} s ({lc['captures']} "
+          f"captured, {lc['capture_s']:.3f} s of warm-ups and captures), dispatch / done ms, "
+          f"medians in turns (eager, programs, programs, eager; {SHARD_REPS} calls each): eager "
+          f"{lc['med']['eager'][0]:.3f} / {lc['med']['eager'][1]:.3f}, programs "
+          f"{lc['med']['graph'][0]:.3f} / {lc['med']['graph'][1]:.3f}; a call under "
+          f"set_sync_debug_mode('error') (no host sync) | phase 13's {len(entries)} windows "
+          f"through SRBAEngine(mesh=) ({eng['buckets']} buckets): first pass "
+          f"{eng['captures']} captured ({eng['per_bucket']} a bucket, each bucket once), "
+          f"{eng['capture_s']:.3f} s; then in turns a window (programs, eager, eager, "
+          f"programs), dispatch / done ms medians: eager {_med(eng['eager_dispatch'])} / "
+          f"{_med(eng['eager_done'])}, programs {_med(eng['prog_dispatch'])} / "
+          f"{_med(eng['prog_done'])} (host layout and one pinned upload a shard included) | "
+          f"launches a call (kernel launches / graph launches / copies; torch.profiler in a "
+          f"process of its own): the loop-closure bucket eager {win_launches['lc eager']}, "
+          f"programs {win_launches['lc programs']}; an engine window of "
+          f"{win_launches['bucket']} eager {win_launches['engine eager']}, programs "
+          f"{win_launches['engine programs']} | programs: {_shard_programs()}")
     print(f"[mesh dryrun] (d) dryrun_multichip({MESH_SIZE}) on {dry['devices']}: "
           + json.dumps({k_: v for k_, v in dry.items() if k_ != "devices"}))
     return launches

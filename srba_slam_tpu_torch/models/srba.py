@@ -38,7 +38,10 @@ With a device mesh (``mesh=``, ``parallel/batch.py``), each window solve
 runs observation-sharded over the mesh (``ops/window_ba.py``
 ``shard_window_obs``; ≙ the JAX engine's mesh branch): one sequence's
 bundle adjustment spread over the mesh's devices, its result on the lead
-device. It launches at the insertion, a group of one.
+device. It launches at the insertion, a group of one: the window's host
+arrays laid out on the host, one pinned upload a shard, and on a card
+the solve's rounds as program replays (``window_ba.shard_key``: one set
+of programs a bucket), with no host read.
 """
 
 from __future__ import annotations
@@ -49,8 +52,9 @@ import numpy as np
 import torch
 
 from srba_slam_tpu_torch.models.vo import to_host
+from srba_slam_tpu_torch.ops import cuda_graphs
 from srba_slam_tpu_torch.ops.window_ba import (
-    WINDOW_SLOTS, BAWindow, assembly_plan, optimize_window, pack_window, result_blob,
+    WINDOW_SLOTS, BAWindow, assembly_plan, optimize_window, optimize_window_blob, pack_window,
     shard_window_obs, solve_window_group,
 )
 from srba_slam_tpu_torch.utils import se3_np
@@ -194,8 +198,8 @@ class SRBAEngine:
         # lazy=False lands them before define_new_keyframe returns
         self.lazy = lazy
         self._queued: list[dict] = []   # built windows, not yet launched
-        # the first packed window of each (C, L, O) bucket met, for
-        # capture_window_programs
+        # the first packed window of each (C, L, O) bucket met (with a mesh:
+        # its host arrays), for capture_window_programs
         self._met: dict = {}
         # launched groups: dict(blob=[WINDOW_SLOTS, row] on the device,
         # entries=the group's windows in slot order), oldest first
@@ -1004,6 +1008,7 @@ class SRBAEngine:
         )
         if self.mesh is not None:
             # the mesh branch launches the sharded solve now, a group of one
+            self._met.setdefault((C, L, O), entry["window"])
             self._pending.append(dict(blob=self._solve_window(entry)[None], entries=[entry]))
             return info
         ints, floats = pack_window(*entry["window"])
@@ -1024,18 +1029,16 @@ class SRBAEngine:
     def _solve_window(self, entry: dict) -> torch.Tensor:
         """One queued window solved alone on the device: its result row
         (``window_ba.result_blob``), not read. Sharded over the mesh when
-        the engine has one."""
+        the engine has one: laid out from the host arrays, one pinned upload
+        a shard, then solved by the sharded programs (no kernel after them)."""
         _pose, _cv, _lp, lm_base_loc, _lv, oc, ol, _px, ov = entry["window"]
         if self.mesh is not None:
-            # built from the host arrays, then laid out over the mesh
-            win = shard_window_obs(BAWindow(*(torch.as_tensor(a) for a in entry["window"])),
-                                   self.mesh)
-            plan = None
-        else:
-            dev = self.device
-            win = BAWindow(*(torch.as_tensor(a, device=dev) for a in entry["window"]))
-            plan = assembly_plan(oc, ol, lm_base_loc, ov, entry["C"], entry["L"], dev)
-        return result_blob(optimize_window(win, self.cam, plan=plan, **self._solve_kw()))
+            win = shard_window_obs(BAWindow(*entry["window"]), self.mesh)
+            return optimize_window_blob(win, self.cam, **self._solve_kw())
+        dev = self.device
+        win = BAWindow(*(torch.as_tensor(a, device=dev) for a in entry["window"]))
+        plan = assembly_plan(oc, ol, lm_base_loc, ov, entry["C"], entry["L"], dev)
+        return optimize_window_blob(win, self.cam, plan=plan, **self._solve_kw())
 
     def _solve(self, entry: dict) -> np.ndarray:
         """One queued window solved alone, its host blob ``[cam_pose (C*6)
@@ -1078,11 +1081,20 @@ class SRBAEngine:
         (the half group at which the engine launches), on copies of the
         bucket's first window, the outputs dropped and the engine
         untouched. The bench harness calls it after its warm-up, so that no
-        timed part captures a window program. Returns the (bucket, size)
-        of the programs captured now."""
-        if self.device.type != "cuda" or self.mesh is not None:
+        timed part captures a window program. With a mesh, the sharded
+        window's programs (``window_ba.shard_key``) of each bucket met: one
+        solve of its first window, its row dropped. Returns the (bucket,
+        size) of the programs captured now (size 1 with a mesh)."""
+        if self.device.type != "cuda":
             return []
         made = []
+        if self.mesh is not None:
+            for key, window in sorted(self._met.items()):
+                before = cuda_graphs.capture_stats("window_shard")["captures"]
+                self._solve_window(dict(window=window, C=key[0], L=key[1]))
+                if cuda_graphs.capture_stats("window_shard")["captures"] > before:
+                    made.append((key, 1))
+            return made
         for key, window in sorted(self._met.items()):
             for n in range(1, WINDOW_SLOTS // 2 + 1):
                 if self._solve_group([window] * n, key, capture_only=True):

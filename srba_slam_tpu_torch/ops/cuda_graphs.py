@@ -23,9 +23,11 @@ batch's VO scan, ``models/vo.py`` ``vo_scan``; a keyframe check,
 ``models/data_association.py``; a fleet shard's lockstep attempt and check
 group, ``parallel/fleet.py``, and a shard's batched VO step,
 ``parallel/batch.py``; a group of window solves, ``ops/window_ba.py``
-``solve_window_group``; the pose graph, ``ops/posegraph.py``) as one CUDA
-graph per key, as the JAX package jits it once per shape: its inputs are
-copied into fixed buffers,
+``solve_window_group``; the pose graph, ``ops/posegraph.py``; a sharded
+window's shard and lead steps, ``ops/window_ba.py``) as one CUDA graph
+per key, as the JAX package jits it once per shape: its inputs are
+copied into fixed buffers (from any device; a solve's fixed inputs only
+when they change),
 the tensors it holds (a check's keyframe store and BoW database, written
 in place, and its vocabulary) are read and written where they are, the
 graph replays, and its outputs are cloned out. A program that holds
@@ -81,7 +83,7 @@ _TOKENS = itertools.count()
 # Over the process: programs captured, and the host seconds of their
 # warm-ups and captures; the same by kind (a key's first element: "vo_scan",
 # "check", "fleet_attempt", "fleet_check", "batched_step", "window_group",
-# "posegraph")
+# "posegraph", "window_shard")
 PROGRAM_STATS = dict(captures=0, capture_s=0.0)
 KIND_STATS: dict = {}
 
@@ -151,7 +153,7 @@ def in_program() -> bool:
     return _BODIES is not None
 
 
-def _stop(i: int, c: dict) -> bool:
+def stop(i: int, c: dict) -> bool:
     """The host's exit test before step ``i``: the carry's ``more`` read,
     where there is one and reads are on."""
     return bool(_READ_EXITS and i and "more" in c and not bool(c["more"]))
@@ -191,7 +193,7 @@ def loop(step, c: dict, k: dict, n: int, static: tuple, graphs: bool) -> dict:
     if graphs and n > 0 and next(_tensors(k)).device.type == "cuda":
         return _replay(step, c, k, n, static)
     for i in range(n):
-        if _stop(i, c):
+        if stop(i, c):
             break
         c = step(c, k)
     return c
@@ -307,7 +309,7 @@ def _kind(key: tuple):
 def capture_stats(kind: str) -> dict:
     """Programs of one kind (``"vo_scan"``, ``"check"``, ``"fleet_attempt"``,
     ``"fleet_check"``, ``"batched_step"``, ``"window_group"``,
-    ``"posegraph"``) captured so far and the host seconds of their warm-ups
+    ``"posegraph"``, ``"window_shard"``) captured so far and the host seconds of their warm-ups
     and captures."""
     stats = KIND_STATS.get(kind, {})
     return dict(captures=stats.get("captures", 0), capture_s=stats.get("capture_s", 0.0))
@@ -365,32 +367,55 @@ def unpack(buf: torch.Tensor, layout: tuple) -> list[torch.Tensor]:
     return out
 
 
-def program_key(inputs: dict, key: tuple, held: dict | None = None) -> tuple:
+def _shapes(leaves) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) if _is_tensor(t) else t for t in leaves)
+
+
+def program_key(inputs: dict, key: tuple, held: dict | None = None, fixed: dict | None = None,
+                device=None) -> tuple:
     """The key under which :func:`program` keeps the program of ``fn(inputs)``
-    (and the inputs' device): ``key``, the inputs' structure, device, shapes
-    and dtypes (their non-tensor leaves as they are), and the held tensors'
-    structure, addresses, shapes, strides and dtypes."""
+    (and the program's device: ``device``, else the inputs'): ``key``, the
+    device, the inputs' and the fixed inputs' structure, shapes and dtypes
+    (their non-tensor leaves as they are), and the held tensors' structure,
+    addresses, shapes, strides and dtypes."""
     leaves, spec = pytree.tree_flatten(inputs)
+    f_leaves, f_spec = pytree.tree_flatten(fixed or {})
     h_leaves, h_spec = pytree.tree_flatten(held or {})
-    dev = next(t for t in leaves + h_leaves if _is_tensor(t)).device
-    return (key, repr(spec), dev, tuple((tuple(t.shape), t.dtype) if _is_tensor(t) else t
-                                        for t in leaves),
+    dev = (torch.device(device) if device is not None else
+           next(t for t in leaves + f_leaves + h_leaves if _is_tensor(t)).device)
+    return (key, repr(spec), dev, _shapes(leaves), repr(f_spec), _shapes(f_leaves),
             repr(h_spec), tuple(_storage(t) for t in h_leaves)), dev
 
 
-def _get(fn, inputs: dict, key: tuple, counted, held: dict):
+def _get(fn, inputs: dict, key: tuple, counted, held: dict, fixed: dict, device):
     """The program of ``fn(inputs)`` under ``key``, captured now unless
-    cached; with the inputs' leaves and device, and whether it was
-    captured now."""
+    cached; with the inputs' leaves, the fixed inputs' leaves, the
+    program's device, and whether it was captured now."""
     leaves, spec = pytree.tree_flatten(inputs)
-    full_key, dev = program_key(inputs, key, held)
+    f_leaves, f_spec = pytree.tree_flatten(fixed)
+    full_key, dev = program_key(inputs, key, held, fixed, device)
     prog = _PROGRAMS.get(full_key)
     fresh = prog is None
     if fresh:
         with torch.cuda.device(dev):
-            prog = _capture(fn, leaves, spec, held, dev, tuple(counted), key)
+            prog = _capture(fn, (leaves, spec), (f_leaves, f_spec), held, dev, tuple(counted),
+                            key)
         _register(full_key, prog, pytree.tree_leaves(held))
-    return prog, leaves, dev, fresh
+    return prog, leaves, f_leaves, dev, fresh
+
+
+def _copied_from(leaves) -> list:
+    """What :func:`program` remembers of the fixed inputs it copied in: each
+    tensor (weakly) and its version counter."""
+    return [(weakref.ref(t), t._version) if _is_tensor(t) else None for t in leaves]
+
+
+def _same_fixed(prog: SimpleNamespace, leaves) -> bool:
+    """Whether ``leaves`` are the very tensors whose bits the program's
+    fixed buffers hold: the same objects, not written in place since."""
+    return len(prog.fixed_from) == len(leaves) and all(
+        r is None or (r[0]() is t and r[1] == t._version)
+        for r, t in zip(prog.fixed_from, leaves))
 
 
 def _register(full_key: tuple, prog: SimpleNamespace, held_leaves) -> None:
@@ -443,10 +468,11 @@ def _release(prog: SimpleNamespace) -> None:
         graph.reset()
     lib.srba_graph_exec_destroy(prog.exec_)
     prog.graph.reset()
-    prog.bodies, prog.keep, prog.outs, prog.static = {}, [], [], []
+    prog.bodies, prog.keep, prog.outs, prog.static, prog.fixed = {}, [], [], [], []
 
 
-def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None):
+def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None,
+            fixed: dict | None = None, device=None):
     """``fn(inputs)`` on a card as one replay of a CUDA graph captured at
     the first call of ``key`` and of the inputs' shapes and dtypes.
 
@@ -474,19 +500,42 @@ def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None):
     the BoW database (its row written in place, as JAX donates them, before
     it reads the rows under it) and the vocabulary.
 
+    ``fixed`` (a dict, flattened as ``inputs``) are inputs copied into
+    buffers of the program like ``inputs``, but only when they are other
+    tensors than at the program's last call, or were written in place
+    since (their version counters): a solve's observations and gather
+    tables, copied in once for the many replays of its LM iterations, not
+    once a replay. Their shapes and dtypes join the key, not their
+    addresses. A fixed input must not be written by anything that leaves
+    its version counter as it is (a graph replay) while a program may still
+    read it; ``fn`` gets it beside the inputs and must not write it.
+
+    ``device`` is the program's device (by default the inputs'). An input
+    on another device is copied into the program's buffer across devices:
+    torch orders such a copy after the work queued on the source's current
+    stream, and the program's stream after the copy, with events, so one
+    device's programs feed another's with no host synchronization (a
+    sharded window's shards and its lead, ``ops/window_ba.py``).
+
     A key's first call runs ``fn`` once eagerly on the buffers (the warm-up:
     it captures its loops' steps, each once, into the program's own cache,
     and sets up library handles), then captures ``fn`` with its loops as
     conditional nodes (:func:`loop`), without reading an exit test on the
     host. A capture that fails raises."""
     held = held or {}
-    prog, leaves, dev, _fresh = _get(fn, inputs, key, counted, held)
+    fixed = fixed or {}
+    prog, leaves, f_leaves, dev, _fresh = _get(fn, inputs, key, counted, held, fixed, device)
     lib = cuda_build.load()
     with torch.cuda.device(dev):
         with span("graph", dev):
             for d, s_ in zip(prog.static, leaves):
                 if _is_tensor(d):
                     d.copy_(s_)
+            if not _same_fixed(prog, f_leaves):
+                for d, s_ in zip(prog.fixed, f_leaves):
+                    if _is_tensor(d):
+                        d.copy_(s_)
+                prog.fixed_from = _copied_from(f_leaves)
             code = lib.srba_graph_launch(prog.exec_, torch.cuda.current_stream(dev).cuda_stream)
             if code != 0:
                 raise RuntimeError(f"srba_graph_launch failed: cudaError {code}")
@@ -496,22 +545,36 @@ def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None):
         return pytree.tree_unflatten(outs, prog.out_spec)
 
 
-def capture(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None) -> bool:
-    """The program of ``program(fn, inputs, key, counted, held)`` captured
-    now unless it is cached, without a replay (its warm-up runs ``fn`` once
-    on copies of the inputs, its outputs dropped). True if it was captured
-    now: a caller captures ahead of the timed part of a run."""
-    return _get(fn, inputs, key, counted, held or {})[3]
+def capture(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None,
+            fixed: dict | None = None, device=None) -> bool:
+    """The program of ``program(fn, inputs, key, counted, held, fixed,
+    device)`` captured now unless it is cached, without a replay (its
+    warm-up runs ``fn`` once on copies of the inputs, its outputs dropped).
+    True if it was captured now: a caller captures ahead of the timed part
+    of a run."""
+    return _get(fn, inputs, key, counted, held or {}, fixed or {}, device)[4]
 
 
-def _capture(fn, leaves, spec, held: dict, dev, counted: tuple, key: tuple) -> SimpleNamespace:
-    """A key's warm-up and capture for :func:`program`: the executable
-    graph, its input buffers, its outputs in the graph's pool, the launches
-    of the ``counted`` wrappers it holds, and what the warm-up and the
-    capture cost."""
+def _buffers(leaves, dev) -> list:
+    """Copies of ``leaves`` on ``dev``: a program's input buffers."""
+    return [t.to(dev, copy=True) if _is_tensor(t) else t for t in leaves]
+
+
+def _capture(fn, flat: tuple, f_flat: tuple, held: dict, dev, counted: tuple,
+             key: tuple) -> SimpleNamespace:
+    """A key's warm-up and capture for :func:`program` (``flat`` and
+    ``f_flat`` the inputs' and the fixed inputs' leaves and structure): the
+    executable graph, its input buffers, its outputs in the graph's pool,
+    the launches of the ``counted`` wrappers it holds, and what the warm-up
+    and the capture cost."""
     global _BODIES, _KEEP, _READ_EXITS
     t0 = time.perf_counter()
-    static = [t.clone() if _is_tensor(t) else t for t in leaves]
+    (leaves, spec), (f_leaves, f_spec) = flat, f_flat
+    static, fixed = _buffers(leaves, dev), _buffers(f_leaves, dev)
+
+    def args():
+        return {**pytree.tree_unflatten(static, spec), **pytree.tree_unflatten(fixed, f_spec),
+                **held}
     bodies, keep = {}, []
     saved = (_BODIES, _KEEP, _READ_EXITS)
     _BODIES, _KEEP, _READ_EXITS = bodies, keep, False
@@ -524,7 +587,7 @@ def _capture(fn, leaves, spec, held: dict, dev, counted: tuple, key: tuple) -> S
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            fn({**pytree.tree_unflatten(static, spec), **held})
+            fn(args())
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -533,7 +596,7 @@ def _capture(fn, leaves, spec, held: dict, dev, counted: tuple, key: tuple) -> S
         base = [w.launches for w in counted]     # the warm-up's launches ran
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, stream=side):
-            out = fn({**pytree.tree_unflatten(static, spec), **held})
+            out = fn(args())
             # outputs dense in the pool: a replay clones them with copies,
             # where a strided view's clone would launch a kernel
             out = pytree.tree_map(lambda t: t.contiguous() if _is_tensor(t) else t, out)
@@ -552,11 +615,13 @@ def _capture(fn, leaves, spec, held: dict, dev, counted: tuple, key: tuple) -> S
                                                                          capture_s=0.0))):
         stats["captures"] += 1
         stats["capture_s"] += capture_s
-    return SimpleNamespace(key=key, dev=dev, graph=graph, exec_=exec_, static=static, outs=outs,
-                           out_spec=out_spec, counted=counted, launches=launches, bodies=bodies,
-                           keep=keep, capture_s=capture_s, warmup_s=t1 - t0, body_bytes=r1 - r0,
+    return SimpleNamespace(key=key, dev=dev, graph=graph, exec_=exec_, static=static, fixed=fixed,
+                           fixed_from=_copied_from(f_leaves), outs=outs, out_spec=out_spec,
+                           counted=counted, launches=launches, bodies=bodies, keep=keep,
+                           capture_s=capture_s, warmup_s=t1 - t0, body_bytes=r1 - r0,
                            pool_bytes=torch.cuda.memory_reserved(dev) - r1,
                            copy_bytes=_nbytes(static) + _nbytes(outs),
+                           fixed_bytes=_nbytes(fixed),
                            held_bytes=_nbytes(pytree.tree_leaves(held)))
 
 
@@ -567,13 +632,14 @@ def programs() -> list[dict]:
     steps, the host seconds of its warm-up and capture (``warmup_s`` of
     them the warm-up), the device bytes its graph's pool and its steps'
     pools reserved, the bytes a replay copies (its inputs in, its outputs
-    cloned out) and the bytes of the tensors it holds in place."""
+    cloned out), the bytes of its fixed inputs' buffers (copied in when
+    they change) and the bytes of the tensors it holds in place."""
     release_dropped()
     return [dict(key=p.key, token=p.token,
                  launches={w.__name__: n for w, n in zip(p.counted, p.launches)},
                  steps=len(p.bodies), capture_s=p.capture_s, warmup_s=p.warmup_s,
                  pool_bytes=p.pool_bytes, body_bytes=p.body_bytes, copy_bytes=p.copy_bytes,
-                 held_bytes=p.held_bytes)
+                 fixed_bytes=p.fixed_bytes, held_bytes=p.held_bytes)
             for p in _PROGRAMS.values()]
 
 

@@ -34,16 +34,29 @@ stage's blocks are one launch that tests the exit on the device
 ``shard_window_obs`` lays one window out over a device mesh (≙ the JAX
 package's SPMD solve over sharded observations): each device holds a
 replica of the camera and landmark state and a contiguous slice of the
-observations with its own gather tables. Each LM step, each shard
-computes its residuals, its partial gradient and Hessian blocks and its
-cost terms; the partials are summed on the lead device in shard order,
-the Schur/Cholesky solve runs there, and the step goes back to every
-shard. A sharded solve runs its LM blocks eagerly: a CUDA graph belongs
-to one device.
+observations with its own gather tables, built on the host and sent in
+one copy a shard. A CUDA graph belongs to one device, so the solve is
+split by device (``_solve_sharded``, ≙ JAX's one SPMD program): in each
+round every shard, at the state the lead sent it, computes its cost
+terms and its partial gradient and Hessian blocks, one program replay a
+shard on its own device (:func:`_shard_terms`); then one replay on the
+lead device sums them in shard order, accepts or rejects the step
+proposed last round, and proposes the next (the Schur/Cholesky solve),
+whose poses and landmarks go back to every shard. The state and the
+terms cross devices as copies into the programs' buffers, ordered by
+events; the host reads nothing inside a block. Programs are keyed on the
+bucket's shapes and the options (:func:`shard_key`), so every window of a
+bucket replays them. One round an iteration: a shard's terms at the
+proposal give both its cost and, if the lead accepts it, the partials of
+the next step (the same state, the same bits as partials taken anew).
+``WBA_SHARD_PROGRAMS = False`` runs the LM blocks eagerly, shard by shard
+each step, the same bits.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
 from typing import NamedTuple
 
 import numpy as np
@@ -64,6 +77,10 @@ WBA_EXIT_EVERY = 8
 # On a CUDA device, each block of WBA_EXIT_EVERY iterations of a stage
 # replays as one CUDA graph; eager otherwise.
 WBA_GRAPHS = True
+# A sharded window solves in rounds of a program a shard and one on the
+# lead (_solve_sharded; on the CPU their bodies); False (tests and
+# chip_smoke.py only) runs its LM blocks eagerly, the same bits.
+WBA_SHARD_PROGRAMS = True
 
 
 class BAWindow(NamedTuple):
@@ -86,6 +103,8 @@ class ShardedWindow(NamedTuple):
     shards: tuple   # BAWindow per mesh device: the state replicated, a slice of the obs;
     #                 the first device's (the mesh's lead) solves and holds the result
     plans: tuple    # AssemblyPlan of each shard's observations, on its device
+    bufs: tuple     # each shard's one upload (uint8, on its device), which the two read
+    layout: tuple   # the buffers' layout (cuda_graphs.pack), the same for every shard
 
 
 class BAResult(NamedTuple):
@@ -321,13 +340,17 @@ def _shard_residuals(s: dict, cam_pose, lm_pos, cam: StereoCamera):
     return _residuals(s, cam_pose.to(dev), lm_pos.to(dev), cam)[0]
 
 
+def _prior_cost(k: dict, cam_pose):
+    """The init-anchor prior's cost at ``cam_pose``."""
+    w, dt = _prior_residual(k, cam_pose)
+    return torch.sum(k["free_w"] * (k["prior_w6"][0] * torch.sum(w * w, -1)
+                                    + k["prior_w6"][3] * torch.sum(dt * dt, -1)))
+
+
 def _cost(k: dict, cam_pose, lm_pos, cam: StereoCamera, kern: bool):
     robust = _summed([_robust_cost(_shard_residuals(s, cam_pose, lm_pos, cam), s["obs_w"],
                                    s["kp"], kern) for s in _shards(k)], cam_pose.device)
-    w, dt = _prior_residual(k, cam_pose)
-    prior = torch.sum(k["free_w"] * (k["prior_w6"][0] * torch.sum(w * w, -1)
-                                     + k["prior_w6"][3] * torch.sum(dt * dt, -1)))
-    return robust + prior
+    return robust + _prior_cost(k, cam_pose)
 
 
 def _rmse(k: dict, cam_pose, lm_pos, cam: StereoCamera):
@@ -337,7 +360,13 @@ def _rmse(k: dict, cam_pose, lm_pos, cam: StereoCamera):
         sq.append(torch.sum(torch.sum(r * r, -1) * s["obs_w"]))
         n_obs.append(torch.sum(s["obs_w"]))
     dev = cam_pose.device
-    return torch.sqrt(_summed(sq, dev) / torch.clamp(_summed(n_obs, dev), min=1.0))
+    return _rmse_of(_summed(sq, dev), _summed(n_obs, dev))
+
+
+def _rmse_of(sq, n_obs):
+    """The raw pixel RMSE from the summed squared residuals and the count
+    of valid observations."""
+    return torch.sqrt(sq / torch.clamp(n_obs, min=1.0))
 
 
 def _assemble(k: dict, r, wJA, wJB, wJC, JA, JB, JC, skip_lms: bool):
@@ -365,7 +394,14 @@ def _partials(s: dict, cam_pose, lm_pos, cam: StereoCamera, kern: bool, freeze_l
     """The gradient and Hessian blocks ``(g_c, g_l, Hcc, Hcl, Hll)`` of the
     observations of ``s`` (a window's, or one shard's on its device)."""
     dev = s["obs_px"].device
-    r, x, X, Rc, Q_R = _residuals(s, cam_pose.to(dev), lm_pos.to(dev), cam)
+    return _partials_at(s, _residuals(s, cam_pose.to(dev), lm_pos.to(dev), cam), cam, kern,
+                        freeze_lms)
+
+
+def _partials_at(s: dict, res: tuple, cam: StereoCamera, kern: bool, freeze_lms: bool):
+    """:func:`_partials` from the residuals and intermediates ``res`` of
+    :func:`_residuals` at the state."""
+    r, x, X, Rc, Q_R = res
     P = _dproj(x, cam)
     rnorm = torch.linalg.vector_norm(r, dim=-1)
     w_rob = 1.0 / torch.sqrt(1.0 + (rnorm / s["kp"]) ** 2) if kern else torch.ones_like(rnorm)
@@ -383,13 +419,26 @@ def _partials(s: dict, cam_pose, lm_pos, cam: StereoCamera, kern: bool, freeze_l
     return _assemble(s, r, wJA, wJB, wJC, JA, JB, JC, freeze_lms)
 
 
+def _sum_parts(parts, dev) -> tuple:
+    """The shards' partials ``parts`` (a tuple of five a shard, None where
+    a stage leaves a block out) summed block by block on ``dev``, in shard
+    order."""
+    return tuple(None if p[0] is None else _summed(p, dev) for p in zip(*parts))
+
+
 def _lm_step(k: dict, cam_pose, lm_pos, lam, cam: StereoCamera, kern: bool, freeze_lms: bool):
     """One LM step: the proposed poses and landmarks, whether the solve
     was finite, and the predicted decrease of the local quadratic model."""
-    C = cam_pose.shape[0]
     parts = [_partials(s, cam_pose, lm_pos, cam, kern, freeze_lms) for s in _shards(k)]
-    g_c, g_l, Hcc, Hcl, Hll = (None if p[0] is None else _summed(p, cam_pose.device)
-                               for p in zip(*parts))
+    return _solve_step(k, _sum_parts(parts, cam_pose.device), cam_pose, lm_pos, lam, freeze_lms)
+
+
+def _solve_step(k: dict, parts: tuple, cam_pose, lm_pos, lam, freeze_lms: bool):
+    """:func:`_lm_step` from the window's summed partials ``parts`` at the
+    state: the prior, the Schur reduction, the Cholesky solve and the
+    update."""
+    C = cam_pose.shape[0]
+    g_c, g_l, Hcc, Hcl, Hll = parts
     pw, pdt = _prior_residual(k, cam_pose)
     g_c = g_c + torch.cat([pw, pdt], -1) * k["prior_w6"][None, :]
     Hcc = Hcc + k["prior_blocks"]
@@ -440,6 +489,31 @@ def _active(c: dict, n_iters: int):
     return (c["it"] < n_iters) & (c["stall"] < 3) & (c["rejects"] < 6)
 
 
+def _update(c: dict, cam_new, lm_new, ok, pred, new_cost, n_iters: int) -> tuple:
+    """One LM iteration's masked accept or reject of the proposal
+    ``cam_new``, ``lm_new`` (cost ``new_cost``) on the carry ``c``: the new
+    carry and whether it accepted."""
+    c = dict(c)
+    active = _active(c, n_iters)
+    cost, stall = c["cost"], c["stall"]
+    accept = active & ok & (new_cost < cost)
+    improving = accept & (cost - new_cost > 1e-6 * cost)
+    converged = ok & (torch.abs(pred) < 1e-8 * (cost + 1.0))
+    stall = torch.where(improving, 0, torch.where(accept, stall + 1, stall))
+    stall = torch.where(converged, 3, stall)
+    c["stall"] = torch.where(active, stall, c["stall"])
+    c["rejects"] = torch.where(active, torch.where(accept, 0, c["rejects"] + 1), c["rejects"])
+    c["cam_pose"] = torch.where(accept, cam_new, c["cam_pose"])
+    c["lm_pos"] = torch.where(accept, lm_new, c["lm_pos"])
+    c["cost"] = torch.where(accept, new_cost, cost)
+    c["lam"] = torch.where(active, torch.where(accept, torch.clamp(c["lam"] * 0.4, min=1e-7),
+                                               torch.clamp(c["lam"] * 6.0, max=1e3)),
+                           c["lam"])
+    c["iters"] = c["iters"] + accept.to(torch.int32)
+    c["it"] = c["it"] + active.to(torch.int32)
+    return c, accept
+
+
 def _lm_block(c: dict, k: dict, n: int, n_iters: int, cam: StereoCamera, kern: bool,
               freeze_lms: bool) -> dict:
     """``n`` LM iterations on the carry ``c`` (cam_pose, lm_pos, cost, lam,
@@ -447,29 +521,12 @@ def _lm_block(c: dict, k: dict, n: int, n_iters: int, cam: StereoCamera, kern: b
     new carry with ``more``, "the loop is still active". Every update is
     masked by the loop's ``cond``, so an iteration past the exit changes
     nothing. No host read."""
-    c = dict(c)
     for _ in range(n):
-        active = _active(c, n_iters)
-        cost, stall = c["cost"], c["stall"]
         cam_new, lm_new, ok, pred = _lm_step(k, c["cam_pose"], c["lm_pos"], c["lam"], cam,
                                              kern, freeze_lms)
         new_cost = _cost(k, cam_new, lm_new, cam, kern)
-        accept = active & ok & (new_cost < cost)
-        improving = accept & (cost - new_cost > 1e-6 * cost)
-        converged = ok & (torch.abs(pred) < 1e-8 * (cost + 1.0))
-        stall = torch.where(improving, 0, torch.where(accept, stall + 1, stall))
-        stall = torch.where(converged, 3, stall)
-        c["stall"] = torch.where(active, stall, c["stall"])
-        c["rejects"] = torch.where(active, torch.where(accept, 0, c["rejects"] + 1),
-                                   c["rejects"])
-        c["cam_pose"] = torch.where(accept, cam_new, c["cam_pose"])
-        c["lm_pos"] = torch.where(accept, lm_new, c["lm_pos"])
-        c["cost"] = torch.where(accept, new_cost, cost)
-        c["lam"] = torch.where(active, torch.where(accept, torch.clamp(c["lam"] * 0.4, min=1e-7),
-                                                   torch.clamp(c["lam"] * 6.0, max=1e3)),
-                               c["lam"])
-        c["iters"] = c["iters"] + accept.to(torch.int32)
-        c["it"] = c["it"] + active.to(torch.int32)
+        c, _accept = _update(c, cam_new, lm_new, ok, pred, new_cost, n_iters)
+    c = dict(c)
     c["more"] = _active(c, n_iters)
     return c
 
@@ -480,8 +537,10 @@ def _run_stage(k: dict, cam_pose, lm_pos, n_iters: int, cam: StereoCamera, kern:
     accepted steps stop improving (3 sub-1e-6 relative decreases, or a
     vanishing predicted decrease), or after 6 rejected steps in a row. In
     blocks of ``WBA_EXIT_EVERY`` iterations, each a CUDA graph on a card
-    (``WBA_GRAPHS``; eager for a sharded window); the host reads the exit
-    test between blocks only."""
+    (``WBA_GRAPHS``; eager for a sharded window, whose blocks this runs only
+    with ``WBA_SHARD_PROGRAMS`` off: its programs' route is
+    :func:`_solve_sharded`); the host reads the exit test between blocks
+    only."""
     dev = cam_pose.device
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     c = dict(cam_pose=cam_pose, lm_pos=lm_pos, cost=_cost(k, cam_pose, lm_pos, cam, kern),
@@ -498,28 +557,43 @@ def _run_stage(k: dict, cam_pose, lm_pos, n_iters: int, cam: StereoCamera, kern:
 
 
 def shard_window_obs(win: BAWindow, mesh) -> ShardedWindow:
-    """Lay ``win`` out over ``mesh`` (``parallel/batch.py``): shard i, on
-    ``mesh.devices[i]``, holds a replica of the camera and landmark state
-    and the i-th of ``len(mesh.devices)`` contiguous slices of the
-    observations, with its slice's gather tables (``assembly_plan``; the
-    index arrays are read to the host once, at no cost for a window on the
-    CPU). O must divide over the mesh: every bucket's O is a power of two.
+    """Lay ``win`` out over ``mesh`` (``parallel/batch.py``; ≙ the JAX
+    package's ``shard_window_obs``): shard i, on ``mesh.devices[i]``, holds
+    a replica of the camera and landmark state and the i-th of
+    ``len(mesh.devices)`` contiguous slices of the observations, with its
+    slice's gather tables (:func:`plan_arrays`). ``win``'s fields are host
+    arrays (the engine's), or tensors, read to the host once. Each shard's
+    arrays and tables are built on the host and go to its device in one
+    copy (pinned on a card: ``cuda_graphs.pack`` and ``upload``); the
+    shard's :class:`BAWindow` and :class:`AssemblyPlan` are views of it. O
+    must divide over the mesh: every bucket's O is a power of two.
     :func:`optimize_window` solves the result."""
+    arrays = [a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a) for a in win]
     n = len(mesh.devices)
-    n_obs = win.obs_cam.shape[0]
+    n_obs = arrays[5].shape[0]
     if n_obs % n:
         raise ValueError(f"{n_obs} observations do not split over a mesh of {n} devices")
-    C, L = win.cam_pose.shape[0], win.lm_pos.shape[0]
-    obs_cam, obs_lm, lm_base, obs_valid = (t.cpu().numpy() for t in (
-        win.obs_cam, win.obs_lm, win.lm_base, win.obs_valid))
+    C, L = arrays[0].shape[0], arrays[2].shape[0]
     m = n_obs // n
-    shards, plans = [], []
+    bufs, layout = [], ()
     for i, dev in enumerate(mesh.devices):
-        sl = slice(i * m, (i + 1) * m)
-        shards.append(BAWindow(*(t.to(dev) for t in win[:5]),
-                               *(t[sl].to(dev) for t in win[5:])))
-        plans.append(assembly_plan(obs_cam[sl], obs_lm[sl], lm_base, obs_valid[sl], C, L, dev))
-    return ShardedWindow(tuple(shards), tuple(plans))
+        part = arrays[:5] + [a[i * m:(i + 1) * m] for a in arrays[5:]]
+        plan = plan_arrays(part[5], part[6], part[3], part[8], C, L)
+        buf, layout = cuda_graphs.pack([*part, *(t for field in plan for t in field)])
+        bufs.append(cuda_graphs.upload(buf, dev))
+    views = [_shard_views(buf, layout) for buf in bufs]
+    return ShardedWindow(tuple(v[0] for v in views), tuple(v[1] for v in views), tuple(bufs),
+                         layout)
+
+
+def _shard_views(buf: torch.Tensor, layout: tuple) -> tuple:
+    """A shard's :class:`BAWindow` and :class:`AssemblyPlan`, views of its
+    buffer ``buf`` (:func:`shard_window_obs`)."""
+    arrays = cuda_graphs.unpack(buf, layout)
+    win = BAWindow(*arrays[:9])
+    tabs = iter(arrays[9:])
+    levels = plan_levels(win.cam_pose.shape[0], win.lm_pos.shape[0], win.obs_px.shape[0])
+    return win, AssemblyPlan(*([next(tabs) for _ in range(n)] for n in levels))
 
 
 def _obs_keys(win: BAWindow, plan: AssemblyPlan, kernel_param: float) -> dict:
@@ -532,11 +606,35 @@ def _obs_keys(win: BAWindow, plan: AssemblyPlan, kernel_param: float) -> dict:
                 **plan._asdict())
 
 
+def _lead_keys(cam_pose, cam_valid, lm_valid, w_prior_rot: float, w_prior_trans: float) -> dict:
+    """The fixed inputs of a window's LM steps that are not its
+    observations': masks and the init-anchor prior, from the window's
+    initial poses."""
+    f32 = torch.float32
+    dev = cam_pose.device
+    C = cam_pose.shape[0]
+    free_cam = cam_valid & (torch.arange(C, device=dev) != 0)
+    # init-anchor pose prior (a deliberate deviation from the reference
+    # SRBA objective, as in the JAX package): every free camera is tied to
+    # its spanning-tree init pose with weights w_prior_rot (twist, rad) and
+    # w_prior_trans (m), so a small aliased consensus cannot fold the map
+    init_R, init_t = se3.exp(cam_pose)
+    # scalars made on the device (torch.full), not copied there: a copy
+    # from the host synchronizes it
+    prior_w6 = torch.cat([torch.full((3,), w_prior_rot, dtype=f32, device=dev),
+                          torch.full((3,), w_prior_trans, dtype=f32, device=dev)])
+    on_diag = torch.arange(C * C, device=dev) % (C + 1) == 0
+    prior_blocks = torch.where(on_diag[:, None, None], torch.diag(prior_w6), 0.0)
+    return dict(lm_w=lm_valid.to(f32), free_cam=free_cam, free_w=free_cam.to(f32),
+                free6=free_cam[:, None].expand(C, 6).reshape(-1), prior_w6=prior_w6,
+                prior_blocks=prior_blocks, init_R=init_R, init_t=init_t,
+                eye6C=torch.eye(C * 6, dtype=f32, device=dev))
+
+
 def _window_keys(win: BAWindow | ShardedWindow, cam: StereoCamera, kernel_param: float,
                  w_prior_rot: float, w_prior_trans: float, plan: AssemblyPlan | None):
     """The fixed inputs ``k`` of a window's LM steps and the window (the
     lead device's replica of a sharded one's state)."""
-    f32 = torch.float32
     if isinstance(win, ShardedWindow):
         obs = dict(shards=[_obs_keys(w, p, kernel_param) for w, p in zip(win.shards, win.plans)])
         win = win.shards[0]  # the lead device's replica of the state
@@ -546,25 +644,195 @@ def _window_keys(win: BAWindow | ShardedWindow, cam: StereoCamera, kernel_param:
                                  win.lm_base.cpu().numpy(), win.obs_valid.cpu().numpy(),
                                  win.cam_pose.shape[0], win.lm_pos.shape[0], win.cam_pose.device)
         obs = _obs_keys(win, plan, kernel_param)
-    dev = win.cam_pose.device
-    C = win.cam_pose.shape[0]
-    free_cam = win.cam_valid & (torch.arange(C, device=dev) != 0)
-    # init-anchor pose prior (a deliberate deviation from the reference
-    # SRBA objective, as in the JAX package): every free camera is tied to
-    # its spanning-tree init pose with weights w_prior_rot (twist, rad) and
-    # w_prior_trans (m), so a small aliased consensus cannot fold the map
-    init_R, init_t = se3.exp(win.cam_pose)
-    # scalars made on the device (torch.full), not copied there: a copy
-    # from the host synchronizes it
-    prior_w6 = torch.cat([torch.full((3,), w_prior_rot, dtype=f32, device=dev),
-                          torch.full((3,), w_prior_trans, dtype=f32, device=dev)])
-    on_diag = torch.arange(C * C, device=dev) % (C + 1) == 0
-    prior_blocks = torch.where(on_diag[:, None, None], torch.diag(prior_w6), 0.0)
-    k = dict(lm_w=win.lm_valid.to(f32), free_cam=free_cam, free_w=free_cam.to(f32),
-             free6=free_cam[:, None].expand(C, 6).reshape(-1), prior_w6=prior_w6,
-             prior_blocks=prior_blocks, init_R=init_R, init_t=init_t,
-             eye6C=torch.eye(C * 6, dtype=f32, device=dev), **obs)
-    return k, win
+    k = _lead_keys(win.cam_pose, win.cam_valid, win.lm_valid, w_prior_rot, w_prior_trans)
+    return dict(k, **obs), win
+
+
+# ------------------------------------------------- sharded window programs
+# The carry of a stage's LM loop (_lm_block's, but ``more``)
+_CARRY = ("cam_pose", "lm_pos", "cost", "lam", "iters", "it", "stall", "rejects")
+
+
+def _shard_terms(a: dict, layout: tuple, cam: StereoCamera, kernel_param: float, kern: bool,
+                 freeze_lms: bool) -> dict:
+    """A shard's part of one round of a sharded solve (the shard program's
+    body), at the state ``a["cam_pose"]``, ``a["lm_pos"]`` that the lead
+    sent, over the observations and tables of its buffer ``a["buf"]``:
+    ``costs`` [3], its robust cost with the kernel, without it (its sum of
+    squared residuals, the RMSE's numerator) and its count of valid
+    observations; and ``parts``, its partials (:func:`_partials`) for a
+    stage with ``kern`` and ``freeze_lms``."""
+    win, plan = _shard_views(a["buf"], layout)
+    s = _obs_keys(win, plan, kernel_param)
+    res = _residuals(s, a["cam_pose"], a["lm_pos"], cam)
+    w = s["obs_w"]
+    costs = torch.stack([_robust_cost(res[0], w, s["kp"], True),
+                         _robust_cost(res[0], w, s["kp"], False), torch.sum(w)])
+    return dict(costs=costs, parts=_partials_at(s, res, cam, kern, freeze_lms))
+
+
+def _terms(outs: list, j: int, dev):
+    """The shards' cost terms ``j`` (:func:`_shard_terms`) summed on ``dev``
+    in shard order."""
+    return _summed([o["costs"][j] for o in outs], dev)
+
+
+def _robust_of(outs: list, kern: bool, dev):
+    return _terms(outs, 0 if kern else 1, dev)
+
+
+def _propose(k: dict, c: dict, P: tuple, freeze_lms: bool) -> dict:
+    """The carry ``c`` with the summed partials ``P`` at its state and the
+    LM step from there (:func:`_solve_step`): the lead's state between two
+    rounds."""
+    cam_new, lm_new, ok, pred = _solve_step(k, P, c["cam_pose"], c["lm_pos"], c["lam"],
+                                            freeze_lms)
+    return dict(c, P=P, cam_new=cam_new, lm_new=lm_new, ok=ok, pred=pred)
+
+
+def _stage_start(k: dict, cam_pose, lm_pos, outs: list, stage: tuple, init_lambda: float
+                 ) -> dict:
+    """A stage's first carry (``_run_stage``'s) at the state the shards'
+    terms ``outs`` were taken at, and its first step."""
+    _n_iters, kern, freeze_lms = stage
+    dev = cam_pose.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    c = dict(cam_pose=cam_pose, lm_pos=lm_pos,
+             cost=_robust_of(outs, kern, dev) + _prior_cost(k, cam_pose),
+             lam=torch.full((), init_lambda, dtype=torch.float32, device=dev), iters=zero,
+             it=zero, stall=zero, rejects=zero, more=torch.ones((), dtype=torch.bool, device=dev))
+    return _propose(k, c, _sum_parts([o["parts"] for o in outs], dev), freeze_lms)
+
+
+def _lead_begin(a: dict, kw: dict, stage: tuple) -> dict:
+    """The lead's first program: the window's fixed inputs ``k``, the
+    initial cost ``cost0``, the first stage's carry and step, and, with no
+    pose-only stage, the RMSE that stage would leave (``rmse1``)."""
+    dev = a["cam_pose"].device
+    k = _lead_keys(a["cam_pose"], a["cam_valid"], a["lm_valid"], kw["w_prior_rot"],
+                   kw["w_prior_trans"])
+    out = dict(k=k, cost0=_robust_of(a["outs"], kw["use_kernel"], dev)
+               + _prior_cost(k, a["cam_pose"]),
+               t=_stage_start(k, a["cam_pose"], a["lm_pos"], a["outs"], stage,
+                              kw["init_lambda"]))
+    if kw["stage1_iters"] <= 0:
+        out["rmse1"] = _rmse_of(_terms(a["outs"], 1, dev), _terms(a["outs"], 2, dev))
+    return out
+
+
+def _lead_iter(a: dict, stage: tuple) -> dict:
+    """One LM iteration on the lead (the lead's iteration program): the
+    masked accept of the step proposed last round, at the cost the shards
+    took there, then the next step, from the partials they took there
+    where it accepted and the kept ones where it did not (the same state,
+    so the same bits as partials taken anew)."""
+    k, t, outs = a["k"], a["t"], a["outs"]
+    n_iters, kern, freeze_lms = stage
+    dev = t["cam_pose"].device
+    new_cost = _robust_of(outs, kern, dev) + _prior_cost(k, t["cam_new"])
+    c, accept = _update({name: t[name] for name in _CARRY}, t["cam_new"], t["lm_new"], t["ok"],
+                        t["pred"], new_cost, n_iters)
+    c["more"] = _active(c, n_iters)
+    new = _sum_parts([o["parts"] for o in outs], dev)
+    P = tuple(None if x is None else torch.where(accept, x, p) for x, p in zip(new, t["P"]))
+    return _propose(k, c, P, freeze_lms)
+
+
+def _lead_switch(a: dict, stage: tuple, init_lambda: float) -> dict:
+    """From the pose-only stage to the full one, at the state it left: its
+    RMSE (``rmse1``) and the full stage's first carry and step."""
+    dev = a["cam_pose"].device
+    return dict(rmse1=_rmse_of(_terms(a["outs"], 1, dev), _terms(a["outs"], 2, dev)),
+                t=_stage_start(a["k"], a["cam_pose"], a["lm_pos"], a["outs"], stage,
+                               init_lambda))
+
+
+def _lead_end(a: dict, kern: bool) -> torch.Tensor:
+    """The solve's result row (:func:`result_blob`) at its final state."""
+    dev = a["cam_pose"].device
+    cost = _robust_of(a["outs"], kern, dev) + _prior_cost(a["k"], a["cam_pose"])
+    rmse = _rmse_of(_terms(a["outs"], 1, dev), _terms(a["outs"], 2, dev))
+    return result_blob(BAResult(a["cam_pose"], a["lm_pos"], a["cost0"], cost, rmse, None,
+                                a["rmse1"]))
+
+
+def _options(kw: dict) -> dict:
+    """Every solve option of :func:`optimize_window`, its defaults filled
+    in where ``kw`` leaves one out."""
+    bound = inspect.signature(optimize_window).bind(None, None, **kw)
+    bound.apply_defaults()
+    return {n: v for n, v in bound.arguments.items() if n not in ("win", "cam", "plan")}
+
+
+def shard_key(win: ShardedWindow, cam: StereoCamera, kw: dict) -> tuple:
+    """The key of a sharded window's programs: the bucket, the shards'
+    devices, every solve option of :func:`optimize_window` (``kw``, its
+    defaults filled in), the camera, and the module settings that shape
+    the LM loop (its block length; programs or eager steps). Shapes, not
+    addresses: every window of a bucket replays the same programs."""
+    w = win.shards[0]
+    n_obs = sum(s.obs_px.shape[0] for s in win.shards)
+    return ("window_shard", w.cam_pose.shape[0], w.lm_pos.shape[0], n_obs,
+            tuple(b.device for b in win.bufs), tuple(sorted(_options(kw).items())), cam,
+            WBA_EXIT_EVERY, WBA_SHARD_PROGRAMS)
+
+
+def _solve_sharded(win: ShardedWindow, cam: StereoCamera, kw: dict) -> tuple:
+    """A sharded window's solve (``WBA_SHARD_PROGRAMS``): rounds of one
+    program a shard on its device (:func:`_shard_terms`) and one on the
+    lead (begin, an iteration, the switch between stages, the end), each a
+    program replay on a card and its body on the CPU. Every shard's round
+    is queued before the lead's; the state goes to the shards and their
+    terms come back as copies into the programs' buffers, ordered by
+    events, not by the host. Each stage's iterations run in blocks of
+    ``WBA_EXIT_EVERY``, the host reading the exit test between blocks only
+    (``cuda_graphs.stop``; none at the engine's 8 iterations). ``kw``:
+    :func:`_options`. Returns the result row and the accepted iterations
+    of the last stage."""
+    stages = ([(kw["stage1_iters"], kw["use_kernel_stage1"], True)]
+              if kw["stage1_iters"] > 0 else []) + [(kw["max_iters"], kw["use_kernel"], False)]
+    key = shard_key(win, cam, kw)
+    lead = win.bufs[0].device
+
+    def run(body, inputs: dict, fixed: dict, role: tuple, dev):
+        if dev.type == "cuda":
+            return cuda_graphs.program(body, inputs, (*key, *role), fixed=fixed, device=dev)
+        return body({**inputs, **fixed})
+
+    def shard_round(cam_pose, lm_pos, stage: tuple) -> list:
+        _n, kern, freeze = stage
+        body = functools.partial(_shard_terms, layout=win.layout, cam=cam,
+                                 kernel_param=kw["kernel_param"], kern=kern, freeze_lms=freeze)
+        return [run(body, dict(cam_pose=cam_pose, lm_pos=lm_pos), dict(buf=buf),
+                    ("shard", i, kern, freeze), buf.device) for i, buf in enumerate(win.bufs)]
+
+    w0 = win.shards[0]           # the lead's replica of the state
+    outs = shard_round(w0.cam_pose, w0.lm_pos, stages[0])
+    first = run(functools.partial(_lead_begin, kw=kw, stage=stages[0]),
+                dict(cam_pose=w0.cam_pose, cam_valid=w0.cam_valid, lm_pos=w0.lm_pos,
+                     lm_valid=w0.lm_valid, outs=outs), {}, ("begin",), lead)
+    k, t, cost0, rmse1 = first["k"], first["t"], first["cost0"], first.get("rmse1")
+    for si, stage in enumerate(stages):
+        if si:
+            outs = shard_round(t["cam_pose"], t["lm_pos"], stage)
+            nxt = run(functools.partial(_lead_switch, stage=stage, init_lambda=kw["init_lambda"]),
+                      dict(cam_pose=t["cam_pose"], lm_pos=t["lm_pos"], outs=outs), dict(k=k),
+                      ("switch",), lead)
+            t, rmse1 = nxt["t"], nxt["rmse1"]
+        n_iters = stage[0]
+        n = max(1, min(WBA_EXIT_EVERY, n_iters))
+        for b in range(-(-n_iters // n)):
+            if cuda_graphs.stop(b, t):
+                break
+            for _ in range(n):
+                outs = shard_round(t["cam_new"], t["lm_new"], stage)
+                t = run(functools.partial(_lead_iter, stage=stage), dict(t=t, outs=outs),
+                        dict(k=k), ("iter", *stage), lead)
+    outs = shard_round(t["cam_pose"], t["lm_pos"], stages[-1])
+    blob = run(functools.partial(_lead_end, kern=kw["use_kernel"]),
+               dict(cam_pose=t["cam_pose"], lm_pos=t["lm_pos"], cost0=cost0, rmse1=rmse1,
+                    outs=outs), dict(k=k), ("end",), lead)
+    return blob, t["iters"]
 
 
 def optimize_window(
@@ -583,7 +851,18 @@ def optimize_window(
     """Optimize one window. ``plan`` (``assembly_plan`` of the window's
     index arrays) saves a device-to-host copy when the caller has them. A
     :class:`ShardedWindow` solves over its mesh, the result on the lead
-    device (``plan`` unused: each shard has its own)."""
+    device (``plan`` unused: each shard has its own): with
+    ``WBA_SHARD_PROGRAMS`` as :func:`_solve_sharded`'s programs (the
+    result's fields views of its result row), else its LM blocks eagerly,
+    the same bits."""
+    if isinstance(win, ShardedWindow) and WBA_SHARD_PROGRAMS:
+        kw = dict(kernel_param=kernel_param, max_iters=max_iters, use_kernel=use_kernel,
+                  init_lambda=init_lambda, w_prior_rot=w_prior_rot, w_prior_trans=w_prior_trans,
+                  stage1_iters=stage1_iters, use_kernel_stage1=use_kernel_stage1)
+        blob, iters = _solve_sharded(win, cam, kw)
+        C, L = win.shards[0].cam_pose.shape[0], win.shards[0].lm_pos.shape[0]
+        return BAResult(blob[:C * 6].view(C, 6), blob[C * 6:C * 6 + L * 3].view(L, 3), blob[-4],
+                        blob[-3], blob[-2], iters, blob[-1])
     k, win = _window_keys(win, cam, kernel_param, w_prior_rot, w_prior_trans, plan)
     cost0 = _cost(k, win.cam_pose, win.lm_pos, cam, use_kernel)
     cam_pose, lm_pos = win.cam_pose, win.lm_pos
@@ -598,6 +877,16 @@ def optimize_window(
     cost = _cost(k, cam_pose, lm_pos, cam, use_kernel)
     rmse = _rmse(k, cam_pose, lm_pos, cam)
     return BAResult(cam_pose, lm_pos, cost0, cost, rmse, iters, rmse_stg1)
+
+
+def optimize_window_blob(win: BAWindow | ShardedWindow, cam: StereoCamera,
+                         plan: AssemblyPlan | None = None, **kw) -> torch.Tensor:
+    """:func:`optimize_window` as one f32 row (:func:`result_blob`); a
+    sharded window's on the program route is its last program's output, so
+    no kernel runs after its programs."""
+    if isinstance(win, ShardedWindow) and WBA_SHARD_PROGRAMS:
+        return _solve_sharded(win, cam, _options(kw))[0]
+    return result_blob(optimize_window(win, cam, plan=plan, **kw))
 
 
 # ---------------------------------------------------------------- groups

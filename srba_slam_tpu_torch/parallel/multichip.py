@@ -19,7 +19,10 @@ of n devices, with the JAX dry run's small camera, asserts and bounds:
    keyframe checks and insertions on every shard;
 3. one window's bundle adjustment observation-sharded over the mesh
    against the unsharded solve, at a tiny window and at the loop-closure
-   bucket (C=32, L=8192, O=16384): max |dpose| under 1e-3;
+   bucket (C=32, L=8192, O=16384): max |dpose| under 1e-3; the sharded
+   solves timed on their default route (on a card the sharded programs,
+   ``ops/window_ba.py`` ``WBA_SHARD_PROGRAMS``; on the CPU their bodies)
+   and equal bit for bit to the eager LM blocks;
 4. the fleet's frames/s on the mesh against one device, median of 3.
 
 ``devices=`` gives the mesh where the JAX package bootstraps a virtual one
@@ -123,6 +126,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     from srba_slam_tpu_torch.config import GeneralOptions, SRBAStereoSLAMOptions, VOOptions
     from srba_slam_tpu_torch.models.bow import Vocabulary
     from srba_slam_tpu_torch.models.estimator import SRBAStereoSLAMEstimator
+    from srba_slam_tpu_torch.ops import window_ba
     from srba_slam_tpu_torch.ops.window_ba import optimize_window, shard_window_obs
     from srba_slam_tpu_torch.parallel.batch import (
         batched_vo_step, empty_features, make_mesh,
@@ -189,11 +193,24 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     # 3) one sequence's window bundle adjustment observation-sharded over the
     #    mesh against the one-device solve
     obs_mesh = make_mesh(devices=mesh.devices, axis="obs")
+    route = ("programs" if window_ba.WBA_SHARD_PROGRAMS and lead.type == "cuda" else
+             "program bodies, eager" if window_ba.WBA_SHARD_PROGRAMS else "eager LM blocks")
+
+    def same_as_eager(sharded_win, r, **kw) -> bool:
+        prev, window_ba.WBA_SHARD_PROGRAMS = window_ba.WBA_SHARD_PROGRAMS, False
+        try:
+            eager = optimize_window(sharded_win, **kw)
+        finally:
+            window_ba.WBA_SHARD_PROGRAMS = prev
+        return all(torch.equal(x, y) for x, y in zip(r, eager))
+
     win = _tiny_window(cam, np.random.default_rng(0), lead)
     r1 = optimize_window(win, cam, max_iters=8)
-    rs = optimize_window(shard_window_obs(win, obs_mesh), cam, max_iters=8)
+    tiny = shard_window_obs(win, obs_mesh)
+    rs = optimize_window(tiny, cam, max_iters=8)
     sharded_err = float((rs.cam_pose - r1.cam_pose).abs().max())
     assert sharded_err < 1e-3, f"sharded window BA diverged: {sharded_err}"
+    assert same_as_eager(tiny, rs, cam=cam, max_iters=8), "sharded solve != its eager blocks"
 
     # 3b) the same at the loop-closure window bucket, with the wall time of
     #     the second of two solves each
@@ -211,9 +228,12 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
         return r, time.perf_counter() - t0
 
     rb1, t_big1 = timed_solve(big)
-    rbn, t_bign = timed_solve(shard_window_obs(big, obs_mesh))
+    big_sharded = shard_window_obs(big, obs_mesh)
+    rbn, t_bign = timed_solve(big_sharded)
     lc_err = float((rbn.cam_pose - rb1.cam_pose).abs().max())
     assert lc_err < 1e-3, f"LC-bucket sharded window BA diverged: {lc_err}"
+    assert same_as_eager(big_sharded, rbn, cam=kcam, max_iters=4), \
+        "LC-bucket sharded solve != its eager blocks"
     assert float(rb1.cost_final) < float(rb1.cost_init), "solve did not improve"
 
     # 4) the fleet's frames/s on the mesh against one device, median of 3
@@ -227,7 +247,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     out = dict(n_devices=n_devices, devices=[str(d) for d in mesh.devices],
                distinct=mesh.distinct, fleet_valid_fraction=float(fleet_frac2),
                fleet_mean_residual=float(fleet_res2), kfs_per_shard=n_kfs, checks=n_checks,
-               sharded_err=sharded_err, lc_err=lc_err, lc_ms_1=t_big1 * 1e3,
+               sharded_err=sharded_err, lc_err=lc_err, window_route=route, lc_ms_1=t_big1 * 1e3,
                lc_ms_n=t_bign * 1e3, fleet_fps_1=8 / solo_med,
                fleet_fps_n=frames_fleet / fleet_med, scaling=scaling,
                fleet_s=fleet_dts, solo_s=solo_dts)
@@ -236,7 +256,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
           f"{out['fleet_mean_residual']:.3f} | full-pipeline kfs/shard={n_kfs}, "
           f"checks={n_checks} | sharded-window-BA max|dpose|={sharded_err:.2e} (LC bucket "
           f"C=32/L=8192/O=16384: {lc_err:.2e}, 1-dev {out['lc_ms_1']:.1f} ms vs "
-          f"{n_devices}-dev {out['lc_ms_n']:.1f} ms, 4 LM iterations) | fleet 1->{n_devices} "
+          f"{n_devices}-dev {out['lc_ms_n']:.1f} ms on its {route}, 4 LM iterations; both "
+          f"sharded solves = the eager LM blocks bit for bit) | fleet 1->{n_devices} "
           f"devices, median of 3: {out['fleet_fps_1']:.2f} -> {out['fleet_fps_n']:.2f} "
           f"frames/s ({scaling:.2f}x; per-run fleet {['%.2fs' % d for d in fleet_dts]} solo "
           f"{['%.2fs' % d for d in solo_dts]}; {len(os.sched_getaffinity(0))} host cores)")

@@ -1736,3 +1736,184 @@ def test_programs_of_a_deleted_estimator_are_freed(cuda):
     again.perform_stereo_slam_batched(frames, batch=4)
     again.rba.flush()
     assert cuda_graphs.capture_stats("window_group")["captures"] == captures
+
+
+SHARD_KW = dict(kernel_param=1.5, max_iters=8, stage1_iters=2)
+SHARD_BUCKET = (16, 1024, 2048)
+
+
+def _sharded(devices, seed=5, bucket=SHARD_BUCKET):
+    """A window of ``bucket`` laid out over ``devices`` from its host arrays
+    (the engine's form)."""
+    from srba_slam_tpu_torch.ops import window_ba
+    from srba_slam_tpu_torch.parallel.batch import make_mesh
+
+    win = _bucket_window(*bucket, seed=seed)
+    return window_ba.shard_window_obs(window_ba.BAWindow(*(a.numpy() for a in win)),
+                                      make_mesh(devices=devices, axis="obs"))
+
+
+def _sharded_eager(sw, cam, monkeypatch):
+    from srba_slam_tpu_torch.ops import window_ba
+
+    with monkeypatch.context() as m:
+        m.setattr(window_ba, "WBA_SHARD_PROGRAMS", False)
+        return window_ba.optimize_window(sw, cam, **SHARD_KW)
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_programs_equal_eager(cuda, monkeypatch, n_shards):
+    """A window of the (16, 1024, 2048) bucket sharded over ``cuda:0`` x n:
+    its programs (one a shard and one a lead step, captured at the first
+    solve) give the eager LM blocks' bits; a second window of the bucket,
+    in other buffers, captures nothing, replays under
+    ``set_sync_debug_mode("error")`` (no host sync from its upload to its
+    result row) and equals its own eager route."""
+    from srba_slam_tpu_torch.ops import cuda_graphs, window_ba
+
+    cam = StereoCamera.kitti()
+    monkeypatch.setattr(cuda_graphs, "_PROGRAMS", {})
+    first = _sharded(["cuda:0"] * n_shards)
+    caps = cuda_graphs.capture_stats("window_shard")["captures"]
+    prog = window_ba.optimize_window(first, cam, **SHARD_KW)
+    made = cuda_graphs.capture_stats("window_shard")["captures"] - caps
+    # 2 shard programs a shard (stage 1, stage 2) and 5 on the lead
+    assert made == 2 * n_shards + 5, made
+    for field, a, b in zip(prog._fields, prog, _sharded_eager(first, cam, monkeypatch)):
+        assert torch.equal(a, b), field
+    assert float(prog.cost_final) < float(prog.cost_init)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = _sharded(["cuda:0"] * n_shards, seed=6)
+        blob = window_ba.optimize_window_blob(second, cam, **SHARD_KW)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cuda_graphs.capture_stats("window_shard")["captures"] - caps == made
+    assert torch.equal(blob, window_ba.result_blob(_sharded_eager(second, cam, monkeypatch)))
+    assert not torch.equal(blob, window_ba.result_blob(prog))
+
+
+def test_sharded_programs_on_distinct_cards(cuda, monkeypatch):
+    """Where the machine has two cards: a window sharded over ``cuda:0``
+    and ``cuda:1``, its state and partial sums crossing the cards as copies
+    ordered by events, equals its eager route bit for bit, with no host
+    sync after the capture."""
+    from srba_slam_tpu_torch.ops import window_ba
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA card")
+    cam = StereoCamera.kitti()
+    sw = _sharded(["cuda:0", "cuda:1"])
+    prog = window_ba.optimize_window(sw, cam, **SHARD_KW)
+    for field, a, b in zip(prog._fields, prog, _sharded_eager(sw, cam, monkeypatch)):
+        assert torch.equal(a, b), field
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = window_ba.optimize_window_blob(sw, cam, **SHARD_KW)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(again, window_ba.result_blob(prog))
+
+
+def _engine_sequence(engine) -> np.ndarray:
+    """Six keyframes 0.8 m apart over 80 landmarks through ``engine``, then
+    the keyframes' global poses."""
+    from srba_slam_tpu_torch.utils import se3_np
+
+    cam = StereoCamera.kitti()
+    rng = np.random.default_rng(5)
+    lms_w = np.stack([rng.uniform(-6, 6, 80), rng.uniform(-2, 2, 80),
+                      rng.uniform(8, 25, 80)], -1)
+    for kf in range(6):
+        inv = se3_np.inverse(np.array([0.0, 0.0, 0.0, 0.0, 0.0, 0.8 * kf]))
+        pcs = [(j, se3_np.transform_point(inv, pw)) for j, pw in enumerate(lms_w)]
+        pcs = [(j, pc) for j, pc in pcs if pc[2] >= 2.0]
+        px = [[cam.cx_l + cam.fx_l * pc[0] / pc[2], cam.cy_l + cam.fy_l * pc[1] / pc[2],
+               cam.cx_r + cam.fx_r * (pc[0] - cam.baseline) / pc[2]] for _j, pc in pcs]
+        if kf:
+            engine.set_initial_kf_pose(np.array([0, 0, 0, 0, 0, 0.8]))
+        engine.define_new_keyframe((np.asarray([j for j, _ in pcs], np.int64),
+                                    np.asarray(px, np.float64),
+                                    np.asarray([pc for _, pc in pcs], np.float64)),
+                                   run_opt=kf > 0)
+    engine.flush()
+    return engine.kf_global[:6].copy()
+
+
+def test_mesh_engine_programs_equal_eager(cuda, monkeypatch):
+    """``SRBAEngine(mesh=)`` on ``cuda:0`` x 4: the keyframe poses with the
+    sharded programs equal those of the eager route; a second engine's run
+    captures no program, and ``capture_window_programs`` of a bucket met
+    captures nothing more."""
+    from srba_slam_tpu_torch.models.srba import SRBAEngine, SRBAParams
+    from srba_slam_tpu_torch.ops import cuda_graphs, window_ba
+    from srba_slam_tpu_torch.parallel.batch import make_mesh
+
+    p = SRBAParams(submap_size=4, max_optimize_depth=3, max_kfs=16, win_cams=8, win_lms=1024,
+                   win_obs=2048)
+    cam = StereoCamera.kitti()
+
+    def engine():
+        return SRBAEngine(cam, p, mesh=make_mesh(devices=["cuda:0"] * 4, axis="obs"))
+
+    prog = _engine_sequence(engine())
+    caps = cuda_graphs.capture_stats("window_shard")["captures"]
+    again = engine()
+    assert np.array_equal(_engine_sequence(again), prog)
+    assert again.capture_window_programs() == []
+    assert cuda_graphs.capture_stats("window_shard")["captures"] == caps
+    with monkeypatch.context() as m:
+        m.setattr(window_ba, "WBA_SHARD_PROGRAMS", False)
+        eager = _engine_sequence(engine())
+    assert np.array_equal(prog, eager)
+
+
+def sharded_launches_child() -> None:
+    """:func:`test_sharded_solve_launches_no_kernels`' process: one sharded
+    solve over ``cuda:0`` x 4, eager (traced first) and as its programs
+    (traced last): kernel launches, graph launches and copies of one call.
+    Prints one JSON object."""
+    import json
+
+    from srba_slam_tpu_torch.ops import window_ba
+    from srba_slam_tpu_torch.utils import kernel_timing as kt
+
+    sw = _sharded(["cuda:0"] * 4)
+    cam = StereoCamera.kitti()
+
+    def solve():
+        return window_ba.optimize_window_blob(sw, cam, **SHARD_KW)
+
+    def counts(fn):
+        evs = kt.profile_calls(fn)
+        return [kt.launch_count(evs), sum(e.count for e in evs if "GraphLaunch" in e.key),
+                sum(e.count for e in evs if e.key == "cudaMemcpyAsync")]
+
+    window_ba.WBA_SHARD_PROGRAMS = False
+    got = {"eager": counts(solve)}
+    window_ba.WBA_SHARD_PROGRAMS = True
+    got["programs"] = counts(solve)
+    print(json.dumps(got))
+
+
+def test_sharded_solve_launches_no_kernels(cuda):
+    """In a process of its own: a sharded solve on its programs launches no
+    kernel, and one graph a shard and one on the lead a round (the first
+    state, 2 pose-only iterations, the switch, 8 iterations, the end: 13
+    rounds); eagerly it launches thousands of kernels."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys; sys.path.insert(0, 'tests'); import test_torch_cuda; "
+            "test_torch_cuda.sharded_launches_child()")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=root,
+                          timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["programs"][:2] == [0, 13 * 5], got
+    assert got["eager"][0] > 1000, got
