@@ -24,13 +24,16 @@ not 0 (there is no CPU fallback):
                bit-exact, at the K=512 keypoints K1 gives on the street pair;
 5. slice     - ``StereoVOEngine`` on the card over the first 30 frames of
                the bench workload (KITTI geometry, street scene, seed 11,
-               capacity 512). K1 and K2 launch exactly once per frame. The
+               capacity 512), each pass two program replays (the frame and
+               the track program, ``vo.FRAME_PROGRAMS``). K1 and K2 launch
+               exactly once per frame (and once for the frame program's
+               warm-up). The
                first 5 frames also run on the port's CPU path and must agree:
                identical validity, counts and integer features, pose
                increments within 1e-4 rad / 1e-3 m. Then
-               ``extract_and_match`` of the street pair, 5 calls under
-               torch.profiler: the frontend's kernel launches and device µs
-               per call (a trace that misses K1 or K2 is taken again, at
+               ``extract_and_match`` of the street pair on its eager route,
+               5 calls under torch.profiler: the frontend's kernel launches
+               and device µs per call (a trace that misses K1 or K2 is taken again, at
                most 3 times, then reported as not traced; the wrappers'
                counts must show both launched);
 6. K3        - ``fast_score_map`` kernel against its plain version,
@@ -61,7 +64,21 @@ not 0 (there is no CPU fallback):
                per frame and per keyframe check; each check one replay of
                the one-check program (``CHECK_GRAPHS``): section ``queryDB``
                ms per check, with and without its capture; the inputs of
-               every check are kept for phase 12;
+               every check are kept for phase 12. Every VO pass runs the
+               frame and the track program, every row write of the store
+               and the BoW database and the database's rebuild their
+               programs; ``[frame programs]``: the run again with their
+               eager routes (``FRAME_FLAGS`` off) and again with the
+               programs, every pass's features and track outputs equal
+               bit for bit, the decisions the fingerprint's, the keyframe
+               poses equal; the frames without a check, median and p95 ms
+               of each run (the first also without the frames that
+               captured a program); one pass's device half, dispatch /
+               done ms in turns, and a whole pass; the programs' capture s
+               and pools; the launches of a pass, a row write and a
+               re-check, eager against programs, in a process of its own
+               (``tools/frame_launches.py``: a pass 0 kernels and 2
+               graphs, the others 0 and 1);
 8. options   - the frontend's options at KITTI geometry: (a) K1, K2 and K3
                (margins 3, 2 and 0: under 3 the circle wraps at the borders)
                ``torch.equal`` to their plain versions on the f32
@@ -324,8 +341,10 @@ from srba_slam_tpu_torch import (  # noqa: E402
     SRBAStereoSLAMEstimator, StereoCamera, StereoVOEngine, VOOptions, bench, load_config,
 )
 from srba_slam_tpu_torch.__main__ import main as cli_main  # noqa: E402
+from srba_slam_tpu_torch.models import bow as bow_mod  # noqa: E402
 from srba_slam_tpu_torch.models import data_association as da_mod  # noqa: E402
 from srba_slam_tpu_torch.models import estimator as estimator_mod  # noqa: E402
+from srba_slam_tpu_torch.models import keyframe as keyframe_mod  # noqa: E402
 from srba_slam_tpu_torch.models import srba as srba_mod  # noqa: E402
 from srba_slam_tpu_torch.models import vo as vo_mod  # noqa: E402
 from srba_slam_tpu_torch.models.estimator import bench_estimator  # noqa: E402
@@ -380,6 +399,12 @@ N_FLEET_FRAMES = 30
 N_FLEET_CLI_FRAMES = 20
 N_FLEET_LAUNCH_FRAMES = 8
 ORIENTED_ROWS_TOL = 0.02
+# the per-frame slice's programs (phase 7's [frame programs]): the kinds,
+# and the flags of their eager routes
+FRAME_KINDS = ("frame", "track", "kf_row", "bow_row", "bow_rebuild", "recheck")
+FRAME_FLAGS = ((vo_mod, "FRAME_PROGRAMS"), (keyframe_mod, "ROW_PROGRAMS"),
+               (bow_mod, "ROW_PROGRAMS"), (da_mod, "RECHECK_PROGRAM"))
+FRAME_AB_REPS = 5       # phase 7's [frame programs]: passes a route a turn
 CHECK_REPS = 10
 EXIT_PERIODS = (1, 2, 4, 8, 12)
 INSERTION_PARTS = ("define_new_keyframe", "upload", "assembly_plan", "optimize_window",
@@ -751,7 +776,7 @@ def _graph_programs(b_list=None) -> str:
     of its GN steps' pools, K1/K2 launches a replay."""
     rows = []
     for p in cuda_graphs.programs():
-        b = p["key"][1]
+        b = p["key"][1] if p["key"][0] == "vo_scan" else None
         if p["key"][0] == "vo_scan" and (b_list is None or b in b_list):
             rows.append(f"B={b} {p['capture_s']:.3f} s, pool {p['pool_bytes'] / 2**20:.1f} MB "
                         f"(steps {p['body_bytes'] / 2**20:.1f} MB), launches a replay "
@@ -895,14 +920,17 @@ def phase_slice(cam, frames, gt_poses):
     eng = engine(DEV)
     results, feats, ms = [], [], []
     _reset_launches()
+    caps = _captures("frame")
     for i, (left, right) in enumerate(frames):
         t0 = time.perf_counter()
         res = eng.process_stereo_pair(left, right)
         sync()
         ms.append((time.perf_counter() - t0) * 1e3)
         launches = (fast_nms.launches, orb_descriptors.launches)
-        check(launches == (i + 1, i + 1),
-              f"frame {i}: kernel launch counts {launches}, expected {i + 1} each")
+        # one a pass (a replay of the frame program), one more for its capture's warm-up
+        n = i + 1 + _captures("frame") - caps
+        check(launches == (n, n), f"frame {i}: kernel launch counts {launches}, expected {n} "
+                                  f"each ({_captures('frame') - caps} frame program warm-ups)")
         results.append(res)
         if i < N_CPU_FRAMES:
             feats.append(eng.last_frame())
@@ -932,12 +960,14 @@ def phase_slice(cam, frames, gt_poses):
     slice_ms = statistics.median(ms)
     print(f"[slice] {len(frames)} frames 370x1226 on CUDA: per-frame median "
           f"{statistics.median(ms):.3f} ms, p95 {p95(ms):.3f} ms, first {ms[0]:.3f} ms | "
-          f"launches {counts} | first {N_CPU_FRAMES} frames match the CPU path | "
+          f"launches {counts} (one a pass, one a frame program warm-up) | first "
+          f"{N_CPU_FRAMES} frames match the CPU path | "
           f"stereo matches median {int(np.median([r.num_stereo_matches for r in results]))}, "
           f"tracked median {int(np.median([r.tracked_from_last_frame for r in results[1:]]))} | "
           f"translation error at frame {len(frames)}: {t_err:.4f} m over {path:.2f} m")
     if front["traced"]:
-        print(f"[frontend] extract_and_match of the street pair (frame 0), "
+        print(f"[frontend] extract_and_match of the street pair (frame 0), eager "
+              f"(FRAME_PROGRAMS off: this process traces no program), "
               f"{FRONTEND_PROFILE_REPS} calls under torch.profiler, per call: "
               f"{front['launches']:.1f} kernel launches, device {front['device_us']:.1f} us, "
               f"of which K1 {front['fast_nms_kernel']:.1f} us and "
@@ -951,13 +981,15 @@ def phase_slice(cam, frames, gt_poses):
 
 def _frontend_profile(cam, left, right) -> dict:
     """The frontend's launches and device µs per call for one stereo pair,
-    as the VO engine of phase 5 calls it. The wrappers' counts must show K1
-    and K2 launched; a trace that holds neither is reported, not failed."""
+    as the VO engine of phase 5 calls it, on its eager route (the frame
+    program off: a trace of a captured program has been followed by an
+    illegal memory access, ROADMAP Queue 3). The wrappers' counts must show
+    K1 and K2 launched; a trace that holds neither is reported, not failed."""
     opts = VOOptions(fast_th=20, n_feats=500)
     before = (fast_nms.launches, orb_descriptors.launches)
-    evs = kt.profile_until(lambda: extract_and_match(
+    evs = kt.profile_until(_flag_off(vo_mod, "FRAME_PROGRAMS", lambda: extract_and_match(
         left, right, cam, 20.0, int(opts.orb_max_distance), k=512, cell=opts.min_distance,
-        max_y_diff=opts.max_y_diff, device=DEV), FRONTEND_KERNELS, FRONTEND_PROFILE_REPS)
+        max_y_diff=opts.max_y_diff, device=DEV)), FRONTEND_KERNELS, FRONTEND_PROFILE_REPS)
     launched = (fast_nms.launches - before[0], orb_descriptors.launches - before[1])
     check(min(launched) > 0, f"the frontend launched K1, K2 {launched} times under the profiler")
     if evs is None:
@@ -987,13 +1019,15 @@ def _count_vo_passes(est) -> list:
 def _run_estimator(device, frames, snapshot_at=None, syncs=None):
     """Step the bench estimator over ``frames``; returns it with per-frame
     host ms (synchronized), the keyframe poses after frame ``snapshot_at``,
-    and with a ``SyncCount`` the host syncs of each frame and of each
-    keyframe check. The strict solve schedule: the fingerprint's."""
+    with a ``SyncCount`` the host syncs of each frame and of each keyframe
+    check, and the programs captured in each frame. The strict solve
+    schedule: the fingerprint's."""
     est = bench_estimator(device, solve_sync=True)
     passes = _count_vo_passes(est)
     check_syncs = _count_calls_syncs(est, "_kf_check", syncs) if syncs else []
-    ms, frame_syncs, snap = [], [], None
+    ms, frame_syncs, frame_caps, snap = [], [], [], None
     for i, (left, right) in enumerate(frames):
+        caps = cuda_graphs.PROGRAM_STATS["captures"]
         t0 = time.perf_counter()
         n0 = syncs.n if syncs else 0
         est.step(left, right)
@@ -1002,9 +1036,10 @@ def _run_estimator(device, frames, snapshot_at=None, syncs=None):
         if device != "cpu":
             sync()
         ms.append((time.perf_counter() - t0) * 1e3)
+        frame_caps.append(cuda_graphs.PROGRAM_STATS["captures"] - caps)
         if i == snapshot_at:
             snap = est.rba.kf_global[: est.store.n_kfs].copy()
-    return est, passes[0], ms, snap, frame_syncs, check_syncs
+    return est, passes[0], ms, snap, frame_syncs, check_syncs, frame_caps
 
 
 def _capture_checks():
@@ -1050,6 +1085,179 @@ def _pick_check(steps, records) -> dict:
     raise RuntimeError("no keyframe check of the run had five valid candidates")
 
 
+def _frame_eager(fn):
+    """``fn`` with the per-frame slice's programs off (``FRAME_FLAGS``: the
+    frame and track programs, the row writes and rebuild, the re-check),
+    their eager routes: the same bits."""
+    def run():
+        keep = [getattr(m, n) for m, n in FRAME_FLAGS]
+        for m, n in FRAME_FLAGS:
+            setattr(m, n, False)
+        try:
+            return fn()
+        finally:
+            for (m, n), k in zip(FRAME_FLAGS, keep):
+                setattr(m, n, k)
+    return run
+
+
+def _recorded_run(frames, **kw) -> dict:
+    """Phase 7's run (:func:`_run_estimator` with ``kw``, strict schedule)
+    with every VO pass's features (``extract_and_match``) and every track's
+    host outputs (``solve_tracks``) recorded, in order."""
+    feats, hosts = [], []
+    run_em, run_st = vo_mod.extract_and_match, vo_mod.solve_tracks
+
+    def em(*a, **k):
+        feats.append(run_em(*a, **k))
+        return feats[-1]
+
+    def st(*a, **k):
+        hosts.append(run_st(*a, **k))
+        return hosts[-1]
+
+    vo_mod.extract_and_match, vo_mod.solve_tracks = em, st
+    try:
+        est, n_passes, ms, snap, frame_syncs, check_syncs, frame_caps = _run_estimator(
+            DEV, frames, **kw)
+    finally:
+        vo_mod.extract_and_match, vo_mod.solve_tracks = run_em, run_st
+    return dict(est=est, passes=n_passes, ms=ms, caps=frame_caps, feats=feats, hosts=hosts,
+                snap=snap, frame_syncs=frame_syncs, check_syncs=check_syncs,
+                kf=est.rba.kf_global[:est.store.n_kfs].copy())
+
+
+def _quiet(ms, steps, keep=None) -> list:
+    """The ms of the frames without a keyframe check (frame 0 aside), where
+    ``keep`` (one bool a frame) holds."""
+    return [m for i, (m, r) in enumerate(zip(ms, steps))
+            if not r.kf_check and r.frame_idx > 0 and (keep is None or keep[i])]
+
+
+def _pass_fns(frames):
+    """One VO pass's device half on a fresh bench VO engine, warmed on frames
+    0 and 1 (the frame and track programs captured): the frontend of frame
+    2 at the engine's thresholds and its track against frame 1 with the
+    outputs packed (``solve_tracks``' program), as the programs' call and
+    eagerly (``FRAME_PROGRAMS`` off)."""
+    eng = bench_estimator(DEV).vo
+    for left, right in frames[:2]:
+        eng.process_stereo_pair(left, right)
+
+    def graph():
+        cur = extract_and_match(*frames[2], eng.cam, *eng.thresholds(), **eng.frontend_options())
+        x = vo_mod._track_inputs([eng._prev], [cur], eng.initial_increment()[None],
+                                 [float(int(eng.orb_th))], eng.device)
+        return cur, vo_mod._track(x, eng.cam, eng.solve_options(), True)
+
+    return eng, graph, _flag_off(vo_mod, "FRAME_PROGRAMS", graph)
+
+
+def _frame_launches() -> dict:
+    """The launches of a VO pass, a row write of the store and of the
+    database and a re-check, eager against programs, under torch.profiler
+    in a process of its own (``tools/frame_launches.py``; this process
+    traces no program: ROADMAP Queue 3). A pass on its programs must launch
+    no kernel and two graphs, the others no kernel and one graph."""
+    proc = subprocess.run([sys.executable, "-m", "srba_slam_tpu_torch.tools.frame_launches"],
+                          capture_output=True, text=True,
+                          cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    check(proc.returncode == 0, f"the frame-launches process exited with {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(got["pass program"][:2] == [0, 2], f"a pass on its programs launched "
+          f"{got['pass program'][0]} kernels and {got['pass program'][1]} graphs")
+    for name in ("kf_row", "bow_row", "recheck"):
+        check(got[f"{name} program"][:2] == [0, 1], f"a {name} program call launched "
+              f"{got[f'{name} program'][0]} kernels and {got[f'{name} program'][1]} graphs")
+    return got
+
+
+def _frame_program_stats() -> str:
+    """The per-frame slice's live programs by kind: count, host s of warm-up
+    and capture (range), pool MB (the graph's and its steps')."""
+    rows = []
+    for kind in FRAME_KINDS:
+        ps = [p for p in cuda_graphs.programs() if p["key"][0] == kind]
+        if ps:
+            cap = [p["capture_s"] for p in ps]
+            pool = [(p["pool_bytes"] + p["body_bytes"]) / 2**20 for p in ps]
+            rows.append(f"{kind}: {len(ps)} live, {min(cap):.3f}-{max(cap):.3f} s, pool "
+                        f"{min(pool):.1f}-{max(pool):.1f} MB")
+    return "; ".join(rows) or "none"
+
+
+def _frame_programs(frames, fp: dict, g: dict) -> None:
+    """Phase 7's ``[frame programs]`` line: the run above (``g``, recorded
+    by :func:`_recorded_run`: the per-frame programs on, some captured in
+    it) against the same run with their eager routes (``FRAME_FLAGS``
+    off; under ``SyncCount`` as the run above), one after the other: every
+    pass's features and every track's host outputs bit-equal, the decisions
+    the fingerprint's and the keyframe poses equal; frames without a check,
+    median and p95 ms and host syncs (median) of each run (the first also
+    without the frames in which a program was captured);
+    one pass's device half dispatch / done ms in turns and bits, and a
+    whole pass in turns; the programs' capture s and pools; the launches of
+    a pass, a row write and a re-check from a process of its own."""
+    torch.use_deterministic_algorithms(True)
+    with SyncCount() as syncs:      # as the run above: the same host work a frame
+        e = _frame_eager(lambda: _recorded_run(frames, syncs=syncs))()
+    torch.use_deterministic_algorithms(False)
+    runs = {"eager": e, "programs": g}
+    for name, r in runs.items():
+        check(bw.decisions(r["est"].step_log) == fp["decisions"],
+              f"phase 7 with the per-frame {name}: decisions differ from the JAX fingerprint")
+    check(len(e["feats"]) == len(g["feats"]) == e["passes"] == g["passes"] >= len(frames)
+          and len(e["hosts"]) == len(g["hosts"]),
+          f"the runs made {len(e['feats'])} and {len(g['feats'])} VO passes")
+    same = (all(torch.equal(x, y) for a, b in zip(e["feats"], g["feats"]) for x, y in zip(a, b))
+            and all(np.array_equal(x, y) for a, b in zip(e["hosts"], g["hosts"])
+                    for x, y in zip(a, b)))
+    check(same, "the per-frame programs differ from their eager routes")
+    check(np.array_equal(e["kf"], g["kf"]),
+          "the keyframe poses of the eager and the program runs differ")
+
+    eng, graph, eager = _pass_fns(frames)
+    check(all(torch.equal(x, y) for x, y in zip(pytree.tree_leaves(graph()),
+                                                pytree.tree_leaves(eager()))),
+          "one pass: the programs differ from the eager route")
+    med = _dispatch_done(graph, eager, FRAME_AB_REPS)
+    whole = _in_turns(_flag_off(vo_mod, "FRAME_PROGRAMS",
+                                lambda: eng.process_stereo_pair(*frames[3])),
+                      lambda: eng.process_stereo_pair(*frames[3]))
+    launches = _frame_launches()
+
+    steps = g["est"].step_log
+    stats = []
+    for name, times, keep in ((f"programs, {sum(g['caps'])} captures in the run", g["ms"], None),
+                              ("programs, the frames that captured left out", g["ms"],
+                               [c == 0 for c in g["caps"]]),
+                              ("eager", e["ms"], None)):
+        q = _quiet(times, steps, keep)
+        stats.append(f"{name} {statistics.median(q):.3f} / {p95(q):.3f} ({len(q)} frames)")
+    q_syncs = {name: _med(_quiet(r["frame_syncs"], steps)) for name, r in runs.items()}
+    print(f"[frame programs] per-frame programs (FRAME_PROGRAMS, ROW_PROGRAMS, RECHECK_PROGRAM) "
+          f"against their eager routes, phase 7's {len(frames)} frames (the run above, then "
+          f"eagerly): every pass's features ({len(g['feats'])} passes) and track outputs "
+          f"({len(g['hosts'])}) equal bit for bit, decisions = the fingerprint, keyframe poses "
+          f"equal | frames without a check, median / p95 ms: " + "; ".join(stats)
+          + f" | host syncs a frame without a check, median: programs {q_syncs['programs']}, "
+          f"eager {q_syncs['eager']} | one pass's device half (upload, frame program, track "
+          f"program; not read), "
+          f"dispatch / done ms, medians in turns: eager {med['eager'][0]:.3f} / "
+          f"{med['eager'][1]:.3f}, programs {med['graph'][0]:.3f} / {med['graph'][1]:.3f}, "
+          f"bits equal | a whole pass (process_stereo_pair: with its read and walk) median "
+          f"ms in turns: eager {whole[0]:.3f}, programs {whole[1]:.3f} | programs: "
+          f"{_frame_program_stats()} | launches a call (kernel launches / graph launches / "
+          f"copies), torch.profiler in a process of its own: a pass eager "
+          f"{tuple(launches['pass eager'])}, programs {tuple(launches['pass program'])}; a "
+          f"store row write eager {tuple(launches['kf_row eager'])}, program "
+          f"{tuple(launches['kf_row program'])}; a BoW row write eager "
+          f"{tuple(launches['bow_row eager'])}, program {tuple(launches['bow_row program'])}; "
+          f"a re-check eager {tuple(launches['recheck eager'])}, program "
+          f"{tuple(launches['recheck program'])} ({CARD})")
+
+
 def phase_estimator(frames, gt_poses, profile: bool) -> dict:
     fp = bw.load_fingerprint()
     check(fp["workload"]["source"] == bw.SOURCE and fp["workload"]["options"] == bw.OPTIONS,
@@ -1064,15 +1272,19 @@ def phase_estimator(frames, gt_poses, profile: bool) -> dict:
     records, uncapture = _capture_checks()
     _reset_launches()
     check_caps = cuda_graphs.capture_stats("check")
+    frame_caps0 = _captures("frame")
     with SyncCount() as syncs:
-        est, n_passes, ms, snap, frame_syncs, check_syncs = _run_estimator(
-            DEV, frames, snapshot_at=n_cpu - 1, syncs=syncs)
+        run = _recorded_run(frames, snapshot_at=n_cpu - 1, syncs=syncs)
+    est, n_passes, ms, snap = run["est"], run["passes"], run["ms"], run["snap"]
+    frame_syncs, check_syncs = run["frame_syncs"], run["check_syncs"]
     uncapture()
     counts = _launches()
+    frame_caps0 = _captures("frame") - frame_caps0
     check(blur_calls["cuda"] == 0,
           f"gauss_blur7 ran {blur_calls['cuda']} times on CUDA tensors: K2 must blur inside")
-    check(counts["fast_nms"] == n_passes and counts["orb_descriptors"] == n_passes,
-          f"K1/K2 launches {counts} over {n_passes} VO passes")
+    check(counts["fast_nms"] == counts["orb_descriptors"] == n_passes + frame_caps0,
+          f"K1/K2 launches {counts} over {n_passes} VO passes and {frame_caps0} frame "
+          f"program warm-ups")
     got = bw.decisions(est.step_log)
     diff = [(a, b) for a, b in zip(fp["decisions"], got) if a != b]
     check(not diff, f"decisions differ from the JAX fingerprint at {len(diff)} frames: "
@@ -1097,7 +1309,7 @@ def phase_estimator(frames, gt_poses, profile: bool) -> dict:
     jax_final = np.asarray(fp["final_poses_cam"])
     d_jax = np.abs(final - jax_final)
 
-    cpu, _n_cpu_passes, cpu_ms, cpu_snap, _fs, _cs = _run_estimator(
+    cpu, _n_cpu_passes, cpu_ms, cpu_snap, _fs, _cs, _fc = _run_estimator(
         "cpu", frames[:n_cpu], snapshot_at=n_cpu - 1)
     unguard()
     check(bw.decisions(cpu.step_log) == got[:n_cpu],
@@ -1123,7 +1335,8 @@ def phase_estimator(frames, gt_poses, profile: bool) -> dict:
           f"{statistics.median(ins):.3f} ms, mean {statistics.mean(ins):.3f} ms | "
           f"finalize {finalize_ms:.3f} ms | {est.store.n_kfs} KFs, "
           f"{sum(r.kf_check for r in steps)} checks, {n_lc} LCs, {n_rej} LCs rejected | "
-          f"VO passes {n_passes}, launches {counts}, gauss_blur7 on CUDA tensors "
+          f"VO passes {n_passes}, launches {counts} (one a pass, {frame_caps0} frame program "
+          f"warm-up(s)), gauss_blur7 on CUDA tensors "
           f"{blur_calls['cuda']}x (on CPU tensors {blur_calls['cpu']}x, the CPU comparison) | "
           f"decisions equal the JAX fingerprint "
           f"(frame0 sha256 {'matches' if sha == fp['workload']['frame0_left_sha256'] else 'DIFFERS'}) "
@@ -1149,6 +1362,8 @@ def phase_estimator(frames, gt_poses, profile: bool) -> dict:
           f"{max(check_syncs, default=0)} over {len(check_syncs)} checks")
     picked = _pick_check(steps, records)
     del records
+    _frame_programs(frames, fp, run)
+    del run
     if profile:
         _profile_estimator(frames, sum(ms))
     return counts, sum(ms) / 1e3, picked, pg_calls[0]
@@ -1204,8 +1419,9 @@ def _profile_estimator(frames, untraced_ms: float):
     """The estimator run again under torch.profiler: device kernel time
     against the untraced run's wall time (``untraced_ms``; the traced run's
     own, which the tracer lengthens at every launch, beside it), and the
-    kernels that take most of it. CUDA activity only, and the checks eager
-    (``CHECK_GRAPHS`` off): a trace of a captured program has been followed
+    kernels that take most of it. CUDA activity only, and the checks and
+    the per-frame programs eager (``CHECK_GRAPHS`` and ``FRAME_FLAGS``
+    off): a trace of a captured program has been followed
     by an illegal memory access (ROADMAP Queue 3). The kernels inside the
     conditional nodes of loops made before the session are not recorded
     (the same), so the device time is a lower bound."""
@@ -1214,7 +1430,7 @@ def _profile_estimator(frames, untraced_ms: float):
     sync()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _flag_off(da_mod, "CHECK_GRAPHS", lambda: _run_estimator(DEV, frames))()
+        _frame_eager(_flag_off(da_mod, "CHECK_GRAPHS", lambda: _run_estimator(DEV, frames)))()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
@@ -1355,26 +1571,29 @@ def phase_options(cam, frames, gt_poses, slice_ms: float) -> dict:
           f"752x480 pair): {'; '.join(said)}")
 
     _reset_launches()
+    caps = _captures("frame")
     for left, right in frames:
         frontend(DEV, pair=(left, right), margin=3)
     sync()
     margin3 = _launches()
-    check(margin3 == {"fast_nms": 0, "orb_descriptors": len(frames),
-                      "fast_score_map": len(frames)},
+    n = len(frames) + _captures("frame") - caps     # a frame program's warm-up launches too
+    check(margin3 == {"fast_nms": 0, "orb_descriptors": n, "fast_score_map": n},
           f"margin-3 frontend over {len(frames)} frames launched {margin3}")
 
     eng = StereoVOEngine(cam, VOOptions(fast_th=20, n_feats=500, n_octaves=2), capacity=512,
                          device=DEV)
     results, ms = [], []
     _reset_launches()
+    caps = _captures("frame")
     for left, right in frames:
         t0 = time.perf_counter()
         results.append(eng.process_stereo_pair(left, right))
         sync()
         ms.append((time.perf_counter() - t0) * 1e3)
     octaves = _launches()
-    check(octaves == {"fast_nms": 2 * len(frames), "orb_descriptors": 2 * len(frames),
-                      "fast_score_map": 0}, f"two-octave engine launched {octaves}")
+    n = 2 * (len(frames) + _captures("frame") - caps)     # and a frame program's warm-up
+    check(octaves == {"fast_nms": n, "orb_descriptors": n, "fast_score_map": 0},
+          f"two-octave engine launched {octaves}")
     check(all(r.valid for r in results), "invalid VO frames at two octaves: "
           f"{[i for i, r in enumerate(results) if not r.valid]}")
     est = np.zeros(6)
@@ -1438,6 +1657,7 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> tuple[dict, dict]:
     estimator_mod.vo_scan = counted_scan
     _reset_launches()
     caps, caps_s = _captures(), cuda_graphs.capture_stats("vo_scan")["capture_s"]
+    frame_caps = _captures("frame")
     try:
         with SyncCount() as syncs:
             check_syncs = _count_calls_syncs(est, "_kf_check", syncs)
@@ -1449,11 +1669,13 @@ def phase_batched(frames, gt_poses, per_frame_s: float) -> tuple[dict, dict]:
         estimator_mod.vo_scan = scan
     counts = _launches()
     caps, caps_s = _captures() - caps, cuda_graphs.capture_stats("vo_scan")["capture_s"] - caps_s
+    frame_caps = _captures("frame") - frame_caps
     torch.use_deterministic_algorithms(False)
     n_batches = len(est.lat["batches"])
-    # frame 0 bootstraps through step(): one VO pass; then K1 and K2 once a
-    # scan's replay, and once more for each graph's capture (its warm-up)
-    n = len(scans) + 1 + caps
+    # frame 0 bootstraps through step(): one VO pass (and its frame
+    # program's warm-up, if captured here); then K1 and K2 once a scan's
+    # replay, and once more for each graph's capture (its warm-up)
+    n = len(scans) + 1 + caps + frame_caps
     check(counts == {"fast_nms": n, "orb_descriptors": n, "fast_score_map": 0},
           f"batched run: launches {counts} over {len(scans)} scans, the bootstrap frame and "
           f"{caps} scan graph captures")
@@ -1517,6 +1739,7 @@ def _fleet_run(seqs, voc, mesh, graphs: bool) -> dict:
     flt = fleet_mod.FleetSLAM(ests, mesh=mesh)
     rec, calls = fleet_launches.record_calls(flt)
     caps = {k: cuda_graphs.capture_stats(k) for k in FLEET_KINDS}
+    frame_caps = _captures("frame")
     keep, batch_mod.FLEET_GRAPHS = batch_mod.FLEET_GRAPHS, graphs
     deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
@@ -1536,6 +1759,7 @@ def _fleet_run(seqs, voc, mesh, graphs: bool) -> dict:
                     for n in ("captures", "capture_s")} for k in FLEET_KINDS}
     return dict(ests=ests, wall=wall, sizes=[len(a[1]) for a in rec["attempts"]], rec=rec,
                 calls=calls, launches=_launches(), syncs=syncs.n,
+                frame_captures=_captures("frame") - frame_caps,
                 check_syncs=[a + b for a, b in zip(query_syncs, pull_syncs)],
                 captured=captured, capture_s=sum(c["capture_s"] for c in captured.values()))
 
@@ -1647,7 +1871,8 @@ def phase_fleet(cam) -> tuple[dict, dict]:
         # K1 and one K2 launch per lockstep attempt over all pending
         # sequences (a replay of its program: one more for each program's
         # warm-up)
-        n = len(r["sizes"]) + n_seq + r["captured"]["fleet_attempt"]["captures"]
+        n = (len(r["sizes"]) + n_seq + r["captured"]["fleet_attempt"]["captures"]
+             + r["frame_captures"])
         check(r["launches"] == {"fast_nms": n, "orb_descriptors": n, "fast_score_map": 0},
               f"fleet ({'programs' if graphs else 'eager'}): launches {r['launches']} over "
               f"{len(r['sizes'])} lockstep attempts")
@@ -2004,10 +2229,11 @@ def phase_check(cam, frames, rec) -> None:
     da_periods = _exit_period_ms(lambda: da_mod.solve_pose(*args, **kwargs))
 
     # a VO pose solve (30/30 iterations, one lane) of the bench frames 40-41
+    # (eagerly: a replay of the track program calls no solve_pose)
     eng = StereoVOEngine(cam, VOOptions(fast_th=20, n_feats=500), capacity=512, device=DEV)
-    eng.process_stereo_pair(*frames[40])
-    ((vargs, vkw),) = _capture_args(vo_mod, "solve_pose",
-                                    lambda: eng.process_stereo_pair(*frames[41]))
+    _flag_off(vo_mod, "FRAME_PROGRAMS", lambda: eng.process_stereo_pair(*frames[40]))()
+    ((vargs, vkw),) = _capture_args(vo_mod, "solve_pose", _flag_off(
+        vo_mod, "FRAME_PROGRAMS", lambda: eng.process_stereo_pair(*frames[41])))
     vo_iters = int(vo_mod.solve_pose(*vargs, **vkw).iters)
     vo_periods = _exit_period_ms(lambda: vo_mod.solve_pose(*vargs, **vkw))
 
@@ -2725,7 +2951,8 @@ def phase_mesh(frames, cam, fleet_ref: dict, entries: list, rba) -> dict:
     eager = _fleet_run(seqs, fleet_ref["voc"], mesh, False)
     _same_fleet_runs(prog, eager, "mesh fleet programs against the eager mesh fleet")
     fleet_launches = {name: launches[name] - step_launches[name] for name in launches}
-    n_fl = len(prog["sizes"]) + len(seqs) + prog["captured"]["fleet_attempt"]["captures"]
+    n_fl = (len(prog["sizes"]) + len(seqs) + prog["captured"]["fleet_attempt"]["captures"]
+            + prog["frame_captures"])
     check(fleet_launches == {"fast_nms": n_fl, "orb_descriptors": n_fl, "fast_score_map": 0},
           f"mesh fleet: launches {fleet_launches} over {len(prog['sizes'])} shard attempts")
     check(set(prog["sizes"]) == {1}, f"mesh fleet attempts of {set(prog['sizes'])} sequences")
@@ -3246,7 +3473,7 @@ def phase_cli() -> dict:
         estimator_mod.vo_scan = lambda lefts, *a, **k: (scans.append(len(lefts)),
                                                         scan(lefts, *a, **k))[1]
         _reset_launches()
-        caps = _captures()
+        caps = _captures() + _captures("frame")
         try:
             t0 = time.perf_counter()
             rc, said = _cli([ini, "--synthetic", str(N_CLI_FRAMES)])    # default: --batch 8
@@ -3255,7 +3482,7 @@ def phase_cli() -> dict:
         finally:
             estimator_mod.vo_scan = scan
         counts = _launches()
-        caps = _captures() - caps
+        caps = _captures() + _captures("frame") - caps
         check(rc == 0, f"the CLI exited with {rc}: {said}")
         m = re.search(r"(\d+) frames, (\d+) keyframes, ([0-9.]+) fps", said)
         check(m is not None and int(m.group(1)) == N_CLI_FRAMES, f"the CLI said: {said}")
@@ -3273,7 +3500,7 @@ def phase_cli() -> dict:
         check(len(scans) >= (N_CLI_FRAMES - 1) // BATCH
               and counts["fast_nms"] == counts["orb_descriptors"] == len(scans) + 1 + caps,
               f"the CLI run launched {counts} over {len(scans)} scans, the bootstrap frame "
-              f"and {caps} scan graph captures")
+              f"and {caps} scan graph and frame program captures")
         # the default (batch 8 on the card) keeps the keyframes of per-frame stepping
         ini1, out1 = _ini_copy(tmp, "per_frame")
         t0 = time.perf_counter()

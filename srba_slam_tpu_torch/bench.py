@@ -232,15 +232,17 @@ def _sections_since(est, before: dict) -> dict:
 def _warmed(device, frames, name: str):
     """A fresh bench estimator with the schedule ``name`` of
     ``bw.SCHEDULES`` after the warm-up frames at its batch, its solves
-    landed, its one-check program captured (on the card; the warm-up's
-    checks captured its slot program) and the window-group programs of the
-    buckets its warm-up met (group sizes 1 to WINDOW_SLOTS // 2)."""
+    landed, its one-check program and its row-write programs captured (on
+    the card; the warm-up's checks captured its slot program) and the
+    window-group programs of the buckets its warm-up met (group sizes 1 to
+    WINDOW_SLOTS // 2)."""
     batch, mid, _chunk = bw.SCHEDULES[name]
     est = bench_estimator(device)
     est.solve_flush_before_insert = mid
     est.perform_stereo_slam_batched(frames[:WARMUP_FRAMES], batch=batch)
     est.rba.flush()
     est.capture_check_program()
+    est.capture_row_programs()
     est.rba.capture_window_programs()
     _sync(est.device)
     return est

@@ -15,6 +15,14 @@ ranked similar keyframes), with the same design:
 The histogram is a one-hot sum, never a scatter-add, so it is the same on
 every run of the card. ``Vocabulary`` is host numpy, as in the JAX
 package; its training is bit-identical to JAX's.
+
+On a card the database's writes are CUDA-graph programs (``ROW_PROGRAMS``),
+as they are single dispatches in the JAX package: ``write_row`` (≙
+``_insert``, the BoW vector computed inside) and ``rebuild_from_store``
+(≙ ``_rebuild``: every row from the store's descriptors, one row at a time
+inside the graph, masked past the count). Rows and counts are device
+inputs; the database, the vocabulary and the store's descriptors are held
+in place, and the programs are freed with them.
 """
 
 from __future__ import annotations
@@ -26,7 +34,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from srba_slam_tpu_torch.ops import cuda_graphs
 from srba_slam_tpu_torch.ops.bits import unpack_bits
+
+# On a CUDA device, BoWDatabase.write_row and rebuild_from_store are each one
+# replay of a CUDA-graph program per database; eager launches otherwise (the
+# CPU path, and the card's reference in the tests and chip_smoke.py)
+ROW_PROGRAMS = True
 
 
 def _round_up(x: int, m: int) -> int:
@@ -181,6 +195,35 @@ def rank_scores(scores: torch.Tensor, k: int):
     return s[..., :k], i[..., :k].to(torch.int32)
 
 
+def write_row_body(x: dict) -> tuple:
+    """The row program: the BoW vector of ``x["desc"]``/``x["valid"]``
+    (:func:`bow_vector` with the vocabulary's ``x["leaf_bits"]`` and
+    ``x["weights"]``) written into the database ``x["db"]`` at the device
+    row ``x["row"]`` (int64 [1]), in place (≙ the JAX package's
+    ``_insert``). No host read; returns nothing."""
+    v = bow_vector(x["desc"], x["valid"], x["leaf_bits"], x["weights"])
+    x["db"].index_copy_(0, x["row"], v[None])
+    return ()
+
+
+def rebuild_body(x: dict) -> tuple:
+    """The rebuild program: every row i of the database ``x["db"]`` [M, W]
+    set to the BoW vector of the store's row i (``x["desc"]`` [M, K, 8],
+    ``x["valid"]`` [M, K]) where i < ``x["n_kfs"]`` (a device scalar), else
+    zero (≙ the JAX package's ``_rebuild``). One row at a time, so the
+    largest intermediate is one row's [K, W] and each row has the bits of
+    a one-row :func:`bow_vector`. No host read; returns nothing."""
+    db, n = x["db"], x["n_kfs"]
+    for i in range(db.shape[0]):
+        v = bow_vector(x["desc"][i], x["valid"][i], x["leaf_bits"], x["weights"])
+        db[i].copy_(torch.where(n > i, v, 0.0))
+    return ()
+
+
+def _programs(device: torch.device) -> bool:
+    return ROW_PROGRAMS and device.type == "cuda" and not cuda_graphs.in_program()
+
+
 class BoWDatabase:
     """≙ BriefDatabase: insert/query over KF BoW vectors (entry id == KF id)."""
 
@@ -205,20 +248,42 @@ class BoWDatabase:
     def compute_bow(self, desc_packed: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         return bow_vector(desc_packed, valid, self._leaf_bits, self._weights)
 
+    def _held(self) -> dict:
+        return dict(db=self._db, leaf_bits=self._leaf_bits, weights=self._weights)
+
     def rebuild_from_store(self, store_arrays, n_kfs: int):
-        """Backfill rows [0, n_kfs) from the keyframe store's descriptors
-        (entry id == KF id contract preserved)."""
-        self._db.zero_()
-        for i in range(n_kfs):
-            self._db[i] = self.compute_bow(store_arrays.desc_l[i], store_arrays.m_valid[i])
+        """Backfill rows [0, n_kfs) from the keyframe store's descriptors,
+        the rows past them zero (entry id == KF id contract preserved). On a
+        card (``ROW_PROGRAMS``) one replay of the rebuild program
+        (:func:`rebuild_body`, ``n_kfs`` a device input, the database, the
+        vocabulary and the store's descriptors held); eagerly the rows
+        under ``n_kfs`` one at a time, the same bits."""
+        if _programs(self.device):
+            cuda_graphs.program(
+                rebuild_body, dict(n_kfs=cuda_graphs.upload(int(n_kfs), self.device,
+                                                            torch.int64)),
+                ("bow_rebuild",),
+                held=dict(self._held(), desc=store_arrays.desc_l, valid=store_arrays.m_valid))
+        else:
+            self._db.zero_()
+            for i in range(n_kfs):
+                self._db[i] = self.compute_bow(store_arrays.desc_l[i], store_arrays.m_valid[i])
         self.n_kfs = n_kfs
 
     def write_row(self, desc_packed: torch.Tensor, valid: torch.Tensor, row: int):
         """Write a keyframe's BoW vector at ``row`` without committing the
         entry count (≙ the JAX database's ``write_row``): a row at or past
-        ``n_kfs`` never scores, so a speculative write is inert."""
+        ``n_kfs`` never scores, so a speculative write is inert. The row
+        goes up as a device input (one upload); on a card (``ROW_PROGRAMS``)
+        the write is one replay of the database's row program
+        (:func:`write_row_body`), the same bits as the eager write."""
         assert row < self.max_kfs, f"BoW database full ({self.max_kfs} keyframes)"
-        self._db[row] = self.compute_bow(desc_packed, valid)
+        x = dict(desc=desc_packed, valid=valid,
+                 row=cuda_graphs.upload([int(row)], self.device, torch.int64))
+        if _programs(self.device):
+            cuda_graphs.program(write_row_body, x, ("bow_row",), held=self._held())
+        else:
+            write_row_body({**x, **self._held()})
 
     def commit_row(self) -> int:
         """Commit the next row; returns its entry id (== KF id)."""

@@ -249,12 +249,13 @@ def _da_single(cur: FrameFeatures, oth_row, oth_valid_kf, init_pose, cam: Stereo
                use_fund_matrix: bool, use_change_pose: bool, kernel_param: float,
                filter_by_orb_distance: bool = True, ransac_n_hyp: int = 128,
                min_alive: int = 15, seed_from_init: bool = False,
-               init_gate_budget_m: float = 0.0):
+               init_gate_budget_m=0.0):
     """The cascade of ``cur`` against one candidate keyframe row, per lane:
     every argument leads with the lane dimension L (``cur``'s fields and
     ``oth_row``'s arrays [L, K, ...], ``oth_valid_kf`` [L], ``init_pose``
     [L, 6], ``key`` [L, 2]); lane j is JAX's ``_da_single`` on lane j's
-    inputs."""
+    inputs. ``init_gate_budget_m`` is a number or an f32 scalar tensor on
+    the device (a program's input)."""
     (oy_l, ox_l, _oval_l, odesc_l, _oy_r, _oxr, _ovr, _odesc_r, _om_ridx,
      om_valid, opts3d, ooct) = oth_row
     f32, i8 = torch.float32, torch.int8
@@ -325,7 +326,8 @@ def _da_single(cur: FrameFeatures, oth_row, oth_valid_kf, init_pose, cam: Stereo
             e_px = torch.maximum(torch.abs(ulp - cur.xs_l.to(f32)),
                                  torch.maximum(torch.abs(vlp - cur.ys_l.to(f32)),
                                                torch.abs(urp - ur)))
-            budget = torch.full((), init_gate_budget_m, dtype=f32, device=dev)
+            budget = (init_gate_budget_m.to(f32) if isinstance(init_gate_budget_m, torch.Tensor)
+                      else torch.full((), init_gate_budget_m, dtype=f32, device=dev))
             allow = budget * cam.fx_l / zq + residual_th
             okg = (budget <= 0.0) | (e_px <= allow)
             status = torch.where(keep & ~okg, S_REJ_CHANGE_POSE, status).to(i8)
@@ -783,8 +785,14 @@ def fused_checks_batch(feats: FrameFeatures, store_arrays: KFArrays, db, leaf_bi
     return tuple(blobs), store_arrays, db
 
 
+# On a CUDA device, the loop-closure re-check is one replay of a CUDA graph
+# per recheck_key; eager launches otherwise (the CPU path, and the card's
+# reference in the tests and chip_smoke.py)
+RECHECK_PROGRAM = True
+
+
 def recheck_candidate(store_arrays: KFArrays, row_new: int, row_old: int,
-                      cam: StereoCamera, init_pose: torch.Tensor, seed: int,
+                      cam: StereoCamera, init_pose, seed: int,
                       max_orb_distance_da: float = 60.0, residual_th: float = 30.0,
                       max_y_diff_epipolar: float = 2.0, filter_by_direction: bool = True,
                       filter_by_orb_distance: bool = True, use_fund_matrix: bool = True,
@@ -793,26 +801,82 @@ def recheck_candidate(store_arrays: KFArrays, row_new: int, row_old: int,
     """Loop-closure RECOVERY re-check (framework extension; no reference
     counterpart): the cascade for ONE candidate (one lane) with the
     change-in-pose solve started from the odometry-implied relative pose
-    ``init_pose`` instead of the Horn appearance alignment, behind a hard
-    residual pre-gate at that prior (``init_gate_budget_m`` meters of drift;
-    0 disables). On an aliased world this keeps the odometry-consistent
-    subset of the raw matches. Both keyframes are read from the store (the
-    new KF's row must be written). Returns (status [K], other_idx [K],
-    tracked, pose [6])."""
-    oth_row = tuple(a[row_old][None] for a in store_arrays)
-    r = KFArrays(*(a[row_new][None] for a in store_arrays))
+    ``init_pose`` [6] (a tensor on the store's device, or host data) instead
+    of the Horn appearance alignment, behind a hard residual pre-gate at
+    that prior (``init_gate_budget_m`` meters of drift; 0 disables). On an
+    aliased world this keeps the odometry-consistent subset of the raw
+    matches. Both keyframes are read from the store (the new KF's row must
+    be written). Returns (status [K], other_idx [K], tracked, pose [6]).
+
+    The rows, the seed, the prior and the budget are device inputs, what is
+    on the host in one upload (:func:`_recheck_inputs`). On a CUDA device
+    (``RECHECK_PROGRAM``) the re-check is one replay of its program
+    (``cuda_graphs.program``, one per :func:`recheck_key`), the store held
+    where it is, its GN loops conditional nodes; the same kernels as the
+    eager re-check, so the same bits."""
+    dev = store_arrays.ys_l.device
+    opts = dict(max_orb_distance_da=max_orb_distance_da, residual_th=residual_th,
+                max_y_diff_epipolar=max_y_diff_epipolar, filter_by_direction=filter_by_direction,
+                filter_by_orb_distance=filter_by_orb_distance, use_fund_matrix=use_fund_matrix,
+                kernel_param=kernel_param, ransac_n_hyp=ransac_n_hyp)
+    x = _recheck_inputs(row_new, row_old, seed, init_pose, init_gate_budget_m, dev)
+    if not (RECHECK_PROGRAM and dev.type == "cuda" and not cuda_graphs.in_program()):
+        return _recheck_body({**x, "store": store_arrays}, cam, opts)
+    return cuda_graphs.program(lambda x_: _recheck_body(x_, cam, opts), x,
+                               recheck_key(store_arrays, cam, **opts),
+                               held=dict(store=store_arrays))
+
+
+def _recheck_inputs(row_new: int, row_old: int, seed: int, init_pose, budget,
+                    device) -> dict:
+    """The re-check's inputs on ``device``: ``rows`` int64 [3] (the new and
+    the old keyframe's rows and the seed, checked by ``prng.check_seed``),
+    ``init`` f32 [6] and ``budget`` f32 []; the host's in one upload
+    (``cuda_graphs.upload_arrays``: pinned and ``non_blocking`` on a card),
+    a prior already on ``device`` as it is."""
+    arrays = [np.array([int(row_new), int(row_old), prng.check_seed(seed)], np.int64),
+              np.asarray(budget, np.float32).reshape(())]
+    on_dev = isinstance(init_pose, torch.Tensor) and init_pose.device == torch.device(device)
+    if not on_dev:
+        init_pose = init_pose.cpu() if isinstance(init_pose, torch.Tensor) else init_pose
+        arrays.append(np.asarray(init_pose, np.float32).reshape(6))
+    up = cuda_graphs.upload_arrays(arrays, device)
+    return dict(rows=up[0], budget=up[1],
+                init=init_pose.to(torch.float32) if on_dev else up[2])
+
+
+def _recheck_body(x: dict, cam: StereoCamera, opts: dict) -> tuple:
+    """The re-check of the held store ``x["store"]``: the new keyframe's row
+    and the old one's gathered at the device rows ``x["rows"][:2]``, the key
+    built from the seed ``x["rows"][2]``, the cascade (one lane) seeded from
+    ``x["init"]`` behind the budget ``x["budget"]``. No host read."""
+    store, rows = x["store"], x["rows"]
+    r = KFArrays(*(a.index_select(0, rows[0:1]) for a in store))
+    oth_row = tuple(a.index_select(0, rows[1:2]) for a in store)
     cur = FrameFeatures(
         ys_l=r.ys_l, xs_l=r.xs_l, score_l=torch.zeros_like(r.xs_l, dtype=torch.float32),
         valid_l=r.valid_l, desc_l=r.desc_l, ys_r=r.ys_r, xs_r=r.xs_r, valid_r=r.valid_r,
         desc_r=r.desc_r, m_r_idx=r.m_r_idx, m_valid=r.m_valid, pts3d=r.pts3d,
         octave=r.octave)
     dev = r.ys_l.device
-    key = prng.PRNGKey(seed, device=dev)
-    init = torch.as_tensor(init_pose, dtype=torch.float32).to(dev, non_blocking=True)
+    key = prng.PRNGKey(rows[2])
     (status, oidx, tracked, pose, *_rest) = _da_single(
-        cur, oth_row, torch.ones(1, dtype=torch.bool, device=dev), init[None], cam, key[None],
-        max_orb_distance_da, residual_th, max_y_diff_epipolar, filter_by_direction,
-        use_fund_matrix, True, kernel_param, filter_by_orb_distance=filter_by_orb_distance,
-        ransac_n_hyp=ransac_n_hyp, seed_from_init=True,
-        init_gate_budget_m=float(init_gate_budget_m))
+        cur, oth_row, torch.ones(1, dtype=torch.bool, device=dev), x["init"][None], cam,
+        key[None], opts["max_orb_distance_da"], opts["residual_th"],
+        opts["max_y_diff_epipolar"], opts["filter_by_direction"], opts["use_fund_matrix"], True,
+        opts["kernel_param"], filter_by_orb_distance=opts["filter_by_orb_distance"],
+        ransac_n_hyp=opts["ransac_n_hyp"], seed_from_init=True,
+        init_gate_budget_m=x["budget"])
     return status[0], oidx[0], tracked[0], pose[0]
+
+
+def recheck_key(store_arrays: KFArrays, cam: StereoCamera, **opts) -> tuple:
+    """The key of the re-check's program: the store's rows M and capacity K,
+    the camera, every option of the cascade (``opts``), the change-in-pose
+    solve's caps and the GN solve's block length and route
+    (``robust_lm.GN_EXIT_EVERY``, ``GN_GRAPHS``). The rows, the seed, the
+    prior and the drift budget are inputs, never in the key; the program
+    adds the held store's addresses."""
+    return ("recheck", tuple(store_arrays.desc_l.shape), cam, tuple(sorted(opts.items())),
+            DA_SOLVE_ITERS_STAGE1, DA_SOLVE_ITERS_STAGE2, robust_lm.GN_EXIT_EVERY,
+            robust_lm.GN_GRAPHS)

@@ -1326,6 +1326,22 @@ class SRBAStereoSLAMEstimator:
                                    self.bow._leaf_bits, self.bow._weights, self.store.n_kfs,
                                    self.cam, 0, debug=self.debug.enabled, **self.check_options())
 
+    def capture_row_programs(self):
+        """On a card, capture the row-write programs of this estimator's
+        store and database now (each is keyed by the tensors it holds):
+        the VO engine's last frame written at the row past the committed
+        ones, which every reader masks (≙ a speculative write that is never
+        committed), so nothing that is read changes. The bench harness
+        calls it after its warm-up, so that an insertion whose row was not
+        written by a check captures nothing in a timed part. Nothing on the
+        CPU, before the first frame, or with the store full."""
+        n = self.store.n_kfs
+        if self.device.type != "cuda" or self.vo._prev is None or n >= self.max_kfs:
+            return
+        self.store.write_row(self.vo._prev, n)
+        if self.bow is not None:
+            self.bow.write_row(self.vo._prev.desc_l, self.vo._prev.m_valid, n)
+
     def _kf_check(self, frame) -> list:
         """BoW query and DA cascade of ``frame`` on the device (on a card
         one replay of the one-check program, its count and seed device
@@ -1638,8 +1654,7 @@ class SRBAStereoSLAMEstimator:
         sub = self._da_seed
         self._da_seed += 1
         out = recheck_candidate(
-            self.store.arrays, kf_id, lc_kf, self.cam,
-            torch.as_tensor(init, dtype=torch.float32, device=self.device), sub,
+            self.store.arrays, kf_id, lc_kf, self.cam, np.asarray(init, np.float32), sub,
             max_orb_distance_da=self.opts.max_orb_distance_da,
             residual_th=self.opts.residual_th,
             max_y_diff_epipolar=self.opts.max_y_diff_epipolar,

@@ -6,6 +6,13 @@ L-R matches, match IDs and a pose per keyframe, reference
 src/CStereoSLAMKF.h:99-104). Here the per-feature data are padded device
 tensors ``[max_kfs, K, ...]``, so any subset of keyframes gathers into one
 tensor program; the match IDs, poses and the count live on the host.
+
+On a card a row write (``write_row``, ≙ the JAX package's one-dispatch
+``_append_row``) is one replay of a CUDA-graph program (``ROW_PROGRAMS``):
+the frame's fields and the row are its inputs (the row a device scalar,
+written with ``index_copy_``, so no row is baked into the graph), the
+store's arrays held and written in place; the program is freed with
+them.
 """
 
 from __future__ import annotations
@@ -16,6 +23,12 @@ import numpy as np
 import torch
 
 from srba_slam_tpu_torch.models.vo import FrameFeatures
+from srba_slam_tpu_torch.ops import cuda_graphs
+
+# On a CUDA device, KeyframeStore.write_row is one replay of a CUDA-graph
+# program per store; eager launches otherwise (the CPU path, and the card's
+# reference in the tests and chip_smoke.py)
+ROW_PROGRAMS = True
 
 _ROW_FIELDS = ("ys_l", "xs_l", "valid_l", "desc_l", "ys_r", "xs_r", "valid_r",
                "desc_r", "m_r_idx", "m_valid", "pts3d", "octave")
@@ -48,6 +61,17 @@ def kf_arrays_from_numpy(arrays, device) -> KFArrays:
             a = a.view(np.int32)
         out[name] = torch.from_numpy(np.array(a)).to(device)
     return KFArrays(**out)
+
+
+def write_row_body(x: dict) -> tuple:
+    """The row program: each field of ``x["frame"]`` (a dict by
+    ``_ROW_FIELDS``) written into the store ``x["store"]`` (KFArrays) at
+    the device row ``x["row"]`` (int64 [1]), in place (≙ ``arr.at[i].set``
+    in the JAX package's ``_append_row``). No host read; returns nothing."""
+    for name in _ROW_FIELDS:
+        dst = getattr(x["store"], name)
+        dst.index_copy_(0, x["row"], x["frame"][name].to(dst.dtype)[None])
+    return ()
 
 
 class KeyframeStore:
@@ -96,10 +120,18 @@ class KeyframeStore:
         are inert: every reader masks by the count, so a speculative row
         that is never committed needs no cleanup (the next write at that
         row replaces it). The loop-closure re-check reads the new
-        keyframe's row before it is committed."""
+        keyframe's row before it is committed. The row goes up as a device
+        input (one upload); on a card (``ROW_PROGRAMS``) the write is one
+        replay of the store's row program (:func:`write_row_body`, the
+        arrays held), the same bits as the eager write."""
         assert row < self.max_kfs, "keyframe capacity exhausted"
-        for name in _ROW_FIELDS:
-            getattr(self.arrays, name)[row] = getattr(frame, name)
+        x = dict(frame={name: getattr(frame, name) for name in _ROW_FIELDS},
+                 row=cuda_graphs.upload([int(row)], self.device, torch.int64))
+        held = dict(store=self.arrays)
+        if not (ROW_PROGRAMS and self.device.type == "cuda" and not cuda_graphs.in_program()):
+            write_row_body({**x, **held})
+            return
+        cuda_graphs.program(write_row_body, x, ("kf_row",), held=held)
 
     def commit_row(self, ids: np.ndarray, pose: np.ndarray) -> int:
         """Commit the next row (written by :meth:`write_row`) with its host

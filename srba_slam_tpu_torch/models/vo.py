@@ -28,7 +28,13 @@ images (K1 and K2 launch once), then the B frame-to-frame solves in order.
 On a card it is one replay of a CUDA graph per shape and options
 (``scan_key``), its GN loops conditional nodes inside it and its FAST and
 ORB thresholds device inputs, as the JAX package's ``vo_scan`` is one
-jitted dispatch per shape.
+jitted dispatch per shape. Per-frame stepping runs the JAX package's two
+per-frame programs so too: on a card ``extract_and_match`` is one replay
+of the frame program (``frame_key``) and the frame's ``track_and_solve``
+one of the track program (``track_key``), the thresholds device inputs
+(a retry or a drift at another threshold replays the same program), the
+track program's outputs packed into one int32 vector that the host reads
+in one copy.
 The host half of a frame, ID propagation and the tracked-from-keyframe
 count, is :meth:`StereoVOEngine.commit_frame`, the one copy that per-frame
 stepping, the scan's walk and the fleet's lockstep step all call.
@@ -36,6 +42,7 @@ stepping, the scan's walk and the fleet's lockstep step all call.
 
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -58,9 +65,17 @@ from srba_slam_tpu_torch.utils.camera import StereoCamera, project_match_to_3d
 # On a CUDA device, vo_scan is one replay of a CUDA graph per scan_key; eager
 # launches otherwise (the CPU path, and the card's reference in the tests)
 SCAN_GRAPHS = True
-# the fundamental-matrix filter's PRNG key 0 on each device, copied there
-# once (a capture cannot copy it from the host)
+# On a CUDA device, a frame's extract_and_match and its tracking
+# (track_frame, solve_tracks) are each one replay of a CUDA-graph program
+# per frame_key / track_key; eager launches otherwise (the CPU path, and
+# the card's reference in the tests and chip_smoke.py)
+FRAME_PROGRAMS = True
+# the fundamental-matrix filter's PRNG key 0 on each device, made there
+# once, outside any capture (_fund_key)
 _FUND_KEYS: dict = {}
+# the kernel wrappers whose launches a frame program's replay adds to their
+# counts
+_COUNTED = (fast_nms, orb_descriptors, fast_score_map)
 
 
 class FrameFeatures(NamedTuple):
@@ -262,7 +277,9 @@ def extract_and_match(
     """The full frontend for one stereo pair ``left``/``right`` [H, W]
     (numpy or tensors, uint8 or float32) on ``device`` (the card unless the
     caller asks for the CPU), both images batched through the detector and
-    the descriptor kernels together.
+    the descriptor kernels together, at the FAST threshold ``fast_th`` and
+    the ORB matching threshold ``orb_th`` (numbers, or one-value tensors on
+    ``device``).
 
     ``n_levels`` > 1 detects and describes on a 2x image pyramid (≙ the
     stereo-vo nOctaves option): coordinates are reported at full resolution,
@@ -270,13 +287,95 @@ def extract_and_match(
     budget splits evenly across octaves (the remainder to octave 0).
     ``rect_maps``, a (RectifyMaps_left, RectifyMaps_right) pair on
     ``device``, runs the RECTIFY stage first (≙ stereo-vo's rectification
-    for ``rectified_images=false`` rigs)."""
-    left, right = _frames_on(left, device), _frames_on(right, device)
+    for ``rectified_images=false`` rigs).
+
+    What is on the host (the frames, the thresholds) goes up in one upload
+    (:func:`_frame_inputs`). On a CUDA device (``FRAME_PROGRAMS``) the call
+    is one replay of the frame program (``ops/cuda_graphs.py`` ``program``,
+    one per :func:`frame_key`, as the JAX package jits ``extract_and_match``
+    once per static arguments and shape): the frames and the two thresholds
+    are its inputs, so a new threshold replays the same program; the maps
+    are held where they are. The same kernels as the eager call, so the
+    same bits."""
+    dev = torch.device(device)
+    opts = dict(k=k, cell=cell, nms_radius=nms_radius, margin=margin, max_y_diff=max_y_diff,
+                min_disparity=min_disparity, max_disparity=max_disparity, oriented=oriented,
+                n_levels=n_levels, robust_1to1=robust_1to1)
+    x = _frame_inputs(left, right, fast_th, orb_th, dev)
+    held = {} if rect_maps is None else dict(rect_maps=rect_maps)
+    if not _programs(dev):
+        return _frame_body({**x, **held}, cam, opts)
+    return cuda_graphs.program(lambda x_: _frame_body(x_, cam, opts), x,
+                               frame_key(x["left"], cam, rect_maps, **opts), counted=_COUNTED,
+                               held=held)
+
+
+def _programs(device) -> bool:
+    """Whether per-frame work on ``device`` runs as programs: on a card,
+    with FRAME_PROGRAMS, and not inside another program's capture."""
+    return (FRAME_PROGRAMS and torch.device(device).type == "cuda"
+            and not cuda_graphs.in_program())
+
+
+def _on(x, device: torch.device) -> bool:
+    """Whether ``x`` is a tensor on ``device`` (any card for a device
+    without an index)."""
+    return (isinstance(x, torch.Tensor) and x.device.type == device.type
+            and (device.index is None or x.device == device))
+
+
+def _host_frame(x) -> np.ndarray:
+    """A frame as a host array: uint8 stays uint8, every other type
+    becomes float32 (as :func:`_frames_on` casts)."""
+    a = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return a if a.dtype == np.uint8 else a.astype(np.float32)
+
+
+def _frame_inputs(left, right, fast_th, orb_th, device: torch.device) -> dict:
+    """The frame program's inputs on ``device``: the pair (uint8 kept, any
+    other type float32) and the FAST and ORB thresholds as f32 scalars.
+    Whatever is on the host goes up in one upload (``cuda_graphs.upload``:
+    pinned and ``non_blocking`` on a card, so the host does not wait);
+    tensors on ``device`` are taken as they are."""
+    x, host = {}, []
+    for name, v in (("left", left), ("right", right)):
+        if _on(v, device):
+            x[name] = v if v.dtype == torch.uint8 else v.to(torch.float32)
+        else:
+            host.append((name, _host_frame(v)))
+    for name, v in (("fast_th", fast_th), ("orb_th", orb_th)):
+        if isinstance(v, torch.Tensor):
+            x[name] = _threshold_on(v, (), device)
+        else:
+            host.append((name, np.asarray(v, np.float32).reshape(())))
+    if host:
+        x.update(zip((n for n, _ in host),
+                     cuda_graphs.upload_arrays([a for _, a in host], device)))
+    return x
+
+
+def _frame_body(x: dict, cam: StereoCamera, opts: dict) -> FrameFeatures:
+    """The frame program: :func:`extract_and_match_batch` of the pair
+    ``x["left"]``/``x["right"]`` at the thresholds ``x["fast_th"]`` and
+    ``x["orb_th"]`` (f32 scalars on the frames' device), with
+    ``x["rect_maps"]`` where given. No host read."""
+    dev = x["left"].device
     return extract_and_match_batch(
-        left[None], right[None], cam, fast_th, orb_th, k=k, cell=cell, nms_radius=nms_radius,
-        margin=margin, max_y_diff=max_y_diff, min_disparity=min_disparity,
-        max_disparity=max_disparity, oriented=oriented, n_levels=n_levels,
-        robust_1to1=robust_1to1, rect_maps=rect_maps, device=device)[0]
+        x["left"][None], x["right"][None], cam, x["fast_th"], x["orb_th"],
+        rect_maps=x.get("rect_maps"), device=dev, **opts)[0]
+
+
+def frame_key(left: torch.Tensor, cam: StereoCamera, rect_maps, **opts) -> tuple:
+    """The key of :func:`extract_and_match`'s program: what the frontend
+    bakes into its kernels, as the JAX package's static arguments. The
+    frame's height, width and dtype, whether ``rect_maps`` is given, the
+    camera and every option of the frontend (``opts``: ``k``, ``cell``,
+    ``nms_radius``, ``margin``, ``max_y_diff``, ``min_disparity``,
+    ``max_disparity``, ``oriented``, ``n_levels``, ``robust_1to1``). The
+    thresholds are inputs, never in the key; the program adds the held
+    maps' addresses."""
+    h, w = left.shape[-2:]
+    return ("frame", h, w, left.dtype, rect_maps is not None, cam, tuple(sorted(opts.items())))
 
 
 class TrackSolveOut(NamedTuple):
@@ -326,9 +425,7 @@ def track_and_solve(
         # ≙ the stereo-vo IF-MATCH filter_fund_matrix option: gate the
         # tracked matches by fundamental-matrix RANSAC over the left pixels
         # before the pose solve (applied only when enough matches survive)
-        if valid.device not in _FUND_KEYS:
-            _FUND_KEYS[valid.device] = prng.PRNGKey(0, device=valid.device)
-        key = _FUND_KEYS[valid.device].expand(valid.shape[0], 2)
+        key = _fund_key(valid.device).expand(valid.shape[0], 2)
         inl, _cnt, _F = ransac_fundamental(
             cur.xs_l.to(f32), cur.ys_l.to(f32),
             prev.xs_l[seq, prev_idx].to(f32), prev.ys_l[seq, prev_idx].to(f32),
@@ -353,25 +450,47 @@ def track_and_solve(
                          PoseSolveResult(*(a[0] for a in out.pose)))
 
 
+def _fund_key(device: torch.device) -> torch.Tensor:
+    """The fundamental-matrix filter's PRNG key 0 on ``device``, made there
+    at its first use (a fill, no copy from the host: outside a capture it
+    is made before any program needs it, and a capture's warm-up makes it
+    first) and kept."""
+    if device not in _FUND_KEYS:
+        _FUND_KEYS[device] = prng.PRNGKey(torch.zeros((), dtype=torch.int64, device=device))
+    return _FUND_KEYS[device]
+
+
+def pack_words(tensors) -> torch.Tensor:
+    """Device tensors (int8/int32/int64-small/bool/f32) as one int32 vector
+    of their 32-bit words, in order: f32 bitcast, the others converted."""
+    return torch.cat([f.view(torch.int32) if f.dtype == torch.float32 else f.to(torch.int32)
+                      for f in (t.reshape(-1) for t in tensors)])
+
+
+def unpack_words(words: np.ndarray, specs) -> list[np.ndarray]:
+    """The host arrays of :func:`pack_words`' vector ``words`` (on the
+    host): ``specs`` the tensors' (shape, dtype) each."""
+    out, o = [], 0
+    for shape, dtype in specs:
+        n = int(np.prod(shape, dtype=np.int64))
+        w = words[o:o + n]
+        o += n
+        if dtype == torch.float32:
+            a = w.view(np.float32)
+        elif dtype == torch.bool:
+            a = w.astype(bool)
+        else:
+            a = w.astype(np.int8 if dtype == torch.int8 else np.int32)
+        out.append(a.reshape(tuple(shape)))
+    return out
+
+
 def to_host(tensors) -> list[np.ndarray]:
     """Copy several device tensors (int8/int32/int64-small/bool/f32) to the
     host in ONE transfer: all as 32-bit words in one buffer."""
-    flat = [t.reshape(-1) for t in tensors]
-    with cuda_graphs.span("eager", flat[0].device):
-        words = torch.cat([f.view(torch.int32) if f.dtype == torch.float32
-                           else f.to(torch.int32) for f in flat]).cpu().numpy()
-    out, o = [], 0
-    for t, f in zip(tensors, flat):
-        w = words[o:o + f.numel()]
-        o += f.numel()
-        if t.dtype == torch.float32:
-            a = w.view(np.float32)
-        elif t.dtype == torch.bool:
-            a = w.astype(bool)
-        else:
-            a = w.astype(np.int8 if t.dtype == torch.int8 else np.int32)
-        out.append(a.reshape(tuple(t.shape)))
-    return out
+    with cuda_graphs.span("eager", tensors[0].device):
+        words = pack_words(tensors).cpu().numpy()
+    return unpack_words(words, [(tuple(t.shape), t.dtype) for t in tensors])
 
 
 def track_batch(engines, curs) -> list:
@@ -382,22 +501,113 @@ def track_batch(engines, curs) -> list:
     camera, device and solve options (per-frame stepping passes one; a
     fleet's lockstep attempt solves its lanes in its own program and
     commits through :func:`commit_tracks`). Returns the VOResults."""
-    return commit_tracks(engines, curs, to_host(solve_tracks(engines, curs)))
+    return commit_tracks(engines, curs, solve_tracks(engines, curs))
 
 
-def solve_tracks(engines, curs) -> list[torch.Tensor]:
-    """The device half of :func:`track_batch`: the one pose solve of
-    ``len(engines)`` lanes, and the tensors that :func:`commit_tracks`
-    reads (``to_host`` copies them out in one transfer)."""
+# the outputs that commit_tracks reads, in solve_tracks' order: track_idx,
+# track_valid, the frames' m_valid ([n, K] each), pose [n, 6], valid,
+# mean_residual, iters ([n] each)
+_TRACK_DTYPES = (torch.int32, torch.bool, torch.bool, torch.float32, torch.bool,
+                 torch.float32, torch.int32)
+
+
+def solve_tracks(engines, curs) -> list[np.ndarray]:
+    """The device half of :func:`track_batch` and its one copy out: the one
+    pose solve of ``len(engines)`` lanes, its initial increments and ORB
+    thresholds one upload; returns the host copies of the arrays that
+    :func:`commit_tracks` reads. On a CUDA device (``FRAME_PROGRAMS``) one
+    replay of the track program (:func:`track_key`), whose outputs are
+    packed into one int32 vector in the graph, so the copy out is one copy
+    with no kernel (≙ the JAX package's one ``device_get`` after its
+    ``track_and_solve``)."""
     e0 = engines[0]
     init = np.stack([e.initial_increment() for e in engines]).astype(np.float32)
     orb = np.array([int(e.orb_th) for e in engines], np.float32)
-    out = track_and_solve(
-        stack_features([e._prev for e in engines]), stack_features(curs), e0.cam,
-        *(torch.from_numpy(a).to(e0.device, non_blocking=True) for a in (init, orb)),
-        **e0.solve_options())
-    return [out.track_idx, out.track_valid, torch.stack([c.m_valid for c in curs]),
-            out.pose.pose, out.pose.valid, out.pose.mean_residual, out.pose.iters]
+    x = _track_inputs([e._prev for e in engines], curs, init, orb, e0.device)
+    words = _track(x, e0.cam, e0.solve_options(), True)
+    n, k = len(curs), curs[0].m_valid.shape[-1]
+    with cuda_graphs.span("eager", words.device):
+        host = words.cpu().numpy()
+    return unpack_words(host, [(shape, dt) for shape, dt in zip(
+        ((n, k),) * 3 + ((n, 6), (n,), (n,), (n,)), _TRACK_DTYPES)])
+
+
+def track_frame(prev: FrameFeatures, cur: FrameFeatures, cam: StereoCamera, initial_pose,
+                orb_th, **solve) -> TrackSolveOut:
+    """:func:`track_and_solve` of one frame ``cur`` against ``prev``, from
+    ``initial_pose`` [6] at ``orb_th`` (each a tensor on ``cur``'s device or
+    host data; what is on the host goes up in one upload). On a CUDA device
+    (``FRAME_PROGRAMS``) one replay of the track program
+    (:func:`track_key`), its outputs fresh tensors; the same bits as the
+    eager call."""
+    init = initial_pose[None] if isinstance(initial_pose, torch.Tensor) else \
+        np.asarray(initial_pose, np.float32)[None]
+    orb = orb_th.reshape(1) if isinstance(orb_th, torch.Tensor) else [orb_th]
+    out = _track(_track_inputs([prev], [cur], init, orb, cur.desc_l.device), cam, solve, False)
+    return TrackSolveOut(out.track_idx[0], out.track_valid[0],
+                         PoseSolveResult(*(a[0] for a in out.pose)))
+
+
+def _track_inputs(prevs, curs, init, orb, device) -> dict:
+    """The track program's inputs: the previous and current frames' features
+    (lists, one a lane), the initial increments ``init`` [n, 6] and the ORB
+    thresholds ``orb`` [n] as f32 on ``device``; those given as host data go
+    up in one upload."""
+    device = torch.device(device)
+    x, host = dict(prev=list(prevs), cur=list(curs)), []
+    for name, v in (("init", init), ("orb", orb)):
+        if isinstance(v, torch.Tensor):
+            x[name] = v.to(device=device, dtype=torch.float32)
+        else:
+            host.append((name, np.asarray(v, np.float32)))
+    if host:
+        x.update(zip((n for n, _ in host),
+                     cuda_graphs.upload_arrays([a for _, a in host], device)))
+    return x
+
+
+def _track(x: dict, cam: StereoCamera, solve: dict, words: bool):
+    """The track program of ``x`` (:func:`_track_body`): on a card
+    (``FRAME_PROGRAMS``) one replay per :func:`track_key`, eager
+    otherwise."""
+    dev = x["cur"][0].desc_l.device
+    if not _programs(dev):
+        return _track_body(x, cam, solve, words)
+    if solve.get("filter_fund_matrix"):
+        _fund_key(dev)
+    return cuda_graphs.program(lambda x_: _track_body(x_, cam, solve, words), x,
+                               track_key(len(x["cur"]), x["cur"][0].desc_l.shape[0], cam, words,
+                                         **solve))
+
+
+def _track_body(x: dict, cam: StereoCamera, solve: dict, words: bool):
+    """The track program: the n lanes' tracking and pose solve
+    (:func:`track_and_solve` over the stacked frames); with ``words`` its
+    outputs for :func:`commit_tracks` packed (:func:`pack_words`), else the
+    TrackSolveOut. No host read."""
+    cur = stack_features(x["cur"])
+    out = track_and_solve(stack_features(x["prev"]), cur, cam, x["init"], x["orb"], **solve)
+    if not words:
+        return out
+    return pack_words([out.track_idx, out.track_valid, cur.m_valid, out.pose.pose,
+                       out.pose.valid, out.pose.mean_residual, out.pose.iters])
+
+
+_SOLVE_DEFAULTS = {name: p.default for name, p in
+                   inspect.signature(track_and_solve).parameters.items()
+                   if p.default is not inspect.Parameter.empty}
+
+
+def track_key(n: int, k: int, cam: StereoCamera, words: bool, **solve) -> tuple:
+    """The key of the track program: the lane count ``n``, the features'
+    capacity ``k``, the camera, whether its outputs are packed (``words``),
+    every solve option of :func:`track_and_solve` (``solve``, its defaults
+    filled in) and the GN solve's block length and route
+    (``robust_lm.GN_EXIT_EVERY``, ``GN_GRAPHS``). The initial increments and
+    the ORB thresholds are inputs, never in the key."""
+    full = {**_SOLVE_DEFAULTS, **solve}
+    return ("track", n, k, cam, words, tuple(sorted(full.items())), robust_lm.GN_EXIT_EVERY,
+            robust_lm.GN_GRAPHS)
 
 
 def commit_tracks(engines, curs, host: list) -> list:
@@ -477,6 +687,8 @@ def vo_scan(
     if not (SCAN_GRAPHS and dev.type == "cuda"):
         return _scan(lefts, rights, prev, init_pose, cam, fast_th, orb_th, rect_maps, dev, **opts)
     lefts, rights = _frames_on(lefts, dev), _frames_on(rights, dev)
+    if filter_fund_matrix:
+        _fund_key(lefts.device)
     inputs = dict(lefts=lefts, rights=rights, prev=prev, rect_maps=rect_maps,
                   init_pose=torch.as_tensor(init_pose, dtype=torch.float32, device=dev),
                   fast_th=_threshold_on(fast_th, (lefts.shape[0],), dev),
@@ -493,9 +705,8 @@ def scan_key(lefts: torch.Tensor, cam: StereoCamera, rect_maps, **opts) -> tuple
     ``vo_scan`` (``opts``), and the GN solve's block length and route
     (``robust_lm.GN_EXIT_EVERY``, ``GN_GRAPHS``). A key's first call
     captures a graph, as a new shape compiles a new program in JAX."""
-    b, h, w = lefts.shape
-    return ("vo_scan", b, h, w, lefts.dtype, rect_maps is not None, cam,
-            tuple(sorted(opts.items())), robust_lm.GN_EXIT_EVERY, robust_lm.GN_GRAPHS)
+    return (("vo_scan", lefts.shape[0]) + frame_key(lefts, cam, rect_maps, **opts)[1:]
+            + (robust_lm.GN_EXIT_EVERY, robust_lm.GN_GRAPHS))
 
 
 def attempt_key(lefts: torch.Tensor, n: int, cam: StereoCamera, rect_maps, **opts) -> tuple:

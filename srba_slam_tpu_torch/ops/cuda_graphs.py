@@ -19,8 +19,12 @@ step in a conditional WHILE node (``csrc/graph_cond.cu``): it runs while
 so a step past the exit runs no kernel.
 
 :func:`program` captures a whole computation whose loops run unread (a
-batch's VO scan, ``models/vo.py`` ``vo_scan``; a keyframe check,
-``models/data_association.py``; a fleet shard's lockstep attempt and check
+batch's VO scan, ``models/vo.py`` ``vo_scan``; a frame's frontend and its
+tracking in per-frame stepping, ``models/vo.py`` ``extract_and_match``
+and ``solve_tracks``; a keyframe check and the loop-closure re-check,
+``models/data_association.py``; a row write of the keyframe store or the
+BoW database and the database's rebuild, ``models/keyframe.py`` and
+``models/bow.py``; a fleet shard's lockstep attempt and check
 group, ``parallel/fleet.py``, and a shard's batched VO step,
 ``parallel/batch.py``; a group of window solves, ``ops/window_ba.py``
 ``solve_window_group``; the pose graph, ``ops/posegraph.py``; a sharded
@@ -29,13 +33,15 @@ per key, as the JAX package jits it once per shape: its inputs are
 copied into fixed buffers (from any device; a solve's fixed inputs only
 when they change),
 the tensors it holds (a check's keyframe store and BoW database, written
-in place, and its vocabulary) are read and written where they are, the
+in place, and its vocabulary; a row write's store or database) are read
+and written where they are, the
 graph replays, and its outputs are cloned out. A program that holds
 tensors lives no longer than they do: once one of them is freed, the
 program leaves the cache, and its graphs and their memory pools are freed
 at the next safe point (:func:`release_dropped`). A program that holds
-nothing (a scan, an attempt, a batched step, a window-solve group, the
-pose graph) is keyed by shapes and options only and stays for the life of
+nothing (a scan, a frame's frontend without rectification maps, a track,
+an attempt, a batched step, a window-solve group, the pose graph) is keyed
+by shapes and options only and stays for the life of
 the process, as the JAX package's jit cache does. Inside that capture
 ``loop`` appends its steps to the graph as the same WHILE node
 (``csrc/graph_cond.cu`` ``srba_cond_append``; a carry without ``more``
@@ -82,7 +88,8 @@ _DROPPED: list = []
 _TOKENS = itertools.count()
 # Over the process: programs captured, and the host seconds of their
 # warm-ups and captures; the same by kind (a key's first element: "vo_scan",
-# "check", "fleet_attempt", "fleet_check", "batched_step", "window_group",
+# "frame", "track", "check", "recheck", "kf_row", "bow_row", "bow_rebuild",
+# "fleet_attempt", "fleet_check", "batched_step", "window_group",
 # "posegraph", "window_shard")
 PROGRAM_STATS = dict(captures=0, capture_s=0.0)
 KIND_STATS: dict = {}
@@ -307,10 +314,9 @@ def _kind(key: tuple):
 
 
 def capture_stats(kind: str) -> dict:
-    """Programs of one kind (``"vo_scan"``, ``"check"``, ``"fleet_attempt"``,
-    ``"fleet_check"``, ``"batched_step"``, ``"window_group"``,
-    ``"posegraph"``, ``"window_shard"``) captured so far and the host seconds of their warm-ups
-    and captures."""
+    """Programs of one kind (a key's first element, as ``KIND_STATS`` lists
+    them) captured so far and the host seconds of their warm-ups and
+    captures."""
     stats = KIND_STATS.get(kind, {})
     return dict(captures=stats.get("captures", 0), capture_s=stats.get("capture_s", 0.0))
 
@@ -365,6 +371,14 @@ def unpack(buf: torch.Tensor, layout: tuple) -> list[torch.Tensor]:
         size = dtype.itemsize * int(np.prod(shape, dtype=np.int64))
         out.append(buf[off:off + size].view(dtype).reshape(shape))
     return out
+
+
+def upload_arrays(arrays, device) -> list[torch.Tensor]:
+    """Host arrays of any dtypes on ``device`` in one :func:`upload` of
+    their :func:`pack`: views of one buffer, each contiguous (a program's
+    input copies them in as copies, with no kernel)."""
+    buf, layout = pack(arrays)
+    return unpack(upload(buf, device), layout)
 
 
 def _shapes(leaves) -> tuple:

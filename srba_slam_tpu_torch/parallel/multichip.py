@@ -8,7 +8,10 @@ describe, stereo match, track, robust pose: ``extract_and_match`` then
 resolution with k = 512 features, returning ``(pose, num_inliers,
 m_valid)``; the example frames are ``default_rng(0)`` uniform f32
 370x1226 images on ``device``, ``prev`` their frontend and ``init_pose``
-zeros(6). On a card it launches K1 (on its f32 route) and K2.
+zeros(6). On a card it launches K1 (on its f32 route) and K2, and a
+call is two program replays (``models/vo.py`` ``FRAME_PROGRAMS``: the
+frame program, then the track program), where the JAX package compiles
+the step as one program.
 ``vo_step(h, w, k, device)`` builds the same at another size.
 
 ``dryrun_multichip(n)`` drives every sharded path of the port over a mesh
@@ -46,7 +49,7 @@ ENTRY_ORB_TH = 60
 def vo_step(h: int, w: int, k: int, device="cuda", cam=None):
     """``(fn, example_args)`` of the stereo-VO step on [h, w] frames with
     ``k`` features on ``device``, with ``cam`` (KITTI's by default)."""
-    from srba_slam_tpu_torch.models.vo import extract_and_match, track_and_solve
+    from srba_slam_tpu_torch.models.vo import extract_and_match, track_frame
     from srba_slam_tpu_torch.utils.camera import StereoCamera
 
     cam = cam or StereoCamera.kitti()
@@ -54,7 +57,7 @@ def vo_step(h: int, w: int, k: int, device="cuda", cam=None):
     def fn(left, right, prev, init_pose):
         cur = extract_and_match(left, right, cam, ENTRY_FAST_TH, ENTRY_ORB_TH, k=k,
                                 device=device)
-        out = track_and_solve(prev, cur, cam, init_pose, ENTRY_ORB_TH)
+        out = track_frame(prev, cur, cam, init_pose, ENTRY_ORB_TH)
         return out.pose.pose, out.pose.num_inliers, cur.m_valid
 
     rng = np.random.default_rng(0)

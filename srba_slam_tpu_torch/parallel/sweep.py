@@ -13,7 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from srba_slam_tpu_torch.models.vo import extract_and_match, track_and_solve
+from srba_slam_tpu_torch.models.vo import extract_and_match, track_frame
 from srba_slam_tpu_torch.utils import se3_np
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
@@ -42,7 +42,7 @@ def feature_budget_sweep(frames, cam: StereoCamera, budgets=(512, 1024, 2048),
         for left, right in frames:
             cur = extract_and_match(left, right, cam, th, 60, k=int(k), device=device)
             if prev is not None:
-                out = track_and_solve(prev, cur, cam, inc, 60)
+                out = track_frame(prev, cur, cam, inc, 60)
                 t_val, p, ok, m_valid = (t.cpu().numpy() for t in (
                     out.track_valid, out.pose.pose, out.pose.valid, cur.m_valid))
                 n_matches.append(int(m_valid.sum()))

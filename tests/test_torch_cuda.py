@@ -356,7 +356,8 @@ def test_scan_graph_equals_eager(cuda, street_frames, monkeypatch, b):
     assert cuda_graphs.PROGRAM_STATS["captures"] == captures + 1
     assert (hopper_fast.fast_nms.launches - before[0],
             hopper_fast.orb_descriptors.launches - before[1]) == (3, 3)
-    (prog,) = cuda_graphs.programs()
+    # _prev's extract_and_match is a frame program of its own
+    (prog,) = [p for p in cuda_graphs.programs() if p["key"][0] == "vo_scan"]
     assert prog["launches"] == {"fast_nms": 1, "orb_descriptors": 1, "fast_score_map": 0}
     assert prog["steps"] == 1 and prog["pool_bytes"] > 0
     assert bool(eager[2][4].all()) and int(eager[2][0].m_valid.sum()) > 200 * b
@@ -833,7 +834,11 @@ def test_orb_kernel_at_keypoints_near_a_border(cuda, street_pair, dtype, dist):
 def test_frontend_options_cuda_matches_cpu(cuda, street_pair, option):
     """``extract_and_match`` with each option on the card against the CPU
     path, on the street pair: every integer field equal, pts3d to 1e-4; the
-    kernels each option should reach are the ones launched."""
+    kernels each option should reach are the ones launched (once for the
+    call, and once more where the call captured its frame program: the
+    warm-up)."""
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
     cam = StereoCamera.kitti()
     kw = {"levels2": dict(n_levels=2), "levels3": dict(n_levels=3), "margin0": dict(margin=0),
           "margin2": dict(margin=2), "margin3": dict(margin=3),
@@ -848,6 +853,7 @@ def test_frontend_options_cuda_matches_cpu(cuda, street_pair, option):
                                                device=device) for _ in range(2))
         before = [f.launches for f in (hopper_fast.fast_nms, hopper_fast.orb_descriptors,
                                        hopper_fast.fast_score_map)]
+        captures = cuda_graphs.capture_stats("frame")["captures"]
         outs.append(extract_and_match(left, right, cam, 20.0, 60, k=512, device=device, **kw))
         after = [f.launches for f in (hopper_fast.fast_nms, hopper_fast.orb_descriptors,
                                       hopper_fast.fast_score_map)]
@@ -856,8 +862,9 @@ def test_frontend_options_cuda_matches_cpu(cuda, street_pair, option):
         else:
             levels = kw.get("n_levels", 1)
             k3 = kw.get("margin", 16) < 5
+            n = 1 + cuda_graphs.capture_stats("frame")["captures"] - captures
             assert [a - b for a, b in zip(after, before)] == \
-                [0 if k3 else levels, levels, 1 if k3 else 0]
+                [0 if k3 else levels * n, levels * n, n if k3 else 0]
     a, b = outs
     for name in ("ys_l", "xs_l", "valid_l", "desc_l", "ys_r", "xs_r", "valid_r", "desc_r",
                  "m_r_idx", "m_valid", "octave"):
@@ -963,9 +970,12 @@ def test_fleet_on_a_repeated_card_mesh_equals_meshless(cuda, monkeypatch):
         ests = _fleet_estimators(cuda, voc, len(seqs))
         before = hopper_fast.fast_nms.launches, hopper_fast.orb_descriptors.launches
         captures = cuda_graphs.capture_stats("fleet_attempt")["captures"]
+        frame_caps = cuda_graphs.capture_stats("frame")["captures"]
         fleet.FleetSLAM(ests, mesh=mesh).run(seqs)
         n_k1 = hopper_fast.fast_nms.launches - before[0]
         assert hopper_fast.orb_descriptors.launches - before[1] == n_k1
+        # a bootstrap frame's frame program, where captured here, warms up once
+        n_k1 -= cuda_graphs.capture_stats("frame")["captures"] - frame_caps
         return (ests, n_k1, list(sizes),
                 cuda_graphs.capture_stats("fleet_attempt")["captures"] - captures)
 
@@ -1515,7 +1525,10 @@ def test_uploader_runs_while_graphs_capture(cuda, monkeypatch):
     batched = make()
     batched.perform_stereo_slam_batched(slow(frames), batch=4)
     kinds = {p["key"][0] for p in cuda_graphs.programs()}
-    assert kinds == {"vo_scan", "check", "window_group"}
+    # the bootstrap frame's frontend and the row writes and rebuild of the
+    # store and the database are programs too
+    assert {"vo_scan", "check", "window_group", "frame", "kf_row"} <= kinds <= {
+        "vo_scan", "check", "window_group", "frame", "kf_row", "bow_row", "bow_rebuild"}
     assert len(cuda_graphs._GRAPHS) + sum(p["steps"] for p in cuda_graphs.programs()) >= 3
     assert [u["n"] for u in batched.lat["uploads"]] == [4, 4, 4, 4, 3]
     per_frame = make()
@@ -1917,3 +1930,223 @@ def test_sharded_solve_launches_no_kernels(cuda):
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["programs"][:2] == [0, 13 * 5], got
     assert got["eager"][0] > 1000, got
+
+
+@pytest.fixture(scope="module")
+def bench_frames30():
+    """Frames 0-29 of the bench workload's street sequence (host uint8)."""
+    return list(SyntheticSource(StereoCamera.kitti(), **{**bench_workload.SOURCE,
+                                                          "n_frames": 30}))
+
+
+def _bench_run(cuda, frames, monkeypatch, programs: bool) -> tuple:
+    """The bench estimator (strict schedule, deterministic algorithms) over
+    ``frames`` with the per-frame programs on or off (``FRAME_PROGRAMS``):
+    the estimator, every VO pass's features (``extract_and_match``) and the
+    host copies of every track's outputs (``solve_tracks``), in order."""
+    from srba_slam_tpu_torch.models import vo
+    from srba_slam_tpu_torch.models.estimator import bench_estimator
+
+    feats, hosts = [], []
+    run_em, run_st = vo.extract_and_match, vo.solve_tracks
+
+    def em(*a, **k):
+        feats.append(run_em(*a, **k))
+        return feats[-1]
+
+    def st(*a, **k):
+        hosts.append(run_st(*a, **k))
+        return hosts[-1]
+
+    monkeypatch.setattr(vo, "FRAME_PROGRAMS", programs)
+    monkeypatch.setattr(vo, "extract_and_match", em)
+    monkeypatch.setattr(vo, "solve_tracks", st)
+    torch.use_deterministic_algorithms(True)
+    try:
+        est = bench_estimator(cuda, solve_sync=True)
+        for left, right in frames:
+            est.step(left, right)
+        est.rba.flush()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        monkeypatch.setattr(vo, "extract_and_match", run_em)
+        monkeypatch.setattr(vo, "solve_tracks", run_st)
+    return est, feats, hosts
+
+
+def test_per_frame_programs_equal_eager_over_bench_frames(cuda, bench_frames30, monkeypatch):
+    """The bench estimator over 30 street frames (the adaptive retry
+    protocol on: every pass's thresholds device inputs of the same two
+    programs) with the per-frame programs and eagerly: every pass's
+    features and every track's host outputs equal bit for bit, and so are
+    the decisions and the keyframe poses; K1 and K2 once a pass (and once
+    more for a capture's warm-up)."""
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    eager, e_feats, e_hosts = _bench_run(cuda, bench_frames30, monkeypatch, False)
+    before = hopper_fast.fast_nms.launches, hopper_fast.orb_descriptors.launches
+    captures = cuda_graphs.capture_stats("frame")["captures"]
+    prog, p_feats, p_hosts = _bench_run(cuda, bench_frames30, monkeypatch, True)
+    n = len(p_feats) + cuda_graphs.capture_stats("frame")["captures"] - captures
+    assert (hopper_fast.fast_nms.launches - before[0],
+            hopper_fast.orb_descriptors.launches - before[1]) == (n, n)
+    assert len(p_feats) == len(e_feats) >= len(bench_frames30)
+    assert len(p_hosts) == len(e_hosts) == len(p_feats) - 1
+    for a, b in zip(p_feats, e_feats):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for a, b in zip(p_hosts, e_hosts):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    assert decisions(prog.step_log) == decisions(eager.step_log)
+    n_kfs = eager.store.n_kfs
+    assert prog.store.n_kfs == n_kfs >= 2
+    assert np.array_equal(prog.rba.kf_global[:n_kfs], eager.rba.kf_global[:n_kfs])
+
+
+def test_frame_programs_replay_at_new_thresholds(cuda, street_frames, monkeypatch):
+    """The frame program captured at FAST 20 / ORB 60 and the track program
+    at ORB 60 replay at the thresholds a retry and a drift move to, with no
+    new capture, and give the eager call's bits there (a threshold baked
+    into a graph would give the first call's keypoints or matches: at ORB
+    70 the stereo matches and at FAST 250 the keypoints differ from the
+    first call's)."""
+    from srba_slam_tpu_torch.models import vo
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    monkeypatch.setattr(cuda_graphs, "_PROGRAMS", {})
+    cam = StereoCamera.kitti()
+    pair = street_frames[1]
+    first = extract_and_match(*pair, cam, 20.0, 60, k=512, device=cuda)
+    prev = extract_and_match(*street_frames[0], cam, 20.0, 60, k=512, device=cuda)
+    init = np.array([0.0, 0.0, 0.0, 0.0, 0.0, 0.8], np.float32)
+    vo.track_frame(prev, first, cam, init, 60)
+    captures = cuda_graphs.PROGRAM_STATS["captures"]
+    for fast, orb, field in ((10.0, 60, None), (5.0, 70, "m_valid"), (250.0, 60, "valid_l"),
+                             (15.0, 65, None)):
+        graph = extract_and_match(*pair, cam, fast, orb, k=512, device=cuda)
+        track = vo.track_frame(prev, graph, cam, init, orb)
+        monkeypatch.setattr(vo, "FRAME_PROGRAMS", False)
+        eager = extract_and_match(*pair, cam, fast, orb, k=512, device=cuda)
+        e_track = vo.track_frame(prev, eager, cam, init, orb)
+        monkeypatch.setattr(vo, "FRAME_PROGRAMS", True)
+        assert all(torch.equal(x, y) for x, y in zip(graph, eager))
+        assert all(torch.equal(x, y) for x, y in zip(_leaves(track), _leaves(e_track)))
+        assert field is None or not torch.equal(getattr(graph, field), getattr(first, field))
+    assert cuda_graphs.PROGRAM_STATS["captures"] == captures
+    assert {p["key"][0] for p in cuda_graphs.programs()} == {"frame", "track"}
+
+
+def test_per_frame_programs_sync_nothing(cuda, street_frames):
+    """Once captured, a pass's programs called on host frames and host
+    thresholds (one pinned upload each) under
+    ``torch.cuda.set_sync_debug_mode("error")``: the uploads, the input
+    copies, the replays and the output clones make no host sync (the one
+    sync of a pass is its copy out, after them)."""
+    from srba_slam_tpu_torch.models import vo
+
+    eng = StereoVOEngine(StereoCamera.kitti(), VOOptions(fast_th=20, n_feats=500),
+                         capacity=512, device=cuda)
+    for left, right in street_frames[:3]:
+        eng.process_stereo_pair(left, right)
+    solve = eng.solve_options()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cur = extract_and_match(*street_frames[3], eng.cam, 15.0, 70, **eng.frontend_options())
+        x = vo._track_inputs([eng._prev], [cur], eng.initial_increment()[None], [70.0], cuda)
+        words = vo._track(x, eng.cam, solve, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert words.dtype == torch.int32 and int(cur.m_valid.sum()) > 100
+
+
+def test_per_frame_pass_launches_no_kernels(cuda):
+    """In a process of its own (``tools/frame_launches.py``; traces of
+    captured programs stay out of this one, ROADMAP Queue 3): a VO pass on
+    its programs launches no kernel and two graphs (eagerly hundreds of
+    kernels); a keyframe store's and a BoW database's row write and a
+    loop-closure re-check each no kernel and one graph."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-m", "srba_slam_tpu_torch.tools.frame_launches"],
+                          capture_output=True, text=True, cwd=root, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["pass program"][:2] == [0, 2] and got["pass eager"][0] > 100
+    for name in ("kf_row", "bow_row", "recheck"):
+        assert got[f"{name} program"][:2] == [0, 1], name
+        assert got[f"{name} eager"][0] > 0, name
+    assert got["recheck eager"][0] > 100
+    assert got["captures"]["frame"] == got["captures"]["track"] == 1
+
+
+def test_entry_programs_equal_eager(cuda, monkeypatch):
+    """``entry()``'s step on its two programs (a capture, then a replay)
+    equals the same step eagerly bit for bit."""
+    from srba_slam_tpu_torch.models import vo
+    from srba_slam_tpu_torch.parallel.multichip import entry
+
+    fn, args = entry(cuda)
+    graphs = [fn(*args) for _ in range(2)]
+    monkeypatch.setattr(vo, "FRAME_PROGRAMS", False)
+    eager = fn(*args)
+    for out in graphs:
+        assert all(torch.equal(x, y) for x, y in zip(out, eager))
+    assert eager[0].shape == (6,) and bool(torch.isfinite(eager[0]).all())
+
+
+def test_recheck_and_row_programs_equal_eager_and_are_freed(cuda, check_feats, monkeypatch):
+    """A keyframe store's and a BoW database's row writes, the database's
+    rebuild and the loop-closure re-check as programs equal their eager
+    routes bit for bit (at two rows, seeds and budgets of one program:
+    one capture each); once the store and the database are deleted, their
+    programs are gone."""
+    import gc
+
+    from srba_slam_tpu_torch.models import bow as bow_mod
+    from srba_slam_tpu_torch.models import data_association as da
+    from srba_slam_tpu_torch.models import keyframe as keyframe_mod
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    cam, feats, _voc = check_feats
+    kinds = ("kf_row", "bow_row", "bow_rebuild", "recheck")
+    flags = ((keyframe_mod, "ROW_PROGRAMS"), (bow_mod, "ROW_PROGRAMS"),
+             (da, "RECHECK_PROGRAM"))
+    parts = {}
+    earlier = {p["token"] for p in cuda_graphs.programs()}
+    captures = {k: cuda_graphs.capture_stats(k)["captures"] for k in kinds}
+    for route in ("eager", "program"):
+        for module, name in flags:
+            monkeypatch.setattr(module, name, route == "program")
+        store, bow = _check_parts(check_feats)
+        outs = []
+        for row, j in ((3, 4), (4, 7)):
+            store.write_row(feats[j], row)
+            bow.write_row(feats[j].desc_l, feats[j].m_valid, row)
+        for new, old, seed, budget in ((3, 0, 11, 0.0), (4, 1, 12, 0.7)):
+            init = np.array([0.0, 0.0, 0.0, 0.0, 0.0, -0.36 * (new - old)], np.float32)
+            outs.append(da.recheck_candidate(store.arrays, new, old, cam, init, seed,
+                                             init_gate_budget_m=budget, **CHECK_KW))
+        rebuilt = bow_mod.BoWDatabase(bow.voc, max_kfs=bow.max_kfs, device=cuda)
+        rebuilt.rebuild_from_store(store.arrays, 5)
+        parts[route] = (store, bow, rebuilt, outs)
+    (se, be, re, oe), (sp, bp, rp, op) = parts["eager"], parts["program"]
+    for name, x, y in zip(se.arrays._fields, se.arrays, sp.arrays):
+        assert torch.equal(x, y), name
+    assert torch.equal(be._db, bp._db) and torch.equal(re._db, rp._db)
+    assert torch.equal(rp._db[:5], bp._db[:5]) and not bool(rp._db[5:].any())
+    for a, b in zip(oe, op):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert int(op[0][2]) > 0
+    got = {k: cuda_graphs.capture_stats(k)["captures"] - captures[k] for k in kinds}
+    assert got == {"kf_row": 1, "bow_row": 1, "bow_rebuild": 1, "recheck": 1}, got
+    mine = {p["token"] for p in cuda_graphs.programs()
+            if p["key"][0] in kinds and p["token"] not in earlier}
+    assert len(mine) == 4
+    del parts, sp, bp, rp, op, se, be, re, oe, store, bow, rebuilt, outs
+    gc.collect()
+    assert not mine & {p["token"] for p in cuda_graphs.programs()}
