@@ -4,7 +4,7 @@ Usage::
 
     python -m srba_slam_tpu_torch <config.ini> [--synthetic N] [--checkpoint path]
                                   [--resume path] [--gt file] [--serve [PORT]]
-                                  [--batch B] [--fleet S] [--cpu]
+                                  [--batch B] [--fleet S] [--cpu] [--trace FILE]
 
 Counterpart of ``python -m srba_slam_tpu``: the same arguments and the same
 flow. It takes the reference's ``.ini`` config format unmodified (the demo
@@ -15,7 +15,10 @@ one batched scan (default: 8 on the card, frame by frame on the CPU);
 ``--fleet S`` with ``--synthetic`` runs S independent rendered sequences in
 lockstep (``parallel/fleet.py``), sharded over the device mesh (the
 largest count of the machine's cards that divides S), their outputs under
-``<out_dir>/seq<i>/``.
+``<out_dir>/seq<i>/``. ``--trace FILE`` records the run's trace
+(``ops/cuda_graphs.py`` ``record_spans``: host spans, program replays and
+eager groups on the card, one axis) and writes it to FILE as Chrome
+trace-event JSON (chrome://tracing, Perfetto), each span with its frame.
 """
 
 from __future__ import annotations
@@ -57,8 +60,29 @@ def main(argv=None):
                          "= ephemeral). Browser equivalent of the "
                          "reference's live 3D window; implies show3D-style "
                          "per-keyframe snapshots")
+    ap.add_argument("--trace", default="", metavar="FILE",
+                    help="record the run's trace and write it to FILE as Chrome "
+                         "trace-event JSON (host spans and device spans, one clock)")
     args = ap.parse_args(argv)
+    if not args.trace:
+        return _session(args)
 
+    import torch
+
+    from srba_slam_tpu_torch.ops import cuda_graphs
+
+    with cuda_graphs.record_spans() as tr:
+        rc = _session(args)
+    if tr.anchor is not None:
+        torch.cuda.synchronize()      # the device events' times are read now
+    tr.write_chrome(args.trace)
+    print(f"{TAG} trace: {len(tr.host)} host spans, {len(tr.replays)} program replays "
+          f"-> {args.trace}")
+    return rc
+
+
+def _session(args) -> int:
+    """The run of ``main``'s parsed arguments."""
     import torch
 
     from srba_slam_tpu_torch.models.estimator import SRBAStereoSLAMEstimator

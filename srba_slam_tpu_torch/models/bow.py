@@ -36,6 +36,7 @@ import torch
 
 from srba_slam_tpu_torch.ops import cuda_graphs
 from srba_slam_tpu_torch.ops.bits import unpack_bits
+from srba_slam_tpu_torch.utils import trace
 
 # On a CUDA device, BoWDatabase.write_row and rebuild_from_store are each one
 # replay of a CUDA-graph program per database; eager launches otherwise (the
@@ -306,4 +307,4 @@ class BoWDatabase:
         (≙ CBoWManager::queryDB, reference src/CBoWManager.h:83-88)."""
         s, i = rank_scores(self.scores(self.compute_bow(desc_packed, valid), self.n_kfs),
                            max_results)
-        return s.cpu().numpy(), i.cpu().numpy()
+        return trace.to_numpy("bow.query", s), trace.to_numpy("bow.query", i)

@@ -58,7 +58,7 @@ from srba_slam_tpu_torch.ops import cuda_graphs, prng, robust_lm
 from srba_slam_tpu_torch.ops.hamming import hamming_matrix
 from srba_slam_tpu_torch.ops.ransac import ransac_fundamental
 from srba_slam_tpu_torch.ops.robust_lm import lanewise, solve_pose
-from srba_slam_tpu_torch.utils import se3
+from srba_slam_tpu_torch.utils import se3, trace
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
 # ≙ the status enum at reference src/CSRBAStereoSLAMEstimator.h:102
@@ -838,7 +838,8 @@ def _recheck_inputs(row_new: int, row_old: int, seed: int, init_pose, budget,
               np.asarray(budget, np.float32).reshape(())]
     on_dev = isinstance(init_pose, torch.Tensor) and init_pose.device == torch.device(device)
     if not on_dev:
-        init_pose = init_pose.cpu() if isinstance(init_pose, torch.Tensor) else init_pose
+        if isinstance(init_pose, torch.Tensor):
+            init_pose = trace.to_numpy("da.recheck_init", init_pose)
         arrays.append(np.asarray(init_pose, np.float32).reshape(6))
     up = cuda_graphs.upload_arrays(arrays, device)
     return dict(rows=up[0], budget=up[1],

@@ -77,6 +77,7 @@ from srba_slam_tpu_torch.ops.rectify import build_maps
 from srba_slam_tpu_torch.utils import se3_np
 from srba_slam_tpu_torch.utils.debug_dumps import DebugDumper, export_scene_ply
 from srba_slam_tpu_torch.utils.profiler import Profiler
+from srba_slam_tpu_torch.utils import trace
 from srba_slam_tpu_torch.utils.stats import VerboseLogger
 from srba_slam_tpu_torch.utils.thresholds import (
     update_rotation_threshold, update_translation_threshold,
@@ -592,36 +593,37 @@ class SRBAStereoSLAMEstimator:
         continues from an earlier dispatch's last frame and increment (the
         next batch, launched before this one is walked); otherwise the scan
         chains from the engine's state."""
-        eng = self.vo
-        if item.get("ready") is not None:
-            torch.cuda.current_stream(self.device).wait_event(item["ready"])
-        lefts, rights = item["lefts"], item["rights"]
-        prev_feat = chain["last_feat"] if chain else eng._prev
-        prev_inc = chain["last_inc"] if chain else torch.from_numpy(
-            np.asarray(eng._last_pose_inc, np.float32)).to(self.device, non_blocking=True)
-        fast_th, orb_th = eng.thresholds()
-        # the batch's dispatch, stamped before the host issues the scan's
-        # launches (the latency log's arrival where no frame stamp is given)
-        t_dispatch = time.perf_counter()
-        # the thresholds as device inputs: on a card the scan is a replay of
-        # a graph captured once per shape, at whatever thresholds they hold
-        f32 = torch.float32
-        fast_t = torch.full((lefts.shape[0],), fast_th, dtype=f32, device=self.device)
-        orb_t = torch.full((), float(orb_th), dtype=f32, device=self.device)
-        with cuda_graphs.no_exit_reads():
-            last_feat, last_inc, outs = vo_scan(
-                lefts, rights, prev_feat, prev_inc, self.cam, fast_t, orb_t,
-                **eng.frontend_options(), **eng.solve_options())
-        with cuda_graphs.span("eager", self.device):
-            pk = _pack_scan_summary(outs, last_inc)
-        disp = dict(outs=outs, last_feat=last_feat, last_inc=last_inc, b=lefts.shape[0],
-                    f0=chain["f0"] + chain["b"] if chain else item["f0"], item=item,
-                    lefts=lefts, rights=rights, pk=pk, t_dispatch=t_dispatch)
-        if chain is None:
-            # dispatched from the engine's state, which is current: attach
-            # now (a chained batch attaches once the batch before it is walked)
-            self._attach_summary(disp)
-        return disp
+        with trace.span("scan dispatch", frame=self.frame_idx):
+            eng = self.vo
+            if item.get("ready") is not None:
+                torch.cuda.current_stream(self.device).wait_event(item["ready"])
+            lefts, rights = item["lefts"], item["rights"]
+            prev_feat = chain["last_feat"] if chain else eng._prev
+            prev_inc = chain["last_inc"] if chain else torch.from_numpy(
+                np.asarray(eng._last_pose_inc, np.float32)).to(self.device, non_blocking=True)
+            fast_th, orb_th = eng.thresholds()
+            # the batch's dispatch, stamped before the host issues the scan's
+            # launches (the latency log's arrival where no frame stamp is given)
+            t_dispatch = time.perf_counter()
+            # the thresholds as device inputs: on a card the scan is a replay of
+            # a graph captured once per shape, at whatever thresholds they hold
+            f32 = torch.float32
+            fast_t = torch.full((lefts.shape[0],), fast_th, dtype=f32, device=self.device)
+            orb_t = torch.full((), float(orb_th), dtype=f32, device=self.device)
+            with cuda_graphs.no_exit_reads():
+                last_feat, last_inc, outs = vo_scan(
+                    lefts, rights, prev_feat, prev_inc, self.cam, fast_t, orb_t,
+                    **eng.frontend_options(), **eng.solve_options())
+            with cuda_graphs.span("eager", self.device):
+                pk = _pack_scan_summary(outs, last_inc)
+            disp = dict(outs=outs, last_feat=last_feat, last_inc=last_inc, b=lefts.shape[0],
+                        f0=chain["f0"] + chain["b"] if chain else item["f0"], item=item,
+                        lefts=lefts, rights=rights, pk=pk, t_dispatch=t_dispatch)
+            if chain is None:
+                # dispatched from the engine's state, which is current: attach
+                # now (a chained batch attaches once the batch before it is walked)
+                self._attach_summary(disp)
+            return disp
 
     def _attach_summary(self, disp: dict):
         """The point where the JAX package attaches a scan's summary, which
@@ -654,67 +656,68 @@ class SRBAStereoSLAMEstimator:
         at its final thresholds) and before this batch's walk (so the
         device scans while the host walks). Returns that dispatch (or
         None)."""
-        b = disp["b"]
-        eng = self.vo
-        self._dispatch_planned_checks()  # a retry or guard may leave some
-        pend = self.rba.pending_device_arrays()
-        spec = self._spec
-        spec_handles = [h for c in spec for h in c["handles"]]
-        pk = disp["pk"]
-        pulled = to_host(list(pk) + list(pend) + spec_handles)
-        # latency log: the batch's frame poses are on the host now
-        self.lat["batches"].append(dict(j0=disp["f0"], b=b, t_dispatch=disp["t_dispatch"],
-                                        t_pull=time.perf_counter()))
-        summ = _unpack_scan_summary(pulled[:len(pk)])
-        if pend:
-            self.rba.commit_pending(pulled[len(pk):len(pk) + len(pend)])
-        self._replay_flag = False
-        if spec:
-            # decision-lag accounting: this batch's frames are in already
-            self._lat_resolved_at = disp["f0"] + b - 1
-            self._resolve_spec(pulled[len(pk) + len(pend):])
-            self._lat_resolved_at = None
-        self._reanchor_if_dirty()
-        if self._stop_reached():
-            return None  # a replay stopped the run at its frame
-        batch_rec = dict(feats=disp["outs"][0], b=b, f0=disp["f0"],
-                         # a miss replayed just now, or the mode was left: the
-                         # JAX package walks this batch from host lanes
-                         host_mode=self._replay_flag or not self._virtual_bp, **summ)
-        nm = summ["nm"]
-        th = self.opts.adaptive_th_min_matches
-        # the protocol runs only under orb_adaptive_fast_th (≙ .cpp:271)
-        adaptive = self.opts.orb_adaptive_fast_th
-        retry_j = None
-        if adaptive and (not eng.is_fast_th_min() or not eng.is_orb_th_max()):
-            below = np.nonzero(nm < th)[0]
-            if len(below):
-                retry_j = int(below[0])
-        if retry_j is not None:
-            # the record ends at the head, so that a replay never walks
-            # into the tail scanned again below
-            batch_rec["b"] = retry_j
-            self._process_frames(batch_rec, 0, retry_j)
+        with trace.span("batch walk", frame=self.frame_idx):
+            b = disp["b"]
+            eng = self.vo
+            self._dispatch_planned_checks()  # a retry or guard may leave some
+            pend = self.rba.pending_device_arrays()
+            spec = self._spec
+            spec_handles = [h for c in spec for h in c["handles"]]
+            pk = disp["pk"]
+            pulled = to_host(list(pk) + list(pend) + spec_handles)
+            # latency log: the batch's frame poses are on the host now
+            self.lat["batches"].append(dict(j0=disp["f0"], b=b, t_dispatch=disp["t_dispatch"],
+                                            t_pull=time.perf_counter()))
+            summ = _unpack_scan_summary(pulled[:len(pk)])
+            if pend:
+                self.rba.commit_pending(pulled[len(pk):len(pk) + len(pend)])
+            self._replay_flag = False
+            if spec:
+                # decision-lag accounting: this batch's frames are in already
+                self._lat_resolved_at = disp["f0"] + b - 1
+                self._resolve_spec(pulled[len(pk) + len(pend):])
+                self._lat_resolved_at = None
+            self._reanchor_if_dirty()
             if self._stop_reached():
-                return None
-            eng.retry_step()    # moves: gated above on a movable threshold
-            item = disp["item"]
-            tail = self._dispatch_scan(dict(
-                lefts=disp["lefts"][retry_j:], rights=disp["rights"][retry_j:],
-                f0=disp["f0"] + retry_j, frames=item["frames"][retry_j:]))
-            tail["item"] = item
-            # the tail's walk launches the next batch (thresholds final there)
-            return self._process_scan(tail, next_fn)
-        if adaptive:
-            eng.drift_thresholds(int(nm.min()) if b else self.capacity, th)
-        nxt = next_fn(disp) if next_fn is not None else None
-        self._process_frames(batch_rec, 0, b)
-        if nxt is not None:
-            self._attach_summary(nxt)
-        # launch the batch's deferred checks now, so the device runs them
-        # while the host waits for the next batch
-        self._dispatch_planned_checks()
-        return nxt
+                return None  # a replay stopped the run at its frame
+            batch_rec = dict(feats=disp["outs"][0], b=b, f0=disp["f0"],
+                             # a miss replayed just now, or the mode was left: the
+                             # JAX package walks this batch from host lanes
+                             host_mode=self._replay_flag or not self._virtual_bp, **summ)
+            nm = summ["nm"]
+            th = self.opts.adaptive_th_min_matches
+            # the protocol runs only under orb_adaptive_fast_th (≙ .cpp:271)
+            adaptive = self.opts.orb_adaptive_fast_th
+            retry_j = None
+            if adaptive and (not eng.is_fast_th_min() or not eng.is_orb_th_max()):
+                below = np.nonzero(nm < th)[0]
+                if len(below):
+                    retry_j = int(below[0])
+            if retry_j is not None:
+                # the record ends at the head, so that a replay never walks
+                # into the tail scanned again below
+                batch_rec["b"] = retry_j
+                self._process_frames(batch_rec, 0, retry_j)
+                if self._stop_reached():
+                    return None
+                eng.retry_step()    # moves: gated above on a movable threshold
+                item = disp["item"]
+                tail = self._dispatch_scan(dict(
+                    lefts=disp["lefts"][retry_j:], rights=disp["rights"][retry_j:],
+                    f0=disp["f0"] + retry_j, frames=item["frames"][retry_j:]))
+                tail["item"] = item
+                # the tail's walk launches the next batch (thresholds final there)
+                return self._process_scan(tail, next_fn)
+            if adaptive:
+                eng.drift_thresholds(int(nm.min()) if b else self.capacity, th)
+            nxt = next_fn(disp) if next_fn is not None else None
+            self._process_frames(batch_rec, 0, b)
+            if nxt is not None:
+                self._attach_summary(nxt)
+            # launch the batch's deferred checks now, so the device runs them
+            # while the host waits for the next batch
+            self._dispatch_planned_checks()
+            return nxt
 
     def _process_frames(self, batch_rec: dict, j0: int, j1: int, defer: bool = True):
         """Walk frames [j0, j1) of a batch (:meth:`_walk_frames`), with
@@ -1114,12 +1117,11 @@ class SRBAStereoSLAMEstimator:
         self.frame_idx += 1
         res = StepResult(self.frame_idx)
         self.step_log.append(res)
-
-        if self.store.n_kfs == 0:
-            self._insert_first_kf(left, right, res)
-            return res
-
-        self._walk_frame(res, self._vo_with_adaptive_retry(left, right, res))
+        with trace.span("step", frame=self.frame_idx):
+            if self.store.n_kfs == 0:
+                self._insert_first_kf(left, right, res)
+            else:
+                self._walk_frame(res, self._vo_with_adaptive_retry(left, right, res))
         return res
 
     def _walk_frame(self, res: StepResult, vo):
@@ -1191,13 +1193,14 @@ class SRBAStereoSLAMEstimator:
     def _vo_with_adaptive_retry(self, left, right, res: StepResult):
         """One frame's VO under the adaptive retry protocol (:meth:`adaptive_vo`),
         each pass a ``process_stereo_pair`` of the frame."""
-        proto = self.adaptive_vo()
-        next(proto)
-        try:
-            while True:
-                proto.send(self.vo.process_stereo_pair(left, right))
-        except StopIteration as done:
-            return done.value
+        with trace.span("vo"):
+            proto = self.adaptive_vo()
+            next(proto)
+            try:
+                while True:
+                    proto.send(self.vo.process_stereo_pair(left, right))
+            except StopIteration as done:
+                return done.value
 
     def adaptive_vo(self):
         """≙ the FAST/ORB threshold retry protocol (reference .cpp:263-315),
@@ -1232,15 +1235,16 @@ class SRBAStereoSLAMEstimator:
         vo = self.vo.process_stereo_pair(left, right)
         frame = self.vo.last_frame()
         self._buffer_voc_frame(frame)
-        ids = self._mint_fresh_ids(frame.m_valid.cpu().numpy())
-        kf_id = self.store.append(frame, ids, self.current_pose)
-        if self.bow is not None:
-            self.bow.insert(frame.desc_l, frame.m_valid)
-        # else: the vocabulary is still accumulating (voc_train_frames);
-        # ensure_vocabulary backfills this KF's DB row from the store
-        obs = self._build_obs(frame, ids)
-        self.rba.define_new_keyframe(obs, run_opt=False)
-        self.vo.set_frame_ids(ids, set(ids[ids >= 0]))
+        with trace.span("insertion"):
+            ids = self._mint_fresh_ids(trace.to_numpy("estimator.first_kf", frame.m_valid))
+            kf_id = self.store.append(frame, ids, self.current_pose)
+            if self.bow is not None:
+                self.bow.insert(frame.desc_l, frame.m_valid)
+            # else: the vocabulary is still accumulating (voc_train_frames);
+            # ensure_vocabulary backfills this KF's DB row from the store
+            obs = self._build_obs(frame, ids)
+            self.rba.define_new_keyframe(obs, run_opt=False)
+            self.vo.set_frame_ids(ids, set(ids[ids >= 0]))
         self.debug.dump_kf(kf_id, frame, ids)
         res.vo_valid = True
         res.inserted_kf = kf_id
@@ -1348,34 +1352,36 @@ class SRBAStereoSLAMEstimator:
         inputs), its packed outputs and the launched window solves copied to
         the host in one copy, the solves committed (the decision is
         :meth:`_kf_check_host`)."""
-        sub = self.next_check_key()
-        with self.profiler.section("queryDB"):
-            handles = query_and_associate_packed(
-                frame, self.store.arrays, self.bow._db, self.bow._leaf_bits,
-                self.bow._weights, self.store.n_kfs, self.cam, sub,
-                debug=self.debug.enabled, **self.check_options())
-        with self.profiler.section("performDA"):
-            pend = self.rba.pending_device_arrays()
-            pulled = to_host(list(handles) + list(pend))
-            if pend:
-                self.rba.commit_pending(pulled[len(handles):])
-            self._reanchor_if_dirty()
-        return pulled[:len(handles)]
+        with trace.span("check"):
+            sub = self.next_check_key()
+            with self.profiler.section("queryDB"):
+                handles = query_and_associate_packed(
+                    frame, self.store.arrays, self.bow._db, self.bow._leaf_bits,
+                    self.bow._weights, self.store.n_kfs, self.cam, sub,
+                    debug=self.debug.enabled, **self.check_options())
+            with self.profiler.section("performDA"):
+                pend = self.rba.pending_device_arrays()
+                pulled = to_host(list(handles) + list(pend))
+                if pend:
+                    self.rba.commit_pending(pulled[len(handles):])
+                self._reanchor_if_dirty()
+            return pulled[:len(handles)]
 
     def _kf_check_host(self, pulled, frame, res: StepResult, force_new_kf: bool):
         """Host half of the keyframe check: similar-KF selection, LC
         confirmation, the insertion decision and the insertion itself."""
-        d = self._kf_decide(pulled, res, force_new_kf)
-        if not force_new_kf:
-            self._da_dead = res.best_tracked < self.opts.updated_matches_th
-        if not d["insert"]:
-            self._apply_no_insert(d)
-            return None
-        ids = self._kf_apply(d, frame, res, initial_rel=self.incr_from_last_kf)
-        # reset accumulators (≙ .cpp:662-663, 922-923)
-        self.current_pose = self.last_kf_pose.copy()
-        self.incr_from_last_kf = np.zeros(6)
-        return ids
+        with trace.span("decision"):
+            d = self._kf_decide(pulled, res, force_new_kf)
+            if not force_new_kf:
+                self._da_dead = res.best_tracked < self.opts.updated_matches_th
+            if not d["insert"]:
+                self._apply_no_insert(d)
+                return None
+            ids = self._kf_apply(d, frame, res, initial_rel=self.incr_from_last_kf)
+            # reset accumulators (≙ .cpp:662-663, 922-923)
+            self.current_pose = self.last_kf_pose.copy()
+            self.incr_from_last_kf = np.zeros(6)
+            return ids
 
     def _kf_decide(self, pulled, res: StepResult, force_new_kf: bool) -> dict:
         """The insertion decision from the check's host outputs (one packed
@@ -1495,70 +1501,71 @@ class SRBAStereoSLAMEstimator:
         deferred check wrote the keyframe's store and BoW rows already, so
         only the counts and host fields commit (``frame`` may be None).
         Returns the keyframe's match IDs."""
-        t0 = time.perf_counter()
-        ids, n_new, n_common = self._propagate_ids(
-            d["f_m_valid"], d["da_status"], d["da_oidx"], d["similar"], d["order"],
-            dists=d.get("da_dists"))
-        obs = self._build_obs_host(d["f_m_valid"], d["f_xs_l"], d["f_ys_l"],
-                                   d["f_xs_r"], d["f_m_r"], d["f_pts"], ids)
-        if d["lc_confirmed"] is not None:
-            self.rba.loop_closure_detected(True)
-            self.rba.set_lc_old_id(d["lc_confirmed"])
-            res.loop_closure_with = d["lc_confirmed"]
-            self.debug.dump_loop_closure(self.store.n_kfs, d["lc_confirmed"],
-                                         int(d["tracked"][d["order"][0]]))
-        if self.opts.use_initial_pose:
-            self.rba.set_initial_kf_pose(initial_rel)
-        if self.solve_flush_before_insert and not self.solve_sync:
-            # the middle schedule: the launched solves land before this
-            # insertion builds its window
-            with self.profiler.section("solve_flush"):
-                self.rba.flush()
-        with self.profiler.section("define_kf"):
-            try:
-                info = self.rba.define_new_keyframe(obs, run_opt=True)
-                if (d["lc_confirmed"] is not None
-                        and self.rba.lc_rejects_last_insert):
-                    # the confirmed closure's edge failed the creation-time
-                    # consistency gate (aliased consensus): attempt the
-                    # odometry-seeded recovery before giving the closure up
-                    tgt = self.rba._area_of(d["lc_confirmed"])
-                    if any(self.rba._area_of(u) == tgt
-                           for (u, _v) in self.rba.lc_rejects_last_insert):
-                        if not self._lc_recovery(d, info.kf_id, d["lc_confirmed"], ids,
-                                                 frame):
-                            res.lc_rejected_with = d["lc_confirmed"]
-                            res.loop_closure_with = None
-                if self.solve_sync:
-                    # strict schedule: the insertion's solves land now
+        with trace.span("insertion"):
+            t0 = time.perf_counter()
+            ids, n_new, n_common = self._propagate_ids(
+                d["f_m_valid"], d["da_status"], d["da_oidx"], d["similar"], d["order"],
+                dists=d.get("da_dists"))
+            obs = self._build_obs_host(d["f_m_valid"], d["f_xs_l"], d["f_ys_l"],
+                                       d["f_xs_r"], d["f_m_r"], d["f_pts"], ids)
+            if d["lc_confirmed"] is not None:
+                self.rba.loop_closure_detected(True)
+                self.rba.set_lc_old_id(d["lc_confirmed"])
+                res.loop_closure_with = d["lc_confirmed"]
+                self.debug.dump_loop_closure(self.store.n_kfs, d["lc_confirmed"],
+                                             int(d["tracked"][d["order"][0]]))
+            if self.opts.use_initial_pose:
+                self.rba.set_initial_kf_pose(initial_rel)
+            if self.solve_flush_before_insert and not self.solve_sync:
+                # the middle schedule: the launched solves land before this
+                # insertion builds its window
+                with self.profiler.section("solve_flush"):
                     self.rba.flush()
-            except Exception as exc:
-                # ≙ the reference's exception epilogue around
-                # define_new_keyframe (.cpp:792-839)
-                self.emergency_epilogue(exc)
-                raise
-        kf_id = info.kf_id
-        new_global = self.rba.kf_global[kf_id].copy()
-        if pre_written:
-            committed = self.store.commit_row(ids, new_global)
-            assert committed == kf_id
-            self.bow.commit_row()
-        else:
-            self.store.append(frame, ids, new_global)
-            self.bow.insert(frame.desc_l, frame.m_valid)
-        if frame is not None:
-            self.debug.dump_kf(kf_id, frame, ids)
-        # restore thresholds (≙ .cpp:662-663)
-        self.updated_translation_th = float(self.opts.max_translation)
-        self.updated_rotation_th = float(self.opts.max_rotation)
-        self.last_kf_pose = new_global.copy()
-        dt = (time.perf_counter() - t0) * 1e3
-        res.inserted_kf = kf_id
-        res.define_kf_ms = dt
-        self.kf_stats.append(TStatsSRBA(dt, self.store.n_kfs, n_new, n_common))
-        if self.general.show3D:
-            self._live_viz_snapshot()
-        return ids
+            with self.profiler.section("define_kf"):
+                try:
+                    info = self.rba.define_new_keyframe(obs, run_opt=True)
+                    if (d["lc_confirmed"] is not None
+                            and self.rba.lc_rejects_last_insert):
+                        # the confirmed closure's edge failed the creation-time
+                        # consistency gate (aliased consensus): attempt the
+                        # odometry-seeded recovery before giving the closure up
+                        tgt = self.rba._area_of(d["lc_confirmed"])
+                        if any(self.rba._area_of(u) == tgt
+                               for (u, _v) in self.rba.lc_rejects_last_insert):
+                            if not self._lc_recovery(d, info.kf_id, d["lc_confirmed"], ids,
+                                                     frame):
+                                res.lc_rejected_with = d["lc_confirmed"]
+                                res.loop_closure_with = None
+                    if self.solve_sync:
+                        # strict schedule: the insertion's solves land now
+                        self.rba.flush()
+                except Exception as exc:
+                    # ≙ the reference's exception epilogue around
+                    # define_new_keyframe (.cpp:792-839)
+                    self.emergency_epilogue(exc)
+                    raise
+            kf_id = info.kf_id
+            new_global = self.rba.kf_global[kf_id].copy()
+            if pre_written:
+                committed = self.store.commit_row(ids, new_global)
+                assert committed == kf_id
+                self.bow.commit_row()
+            else:
+                self.store.append(frame, ids, new_global)
+                self.bow.insert(frame.desc_l, frame.m_valid)
+            if frame is not None:
+                self.debug.dump_kf(kf_id, frame, ids)
+            # restore thresholds (≙ .cpp:662-663)
+            self.updated_translation_th = float(self.opts.max_translation)
+            self.updated_rotation_th = float(self.opts.max_rotation)
+            self.last_kf_pose = new_global.copy()
+            dt = (time.perf_counter() - t0) * 1e3
+            res.inserted_kf = kf_id
+            res.define_kf_ms = dt
+            self.kf_stats.append(TStatsSRBA(dt, self.store.n_kfs, n_new, n_common))
+            if self.general.show3D:
+                self._live_viz_snapshot()
+            return ids
 
     def _last_query_scores(self):
         """The last keyframe check's ranked BoW scores placed at their KF
@@ -1870,83 +1877,85 @@ class SRBAStereoSLAMEstimator:
         time_new_kf.txt, profiler.csv, final_graph.dot, final_global_path.ply
         and map_viewer.html in ``out_dir``, and final_global_path.png under
         ``show3D``."""
-        self._finish_batched()
-        n = self.store.n_kfs
-        self.rba.flush()
-        if n >= 2 and self.rba.n_edges:
-            eu, ev, rel = self.rba.get_global_graphslam_problem()
-            e_pad = max(64, 1 << (len(eu) - 1).bit_length())
-            n_pad = max(64, 1 << (n - 1).bit_length())
-            eu_a = np.zeros(e_pad, np.int32); eu_a[: len(eu)] = eu
-            ev_a = np.zeros(e_pad, np.int32); ev_a[: len(ev)] = ev
-            rel_a = np.zeros((e_pad, 6), np.float32); rel_a[: len(eu)] = rel
-            e_valid = np.zeros(e_pad, bool); e_valid[: len(eu)] = True
-            poses0 = np.zeros((n_pad, 6), np.float32)
-            poses0[:n] = self.rba.kf_global[:n]
-            dev = self.device
-            with self.profiler.section("global_posegraph"):
-                # pinned uploads, and the gather tables from the host's
-                # edges: the call reads nothing back before its result
-                poses, _c0, _c1, _ = optimize_pose_graph(
-                    *(cuda_graphs.upload(a, dev) for a in
-                      (poses0, np.arange(n_pad) < n, eu_a, ev_a, rel_a, e_valid)),
-                    max_iters=25, host_edges=(eu_a, ev_a, e_valid))
-                final_cam = poses[:n].cpu().numpy().astype(np.float64)
-        else:
-            final_cam = self.rba.kf_global[:n].copy()
-        # world-frame KF poses T_world = E ∘ T_cam ∘ E⁻¹
-        self.final_poses_cam = final_cam
-        E = np.broadcast_to(self.sensor_pose, final_cam.shape)
-        Ei = np.broadcast_to(self.sensor_pose_inv, final_cam.shape)
-        self.final_poses = (se3_np.compose_batch(se3_np.compose_batch(E, final_cam), Ei)
-                            if n else final_cam)
-        if out_dir:
-            os.makedirs(out_dir, exist_ok=True)
-            self.save_trajectory(os.path.join(out_dir, "out_kf_poses.txt"))
-            # kf-id -> frame-index sidecar for the ATE tool
-            # (python -m srba_slam_tpu_torch.utils.evaluation)
-            with open(os.path.join(out_dir, "kf_frames.txt"), "w") as f:
-                for r in self.step_log:
-                    if r.inserted_kf is not None:
-                        f.write(f"{r.inserted_kf} {r.frame_idx}\n")
-            self.save_kf_stats(os.path.join(out_dir, "time_new_kf.txt"))
-            self.profiler.save_csv(os.path.join(out_dir, "profiler.csv"))
-            self.rba.save_graph_as_dot(os.path.join(out_dir, "final_graph.dot"))
-            # map + trajectory point cloud (≙ final_global_path.3DScene):
-            # landmarks composed with the optimized base-KF poses, so that
-            # map and trajectory share the post-epilogue frame; a landmark's
-            # world position is (E ∘ T_cam_base) applied to its base-frame
-            # point
-            n_lms = self.rba.n_lms
-            bases = self.rba.lm_base[:n_lms]
-            in_range = bases < len(final_cam)
-            world_cam = se3_np.compose_batch(E, final_cam) if n else final_cam
-            lms = (np.asarray(se3_np.transform_points_by_pose(
-                world_cam[bases[in_range]], self.rba.lm_pos[:n_lms][in_range]))
-                if in_range.any() else None)
-            export_scene_ply(os.path.join(out_dir, "final_global_path.ply"),
-                             self.final_poses, lms)
-            # interactive equivalent of the reference's live 3D window
-            # (.cpp:1262-1338): one self-contained HTML file
-            from srba_slam_tpu_torch.utils.html_viewer import write_map_viewer
+        with trace.span("finalize", frame=self.frame_idx):
+            self._finish_batched()
+            n = self.store.n_kfs
+            self.rba.flush()
+            if n >= 2 and self.rba.n_edges:
+                eu, ev, rel = self.rba.get_global_graphslam_problem()
+                e_pad = max(64, 1 << (len(eu) - 1).bit_length())
+                n_pad = max(64, 1 << (n - 1).bit_length())
+                eu_a = np.zeros(e_pad, np.int32); eu_a[: len(eu)] = eu
+                ev_a = np.zeros(e_pad, np.int32); ev_a[: len(ev)] = ev
+                rel_a = np.zeros((e_pad, 6), np.float32); rel_a[: len(eu)] = rel
+                e_valid = np.zeros(e_pad, bool); e_valid[: len(eu)] = True
+                poses0 = np.zeros((n_pad, 6), np.float32)
+                poses0[:n] = self.rba.kf_global[:n]
+                dev = self.device
+                with self.profiler.section("global_posegraph"):
+                    # pinned uploads, and the gather tables from the host's
+                    # edges: the call reads nothing back before its result
+                    poses, _c0, _c1, _ = optimize_pose_graph(
+                        *(cuda_graphs.upload(a, dev) for a in
+                          (poses0, np.arange(n_pad) < n, eu_a, ev_a, rel_a, e_valid)),
+                        max_iters=25, host_edges=(eu_a, ev_a, e_valid))
+                    final_cam = trace.to_numpy("estimator.finalize",
+                                               poses[:n]).astype(np.float64)
+            else:
+                final_cam = self.rba.kf_global[:n].copy()
+            # world-frame KF poses T_world = E ∘ T_cam ∘ E⁻¹
+            self.final_poses_cam = final_cam
+            E = np.broadcast_to(self.sensor_pose, final_cam.shape)
+            Ei = np.broadcast_to(self.sensor_pose_inv, final_cam.shape)
+            self.final_poses = (se3_np.compose_batch(se3_np.compose_batch(E, final_cam), Ei)
+                                if n else final_cam)
+            if out_dir:
+                os.makedirs(out_dir, exist_ok=True)
+                self.save_trajectory(os.path.join(out_dir, "out_kf_poses.txt"))
+                # kf-id -> frame-index sidecar for the ATE tool
+                # (python -m srba_slam_tpu_torch.utils.evaluation)
+                with open(os.path.join(out_dir, "kf_frames.txt"), "w") as f:
+                    for r in self.step_log:
+                        if r.inserted_kf is not None:
+                            f.write(f"{r.inserted_kf} {r.frame_idx}\n")
+                self.save_kf_stats(os.path.join(out_dir, "time_new_kf.txt"))
+                self.profiler.save_csv(os.path.join(out_dir, "profiler.csv"))
+                self.rba.save_graph_as_dot(os.path.join(out_dir, "final_graph.dot"))
+                # map + trajectory point cloud (≙ final_global_path.3DScene):
+                # landmarks composed with the optimized base-KF poses, so that
+                # map and trajectory share the post-epilogue frame; a landmark's
+                # world position is (E ∘ T_cam_base) applied to its base-frame
+                # point
+                n_lms = self.rba.n_lms
+                bases = self.rba.lm_base[:n_lms]
+                in_range = bases < len(final_cam)
+                world_cam = se3_np.compose_batch(E, final_cam) if n else final_cam
+                lms = (np.asarray(se3_np.transform_points_by_pose(
+                    world_cam[bases[in_range]], self.rba.lm_pos[:n_lms][in_range]))
+                    if in_range.any() else None)
+                export_scene_ply(os.path.join(out_dir, "final_global_path.ply"),
+                                 self.final_poses, lms)
+                # interactive equivalent of the reference's live 3D window
+                # (.cpp:1262-1338): one self-contained HTML file
+                from srba_slam_tpu_torch.utils.html_viewer import write_map_viewer
 
-            q_scores = self._last_query_scores()
-            write_map_viewer(
-                os.path.join(out_dir, "map_viewer.html"), self.final_poses,
-                landmarks=lms, edges=self._typed_edges(), query_scores=q_scores,
-                query_score_th=self.opts.query_score_th,
-                kf_frames=self._kf_frame_indices(),
-            )
-            if self.general.show3D:
-                # headless stand-in for the live 3D window (≙ show3D)
-                from srba_slam_tpu_torch.utils.viz import render_map_png
-
-                render_map_png(
-                    os.path.join(out_dir, "final_global_path.png"),
-                    self.final_poses, lms, query_scores=q_scores,
+                q_scores = self._last_query_scores()
+                write_map_viewer(
+                    os.path.join(out_dir, "map_viewer.html"), self.final_poses,
+                    landmarks=lms, edges=self._typed_edges(), query_scores=q_scores,
                     query_score_th=self.opts.query_score_th,
+                    kf_frames=self._kf_frame_indices(),
                 )
-        return self.final_poses
+                if self.general.show3D:
+                    # headless stand-in for the live 3D window (≙ show3D)
+                    from srba_slam_tpu_torch.utils.viz import render_map_png
+
+                    render_map_png(
+                        os.path.join(out_dir, "final_global_path.png"),
+                        self.final_poses, lms, query_scores=q_scores,
+                        query_score_th=self.opts.query_score_th,
+                    )
+            return self.final_poses
 
     def save_trajectory(self, path: str):
         """``kf x y z yaw pitch roll`` rows (≙ out_kf_poses.txt, reference

@@ -57,7 +57,7 @@ from srba_slam_tpu_torch.ops.window_ba import (
     WINDOW_SLOTS, BAWindow, assembly_plan, optimize_window, optimize_window_blob, pack_window,
     shard_window_obs, solve_window_group,
 )
-from srba_slam_tpu_torch.utils import se3_np
+from srba_slam_tpu_torch.utils import se3_np, trace
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
 
@@ -1044,7 +1044,7 @@ class SRBAEngine:
         """One queued window solved alone, its host blob ``[cam_pose (C*6)
         | lm_pos (L*3) | cost_init cost_final rmse rmse_stg1]`` (one copy
         back). The groups' solves give each window these bits."""
-        return self._solve_window(entry).cpu().numpy()
+        return trace.to_numpy("srba.solve", self._solve_window(entry))
 
     def _dispatch_queued(self):
         """Launch every queued window, grouped by (C, L, O) bucket in
@@ -1052,17 +1052,18 @@ class SRBAEngine:
         ``solve_window_group`` a group (one upload; a padded slot holds a
         copy of the group's first window and launches nothing; on a card
         one program replay). No host read."""
-        q, self._queued = self._queued, []
-        i = 0
-        while i < len(q):
-            key = _bucket(q[i])
-            grp = [q[i]]
-            i += 1
-            while i < len(q) and len(grp) < WINDOW_SLOTS and _bucket(q[i]) == key:
-                grp.append(q[i])
+        with trace.span("window dispatch"):
+            q, self._queued = self._queued, []
+            i = 0
+            while i < len(q):
+                key = _bucket(q[i])
+                grp = [q[i]]
                 i += 1
-            blob = self._solve_group([(x["ints"], x["floats"]) for x in grp], key)
-            self._pending.append(dict(blob=blob, entries=[x["entry"] for x in grp]))
+                while i < len(q) and len(grp) < WINDOW_SLOTS and _bucket(q[i]) == key:
+                    grp.append(q[i])
+                    i += 1
+                blob = self._solve_group([(x["ints"], x["floats"]) for x in grp], key)
+                self._pending.append(dict(blob=blob, entries=[x["entry"] for x in grp]))
 
     def _solve_group(self, windows: list, key: tuple, capture_only: bool = False):
         """``solve_window_group`` of the packed ``windows`` of bucket

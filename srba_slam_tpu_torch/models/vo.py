@@ -60,6 +60,7 @@ from srba_slam_tpu_torch.ops.orb import describe
 from srba_slam_tpu_torch.ops.ransac import ransac_fundamental
 from srba_slam_tpu_torch.ops.rectify import remap_bilinear
 from srba_slam_tpu_torch.ops.robust_lm import PoseSolveResult, solve_pose
+from srba_slam_tpu_torch.utils import trace
 from srba_slam_tpu_torch.utils.camera import StereoCamera, project_match_to_3d
 
 # On a CUDA device, vo_scan is one replay of a CUDA graph per scan_key; eager
@@ -489,7 +490,7 @@ def to_host(tensors) -> list[np.ndarray]:
     """Copy several device tensors (int8/int32/int64-small/bool/f32) to the
     host in ONE transfer: all as 32-bit words in one buffer."""
     with cuda_graphs.span("eager", tensors[0].device):
-        words = pack_words(tensors).cpu().numpy()
+        words = trace.to_numpy("vo.to_host", pack_words(tensors))
     return unpack_words(words, [(tuple(t.shape), t.dtype) for t in tensors])
 
 
@@ -527,7 +528,7 @@ def solve_tracks(engines, curs) -> list[np.ndarray]:
     words = _track(x, e0.cam, e0.solve_options(), True)
     n, k = len(curs), curs[0].m_valid.shape[-1]
     with cuda_graphs.span("eager", words.device):
-        host = words.cpu().numpy()
+        host = trace.to_numpy("vo.solve_tracks", words)
     return unpack_words(host, [(shape, dt) for shape, dt in zip(
         ((n, k),) * 3 + ((n, 6), (n,), (n,), (n,)), _TRACK_DTYPES)])
 
@@ -900,7 +901,7 @@ class StereoVOEngine:
         (:func:`track_batch` of this engine alone). The first frame only
         mints its IDs."""
         if self._prev is None:
-            m_valid_h = cur.m_valid.cpu().numpy()
+            m_valid_h = trace.to_numpy("vo.first_frame", cur.m_valid)
             n_matches = int(m_valid_h.sum())
             self._cur = cur
             self._cur_ids = self._mint_ids(

@@ -50,8 +50,11 @@ A program keeps its own captured steps (captured in its warm-up), so no
 other caller of a step's key shares its buffers. A capture or an append
 that fails raises; nothing falls back to the eager launches.
 
-:func:`record_spans` and :func:`span` time device work with CUDA events
-(the bench harness's busy share), with no CUPTI.
+:func:`record_spans` (``utils/trace.py``) records the port's trace: the
+device spans of :func:`span`, timed with CUDA events and no CUPTI (the
+bench harness's busy share), each program replay named by its key
+(:func:`program`), a ``capture`` host span for each capture, an ``upload``
+span for each :func:`upload`.
 """
 
 from __future__ import annotations
@@ -68,6 +71,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 from srba_slam_tpu_torch.ops import cuda_build
+from srba_slam_tpu_torch.utils import trace
+from srba_slam_tpu_torch.utils.trace import record_spans  # noqa: F401  (the trace's switch)
 
 # The captured steps, by their static options and shapes: captured at a
 # key's first call, replayed after.
@@ -95,28 +100,10 @@ PROGRAM_STATS = dict(captures=0, capture_s=0.0)
 KIND_STATS: dict = {}
 
 
-# The device spans being recorded (record_spans), or None; whether one is
-# open (an inner span is part of the outer one)
-_SPANS: list | None = None
+# Whether a device span is open (an inner span is part of the outer one)
 _SPAN_OPEN = False
 
 
-@contextlib.contextmanager
-def record_spans():
-    """Within the block each :func:`span` on a card records a pair of CUDA
-    events on the current stream. Yields the list of ``(kind, start,
-    end)``; their elapsed times (``start.elapsed_time(end)``) are readable
-    once the card is synchronized. A device-time measure that needs no
-    CUPTI (the bench harness's ``busy_share``)."""
-    global _SPANS
-    prev, _SPANS = _SPANS, []
-    try:
-        yield _SPANS
-    finally:
-        _SPANS = prev
-
-
-@contextlib.contextmanager
 def span(kind: str, device):
     """A span of device work on ``device``'s current stream, recorded
     inside :func:`record_spans` (and not inside another span, a program's
@@ -124,23 +111,31 @@ def span(kind: str, device):
     clones (``kind="graph"``: the card's time for it, copies included), or
     a group of eager launches (``"eager"``: from the card reaching its first
     launch to its last kernel's end, so it holds any wait for the host's
-    next launch; an upper bound of the group's kernel time)."""
+    next launch; an upper bound of the group's kernel time). Yields its
+    ``(start, end)`` events, or None where it records none."""
+    if trace.ACTIVE is None:
+        return trace.NOOP
+    return _span(kind, device)
+
+
+@contextlib.contextmanager
+def _span(kind: str, device):
     global _SPAN_OPEN
-    device = torch.device(device)
-    if (_SPANS is None or _SPAN_OPEN or device.type != "cuda" or in_program()
+    tr, device = trace.ACTIVE, torch.device(device)
+    if (_SPAN_OPEN or device.type != "cuda" or in_program()
             or torch.cuda.is_current_stream_capturing()):
-        yield
+        yield None
         return
     stream = torch.cuda.current_stream(device)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record(stream)
     _SPAN_OPEN = True
     try:
-        yield
+        yield start, end
     finally:
         _SPAN_OPEN = False
         end.record(stream)
-        _SPANS.append((kind, start, end))
+        tr.append((kind, start, end))
 
 
 @contextlib.contextmanager
@@ -339,10 +334,13 @@ def upload(rows, device, dtype: torch.dtype | None = None) -> torch.Tensor:
     so the host does not wait for the card (a pageable copy would
     synchronize it); a program's device inputs."""
     device = torch.device(device)
-    host = torch.as_tensor(rows, dtype=dtype)
-    if device.type == "cuda":
-        host = host.pin_memory()     # a copy: torch pins no tensor made from numpy
-    return host.to(device, non_blocking=True)
+    with trace.span("upload") as sp:
+        host = torch.as_tensor(rows, dtype=dtype)
+        if device.type == "cuda":
+            host = host.pin_memory()     # a copy: torch pins no tensor made from numpy
+        if sp is not None:
+            sp.nbytes = host.numel() * host.element_size()
+        return host.to(device, non_blocking=True)
 
 
 _ALIGN = 8   # bytes: the widest element a packed buffer holds (int64)
@@ -411,7 +409,7 @@ def _get(fn, inputs: dict, key: tuple, counted, held: dict, fixed: dict, device)
     prog = _PROGRAMS.get(full_key)
     fresh = prog is None
     if fresh:
-        with torch.cuda.device(dev):
+        with trace.span("capture", site=key), torch.cuda.device(dev):
             prog = _capture(fn, (leaves, spec), (f_leaves, f_spec), held, dev, tuple(counted),
                             key)
         _register(full_key, prog, pytree.tree_leaves(held))
@@ -535,13 +533,21 @@ def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None,
     it captures its loops' steps, each once, into the program's own cache,
     and sets up library handles), then captures ``fn`` with its loops as
     conditional nodes (:func:`loop`), without reading an exit test on the
-    host. A capture that fails raises."""
+    host. A capture that fails raises.
+
+    Inside :func:`record_spans` a call that replayed (and is not inside
+    another program's warm-up or capture) is recorded as a replay of its
+    kind and key (``utils/trace.py``), with the events of its ``"graph"``
+    span."""
+    t0 = trace.stamp()
+    if t0 is not None and (in_program() or torch.cuda.is_current_stream_capturing()):
+        t0 = None
     held = held or {}
     fixed = fixed or {}
-    prog, leaves, f_leaves, dev, _fresh = _get(fn, inputs, key, counted, held, fixed, device)
+    prog, leaves, f_leaves, dev, fresh = _get(fn, inputs, key, counted, held, fixed, device)
     lib = cuda_build.load()
     with torch.cuda.device(dev):
-        with span("graph", dev):
+        with span("graph", dev) as events:
             for d, s_ in zip(prog.static, leaves):
                 if _is_tensor(d):
                     d.copy_(s_)
@@ -556,7 +562,10 @@ def program(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None,
             outs = [t.clone() if _is_tensor(t) else t for t in prog.outs]
         for wrapper, n in zip(prog.counted, prog.launches):
             wrapper.launches += n
-        return pytree.tree_unflatten(outs, prog.out_spec)
+        out = pytree.tree_unflatten(outs, prog.out_spec)
+        if t0 is not None and not fresh:
+            trace.replay(t0, key, events)
+        return out
 
 
 def capture(fn, inputs: dict, key: tuple, counted=(), held: dict | None = None,

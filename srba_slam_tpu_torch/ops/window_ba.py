@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from srba_slam_tpu_torch.ops import cuda_graphs
-from srba_slam_tpu_torch.utils import se3
+from srba_slam_tpu_torch.utils import se3, trace
 from srba_slam_tpu_torch.utils.camera import StereoCamera
 
 _SEG_WIDTH = 32  # items summed per gather row of a segment-sum level
@@ -1042,8 +1042,10 @@ def solve_window_group(ints: np.ndarray, floats: np.ndarray, valids, C: int, L: 
     programs = WBA_GROUP_PROGRAMS and device.type == "cuda"
     if capture_only and not programs:
         return False
-    tables = [packed_plan_arrays(ints[i], C, L, O) for i, v in enumerate(valids) if v]
-    buf, layout = group_upload(ints, floats, tables, device)
+    with trace.span("window plan"):
+        tables = [packed_plan_arrays(ints[i], C, L, O) for i, v in enumerate(valids) if v]
+    with trace.span("window upload"):
+        buf, layout = group_upload(ints, floats, tables, device)
 
     solve = optimize_window if solve is None else solve
 

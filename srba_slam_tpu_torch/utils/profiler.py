@@ -3,7 +3,10 @@
 The reference times named pipeline sections (queryDB, get_similar_kfs,
 performDA, confirmLC, define_kf — src/CSRBAStereoSLAMEstimator.cpp:425-456)
 and dumps them to ``profiler.csv`` (:1022) plus per-KF insertion stats to
-``time_new_kf.txt`` (:940-943). Same surface here.
+``time_new_kf.txt`` (:940-943). Same surface here. The sections time the
+host's calls; under the pipelined schedule a call may return before its
+device work ends. Inside ``cuda_graphs.record_spans`` each section is also
+a host span of the trace, on its clock beside the card's events.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ import time
 from collections import defaultdict
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+
+from srba_slam_tpu_torch.utils import trace
 
 
 @dataclass
@@ -42,11 +47,14 @@ class Profiler:
         if not self.enabled:
             yield
             return
-        t0 = time.perf_counter()
+        t0, sp = time.perf_counter(), None
         try:
-            yield
+            # while a trace records (utils/trace.py), the section is its host
+            # span of the same name, timed by the span's own stamps
+            with trace.span(name) as sp:
+                yield
         finally:
-            self.sections[name].add(time.perf_counter() - t0)
+            self.sections[name].add(time.perf_counter() - t0 if sp is None else sp.t1 - sp.t0)
 
     def save_csv(self, path: str):
         """≙ profiler.csv (reference .cpp:1022)."""
