@@ -175,7 +175,7 @@ not 0 (there is no CPU fallback):
                fingerprint), each part of an insertion
                timed alone, synchronized around it (``define_new_keyframe``'s
                host work, the group's one upload, ``assembly_plan`` (the
-               tables on the host), ``optimize_window``, the group's read,
+               tables, built on the card), ``optimize_window``, the group's read,
                ``_commit_one``, ``spanning_tree(0)``, ``on_commit``,
                ``bow.insert``, ``store.append``); every window solved again,
                whole and with ``max_iters=0`` (stage 1), at its bucket's
@@ -2296,10 +2296,10 @@ def _split_run(frames):
     its eager route, ``WBA_GROUP_PROGRAMS`` off, so that its parts run from
     the host) with each part of an insertion timed on the host clock,
     synchronized before and after the part, and every window solve
-    recorded. ``assembly_plan`` builds a window's gather tables on the host
-    (``window_ba.packed_plan_arrays``), ``upload`` is the group's one
-    pinned copy (``window_ba.group_upload``), ``copy_out`` the group's read
-    at its commit."""
+    recorded. ``assembly_plan`` builds a window's gather tables on the card
+    (``window_ba.device_plan``), ``upload`` is the group's one pinned copy
+    (``window_ba.group_upload``), ``copy_out`` the group's read at its
+    commit."""
     est = bench_estimator(DEV, solve_sync=True)
     rba = est.rba
     parts = {name: [] for name in INSERTION_PARTS}
@@ -2318,7 +2318,7 @@ def _split_run(frames):
         return wrapped
 
     run_dispatch, run_opt = rba._dispatch_queued, srba_mod.optimize_window
-    run_plan, run_upload = window_ba.packed_plan_arrays, window_ba.group_upload
+    run_plan, run_upload = window_ba.device_plan, window_ba.group_upload
     run_host = srba_mod.to_host
 
     def dispatch():
@@ -2343,7 +2343,7 @@ def _split_run(frames):
 
     rba._dispatch_queued = dispatch
     srba_mod.optimize_window, srba_mod.to_host = opt, copy_out
-    window_ba.packed_plan_arrays = timing(run_plan, "assembly_plan")
+    window_ba.device_plan = timing(run_plan, "assembly_plan")
     window_ba.group_upload = timing(run_upload, "upload")
     rba.define_new_keyframe = timing(rba.define_new_keyframe, "define_new_keyframe")
     rba._commit_one = timing(rba._commit_one, "_commit_one")
@@ -2360,7 +2360,7 @@ def _split_run(frames):
     finally:
         window_ba.WBA_GROUP_PROGRAMS = keep_programs
         srba_mod.optimize_window, srba_mod.to_host = run_opt, run_host
-        window_ba.packed_plan_arrays, window_ba.group_upload = run_plan, run_upload
+        window_ba.device_plan, window_ba.group_upload = run_plan, run_upload
         bow_cls.insert, store_cls.append = run_insert, run_append
     n_ins = sum(r.inserted_kf not in (None, 0) for r in est.step_log)
     return est, parts, solves, entries, n_ins, run_opt

@@ -1067,10 +1067,13 @@ class SRBAEngine:
 
     def _solve_group(self, windows: list, key: tuple, capture_only: bool = False):
         """``solve_window_group`` of the packed ``windows`` of bucket
-        ``key`` at the front of a group of WINDOW_SLOTS."""
+        ``key`` at the front of a group of WINDOW_SLOTS (the host's part of
+        laying the group out, the slots stacked, is the ``window plan``
+        span; the gather tables are built on the device)."""
         pad = WINDOW_SLOTS - len(windows)
-        ints, floats = (np.stack([w[j] for w in windows] + [windows[0][j]] * pad)
-                        for j in (0, 1))
+        with trace.span("window plan"):
+            ints, floats = (np.stack([w[j] for w in windows] + [windows[0][j]] * pad)
+                            for j in (0, 1))
         return solve_window_group(ints, floats, [True] * len(windows) + [False] * pad, *key,
                                   self.cam, self.device, capture_only=capture_only,
                                   solve=optimize_window, **self._solve_kw())

@@ -19,9 +19,12 @@ Windows come padded to the capacities of one of the engine's buckets
 invalid landmarks get an identity block, invalid observations weight 0.
 Assembly is deterministic on every device: each block sum is a fixed
 gather plus fixed-width sums over a table of the observations that feed
-it (``assembly_plan``, built on the host once per solve, of shapes fixed
-by the window's capacities), never a float scatter-add, whose order on a
-GPU changes from run to run.
+it (an :class:`AssemblyPlan`, of shapes fixed by the window's
+capacities), never a float scatter-add, whose order on a GPU changes from
+run to run. A window group builds each window's plan on the device from
+its packed ints, inside its program (:func:`device_plan`); a window solved
+alone, and each shard of a sharded one, takes the host's
+(``assembly_plan``), the same tables.
 
 JAX's LM ``while_loop`` becomes blocks of ``WBA_EXIT_EVERY`` iterations
 whose updates are masked by the loop's ``cond``, so an iteration past the
@@ -236,7 +239,74 @@ def _plan_to(plan: AssemblyPlan, device) -> AssemblyPlan:
 def assembly_plan(obs_cam, obs_lm, lm_base, obs_valid, C: int, L: int,
                   device) -> AssemblyPlan:
     """:func:`plan_arrays` on ``device``."""
+    trace.tables_built("host")
     return _plan_to(plan_arrays(obs_cam, obs_lm, lm_base, obs_valid, C, L), device)
+
+
+def _segment_tables_on(seg: torch.Tensor, n_seg: int, width: int = _SEG_WIDTH) -> list:
+    """:func:`segment_tables` with ``fixed``, of an int64 tensor ``seg``,
+    built where ``seg`` lives: the same tables, bit for bit, made of
+    fixed-shape sorts, binary searches and gathers, so it reads nothing on
+    the host and captures in a CUDA graph (no scatter, no atomic).
+
+    A level's rows come from a stable sort of the items by segment, a
+    left-out item keyed past the last segment; each segment's first sorted
+    place and count come from a binary search of its number in the sorted
+    keys. Table place (row r, column c) of a segment s holds the sorted
+    item at s's first place + (r - s's first row) * width + c, or the pad
+    index where that passes s's count. The last level has one row a
+    segment; an earlier one gives segment s its ceil(count / width) rows in
+    segment order, found from row r by a binary search of the rows' running
+    sum, a row past the data's end keyed past the last segment. Those rows
+    are the next level's items, already sorted by segment."""
+    dev = seg.device
+    n = seg.shape[0]
+    key, order = torch.sort(torch.where(seg >= 0, seg, n_seg), stable=True)
+    col = torch.arange(width, device=dev)
+    levels = _fixed_levels(n, n_seg, width)
+    tables = []
+    for lvl, n_rows in enumerate(levels):
+        starts = torch.searchsorted(key, torch.arange(n_seg + 1, device=dev))
+        counts = starts[1:] - starts[:-1]
+        if lvl == len(levels) - 1:
+            s = torch.arange(n_seg, device=dev)
+            pos = col.expand(n_seg, width)
+        else:
+            n_chunks = (counts + (width - 1)) // width
+            ends = torch.cumsum(n_chunks, 0)
+            s = torch.searchsorted(ends, torch.arange(n_rows, device=dev), right=True)
+            first = torch.cat([ends.new_zeros(1), ends])      # [n_seg + 1]
+            pos = (torch.arange(n_rows, device=dev) - first[s])[:, None] * width + col
+        cnt = torch.cat([counts, counts.new_zeros(1)])        # past the last: none
+        at = (starts[s][:, None] + pos).clamp_(max=n - 1)
+        items = at if order is None else order[at]
+        tables.append(torch.where(pos < cnt[s][:, None], items, n))
+        key, order, n = s, None, n_rows
+    return tables
+
+
+def device_plan(ints: torch.Tensor, C: int, L: int, O: int) -> AssemblyPlan:
+    """:func:`packed_plan_arrays` of a window's ``pack_window`` ints
+    (int32, on the device), built there (:func:`_segment_tables_on`): the
+    same int64 tables, bit for bit, with no host read (a window group's
+    program builds each valid slot's plan so)."""
+    ints = ints.long()
+    lm_base, obs_cam, obs_lm = ints[:L], ints[L:L + O], ints[L + O:L + 2 * O]
+    valid = ints[L + 2 * O + C + L:] != 0
+    a = torch.where(valid, obs_cam, -1)
+    li = torch.where(valid, obs_lm, -1)
+    b = torch.where(valid, lm_base[torch.where(valid, li, 0)], -1)
+
+    def pair(x, y, n):  # segment x * n + y, left out where x is
+        return torch.where(x >= 0, x * n + y, -1)
+
+    return AssemblyPlan(
+        g_c=_segment_tables_on(torch.cat([a, b]), C),
+        h_cc=_segment_tables_on(torch.cat([pair(a, a, C), pair(b, b, C), pair(a, b, C),
+                                           pair(b, a, C)]), C * C),
+        lm=_segment_tables_on(li, L),
+        h_cl=_segment_tables_on(torch.cat([pair(a, li, L), pair(b, li, L)]), C * L),
+    )
 
 
 def _project_residuals(cam_pose, lm_pos, lm_base, obs_cam, obs_lm, obs_px,
@@ -575,6 +645,7 @@ def shard_window_obs(win: BAWindow, mesh) -> ShardedWindow:
         raise ValueError(f"{n_obs} observations do not split over a mesh of {n} devices")
     C, L = arrays[0].shape[0], arrays[2].shape[0]
     m = n_obs // n
+    trace.tables_built("host")
     bufs, layout = [], ()
     for i, dev in enumerate(mesh.devices):
         part = arrays[:5] + [a[i * m:(i + 1) * m] for a in arrays[5:]]
@@ -967,46 +1038,31 @@ WINDOW_SLOTS = 8
 WBA_GROUP_PROGRAMS = True
 
 
-def group_upload(ints: np.ndarray, floats: np.ndarray, tables: list, device
-                 ) -> tuple[torch.Tensor, tuple]:
+def group_upload(ints: np.ndarray, floats: np.ndarray, device) -> tuple[torch.Tensor, tuple]:
     """A group's inputs in one copy to ``device`` (pinned on a card,
     ``cuda_graphs.upload``): the stacked ``pack_window`` ints and floats
-    [S, n] and the valid slots' gather tables ``tables`` (a
-    :func:`plan_arrays` each), stacked per table [n_valid, rows, width].
-    Returns the buffer and its layout (``cuda_graphs.pack``)."""
-    # table by table (field after field), the slots' tables stacked
-    stacked = [np.stack(t) for t in zip(*([t for field in p for t in field] for p in tables))]
-    buf, layout = cuda_graphs.pack([ints, floats, *stacked])
+    [S, n], and no gather table (the group's body builds them,
+    :func:`device_plan`). Returns the buffer and its layout
+    (``cuda_graphs.pack``)."""
+    buf, layout = cuda_graphs.pack([ints, floats])
     return cuda_graphs.upload(buf, device), layout
-
-
-def group_inputs(buf: torch.Tensor, layout: tuple, C: int, L: int, O: int) -> tuple:
-    """The inverse of :func:`group_upload` on the device: views of ``buf``,
-    ``(ints, floats, plans)``, ``plans`` one :class:`AssemblyPlan` a valid
-    slot (views of the stacked tables)."""
-    ints, floats, *stacked = cuda_graphs.unpack(buf, layout)
-    plans = []
-    for j in range(stacked[0].shape[0] if stacked else 0):
-        tabs = iter(t[j] for t in stacked)
-        plans.append(AssemblyPlan(*([next(tabs) for _ in range(n)]
-                                    for n in plan_levels(C, L, O))))
-    return ints, floats, plans
 
 
 def _group_body(buf: torch.Tensor, layout: tuple, valids: tuple, C: int, L: int, O: int,
                 cam: StereoCamera, kw: dict, solve) -> torch.Tensor:
-    """A group's rows from its uploaded inputs (:func:`group_inputs`): the
-    valid slots' one-window solves ``solve`` in turn, each on its own
-    tables (a padded slot launches nothing), so each row holds its
-    one-window solve's bits; zero for a padded slot (≙ the JAX package's
-    default route, ``_VMAP_LO_LIMIT = 0``: a ``lax.scan`` whose
-    ``lax.cond`` skips a padded slot; its vmapped lanes are not ported)."""
-    ints, floats, plans = group_inputs(buf, layout, C, L, O)
-    plans = iter(plans)
+    """A group's rows from its uploaded inputs (:func:`group_upload`): the
+    valid slots' one-window solves ``solve`` in turn, each on the tables
+    that :func:`device_plan` builds from its ints (a padded slot builds
+    and launches nothing), so each row holds its one-window solve's bits;
+    zero for a padded slot (≙ the JAX package's default route,
+    ``_VMAP_LO_LIMIT = 0``: a ``lax.scan`` whose ``lax.cond`` skips a
+    padded slot; its vmapped lanes are not ported)."""
+    ints, floats = cuda_graphs.unpack(buf, layout)
     zero = torch.zeros(C * 6 + L * 3 + 4, dtype=torch.float32, device=floats.device)
     return torch.stack([
-        result_blob(solve(unpack_window(ints[i], floats[i], C, L, O), cam, plan=next(plans),
-                          **kw)) if v else zero for i, v in enumerate(valids)])
+        result_blob(solve(unpack_window(ints[i], floats[i], C, L, O), cam,
+                          plan=device_plan(ints[i], C, L, O), **kw)) if v else zero
+        for i, v in enumerate(valids)])
 
 
 def group_key(valids, C: int, L: int, O: int, cam: StereoCamera, kw: dict) -> tuple:
@@ -1024,10 +1080,11 @@ def solve_window_group(ints: np.ndarray, floats: np.ndarray, valids, C: int, L: 
     ``optimize_windows_batch_blob``, one jitted program): host
     ``pack_window`` ints and floats [S, n] (a padded slot a copy of a valid
     window), ``valids`` the host's list of the valid slots, the solve
-    options ``kw`` of :func:`optimize_window`. The valid slots' gather
-    tables are built on the host and go up with the windows in one copy
-    (:func:`group_upload`). Returns the [S, C*6 + L*3 + 4] rows on
-    ``device`` (:func:`result_blob`, zero for a padded slot), not read.
+    options ``kw`` of :func:`optimize_window`. The windows go up in one
+    copy (:func:`group_upload`); each valid slot's gather tables are built
+    on the device from its ints, inside the group (:func:`device_plan`).
+    Returns the [S, C*6 + L*3 + 4] rows on ``device``
+    (:func:`result_blob`, zero for a padded slot), not read.
 
     On a card (``WBA_GROUP_PROGRAMS``) the group is one replay of its
     program (:func:`group_key`): its valid slots' solves, their LM loops as
@@ -1042,18 +1099,19 @@ def solve_window_group(ints: np.ndarray, floats: np.ndarray, valids, C: int, L: 
     programs = WBA_GROUP_PROGRAMS and device.type == "cuda"
     if capture_only and not programs:
         return False
-    with trace.span("window plan"):
-        tables = [packed_plan_arrays(ints[i], C, L, O) for i, v in enumerate(valids) if v]
     with trace.span("window upload"):
-        buf, layout = group_upload(ints, floats, tables, device)
+        buf, layout = group_upload(ints, floats, device)
 
     solve = optimize_window if solve is None else solve
 
     def body(x):
         return _group_body(x["buf"], layout, valids, C, L, O, cam, kw, solve)
 
+    args = (body, dict(buf=buf), group_key(valids, C, L, O, cam, kw))
+    if capture_only:
+        return cuda_graphs.capture(*args)
+    trace.tables_built("device", sum(valids))
     if programs:
-        args = (body, dict(buf=buf), group_key(valids, C, L, O, cam, kw))
-        return cuda_graphs.capture(*args) if capture_only else cuda_graphs.program(*args)
+        return cuda_graphs.program(*args)
     with cuda_graphs.span("eager", device):
         return body(dict(buf=buf))

@@ -21,7 +21,11 @@ one switch. Inside it the port records, on the thread that entered it:
   element), a short name of its key (:func:`key_name`), the host's stamps
   at entry and at return, and the two events of its ``"graph"`` span;
 * counters at the same boundaries: ``replays_by_kind``, ``reads`` and
-  ``uploads`` (``count``, ``bytes``).
+  ``uploads`` (``count``, ``bytes``), and ``window_tables``: the windows
+  whose gather tables were built on the device (``device``: a window
+  group's valid slots, ``ops/window_ba.py`` ``device_plan``) and on the
+  host (``host``: ``assembly_plan``, a window solved alone, and a sharded
+  window, ``shard_window_obs``), counted at the call (:func:`tables_built`).
 
 The clock anchor: on entry, on a card, one synchronize, one event and the
 host's clock read beside it (:meth:`Trace.host_ms`, :meth:`Trace.device_ms`
@@ -106,6 +110,7 @@ class Trace(list):
         self.replays_by_kind: dict = {}
         self.reads = dict(count=0, bytes=0)
         self.uploads = dict(count=0, bytes=0)
+        self.window_tables = dict(device=0, host=0)
         self._open: list[int] = []
         self._thread = threading.get_ident()
         self.anchor = None
@@ -186,7 +191,8 @@ class Trace(list):
         with open(path, "w") as f:
             json.dump(dict(traceEvents=self.chrome_events(), displayTimeUnit="ms",
                            otherData=dict(replays_by_kind=self.replays_by_kind,
-                                          reads=self.reads, uploads=self.uploads)), f)
+                                          reads=self.reads, uploads=self.uploads,
+                                          window_tables=self.window_tables)), f)
 
 
 @contextlib.contextmanager
@@ -236,6 +242,14 @@ def to_numpy(site: str, t: torch.Tensor):
         if sp is not None:
             sp.nbytes = out.nbytes
     return out
+
+
+def tables_built(where: str, n: int = 1):
+    """Count ``n`` windows whose gather tables were built ``where``
+    (``"device"`` or ``"host"``) while a trace records on this thread."""
+    tr = ACTIVE
+    if tr is not None and tr._thread == threading.get_ident():
+        tr.window_tables[where] += n
 
 
 def stamp() -> float | None:

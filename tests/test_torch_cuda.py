@@ -1555,6 +1555,40 @@ def _packed_group(bucket, slots):
 GROUP_KW = dict(kernel_param=1.5, max_iters=8, stage1_iters=2)
 
 
+@pytest.mark.parametrize("case", [
+    ((8, 512, 1024), 3, 40, 150), ((8, 1024, 2048), 8, 1024, 2048),
+    ((16, 1024, 2048), 16, 1024, 0), ((32, 2048, 4096), 12, 1500, 3000),
+    ((32, 8192, 16384), 2, 3, 5), ((8, 512, 2048), 4, 1, 1324)],
+    ids=["small", "full", "all-padded", "kitti", "sparse", "one-landmark-every-level"])
+def test_device_plan_on_the_card_equals_host_plan(cuda, case):
+    """A window's gather tables built on the card from its packed ints
+    (``device_plan``, what a group's program runs) equal the host's
+    (``_packed_plan``), table for table; once warm, the build synchronizes
+    nothing (set_sync_debug_mode "error" raises on a sync)."""
+    from srba_slam_tpu_torch.ops import window_ba
+
+    (C, L, O), n_cams, n_lms, n_obs = case
+    rng = np.random.default_rng(7)
+    ints = window_ba.pack_window(np.zeros((C, 6)), np.arange(C) < n_cams, np.zeros((L, 3)),
+                                 rng.integers(0, n_cams, L), np.arange(L) < n_lms,
+                                 rng.integers(0, n_cams, O), rng.integers(0, n_lms, O),
+                                 np.zeros((O, 3)), np.arange(O) < n_obs)[0]
+    ints_c = torch.from_numpy(ints).to(cuda)
+    ref = window_ba._packed_plan(ints, C, L, O, cuda)
+    window_ba.device_plan(ints_c, C, L, O)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = window_ba.device_plan(ints_c, C, L, O)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [len(f) for f in got] == [len(f) for f in ref]
+    for field, g_tabs, r_tabs in zip(got._fields, got, ref):
+        for g, r in zip(g_tabs, r_tabs):
+            assert g.device.type == "cuda" and g.dtype == r.dtype == torch.int64, field
+            assert torch.equal(g, r), field
+
+
 @pytest.mark.parametrize("slots", [(0,), (0, 1, 2, 3), (1, 4, 7)],
                          ids=["one", "front4", "scattered"])
 def test_window_group_program_equals_eager_and_one_window(cuda, monkeypatch, slots):

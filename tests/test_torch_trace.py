@@ -8,7 +8,9 @@ of the traced session (one ``step`` a frame, every other span under the
 ``insertion`` exactly where the step log has them, the counters equal to
 their spans), the profiler's sections on the same clock with
 ``profiler.csv`` as it was, and nothing recorded, nor the trace's clock
-read, outside the block. The four per-layer readers of the benchmark
+read, outside the block. The ``window_tables`` counter: every window of
+the session, and each valid slot of a traced group, built on the device;
+a window solved alone, on the host. The four per-layer readers of the benchmark
 (``slam_bench/metrics/``) on a hand-built record, and the CLI's
 ``--trace FILE``.
 """
@@ -19,14 +21,16 @@ import os
 import re
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
 from slam_bench import spec
 from srba_slam_tpu_torch.__main__ import main
 from srba_slam_tpu_torch.models.estimator import SRBAStereoSLAMEstimator
-from srba_slam_tpu_torch.ops import cuda_graphs
+from srba_slam_tpu_torch.ops import cuda_graphs, window_ba
 from srba_slam_tpu_torch.utils import trace
+from srba_slam_tpu_torch.utils.camera import StereoCamera
 from srba_slam_tpu_torch.utils.framesource import SyntheticSource
 
 torch.set_num_threads(1)
@@ -220,4 +224,48 @@ def test_cli_trace_writes_chrome_json(tmp_path, capsys):
     assert sorted(e["args"]["frame"] for e in steps) == [0, 1, 2, 3]
     assert all(e["ph"] == "X" and e["dur"] >= 0 for e in steps)
     assert any(e["name"] == "finalize" for e in doc["traceEvents"])
-    assert set(doc["otherData"]) == {"replays_by_kind", "reads", "uploads"}
+    assert set(doc["otherData"]) == {"replays_by_kind", "reads", "uploads", "window_tables"}
+
+
+# ------------------------------------------------------------ window tables
+def test_session_builds_every_window_table_on_the_device(sessions):
+    """Every window the session solves (one an insertion after the first
+    keyframe) goes through a group, which builds its tables on the device."""
+    est, tr = sessions["est"], sessions["tr"]
+    inserted = sum(r.inserted_kf is not None for r in est.step_log)
+    assert tr.window_tables == dict(device=inserted - 1, host=0)
+
+
+def _tiny_window(C, L, O, seed=0):
+    """A window's nine host arrays at (C, L, O): cameras along x, landmarks
+    ahead of them, each observation its landmark's projection."""
+    rng = np.random.default_rng(seed)
+    cam_pose = np.zeros((C, 6), np.float32)
+    cam_pose[:, 3] = np.arange(C) * 0.5
+    lm_base = rng.integers(0, C, L)
+    lm_pos = np.stack([rng.uniform(-3, 3, L), rng.uniform(-1, 1, L), rng.uniform(6, 12, L)],
+                      1).astype(np.float32)
+    obs_cam, obs_lm = rng.integers(0, C, O), rng.integers(0, L, O)
+    obs_px = np.stack([rng.uniform(100, 1100, O), rng.uniform(50, 300, O),
+                       rng.uniform(90, 1000, O)], 1).astype(np.float32)
+    return (cam_pose, np.ones(C, bool), lm_pos, lm_base, np.ones(L, bool), obs_cam, obs_lm,
+            obs_px, np.arange(O) < O - 3)
+
+
+def test_window_tables_counted_where_built(sessions):
+    """A traced group counts its valid slots as built on the device and
+    none on the host; a window solved alone (``SRBAEngine._solve_window``,
+    ``assembly_plan``) counts one on the host."""
+    C, L, O = 4, 16, 64
+    win = _tiny_window(C, L, O)
+    ints, floats = window_ba.pack_window(*win)
+    valids = [False, True, True, False, False, True, False, False]
+    kw = dict(max_iters=2, stage1_iters=1)
+    with cuda_graphs.record_spans() as tr:
+        window_ba.solve_window_group(np.stack([ints] * 8), np.stack([floats] * 8), valids,
+                                     C, L, O, StereoCamera.kitti(), "cpu", **kw)
+    assert tr.window_tables == dict(device=3, host=0)
+    with cuda_graphs.record_spans() as tr:
+        sessions["est"].rba._solve_window(dict(window=win, C=C, L=L))
+        sessions["est"].rba._solve_window(dict(window=win, C=C, L=L))
+    assert tr.window_tables == dict(device=0, host=2)

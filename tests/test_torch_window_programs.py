@@ -2,9 +2,10 @@
 and the life of a program that holds tensors, on the CPU.
 
 * ``solve_window_group`` (the engine's group; on a card one program
-  replay, here the same body eagerly): its inputs are the stacked packed
-  windows and the valid slots' gather tables, built on the host and
-  uploaded as one buffer whose views the body reads. At (C, L, O) =
+  replay, here the same body eagerly): its input is the stacked packed
+  windows, uploaded as one buffer whose views the body reads; the body
+  builds each valid slot's gather tables from its ints (``device_plan``).
+  At (C, L, O) =
   (4, 64, 128), three windows in eight slots, valid at the front or
   scattered among padded slots: each row against the JAX package's
   ``optimize_windows_batch_blob`` (poses and landmarks within 1e-4, the
@@ -13,8 +14,14 @@ and the life of a program that holds tensors, on the CPU.
   (``optimize_window`` on ``assembly_plan``), padded rows exactly 0.
 * Neither the group body nor ``optimize_pose_graph`` with the host's edge
   arrays reads anything from the device (every Tensor host read patched to
-  raise); the tables built on the host equal those built from read-back
-  arrays.
+  raise); the tables the group builds equal those built on the host from
+  read-back arrays.
+* ``device_plan`` equals the host's ``packed_plan_arrays`` table for table
+  (int64, the same shapes and values): every bucket of the engine's
+  ladder at a small fill, a full window, a window of padded observations
+  only, a sparse one (levels past the data's last), and one whose
+  landmark holds more than ``_SEG_WIDTH`` ** 2 observations (data at
+  every level).
 * ``group_key`` holds the bucket, the valid slots and every option;
   ``cuda_graphs.pack``/``unpack`` round-trip mixed dtypes.
 * A program that holds tensors leaves the cache once one of them is freed;
@@ -124,8 +131,7 @@ def test_group_body_reads_nothing_on_the_host(monkeypatch, exit_every):
     """The body as the program runs it (its loops unread), from its one
     uploaded buffer: no host read at any exit period."""
     ints, floats, valids = _group(SLOTS["scattered"])
-    tables = [twb.packed_plan_arrays(ints[i], C, L, O) for i, v in enumerate(valids) if v]
-    buf, layout = twb.group_upload(ints, floats, tables, "cpu")
+    buf, layout = twb.group_upload(ints, floats, "cpu")
     want = twb._group_body(buf, layout, tuple(valids), C, L, O, StereoCamera.kitti(), WIN_KW,
                            twb.optimize_window)
     monkeypatch.setattr(twb, "WBA_EXIT_EVERY", exit_every)
@@ -138,19 +144,19 @@ def test_group_body_reads_nothing_on_the_host(monkeypatch, exit_every):
 
 
 def test_group_tables_equal_read_back_ones():
-    """The valid slots' tables, built on the host from the packed ints and
-    read as views of the group's one buffer, equal ``assembly_plan`` of the
-    window's arrays read back from the device (what ``optimize_window``
-    builds without a plan), table for table."""
+    """The group's one buffer holds the stacked ints and floats and no
+    table; the tables that the body builds from each valid slot's ints (a
+    view of the buffer) equal ``assembly_plan`` of the window's arrays read
+    back from the device (what ``optimize_window`` builds without a plan),
+    table for table."""
     ints, floats, valids = _group(SLOTS["scattered"])
-    tables = [twb.packed_plan_arrays(ints[i], C, L, O) for i, v in enumerate(valids) if v]
-    buf, layout = twb.group_upload(ints, floats, tables, "cpu")
-    g_ints, g_floats, plans = twb.group_inputs(buf, layout, C, L, O)
+    buf, layout = twb.group_upload(ints, floats, "cpu")
+    assert buf.numel() == ints.nbytes + floats.nbytes
+    g_ints, g_floats = cuda_graphs.unpack(buf, layout)
     assert torch.equal(g_ints, torch.from_numpy(ints))
     assert torch.equal(g_floats, torch.from_numpy(floats))
-    valid_slots = [i for i, v in enumerate(valids) if v]
-    assert len(plans) == len(valid_slots)
-    for plan, i in zip(plans, valid_slots):
+    for i in (i for i, v in enumerate(valids) if v):
+        plan = twb.device_plan(g_ints[i], C, L, O)
         win = twb.unpack_window(torch.from_numpy(ints[i]), torch.from_numpy(floats[i]), C, L, O)
         back = twb.assembly_plan(*(t.cpu().numpy() for t in (win.obs_cam, win.obs_lm,
                                                              win.lm_base, win.obs_valid)),
@@ -158,6 +164,50 @@ def test_group_tables_equal_read_back_ones():
         assert [len(f) for f in plan] == list(twb.plan_levels(C, L, O))
         for got, ref in zip(pytree.tree_leaves(list(plan)), pytree.tree_leaves(list(back))):
             assert got.dtype == ref.dtype == torch.int64 and torch.equal(got, ref)
+
+
+def _plan_case_ints(bucket, n_cams, n_lms, n_obs, seed=0):
+    """The ``pack_window`` ints of a window of ``bucket`` whose first
+    ``n_obs`` observations are valid, seen from its first ``n_cams``
+    cameras, of its first ``n_lms`` landmarks (based at those cameras)."""
+    C_, L_, O_ = bucket
+    rng = np.random.default_rng(seed)
+    return twb.pack_window(np.zeros((C_, 6)), np.arange(C_) < n_cams, np.zeros((L_, 3)),
+                           rng.integers(0, n_cams, L_), np.arange(L_) < n_lms,
+                           rng.integers(0, n_cams, O_), rng.integers(0, n_lms, O_),
+                           np.zeros((O_, 3)), np.arange(O_) < n_obs)[0]
+
+
+def _plan_cases():
+    """(id, bucket, n_cams, n_lms, n_obs) of ``test_device_plan_equals_host_tables``."""
+    from srba_slam_tpu_torch.models.srba import SRBAEngine
+
+    buckets = SRBAEngine(StereoCamera.kitti(), device="cpu").window_buckets()
+    cases = [(f"small-{c}x{l}x{o}", (c, l, o), 3, 40, 150) for c, l, o in buckets]
+    full = (16, 1024, 2048)
+    width = twb._SEG_WIDTH
+    return cases + [("full", full, 16, 1024, 2048), ("all-padded", full, 16, 1024, 0),
+                    ("sparse", full, 2, 3, 5),
+                    ("one-landmark-every-level", (8, 512, 2048), 4, 1, width * width + 300)]
+
+
+@pytest.mark.parametrize("case", _plan_cases(), ids=lambda c: c[0])
+def test_device_plan_equals_host_tables(case):
+    """``device_plan`` on the CPU (the body that a group's program runs on
+    the card) equals the host's ``packed_plan_arrays`` table for table."""
+    _id, bucket, n_cams, n_lms, n_obs = case
+    ints = _plan_case_ints(bucket, n_cams, n_lms, n_obs)
+    ref = twb.packed_plan_arrays(ints, *bucket)
+    got = twb.device_plan(torch.from_numpy(ints), *bucket)
+    assert [len(f) for f in got] == [len(f) for f in ref] == list(twb.plan_levels(*bucket))
+    for field, g_tabs, r_tabs in zip(got._fields, got, ref):
+        for g, r in zip(g_tabs, r_tabs):
+            assert g.dtype == torch.int64 and tuple(g.shape) == r.shape, field
+            assert np.array_equal(g.numpy(), r), field
+    if _id == "one-landmark-every-level":
+        # the landmark's sum has rows at every level: two in the last one's
+        # row (past it, its pad index: the rows of the level before)
+        assert (ref.lm[-1][0] < len(ref.lm[-2])).sum() == 2
 
 
 def test_pose_graph_with_host_edges_reads_nothing(monkeypatch):
