@@ -20,7 +20,14 @@ it started from:
   keyframe ids are read after the window;
 * window solves: at each group of window solves (``SRBAEngine._solve_group``),
   one window's packed inputs, the solve options and the program's result
-  row for it.
+  row for it; and every window whose queued entry carries loop-closure
+  checks (``entry["lc_checks"]``: the window of an insertion that created
+  a loop-closure edge), up to ``MAX_CASES["windows"]``, kept apart, with
+  no draw;
+* the map's edges, where the log is a circuit with its ground truth: at
+  the end of each session (the window's last included), a copy of every
+  edge still standing, of every kind, and the session's step log, which
+  gives each keyframe its frame (sessions replay the log from frame 0).
 
 Once the window has closed, :func:`compare` works each drawn case out again:
 
@@ -35,7 +42,10 @@ Once the window has closed, :func:`compare` works each drawn case out again:
   query's ranking, on the benchmark's own vocabulary;
 * a window: the reference LM over the same window (its keyframes,
   landmarks and observations are the program's map, as the reference
-  system's window is its map), in float64.
+  system's window is its map), in float64. The draw takes the windows with
+  loop-closure checks first;
+* an edge: its relative pose against the ground-truth relative pose of
+  its two frames' left cameras.
 
 Compared, each with its limit from the configuration (``limits``):
 
@@ -56,10 +66,19 @@ Compared, each with its limit from the configuration (``limits``):
   rank (a wrong id, or a wrong score);
 * ``window_pose_gap_m``, ``window_pose_gap_rad``: over the windows and
   their free keyframes, the distance between the program's and the
-  reference's optimized poses.
+  reference's optimized poses;
+* ``edge_gap_m_max``, ``edge_gap_rad_max``, ``loop_edges`` (a circuit's
+  log only): over every edge standing at a session's end, the largest
+  distance between its translation and the ground truth's, and the largest
+  angle between its rotation and the ground truth's; and the loop edges (of
+  any kind, whose two frames lie more than ``LOOP_PATH_M`` of driven path
+  apart) standing at the end of a session that walked the whole log, the
+  fewest over such sessions (the last session's where none did). They are
+  held to ``limits["edge_gap_m"]``, ``["edge_gap_rad"]`` and
+  ``["loop_edges_min"]`` only where the configuration names those.
 
 The control (``control_dtype``) puts the reference computed in a lower
-type in the program's place.
+type in the program's place (the map's edges stay the program's).
 """
 
 from __future__ import annotations
@@ -84,6 +103,9 @@ SHARE = 0.05
 # the keyframe rows it saw)
 CHECK_KEEP = 12
 N_QUERY = 4
+# an edge whose two frames lie farther apart than this along the driven path
+# closes a loop: a window's own edges span a few submaps (tens of metres)
+LOOP_PATH_M = 100.0
 
 
 class Recorder:
@@ -91,7 +113,7 @@ class Recorder:
     cases (references to the program's own outputs, or host copies)."""
 
     def __init__(self, seed: int, share: float = SHARE, keep_db: bool = False,
-                 keep_checks: int = CHECK_KEEP):
+                 keep_checks: int = CHECK_KEEP, poses: np.ndarray | None = None):
         self.rng = np.random.default_rng([seed, 7])
         self.share = share
         self.session = 0
@@ -104,6 +126,13 @@ class Recorder:
         self.keep_db = keep_db  # calibration: keep the database rows a check saw too
         self.keep_checks = keep_checks
         self.windows: list = []
+        self.lc_windows: list = []   # windows with loop-closure checks, kept with no draw
+        self.n_lc_windows = 0
+        self._lc_ints: set = set()   # the packed ints of the queued windows with them
+        # the log's ground-truth poses [N, 6], where it is a circuit; then
+        # each session's standing edges, as copied when it ended
+        self.poses = poses
+        self.graphs: list = []
         self._undo = []
 
     def install(self):
@@ -113,6 +142,7 @@ class Recorder:
         orig_dispatch = estimator.SRBAStereoSLAMEstimator._dispatch_scan
         orig_pass = vo.StereoVOEngine.process_stereo_pair
         orig_group = srba.SRBAEngine._solve_group
+        orig_queued = srba.SRBAEngine._dispatch_queued
         orig_check = estimator.SRBAStereoSLAMEstimator._kf_check
         orig_planned = estimator.SRBAStereoSLAMEstimator._dispatch_planned_checks
         orig_row = bow.BoWDatabase.write_row
@@ -196,9 +226,22 @@ class Recorder:
                                            valid=bool(out.valid), init=init)
             return out
 
+        def queued(eng):
+            rec._lc_ints = {id(q["ints"]) for q in eng._queued if q["entry"].get("lc_checks")}
+            return orig_queued(eng)
+
         def group(eng, windows, key, capture_only=False):
             out = orig_group(eng, windows, key, capture_only)
-            if not capture_only and rec.rng.random() < rec.share * 2:
+            if capture_only:
+                return out
+            for j, w in enumerate(windows):
+                if id(w[0]) not in rec._lc_ints:
+                    continue
+                rec.n_lc_windows += 1
+                if len(rec.lc_windows) < MAX_CASES["windows"]:
+                    rec.lc_windows.append(dict(ints=w[0], floats=w[1], key=key,
+                                               kw=eng._solve_kw(), row=out[j]))
+            if rec.rng.random() < rec.share * 2:
                 j = int(rec.rng.integers(len(windows)))
                 rec.windows.append(dict(ints=windows[j][0], floats=windows[j][1], key=key,
                                         kw=eng._solve_kw(), row=out[j]))
@@ -209,6 +252,7 @@ class Recorder:
         estimator.SRBAStereoSLAMEstimator._kf_check = check
         estimator.SRBAStereoSLAMEstimator._dispatch_planned_checks = planned
         srba.SRBAEngine._solve_group = group
+        srba.SRBAEngine._dispatch_queued = queued
         bow.BoWDatabase.write_row = row_write
         self._undo = [(estimator.SRBAStereoSLAMEstimator, "_dispatch_scan", orig_dispatch),
                       (vo.StereoVOEngine, "process_stereo_pair", orig_pass),
@@ -216,7 +260,21 @@ class Recorder:
                       (estimator.SRBAStereoSLAMEstimator, "_dispatch_planned_checks",
                        orig_planned),
                       (srba.SRBAEngine, "_solve_group", orig_group),
+                      (srba.SRBAEngine, "_dispatch_queued", orig_queued),
                       (bow.BoWDatabase, "write_row", orig_row)]
+
+    def session_end(self, est, full: bool):
+        """Copy a session's standing edges, of every kind, and keep its step
+        log (``full``: the session walked the whole log); nothing without
+        the ground truth. The frames are looked up after the window."""
+        if self.poses is None:
+            return
+        rba = est.rba
+        ok = rba.edge_valid
+        self.graphs.append(dict(session=self.session, full=full, log=est.step_log,
+                                u=rba.edge_u[ok].copy(), v=rba.edge_v[ok].copy(),
+                                kind=rba._edge_kind[:rba.n_edges][ok].copy(),
+                                pose=rba.edge_pose[ok].copy()))
 
     def uninstall(self):
         for owner, name, fn in self._undo:
@@ -229,7 +287,11 @@ class Recorder:
         program's features as numpy, its pose [6], whether valid, the
         starting pose [6]), ``checks`` (frame, thresholds, stored keyframes'
         descriptors, the program's scores and ids) and ``windows`` (packed
-        inputs, bucket, options, the program's result row as numpy)."""
+        inputs, bucket, options, the program's result row as numpy; those
+        with loop-closure checks first, and ``lc_windows_met``, how many
+        the window met); with the ground truth, ``edges`` (each session's
+        standing edges: session, whether it walked the whole log, kind,
+        keyframes, their frames, pose) and the ``poses``."""
         frames = []
         for s in self.scans:
             outs = s["outs"]
@@ -257,6 +319,7 @@ class Recorder:
                                pose=r["pose"].astype(np.float64), valid=r["valid"], init=r["init"]))
         checks = [dict(c, **answer(c["blob"], c["k"])) for c in self.checks]
         windows = [dict(w, row=w["row"].cpu().numpy()) for w in self.windows]
+        lc_windows = [dict(w, row=w["row"].cpu().numpy(), lc=True) for w in self.lc_windows]
 
         def draw(xs, kind):
             k = MAX_CASES[kind] if n is None else n
@@ -264,8 +327,22 @@ class Recorder:
                 xs = [xs[i] for i in sorted(rng.choice(len(xs), k, replace=False))]
             return xs
 
-        return dict(frames=draw(frames, "frames"), checks=draw(checks, "checks"),
-                    windows=draw(windows, "windows"))
+        out = dict(frames=draw(frames, "frames"), checks=draw(checks, "checks"))
+        # the windows with loop-closure checks first, then the drawn ones
+        drawn = [w for w in draw(windows, "windows")
+                 if not any(w["ints"] is x["ints"] for x in lc_windows)]
+        out.update(windows=(lc_windows + drawn)[:MAX_CASES["windows"] if n is None else n],
+                   lc_windows_met=self.n_lc_windows)
+        if self.poses is not None:
+            edges = []
+            for g in self.graphs:
+                frame_of = {r.inserted_kf: r.frame_idx for r in g["log"]
+                            if r.inserted_kf is not None}
+                edges += [dict(session=g["session"], full=g["full"], kind=int(k), kf_u=int(u),
+                               kf_v=int(v), u=frame_of[int(u)], v=frame_of[int(v)], pose=pose)
+                          for u, v, k, pose in zip(g["u"], g["v"], g["kind"], g["pose"])]
+            out.update(edges=edges, poses=self.poses)
+        return out
 
 
 def answer(blob, k: int, similar: int = 5) -> dict:
@@ -504,6 +581,45 @@ def _windows(cases, setup: Setup, control_dtype, out: dict):
                window_pose_gap_rad=gr if cases else none, windows=len(cases))
 
 
+def _edges(edges, poses: np.ndarray, out: dict):
+    """Each edge's pose (keyframe ``v``'s in keyframe ``u``'s frame) against
+    the ground truth's relative pose of the two frames' left cameras; the
+    loop edges (their frames over ``LOOP_PATH_M`` of driven path apart)
+    counted per session."""
+    path = np.concatenate([[0.0], np.cumsum(np.linalg.norm(np.diff(poses[:, 3:], axis=0),
+                                                           axis=1))])
+    rows = []
+    for e in edges:
+        R_u, R_v = rotvec_to_R(poses[e["u"], :3]), rotvec_to_R(poses[e["v"], :3])
+        t = R_u.T @ (poses[e["v"], 3:] - poses[e["u"], 3:])
+        pose = np.asarray(e["pose"], np.float64)
+        rows.append((float(np.linalg.norm(pose[3:] - t)), _angle(rotvec_to_R(pose[:3]), R_u.T @ R_v),
+                     bool(abs(path[e["v"]] - path[e["u"]]) > LOOP_PATH_M), e))
+    # the loop edges standing at each session's end
+    per, full = {}, set()
+    for _m, _r, far, e in rows:
+        per[e["session"]] = per.get(e["session"], 0) + far
+        if e["full"]:
+            full.add(e["session"])
+    if full:
+        loops = min(per[s] for s in full)
+    else:
+        loops = per[max(per)] if per else 0
+    out.update(edges=len(rows), loop_edges=loops, loop_edges_by_session=per,
+               edge_gap_m_max=max((m for m, *_ in rows), default=0.0),
+               edge_gap_rad_max=max((r for _m, r, *_ in rows), default=0.0))
+    # medians and maxima by kind and reach, and the widest edges to find
+    # them again: (m, rad, session, kind, loop, keyframes, frames)
+    by = {}
+    for m, r, far, e in rows:
+        by.setdefault(f"kind{e['kind']}{' loop' if far else ''}", []).append((m, r))
+    out["edge_gap_by_kind"] = {k: dict(n=len(v), m_median=float(np.median([m for m, _ in v])),
+                                       m_max=max(m for m, _ in v), rad_max=max(r for _, r in v))
+                               for k, v in sorted(by.items())}
+    out["edge_widest"] = sorted(((m, r, e["session"], e["kind"], far, e["kf_u"], e["kf_v"],
+                                  e["u"], e["v"]) for m, r, far, e in rows), reverse=True)[:8]
+
+
 def compare(cases: dict, setup: Setup, lefts, rights, control_dtype=None) -> dict:
     """The numbers over ``cases`` (:meth:`Recorder.cases`), the program
     against the reference; with ``control_dtype`` the reference in that
@@ -513,17 +629,31 @@ def compare(cases: dict, setup: Setup, lefts, rights, control_dtype=None) -> dic
     _frames(cases["frames"], setup, lefts, rights, control_dtype, out)
     _checks(cases["checks"], setup, lefts, rights, control_dtype, out)
     _windows(cases["windows"], setup, control_dtype, out)
+    out["lc_windows"] = sum(bool(w.get("lc")) for w in cases["windows"])
+    if "edges" in cases:
+        _edges(cases["edges"], cases["poses"], out)
     return out
 
 
 def verdict(numbers: dict, limits: dict) -> tuple[bool, dict]:
     """Whether every number is within its limit and enough cases of each
-    kind were compared; and each number beside its limit."""
+    kind were compared; and each number beside its limit. The map's edges
+    count where ``limits`` names ``edge_gap_m``, ``edge_gap_rad`` or
+    ``loop_edges_min``."""
     checks = {k: dict(value=numbers[k], limit=limits[k]) for k in NUMBERS}
     for kind, least in MIN_CASES.items():
         checks[kind] = dict(value=numbers[kind], limit=least)
     ok = (all(numbers[k] >= least for k, least in MIN_CASES.items())
           and all(numbers[k] <= limits[k] for k in NUMBERS))
+    for name in ("edge_gap_m", "edge_gap_rad"):
+        if name in limits:
+            gap = numbers.get(f"{name}_max", math.inf)
+            checks[f"{name}_max"] = dict(value=gap, limit=limits[name])
+            ok = ok and gap <= limits[name]
+    if "loop_edges_min" in limits:
+        count = numbers.get("loop_edges", 0)
+        checks["loop_edges"] = dict(value=count, limit=limits["loop_edges_min"])
+        ok = ok and count >= limits["loop_edges_min"]
     return ok, checks
 
 

@@ -1,7 +1,8 @@
 """Host ms of the window groups' dispatch per keyframe inserted in the
 traced window: the program's own ``window dispatch`` spans
-(``SRBAEngine._dispatch_queued``: the gather tables built, the upload
-packed and pinned, each group's program launched), summed."""
+(``SRBAEngine._dispatch_queued``: each group's slots stacked, the packed
+windows pinned and uploaded, its program launched; the card builds the
+gather tables inside that program), summed."""
 
 NAME = "window_dispatch_host_ms_per_kf.online"
 UNIT = "ms"

@@ -14,7 +14,9 @@ where the numpy one takes minutes.
   the card schedules its threads.
 * ``Drive``: the scene and the path of one log, with its ground-truth poses
   (``[N, 6]`` rotation vector and translation of the left camera in the
-  first frame's camera frame, x right, y down, z forward).
+  first frame's camera frame, x right, y down, z forward): a straight
+  street, or the street bent along a ``Circuit`` (a city block) and driven
+  in laps.
 * ``Drive.render``: frames ``[n, H, W]`` uint8 for each eye. A camera with
   radial-tangential distortion (EuRoC's raw images) casts each raw pixel
   through the inverse of its distortion, so that the program's undistortion
@@ -167,7 +169,79 @@ class Camera:
     dist: tuple = (0.0, 0.0, 0.0, 0.0, 0.0)
 
 
-def path_poses(n_frames: int, seed: int, step: float, keep_lane: bool = False) -> np.ndarray:
+class Circuit:
+    """A closed centre line in the ground plane (y = 0): a city block, the
+    rounded rectangle of ``block_m`` = (length along the first heading,
+    width) with quarter-circle corners of radius ``corner_m``, driven by
+    ``turn`` ("right" or "left") turns: a left block is the right one
+    mirrored in x = 0. It starts at the origin heading +z on its first long
+    straight; a heading ``psi`` points along (x, z) = (sin psi, cos psi),
+    and the right-hand side is (cos psi, -sin psi). Arc length ``s`` runs
+    from 0 at the start to ``length``."""
+
+    def __init__(self, block_m, corner_m: float, turn: str = "right"):
+        if turn not in ("right", "left"):
+            raise ValueError(f"circuit: turn {turn!r} is not 'right' or 'left'")
+        self.sign = 1.0 if turn == "right" else -1.0
+        long_side, wide_side = (float(v) for v in block_m)
+        self.r = r = float(corner_m)
+        if not 0.0 < 2 * r <= min(long_side, wide_side):
+            raise ValueError(f"circuit: corner {corner_m} m does not fit the block {block_m}")
+        a, b = long_side - 2 * r, wide_side - 2 * r
+        # the corners' centres: the inner rectangle x in [r, r + b], z in [0, a]
+        self.box = (r, r + b, 0.0, a)
+        # (start s, length, start x, start z, start heading, arc or straight)
+        segs, s, x, z = [], 0.0, 0.0, 0.0
+        for k in range(4):
+            straight = a if k % 2 == 0 else b
+            psi = k * np.pi / 2
+            segs.append((s, straight, x, z, psi, False))
+            s, x, z = s + straight, x + straight * np.sin(psi), z + straight * np.cos(psi)
+            segs.append((s, r * np.pi / 2, x, z, psi, True))
+            cx, cz = x + r * np.cos(psi), z - r * np.sin(psi)
+            x, z = cx - r * np.cos(psi + np.pi / 2), cz + r * np.sin(psi + np.pi / 2)
+            s += r * np.pi / 2
+        self.segments, self.length = segs, s
+
+    def at(self, s) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The centre line's x, z and heading at arc lengths ``s`` (taken
+        modulo a lap)."""
+        s = np.mod(np.asarray(s, np.float64), self.length)
+        x, z, psi = np.zeros_like(s), np.zeros_like(s), np.zeros_like(s)
+        for s0, span, x0, z0, psi0, arc in self.segments:
+            on = (s >= s0) & (s < s0 + span)
+            d = s[on] - s0
+            if arc:
+                cx, cz = x0 + self.r * np.cos(psi0), z0 - self.r * np.sin(psi0)
+                turned = psi0 + d / self.r
+                x[on] = cx - self.r * np.cos(turned)
+                z[on] = cz + self.r * np.sin(turned)
+                psi[on] = turned
+            else:
+                x[on], z[on], psi[on] = x0 + d * np.sin(psi0), z0 + d * np.cos(psi0), psi0
+        return self.sign * x, z, self.sign * psi
+
+    def nearest(self, x: float, z: float) -> tuple[float, float, float]:
+        """For a point within ``corner_m`` of the centre line: its distance
+        to the right of the line, the line's heading at the nearest point,
+        and the line's curvature there (1 / ``corner_m`` on a right-hand
+        corner, its negative on a left-hand one)."""
+        x = self.sign * x
+        x0, x1, z0, z1 = self.box
+        qx, qz = min(max(x, x0), x1), min(max(z, z0), z1)
+        vx, vz = x - qx, z - qz
+        d = np.hypot(vx, vz)
+        corner = not x0 <= x <= x1 and not z0 <= z <= z1
+        return (self.sign * (self.r - d), self.sign * float(np.arctan2(vz / d, -vx / d)),
+                self.sign / self.r if corner else 0.0)
+
+
+def _wrap(a: float) -> float:
+    return (a + np.pi) % (2 * np.pi) - np.pi
+
+
+def path_poses(n_frames: int, seed: int, step: float, keep_lane: bool = False,
+               circuit: Circuit | None = None) -> np.ndarray:
     """``SyntheticSource``'s open path: [n_frames, 6] poses of the left
     camera, forward ``step`` metres a frame with sway, yaw and a random walk
     of heading, pitch and roll. With ``keep_lane`` a steering term turns the
@@ -176,7 +250,12 @@ def path_poses(n_frames: int, seed: int, step: float, keep_lane: bool = False) -
     the row of roadside boards or into the ground (heading noise of 0.002
     rad a frame drifts about 30 m sideways over 1,100 frames at 0.8 m).
     The steering settles in about ten frames and leaves the short-term
-    motion as it is."""
+    motion as it is.
+
+    On a ``circuit`` the same increments advance along its centre line: the
+    line's curvature at the nearest point turns the heading by ``step`` /
+    ``corner_m`` a frame on a corner, and ``keep_lane`` steers to that point
+    and the line's heading there in place of x = 0 and heading +z."""
     rng = np.random.default_rng(seed + 1)
     poses = [np.zeros(6)]
     noise = rng.normal(size=(max(n_frames - 1, 0), 3))
@@ -187,13 +266,17 @@ def path_poses(n_frames: int, seed: int, step: float, keep_lane: bool = False) -
     for i in range(n_frames - 1):
         inc = np.array([0.002 * noise[i, 0], 0.006 * np.sin(i / 5), 0.002 * noise[i, 1],
                         sway * np.cos(i / 7), 0.004 * noise[i, 2], step])
+        R, t = so3_exp(poses[-1][:3]), poses[-1][3:]
+        heading, off = np.arctan2(R[0, 2], R[2, 2]), t[0]
+        if circuit is not None:
+            off, psi, curvature = circuit.nearest(t[0], t[2])
+            heading = _wrap(heading - psi)
+            inc[1] += curvature * step
         if keep_lane:
-            R, t = so3_exp(poses[-1][:3]), poses[-1][3:]
-            heading = np.arctan2(R[0, 2], R[2, 2])
             pitch = -np.arcsin(np.clip(R[1, 2], -1.0, 1.0))
             roll = np.arctan2(R[1, 0], R[1, 1])
             inc[0] += pull * t[1] - gain * pitch
-            inc[1] -= gain * heading + pull * t[0]
+            inc[1] -= gain * heading + pull * off
             inc[2] -= gain * roll
         poses.append(compose(poses[-1], inc))
     return np.stack(poses)
@@ -202,16 +285,30 @@ def path_poses(n_frames: int, seed: int, step: float, keep_lane: bool = False) -
 class Drive:
     """The street scene and path of one log, from ``seed``: ``n_frames``
     frames ``step`` metres apart, seen by the rig ``eyes`` (left, right)
-    with the right eye ``baseline`` metres to the right."""
+    with the right eye ``baseline`` metres to the right.
+
+    The street is straight (boards in planes z = ``bz`` facing +z, the path
+    along x = 0) or, with ``circuit`` (``{"block_m": [long, wide],
+    "corner_m": r}``, and ``"turn": "left"`` for a block driven by left
+    turns, :class:`Circuit`), bent along a closed centre line
+    and driven in laps: the boards are drawn as on the straight street
+    along one lap's arc length (``bz`` is then a board's arc length), each
+    standing at its point of the centre line moved ``bx`` to the right, in
+    the plane normal to the line there, facing the direction of travel, so
+    every lap sees the front of the same boards."""
 
     def __init__(self, eyes: tuple[Camera, Camera], baseline: float, n_frames: int, seed: int,
-                 step: float, device="cuda", keep_lane: bool = True):
+                 step: float, device="cuda", keep_lane: bool = True, circuit: dict | None = None):
         self.eyes, self.baseline, self.device = eyes, baseline, torch.device(device)
+        self.circuit = None if circuit is None else Circuit(
+            circuit["block_m"], circuit["corner_m"], circuit.get("turn", "right"))
         rng = np.random.default_rng(seed)
         texture_layers(rng)          # the ground plane's first texture, replaced below
         self.layers = texture_layers(rng, jitter_frac=1.0, fractal=True)
-        path_len = n_frames * step
-        zs = np.arange(6.0, path_len + 70.0, 4.0)
+        if self.circuit is None:
+            zs = np.arange(6.0, n_frames * step + 70.0, 4.0)
+        else:
+            zs = 6.0 + 4.0 * np.arange(int(self.circuit.length // 4.0))
         n = len(zs)
         self.bz = zs + rng.uniform(-1.5, 1.5, n)
         side = np.where(rng.uniform(size=n) < 0.5, -1.0, 1.0)
@@ -223,12 +320,24 @@ class Drive:
         self.bscale = rng.uniform(60.0, 130.0, n)
         self.bmu = np.where(rng.uniform(size=n) < 0.5, -1.0, 1.0)
         self.bmv = np.where(rng.uniform(size=n) < 0.5, -1.0, 1.0)
-        self.poses = path_poses(n_frames, seed, step, keep_lane)
+        self.poses = path_poses(n_frames, seed, step, keep_lane, self.circuit)
+        # each board's centre (x, y, z), its right-hand axis (x, z) and its
+        # normal (x, z), both in the ground plane
+        if self.circuit is None:
+            psi = np.zeros(n)
+            self.board_c = np.stack([self.bx, self.by, self.bz], -1)
+        else:
+            x, z, psi = self.circuit.at(self.bz)
+            self.board_c = np.stack([x + self.bx * np.cos(psi), self.by,
+                                     z - self.bx * np.sin(psi)], -1)
+        self.board_a = np.stack([np.cos(psi), -np.sin(psi)], -1)
+        self.board_n = np.stack([np.sin(psi), np.cos(psi)], -1)
         self.tex = texture(self.layers, device=self.device)
         self._tex64 = self.tex.to(torch.float64)
-        self._board_params = torch.as_tensor(np.stack(
-            [self.bz, self.bx, self.by, self.bs, self.bmu, self.bscale, self.bu, self.bmv,
-             self.bv], -1), device=self.device)
+        self._board_params = torch.as_tensor(np.concatenate(
+            [self.board_c, self.board_a, self.board_n, np.stack(
+                [self.bs, self.bmu, self.bscale, self.bu, self.bmv, self.bv], -1)], -1),
+            device=self.device)
         self._rays = [self._unit_rays(e) for e in eyes]
 
     def _unit_rays(self, eye: Camera) -> torch.Tensor:
@@ -261,10 +370,11 @@ class Drive:
         u = np.linspace(-1.0, 1.0, 9)
         sx = np.concatenate([[-1.0, -1.0, 1.0, 1.0], u, u, -np.ones(9), np.ones(9)])
         sy = np.concatenate([[-1.0, 1.0, -1.0, 1.0], -np.ones(9), np.ones(9), u, u])
-        m = len(sx)
-        cs = np.stack([self.bx[:, None] + sx * self.bs[:, None],
-                       self.by[:, None] + sy * self.bs[:, None],
-                       np.broadcast_to(self.bz[:, None], (len(self.bz), m))], -1)
+        c, a = self.board_c, self.board_a
+        along = sx * self.bs[:, None]
+        cs = np.stack([c[:, 0, None] + along * a[:, 0, None],
+                       c[:, 1, None] + sy * self.bs[:, None],
+                       c[:, 2, None] + along * a[:, 1, None]], -1)
         cc = (cs - origin) @ R                                   # [n, m, 3]
         z = cc[..., 2]
         front = (z[:, :4] > 0.1).all(1)
@@ -363,12 +473,18 @@ class Drive:
         y, x, fr, bi = q[:, 4] + local // bw, q[:, 2] + local % bw, q[:, 0], q[:, 1]
         d = dirs[fr, y, x]
         o = o_t[fr]
-        bz, bx, by, bs, bmu, bscale, bu, bmv, bv = self._board_params[bi].unbind(1)
-        dz = d[:, 2]
-        lam = (bz - o[:, 2]) / torch.where(dz.abs() < 1e-12, 1e-12, dz)
+        (cx, cy, cz, ax, az, nx, nz, bs, bmu, bscale, bu, bmv,
+         bv) = self._board_params[bi].unbind(1)
+        # the ray meets the board's plane; on the straight street (normal +z,
+        # right-hand axis +x) the products with 0 and 1 are exact
+        dn = d[:, 0] * nx + d[:, 2] * nz
+        lam = ((cx - o[:, 0]) * nx + (cz - o[:, 2]) * nz) / torch.where(dn.abs() < 1e-12, 1e-12,
+                                                                          dn)
         px = o[:, 0] + lam * d[:, 0]
         py = o[:, 1] + lam * d[:, 1]
-        hit = (lam > 0.1) & ((px - bx).abs() <= bs) & ((py - by).abs() <= bs)
+        pz = o[:, 2] + lam * d[:, 2]
+        across = (px - cx) * ax + (pz - cz) * az
+        hit = (lam > 0.1) & (across.abs() <= bs) & ((py - cy).abs() <= bs)
         pix = (fr * h + y) * w + x
         lam_h = torch.where(hit, lam, torch.inf)
         m = torch.full_like(best_lam, torch.inf).scatter_reduce(0, pix, lam_h, "amin")
@@ -382,8 +498,8 @@ class Drive:
         sel = pix[better]
         best_lam[sel] = lam[better]
         best_i[sel] = bi[better]
-        u_b = bmu * (px - bx) * bscale + bu
-        v_b = bmv * (py - by) * bscale + bv
+        u_b = bmu * across * bscale + bu
+        v_b = bmv * (py - cy) * bscale + bv
         value[sel] = self._bilinear(u_b[better], v_b[better])
 
     def render(self, frames: range) -> tuple[torch.Tensor, torch.Tensor]:

@@ -9,7 +9,8 @@ from the root of a checkout, on a machine with an NVIDIA card. The cell
 1. set-up (``setup_s``, from the process's start to the window's): checks
    the card, loads the deployment's vocabulary (``vocab.py``, built and
    cached at the first run in a checkout), renders the log from ``--seed``
-   on the card and keeps it in pinned host memory (``render.py``), then
+   on the card (a straight street, or the configuration's ``circuit``
+   driven in laps) and keeps it in pinned host memory (``render.py``), then
    runs one throwaway session of the cell's own traffic over the first
    ``warmup_frames`` frames of the log (to its end, ``finalize`` included,
    where the log is no longer), so that every shape-keyed program the
@@ -32,8 +33,10 @@ from the root of a checkout, on a machine with an NVIDIA card. The cell
    its reader in ``metrics/`` from the run's record (its counts, its
    per-frame times, the tracer and its spans);
 4. the check (``correct.py``): the frames, keyframe checks and window
-   solves drawn from the seed, worked out again by the plain reference
-   once the program's state is freed.
+   solves drawn from the seed (and every window with loop-closure checks),
+   worked out again by the plain reference once the program's state is
+   freed; on a circuit, each session's standing edges against the
+   ground-truth poses.
 
 The last line on stdout is the result; the numbers compared are the last
 lines on stderr and the line's last key, ``checks``. No card, fewer cards
@@ -230,6 +233,8 @@ def drive(system: System, traffic: dict, lefts, rights, deadline: float, frames:
             raise ValueError(f"traffic entry {entry!r}: not 'batched' or 'step'")
         est.rba.flush()
         ended = handed[0] == n_log
+        if recorder is not None:
+            recorder.session_end(est, ended)
         if ended and traffic.get("finalize", False):
             _sync(system.device)
             t0 = time.perf_counter()
@@ -295,8 +300,10 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cuda",
     system = System(config, voc, device)
     lg = config["log"]
     drv = render.Drive(eyes(config), config["camera"]["baseline"], lg["frames"], seed,
-                       lg["step_m"], device=device)
+                       lg["step_m"], device=device, circuit=lg.get("circuit"))
     lefts, rights = render.render_log(drv)
+    # the ground truth, which judges loop closures on a circuit
+    poses = drv.poses
     del drv
     log(f"log: {lefts.shape[0]} frames {tuple(lefts.shape[1:])} rendered "
         f"({time.perf_counter() - t_start:.3f} s since start)")
@@ -331,7 +338,8 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cuda",
         f"{warm['checks']} checks, {warm['vo_valid']} valid VO poses "
         f"({time.perf_counter() - t_start:.3f} s since start)")
     recorder = correct.Recorder(seed, share=share, keep_db=sample is not None,
-                                keep_checks=max(correct.CHECK_KEEP, sample or 0))
+                                keep_checks=max(correct.CHECK_KEEP, sample or 0),
+                                poses=poses if lg.get("circuit") else None)
     recorder.install()
     tracer = None
     if trace:
@@ -419,6 +427,14 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cuda",
         torch.cuda.empty_cache()
     setup = correct.Setup(config, device, voc)
     numbers = correct.compare(cases, setup, lefts, rights)
+    log(f"windows with loop-closure checks: {cases['lc_windows_met']} met, "
+        f"{numbers['lc_windows']} compared; buckets compared (C, L, O, loop): "
+        f"{[(*w['key'], bool(w.get('lc'))) for w in cases['windows']]}")
+    if "edges" in numbers:
+        log(f"edges standing at the sessions' ends: {numbers['edges']}; loop edges by session "
+            f"{numbers['loop_edges_by_session']!r}; gap to the ground truth by kind "
+            f"{numbers['edge_gap_by_kind']!r}; widest (m, rad, session, kind, loop, keyframes, "
+            f"frames): {numbers['edge_widest']!r}")
     correct.dump_widest(numbers, os.path.join(OUT_DIR, f"widest_frame_{seed}.json"))
     for msg in correct.dump_windows(numbers, config["limits"]["window_cost_excess"],
                                     os.path.join(OUT_DIR, f"window_{seed}_")):

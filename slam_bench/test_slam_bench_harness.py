@@ -380,6 +380,209 @@ def test_planted_online_faults_are_not_correct(threads, monkeypatch, fault):
     assert line["correct"] is False, line["checks"]
 
 
+# ---------------------------------------------------------- loop closures
+LOOP_LIMITS = dict(edge_gap_m=0.5, edge_gap_rad=0.02, loop_edges_min=1)
+EDGE_CHECKS = {"edge_gap_m_max", "edge_gap_rad_max", "loop_edges"}
+
+
+def _passing_numbers() -> dict:
+    return {**{k: 0.0 for k in correct.NUMBERS}, **{k: 16 for k in correct.MIN_CASES}}
+
+
+def _circuit_poses():
+    from slam_bench import render
+
+    c = render.Circuit([64, 32], 10)
+    return render.path_poses(int(2 * c.length / 0.8), 2**31 + 3, 0.8, True, c), int(c.length / 0.8)
+
+
+def _truth(poses, fu, fv) -> np.ndarray:
+    """The pose of frame ``fv``'s left camera in frame ``fu``'s."""
+    Ru, Rv = correct.rotvec_to_R(poses[fu, :3]), correct.rotvec_to_R(poses[fv, :3])
+    from slam_bench import render
+
+    return np.concatenate([render.so3_log(Ru.T @ Rv), Ru.T @ (poses[fv, 3:] - poses[fu, 3:])])
+
+
+def _session(poses, lap, edge: str, end: int | None = None):
+    """An estimator's step log and graph after a lap and a bit (or up to
+    frame ``end``): keyframes every 10 frames joined by true odometry
+    edges, and one loop-closure edge from the keyframe at frame 20 into a
+    lap-two keyframe, as ``edge`` plants it."""
+    from types import SimpleNamespace
+
+    from srba_slam_tpu_torch.models.estimator import StepResult
+    from srba_slam_tpu_torch.models.srba import SRBAEngine
+    from srba_slam_tpu_torch.utils.camera import StereoCamera
+
+    rba = SRBAEngine(StereoCamera(**tiny_cell().config["camera"]), device="cpu")
+    frames = list(range(0, lap + 40 if end is None else end, 10))
+    log = [StepResult(frame_idx=f, inserted_kf=k) for k, f in enumerate(frames)]
+    for k in range(1, len(frames)):
+        rba._add_edge(k - 1, k, _truth(poses, frames[k - 1], frames[k]), kind=0)
+    # a rejected closure's edge, rolled back: not read
+    e = rba._add_edge(1, len(frames) - 2, np.zeros(6), kind=2)
+    rba._remove_edge(e)
+    log[-2].lc_rejected_with = 1
+    if edge == "none" or frames[-1] <= lap:
+        return SimpleNamespace(step_log=log, rba=rba)
+    # the lap-two keyframe nearest frame 20, and one half a lap from it
+    v = int(np.argmin([np.linalg.norm(poses[f, 3:] - poses[20, 3:]) if f > lap else np.inf
+                       for f in frames]))
+    u = frames.index(20)
+    pose = _truth(poses, 20, frames[v])
+    if edge == "moved":
+        pose[3:] += np.array([0.6, 0.0, 0.8])
+    elif edge == "rotated":
+        pose[:3] += np.array([0.0, 0.05, 0.0])
+    elif edge == "half_lap":
+        u = frames.index(20 + (lap // 2) // 10 * 10)
+    if edge == "unconfirmed":
+        # a far edge that no step confirmed (the top-voted area's, kind 1),
+        # seeded off by a metre: read like any other
+        pose[3:] += np.array([1.0, 0.0, 0.0])
+        rba._add_edge(u, v, pose, kind=1)
+    else:
+        log[v].loop_closure_with = u
+        rba._add_edge(u, v, pose, kind=2)
+    return SimpleNamespace(step_log=log, rba=rba)
+
+
+def _judge(rec: correct.Recorder, limits: dict) -> tuple[bool, dict, dict]:
+    cases = rec.cases(np.random.default_rng(0))
+    out = {}
+    correct._edges(cases["edges"], cases["poses"], out)
+    ok, checks = correct.verdict({**_passing_numbers(), **out}, limits)
+    return ok, checks, out
+
+
+@pytest.mark.parametrize("edge", ["true", "moved", "rotated", "half_lap", "unconfirmed", "none"])
+def test_loop_edges_against_the_ground_truth(edge):
+    """Every standing edge is judged, whatever step made it: a true map
+    reads as correct; a loop edge moved by 1 m, one turned by 0.05 rad,
+    one between keyframes half a lap apart, a far edge that no step
+    confirmed seeded a metre off, and a run with no loop edge do not."""
+    poses, lap = _circuit_poses()
+    rec = correct.Recorder(5, poses=poses)
+    sess = _session(poses, lap, edge)
+    rec.session_end(sess, True)
+    ok, checks, out = _judge(rec, {**tiny_cell().config["limits"], **LOOP_LIMITS})
+    assert ok is (edge == "true"), checks
+    assert set(checks) == set(correct.NUMBERS) | set(correct.MIN_CASES) | EDGE_CHECKS
+    # every valid edge was read: the chain, and the loop edge but for "none"
+    assert out["edges"] == int(sess.rba.edge_valid.sum()) == len(sess.step_log) - (edge == "none")
+    assert out["loop_edges"] == (edge not in ("none", "half_lap"))
+    gap_m, gap_rad = out["edge_gap_m_max"], out["edge_gap_rad_max"]
+    if edge in ("true", "none"):
+        assert gap_m < 1e-9 and gap_rad < 1e-9
+    elif edge == "moved":
+        assert gap_m == pytest.approx(1.0) and gap_rad < 1e-9
+    elif edge == "rotated":
+        assert gap_m < 1e-9 and gap_rad == pytest.approx(0.05, rel=0.05)
+    elif edge == "half_lap":
+        assert gap_m > 10.0
+    elif edge == "unconfirmed":
+        assert gap_m == pytest.approx(1.0)
+
+
+def test_loop_edges_are_counted_per_session():
+    """The loop edges are those standing at one session's end, the fewest
+    over the sessions that walked the whole log, not a sum over sessions;
+    a session cut before the revisit counts only where no session was
+    whole."""
+    poses, lap = _circuit_poses()
+    limits = {**tiny_cell().config["limits"], **LOOP_LIMITS}
+    rec = correct.Recorder(5, poses=poses)
+    for session in range(3):
+        rec.session = session
+        rec.session_end(_session(poses, lap, "true"), True)
+    rec.session = 3
+    rec.session_end(_session(poses, lap, "true", end=lap // 2), False)
+    ok, checks, out = _judge(rec, limits)
+    assert ok and out["loop_edges"] == 1 and out["loop_edges_by_session"] == {0: 1, 1: 1, 2: 1, 3: 0}
+    cut = correct.Recorder(5, poses=poses)
+    cut.session_end(_session(poses, lap, "true", end=lap // 2), False)
+    ok, checks, out = _judge(cut, limits)
+    assert not ok and checks["loop_edges"] == dict(value=0, limit=1)
+
+
+def test_loop_numbers_are_judged_only_where_the_limits_name_them():
+    """With ``kitti00-stereo``'s limits the verdict's checks are those it
+    had, whatever edge numbers the run holds; a run of a straight street
+    reads no edge at all."""
+    limits = spec.cell("kitti00-online-b1").config["limits"]
+    keys = set(correct.NUMBERS) | set(correct.MIN_CASES)
+    for extra in ({}, dict(loop_edges=0, edge_gap_m_max=50.0, edge_gap_rad_max=1.0)):
+        ok, checks = correct.verdict({**_passing_numbers(), **extra}, limits)
+        assert ok is True and set(checks) == keys
+    poses, lap = _circuit_poses()
+    rec = correct.Recorder(5)
+    rec.session_end(_session(poses, lap, "true"), True)
+    assert not rec.graphs and "edges" not in rec.cases(np.random.default_rng(0))
+
+
+def _queue(eng, n: int, lc: set):
+    """``n`` queued windows of one bucket, those in ``lc`` with loop-closure
+    checks."""
+    for i in range(n):
+        eng._queued.append(dict(ints=np.full(4, i), floats=np.zeros(2),
+                                entry=dict(C=32, L=2048, O=4096, lc_checks=[0] if i in lc else [])))
+
+
+def test_windows_with_loop_closure_checks_are_always_drawn(monkeypatch):
+    """Every window with loop-closure checks is kept and drawn first; the
+    other windows are kept and drawn as without them."""
+    from srba_slam_tpu_torch.models import srba
+    from srba_slam_tpu_torch.utils.camera import StereoCamera
+
+    monkeypatch.setattr(srba.SRBAEngine, "_solve_group",
+                        lambda eng, windows, key, capture_only=False:
+                        torch.zeros((srba.WINDOW_SLOTS, 3)))
+    drawn = []
+    for lc in (set(), {3, 9}):
+        rec = correct.Recorder(2**31 + 5)
+        rec.install()
+        try:
+            eng = srba.SRBAEngine(StereoCamera(**tiny_cell().config["camera"]), device="cpu")
+            for _ in range(40):
+                _queue(eng, 12, lc)
+                eng._dispatch_queued()
+        finally:
+            rec.uninstall()
+        windows = rec.cases(np.random.default_rng([7, 11]))["windows"]
+        drawn.append((rec, windows))
+    (plain, w_plain), (mixed, w_mixed) = drawn
+    assert [int(w["ints"][0]) for w in plain.windows] == [int(w["ints"][0]) for w in mixed.windows]
+    assert not plain.lc_windows and plain.n_lc_windows == 0
+    assert mixed.n_lc_windows == 80 and len(mixed.lc_windows) == correct.MAX_CASES["windows"]
+    assert len(w_mixed) == correct.MAX_CASES["windows"] and all(w.get("lc") for w in w_mixed)
+    assert {int(w["ints"][0]) for w in w_mixed} == {3, 9}
+    assert len(w_plain) == correct.MAX_CASES["windows"] and not any(w.get("lc") for w in w_plain)
+
+
+def tiny_circuit_cell() -> spec.Cell:
+    """``kitti00-online-b1`` cut to the CPU as ``tiny_cell``, on a small
+    circuit, its limits naming the loop-closure numbers."""
+    c = tiny_cell("kitti00-online-b1")
+    c.config["log"]["circuit"] = dict(block_m=[64, 32], corner_m=10)
+    c.config["limits"] = {**c.config["limits"], **LOOP_LIMITS}
+    return c
+
+
+def test_tiny_circuit_run_reads_its_loop_edges(threads):
+    """A run on a circuit reads its sessions' standing edges against the
+    ground truth (odometry edges only: no loop in 24 frames) and holds them
+    to its limits. At this size the map itself is metres off the truth
+    (the frames' poses agree with the reference's, which follows them)."""
+    line = _run(tiny_circuit_cell())
+    c = line["checks"]
+    assert c["loop_edges"] == dict(value=0, limit=1)
+    assert c["edge_gap_m_max"]["limit"] == 0.5 and c["edge_gap_m_max"]["value"] > 0.0
+    assert c["edge_gap_rad_max"]["limit"] == 0.02 and c["edge_gap_rad_max"]["value"] > 0.0
+    assert line["correct"] is False
+    assert all(c[k]["value"] <= c[k]["limit"] for k in correct.NUMBERS)
+
+
 @pytest.mark.cuda
 def test_card_run(tmp_path):
     """A short traced run of each cell on the card: correct, and every
